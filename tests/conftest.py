@@ -51,3 +51,9 @@ def cornell_scene(assets_dir):
 def mixed_scene(assets_dir):
     import tpu_pt
     return tpu_pt.load_scene(str(assets_dir / "cornell_box_mixed.obj"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: long-running test, left out of tier-1 "
+        "(which runs -m 'not slow')")
