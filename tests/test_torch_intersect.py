@@ -25,7 +25,8 @@ torch = pytest.importorskip("torch")
 import tpu_pt  # noqa: E402
 from tpu_pt.intersect import moller as jmoller, pallas_bf  # noqa: E402
 import tpu_pt_torch as tp  # noqa: E402
-from tpu_pt_torch.intersect import dense, get_intersectors  # noqa: E402
+from tpu_pt_torch.intersect import (clustered, dense,  # noqa: E402
+                                    get_intersectors, kernel_module)
 from tpu_pt_torch.intersect import moller as tmoller  # noqa: E402
 
 T_ATOL, T_RTOL = 1e-4, 4e-6
@@ -192,14 +193,29 @@ def test_wrappers_check_devices_and_inputs(scenes):
     assert dense._check_inputs(good, good, rows) == (4, rows.shape[0])
 
 
-def test_above_tri_slab_raises():
+def test_above_tri_slab_takes_clustered():
+    """A scene above TRI_SLAB packed rows resolves to the clustered tables
+    (kd-ordered rows, cluster boxes), and their plain hits are brute
+    force's."""
     r = np.random.default_rng(7)
     n = dense.TRI_SLAB + 1
     verts = r.uniform(0.0, 100.0, (3 * n, 3)).astype(np.float32)
     scene = tp.scene.build_scene_arrays(
         verts, np.arange(3 * n).reshape(n, 3), np.zeros(n, np.int64), [])
-    with pytest.raises(NotImplementedError, match="TRI_SLAB"):
-        dense.prepare(scene)
+    assert kernel_module(scene) is clustered
+    tables = clustered.prepare(scene)
+    assert tables.rows.shape[0] > dense.TRI_SLAB
+    assert tables.rows.shape[0] == 128 * tables.boxes.shape[0]
+    o = np.tile(np.float32([50.0, 50.0, -50.0]), (256, 1))
+    d = r.normal(size=(256, 3)) * [0.3, 0.3, 1.0] + [0.0, 0.0, 1.0]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    h = clustered.closest_hit(tables, _t(o), _t(d), want_uv=False)
+    ref = tmoller.intersect_closest(scene, _t(o), _t(d))
+    assert torch.equal(h.hit, ref.hit)
+    assert 0.3 < float(h.hit.float().mean()) < 1.0
+    assert torch.equal(h.tri, ref.tri) and torch.equal(h.mat, ref.mat)
+    assert torch.equal(h.normal, ref.normal)
+    np.testing.assert_allclose(h.t.numpy(), ref.t.numpy(), rtol=1e-5)
 
 
 def test_get_intersectors_resolution(scenes):

@@ -146,7 +146,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['tpu_pt'] = None; sys.modules['flax'] = None; "
             "import tpu_pt_torch, tpu_pt_torch.render, "
-            "tpu_pt_torch.intersect.dense, tpu_pt_torch._kernels")
+            "tpu_pt_torch.intersect.dense, tpu_pt_torch.intersect.clustered, "
+            "tpu_pt_torch._kernels")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -1,12 +1,13 @@
 """Build and bind the hand-written CUDA kernels.
 
-``csrc/dense_intersect.cu`` has a plain C interface. At first use it is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``build/tpu_pt_torch/`` beside the package (rebuilt whenever the source or
-the flags change: the file name carries their hash) and loaded with
-``ctypes``. Nothing is built when this module is imported, and nothing
-here falls back to another path: a missing ``nvcc`` or a failed build
-raises.
+Every ``csrc/*.cu`` source has a plain C interface. At first use each is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own under
+``build/tpu_pt_torch/`` beside the package, all sources at once in
+parallel processes, and loaded with ``ctypes``. A library's file name
+carries a hash of every file under ``csrc/`` (headers included) and of the
+flags, so an edit to any of them rebuilds. Nothing is built when this
+module is imported, and nothing here falls back to another path: a missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -20,13 +21,13 @@ import shutil
 import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "dense_intersect.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpu_pt_torch"
 
 # No --use_fast_math: the kernels rely on IEEE inf/NaN. --fmad=false keeps
 # every multiply and add separately rounded, as the plain PyTorch versions
-# are (see the note at the top of the source). -Xptxas -v records registers
-# and spills in the build log.
+# are (see csrc/pe_block.cuh). -Xptxas -v records registers and spills in
+# the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
@@ -34,11 +35,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# Source stem -> {C entry point: argument types}.
 _SIGNATURES = {
-    "tpt_closest_lean": (_P, _P, _P, _I, _I, _F, _P, _P, _P),
-    "tpt_closest_full": (_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P,
-                         _P, _P),
-    "tpt_occluded": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
+    "dense_intersect": {
+        "tpt_closest_lean": (_P, _P, _P, _I, _I, _F, _P, _P, _P),
+        "tpt_closest_full": (_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P,
+                             _P, _P, _P),
+        "tpt_occluded": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
+    },
+    "clustered_intersect": {
+        "tpt_closest_clustered": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                                  _P, _P, _P),
+        "tpt_occluded_clustered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                   _P, _P),
+    },
 }
 
 
@@ -53,46 +63,71 @@ def _nvcc() -> str:
                        "compiled at first use with the CUDA toolkit's nvcc")
 
 
-def library_path() -> pathlib.Path:
-    """Path of the built library for the current source and flags."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libdense_intersect_{digest}.so"
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
 
 
-def build() -> pathlib.Path:
-    """Compile the kernel library unless it is already built; returns it.
-    The compiler's output (ptxas register and spill report) is kept in a
-    ``.log`` file beside the library."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+def library_paths() -> dict[str, pathlib.Path]:
+    """Source stem -> path of its built library for the current files
+    under ``csrc/`` and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    digest = h.hexdigest()[:16]
+    return {src.stem: BUILD_DIR / f"lib{src.stem}_{digest}.so"
+            for src in sources()}
+
+
+def build() -> list[pathlib.Path]:
+    """Compile every kernel library that is not built yet (one ``nvcc``
+    process per source, all started together); returns the libraries.
+    Each compiler's output (ptxas register and spill report) is kept in a
+    ``.log`` file beside its library."""
+    paths = library_paths()
+    jobs = []
+    for src in sources():
+        out = paths[src.stem]
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, out, tmp, proc))
+    failed = []
+    for src, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n"
+                          f"{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return list(paths.values())
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(args)
-        fn.restype = ctypes.c_int
-    return lib
+def _entry_points() -> dict:
+    build()
+    paths = library_paths()
+    fns = {}
+    for stem, signatures in _SIGNATURES.items():
+        lib = ctypes.CDLL(str(paths[stem]))
+        for name, args in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return fns
 
 
 def launch(name: str, *args) -> None:
     """Call the C entry point ``name`` (which launches its kernel on the
     stream passed last) and raise if the launch reported an error."""
-    err = getattr(_library(), name)(*args)
+    err = _entry_points()[name](*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

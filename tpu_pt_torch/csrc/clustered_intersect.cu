@@ -1,0 +1,210 @@
+// Clustered ray-triangle kernels for Hopper (sm_90a): scenes above the
+// single-slab limit (TRI_SLAB = 8,192 packed rows), such as the 100k-row
+// big mesh.
+//
+// They replace the clustered Pallas TPU kernels on the big-scene path
+// (tpu_pt/intersect/pallas_bf.py):
+//
+//   tpt_closest_clustered   <- _closest_kernel_clustered_lean (:1042) and
+//                              _closest_kernel_chained_lean (:1062),
+//                              launched by _closest_call_clustered (:1989):
+//                              per ray, the closest (t, packed row) over the
+//                              whole clustered table, with t < tmax.
+//   tpt_occluded_clustered  <- _occluded_kernel_clustered (:1204), launched
+//                              by _occluded_call_clustered (:2128): is any
+//                              non-refractive row hit with tmin < t < tmax_ray?
+//
+// The table holds the packed rows in balanced-kd order; each run of
+// `cluster` rows (128) has an axis-aligned box. A ray culls with every box
+// grown by margin * (scale + max|o|), so that the cull is conservative at
+// any distance of the ray's origin (clustered.py, BOX_MARGIN).
+//
+// Porting the function, not the TPU schedule. The TPU kernels sweep a
+// 256-ray tile's shared work list, slab by chained slab, because the
+// table has to fit in VMEM and a tile shares one list; the ray sort, the
+// per-tile candidate tables and the slab chaining exist for that. Here
+// the table (6.4 MB at 100k rows) lives in device memory and L2, and each
+// thread traverses for its own ray: one launch per call.
+//
+// What bounds them on this card: FP32 ALU and divergence. A thread runs a
+// slab test (~20 flops) against every cluster box, and the plane + edge
+// test (~28 flops and one IEEE division per row) on the 128 rows of each
+// box its ray pierces before its current best hit. A warp executes the
+// union of its lanes' pierced clusters. Boxes and rows are read with
+// read-only loads; lanes of a warp sweeping the same cluster read the same
+// address (a broadcast), and the table stays in L2. A hierarchy above the
+// clusters, shared-memory staging of the boxes and a near-first visiting
+// order are later performance work.
+//
+// Correctness notes:
+// - Results are bitwise those of a dense sweep over every row (the plain
+//   versions in clustered.py). Grown boxes mean a culled cluster holds no
+//   hit that could change the result, and the best hit is replaced when
+//   t < best, or t == best on a lower row, so the visit order does not
+//   matter. The per-pair test is pe_test of pe_block.cuh, built with
+//   --fmad=false.
+// - The slab test takes the eps-guarded reciprocal of _ray_inv
+//   (pallas_bf.py:533-542), so axis-parallel rays stay finite, and every
+//   quantity it forms is finite or +-inf, never NaN: a collapsed empty
+//   cluster (box at 3e37) fails it for every ray.
+// - Parked lanes (origin 3e7, tmax 0) find every box behind them and miss.
+
+#include "pe_block.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;  // rays per block, one thread per ray
+using tpt::kTFar;
+using tpt::load_ray;
+using tpt::pe_test;
+using tpt::Ray;
+
+// _ray_inv: 1 / where(|c| > 1e-12, c, where(c >= 0, 1e-12, -1e-12)).
+__device__ __forceinline__ float inv_dir(float c) {
+  const float g = fabsf(c) > 1e-12f ? c : (c >= 0.0f ? 1e-12f : -1e-12f);
+  return 1.0f / g;
+}
+
+struct Slab {
+  float ix, iy, iz;  // guarded reciprocal direction
+  float m;           // culling margin: margin * (scale + max_k |o_k|)
+};
+
+__device__ __forceinline__ Slab make_slab(const Ray& r, float scale,
+                                          float margin) {
+  const float o = fmaxf(fabsf(r.ox), fmaxf(fabsf(r.oy), fabsf(r.oz)));
+  return Slab{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz),
+              margin * (scale + o)};
+}
+
+// _box_near_far against box c of `boxes` ([C, 8] f32: min xyz, max xyz,
+// two unused) grown by s.m on every side, as two float4 loads:
+// (minx, miny, minz, maxx) and (maxy, maxz, -, -). Returns true when the
+// ray's parameter interval through the box meets (tmin, bound].
+__device__ __forceinline__ bool box_passes(const Ray& r, const Slab& s,
+                                           const float4* __restrict__ boxes,
+                                           int c, float tmin, float bound) {
+  const float4 a = __ldg(boxes + 2 * (size_t)c);
+  const float4 b = __ldg(boxes + 2 * (size_t)c + 1);
+  float t0 = (a.x - s.m - r.ox) * s.ix, t1 = (a.w + s.m - r.ox) * s.ix;
+  float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
+  t0 = (a.y - s.m - r.oy) * s.iy;
+  t1 = (b.x + s.m - r.oy) * s.iy;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  t0 = (a.z - s.m - r.oz) * s.iz;
+  t1 = (b.y + s.m - r.oz) * s.iz;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  return tn <= tf && tf > tmin && tn <= bound;
+}
+
+__global__ void __launch_bounds__(kThreads)
+closest_clustered_kernel(const float* __restrict__ orig,
+                         const float* __restrict__ dir,
+                         const float* __restrict__ tris,
+                         const float* __restrict__ boxes, int n_rays,
+                         int n_boxes, int cluster, float scale, float margin,
+                         float tmin, float tmax, float* __restrict__ t_out,
+                         int* __restrict__ row_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const Ray r = load_ray(orig, dir, i);
+  const Slab s = make_slab(r, scale, margin);
+  const float4* bx = reinterpret_cast<const float4*>(boxes);
+  const float4* rows = reinterpret_cast<const float4*>(tris);
+
+  float best = kTFar;
+  int best_row = 0;
+  for (int c = 0; c < n_boxes; ++c) {
+    if (!box_passes(r, s, bx, c, tmin, fminf(best, tmax))) continue;
+    const int base = c * cluster;
+    for (int j = 0; j < cluster; ++j) {
+      const int row = base + j;
+      const float4* p = rows + 4 * (size_t)row;
+      float t = pe_test(r, __ldg(p), __ldg(p + 1), __ldg(p + 2), tmin);
+      if (!(t < tmax)) t = kTFar;
+      if (t < best || (t == best && row < best_row)) {
+        best = t;
+        best_row = row;
+      }
+    }
+  }
+  t_out[i] = best;
+  row_out[i] = best < kTFar ? best_row : 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+occluded_clustered_kernel(const float* __restrict__ orig,
+                          const float* __restrict__ dir,
+                          const float* __restrict__ tmax,
+                          const float* __restrict__ tris,
+                          const float* __restrict__ boxes, int n_rays,
+                          int n_boxes, int cluster, float scale,
+                          float margin, float tmin,
+                          uint8_t* __restrict__ occ_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const float tm = tmax[i];
+  bool blocked = false;
+  // Nothing can block when (tmin, tm) is empty (parked and ineligible
+  // shadow rays carry tm = 0).
+  if (tm > tmin) {
+    const Ray r = load_ray(orig, dir, i);
+    const Slab s = make_slab(r, scale, margin);
+    const float4* bx = reinterpret_cast<const float4*>(boxes);
+    const float4* rows = reinterpret_cast<const float4*>(tris);
+    for (int c = 0; c < n_boxes && !blocked; ++c) {
+      // A box entered at tn >= tm holds no blocking hit (t > tn).
+      if (!box_passes(r, s, bx, c, tmin, tm)) continue;
+      const int base = c * cluster;
+      // Any-hit: the thread stops at its first blocking row.
+      for (int j = 0; j < cluster && !blocked; ++j) {
+        const float4* p = rows + 4 * (size_t)(base + j);
+        if (!(__ldg(p + 3).y < 0.5f)) continue;  // refractive rows pass light
+        blocked = pe_test(r, __ldg(p), __ldg(p + 1), __ldg(p + 2), tmin) < tm;
+      }
+    }
+  }
+  occ_out[i] = blocked ? 1 : 0;
+}
+
+inline unsigned grid_for(int n_rays) {
+  return (unsigned)((n_rays + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches on `stream`, allocates nothing, does not
+// synchronise, and returns cudaGetLastError() as an int (0 = success).
+// `tris` is [n_boxes * cluster, 16] f32 and `boxes` [n_boxes, 8] f32, both
+// 16-byte aligned; `scale` is the boxes' largest coordinate magnitude and
+// `margin` the relative culling margin (clustered.py, BOX_MARGIN).
+
+int tpt_closest_clustered(const float* orig, const float* dir,
+                          const float* tris, const float* boxes, int n_rays,
+                          int n_boxes, int cluster, float scale, float margin,
+                          float tmin, float tmax, float* t_out, int* row_out,
+                          void* stream) {
+  closest_clustered_kernel<<<grid_for(n_rays), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      orig, dir, tris, boxes, n_rays, n_boxes, cluster, scale, margin, tmin,
+      tmax, t_out, row_out);
+  return (int)cudaGetLastError();
+}
+
+int tpt_occluded_clustered(const float* orig, const float* dir,
+                           const float* tmax, const float* tris,
+                           const float* boxes, int n_rays, int n_boxes,
+                           int cluster, float scale, float margin, float tmin,
+                           uint8_t* occ_out, void* stream) {
+  occluded_clustered_kernel<<<grid_for(n_rays), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      orig, dir, tmax, tris, boxes, n_rays, n_boxes, cluster, scale, margin,
+      tmin, occ_out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

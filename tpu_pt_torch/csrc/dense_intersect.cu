@@ -13,11 +13,8 @@
 //                        _occluded_call: is any non-refractive row hit with
 //                        tmin < t < tmax_ray?
 //
-// Packed rows are [T, 16] f32 as tpu_pt_torch.intersect.dense.pack_tris
-// builds them: n xyz, d0, wu xyz, cu, wv xyz, cv, valid, refr, mat, id.
-// The per-pair test is the plane + edge-function form of _pe_block
-// (pallas_bf.py:478-526): t from the triangle plane, u and v as affine
-// functions of the hit point.
+// The per-pair test is pe_test of pe_block.cuh, shared with the clustered
+// kernels.
 //
 // What bounds them on this card: FP32 ALU. A ray x row pair costs ~28
 // flops (plus one IEEE division); a main-path call is 262,144 rays x 432
@@ -31,57 +28,26 @@
 // - Ties: rows are visited in ascending order and the best is replaced
 //   only on a strict t < best, which is the TPU kernels' "lowest row among
 //   equal t" rule (pallas_bf.py:706-721).
-// - No validity column is read: padded and degenerate rows have a zero
-//   normal, so 1/ndotd is inf and t is NaN or inf; every NaN comparison is
-//   false, so such rows reject themselves. This needs IEEE inf/NaN: never
-//   build with --use_fast_math.
 // - NaN in u/v: on the TPU the full-carry kernel reduced u/v with masked
 //   sums, and one degenerate row's NaN once poisoned them (the round-2/3
 //   whitted shading bug, ARCHITECTURE.md:435-448, invisible to CPU tests).
 //   Here no reduction exists: u and v are recomputed once, from the winning
 //   row only, after the loop, and written as 0 on a miss.
-// - The library is built with --fmad=false, so each multiply and add rounds
-//   on its own exactly as the plain PyTorch version in dense.py does; the
-//   kernel then agrees with it bit for bit on the card.
+// - Padded and degenerate rows reject themselves through IEEE inf/NaN, and
+//   the library is built with --fmad=false, so the kernels agree with the
+//   plain PyTorch versions in dense.py bit for bit (see pe_block.cuh).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pe_block.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;   // rays per block, one thread per ray
 constexpr int kTileRows = 256;  // packed rows staged per shared-memory tile
-constexpr int kCols = 16;       // floats per packed row (4 x float4)
-constexpr float kTFar = 1e16f;  // miss sentinel (tpu_pt.intersect.moller.T_FAR)
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ orig,
-                                        const float* __restrict__ dir,
-                                        int i) {
-  const float* o = orig + 3 * (size_t)i;
-  const float* d = dir + 3 * (size_t)i;
-  return Ray{o[0], o[1], o[2], d[0], d[1], d[2]};
-}
-
-// Plane + edge test of one ray against one packed row; the operation order
-// is dense._pe_block's. Returns t on a hit, kTFar otherwise.
-__device__ __forceinline__ float pe_test(const Ray& r, float4 a, float4 b,
-                                         float4 c, float tmin) {
-  // a = (nx, ny, nz, d0), b = (wux, wuy, wuz, cu), c = (wvx, wvy, wvz, cv)
-  const float ndotd = a.x * r.dx + a.y * r.dy + a.z * r.dz;
-  const float rcp = 1.0f / ndotd;
-  const float t = (a.w - (a.x * r.ox + a.y * r.oy + a.z * r.oz)) * rcp;
-  const float px = r.ox + t * r.dx;
-  const float py = r.oy + t * r.dy;
-  const float pz = r.oz + t * r.dz;
-  const float u = b.x * px + b.y * py + b.z * pz + b.w;
-  const float v = c.x * px + c.y * py + c.z * pz + c.w;
-  const bool hit = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > tmin);
-  return hit ? t : kTFar;
-}
+using tpt::kCols;
+using tpt::kTFar;
+using tpt::load_ray;
+using tpt::pe_test;
+using tpt::Ray;
 
 // Cooperative copy of rows [base, base + rows) into shared memory.
 __device__ __forceinline__ void stage_rows(float4* s_rows,

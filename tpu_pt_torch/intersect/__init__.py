@@ -3,13 +3,14 @@
 ``get_intersectors`` picks the backend per config:
 
 - ``bruteforce``: chunked Möller-Trumbore in plain PyTorch (any device);
-- ``dense``: the hand-written dense kernels of ``dense`` (their plain
-  versions for a scene on the CPU);
+- ``dense``: the hand-written kernels of ``dense``, or of ``clustered``
+  for a scene above ``dense.TRI_SLAB`` packed rows (their plain versions
+  for a scene on the CPU);
 - ``auto``: ``dense`` for a scene on a CUDA device, ``bruteforce`` for a
   scene on the CPU (as the JAX package runs its Pallas kernels only on a
   TPU).
 
-Analytic primitives, curves, the BVH and the fused closest-hit + NEE
+Analytic primitives, curves, the LBVH and the fused closest-hit + NEE
 kernel are not ported yet.
 """
 
@@ -19,17 +20,26 @@ from functools import partial
 
 from ..config import RenderConfig
 from ..scene.arrays import SceneArrays
-from . import dense
+from . import clustered, dense
 from .moller import Hit, intersect_closest, intersect_occluded
 
 __all__ = ["Hit", "intersect_closest", "intersect_occluded",
-           "get_intersectors"]
+           "get_intersectors", "kernel_module"]
 
 
 def _resolve(scene: SceneArrays, cfg: RenderConfig) -> str:
     if cfg.intersector != "auto":
         return cfg.intersector
     return "dense" if scene.device.type == "cuda" else "bruteforce"
+
+
+def kernel_module(scene: SceneArrays):
+    """The kernels a scene takes on the ``dense`` backend: ``dense``, or
+    ``clustered`` for a scene above ``dense.TRI_SLAB`` packed rows
+    (``pallas_bf._intersect_closest_tiled``'s single-slab test). Each
+    module has ``prepare``, ``closest_hit`` and ``occluded_hit``."""
+    rows = dense._pad_to(scene.num_tris_padded, dense.TRI_BLOCK)
+    return clustered if rows > dense.TRI_SLAB else dense
 
 
 def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
@@ -41,10 +51,11 @@ def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
     backend = _resolve(scene, cfg)
     quirk = cfg.quirks.occlusion_first_hit_only
     if backend == "dense":
-        tables = dense.prepare(scene)
-        closest = partial(dense.closest_hit, tables, tmin=cfg.t_min,
+        kernels = kernel_module(scene)
+        tables = kernels.prepare(scene)
+        closest = partial(kernels.closest_hit, tables, tmin=cfg.t_min,
                           tmax=cfg.t_max, want_uv=want_uv)
-        occluded = partial(dense.occluded_hit, tables, tmin=cfg.t_min,
+        occluded = partial(kernels.occluded_hit, tables, tmin=cfg.t_min,
                            quirk_first_hit=quirk)
         return closest, occluded
     if backend != "bruteforce":

@@ -1,0 +1,260 @@
+"""Clustered ray-triangle intersection for scenes above ``TRI_SLAB``
+packed rows: the port of the big-scene part of
+``tpu_pt/intersect/pallas_bf.py``.
+
+The packed rows are put in the scene's balanced-kd order
+(``scene.cluster_order``, ``median_split_order``) and cut into clusters of
+``CLUSTER`` rows, each with an axis-aligned box. Two kernels, each with a
+wrapper, a plain PyTorch version and a launch counter:
+
+=============================  =====================================================  ==============================
+wrapper                        replaces (``tpu_pt/intersect/pallas_bf.py``)             plain version
+=============================  =====================================================  ==============================
+``closest_clustered`` (K6)     ``_closest_kernel_clustered_lean`` /                     ``_closest_clustered_plain``
+                               ``_closest_kernel_chained_lean`` via
+                               ``_closest_call_clustered``
+``occluded_clustered`` (K8)    ``_occluded_kernel_clustered`` via                       ``_occluded_clustered_plain``
+                               ``_occluded_call_clustered``
+=============================  =====================================================  ==============================
+
+The CUDA kernels are in ``csrc/clustered_intersect.cu``. Each thread
+traverses for its own ray, culling clusters by their boxes, in one launch
+per call: the TPU path's chained slabs, ray sort and per-tile work lists
+exist only because its table had to fit in VMEM and a ray tile shares one
+list. The results are those of a dense sweep over every row, which is what
+the plain versions compute. A wrapper runs the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel, and for
+anything else it raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import vec3 as v3
+from ..scene.arrays import BSDF_REFRACTION, SceneArrays, median_split_order
+from . import dense
+from .moller import T_FAR, Hit
+
+CLUSTER = 128          # rows per cluster (read at call time)
+EMPTY_BOX = 3e37       # all-padding clusters collapse to this far point
+# The kernels cull each ray with every box grown on all sides by
+#   m = BOX_MARGIN * (scale + max_k |o_k|),
+# ``scale`` being the largest coordinate magnitude of the scene's boxes and
+# o the ray's origin. A hit the plane + edge test accepts lies within a few
+# tens of ulps of |o| + |p| + |v0| of its triangle (rounding of the plane
+# distance, of the hit point p and of the edge functions), and every hit
+# point lies in the scene, |p| <= scale: within ~100 eps (scale + |o|)
+# with eps = 6e-8. The slab test's own rounding, a few ulps of
+# |box - o|, is smaller still. A margin of 1e-4 is over ten times both, so
+# the cull drops no hit that the dense sweep keeps, however far the ray
+# starts from the scene.
+BOX_MARGIN = 1e-4
+
+# Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
+# on CPU tensors do not count.
+LAUNCHES = {"closest_clustered": 0, "occluded_clustered": 0}
+
+
+def pack_tris_clustered(scene: SceneArrays):
+    """Packed rows in cluster order and per-cluster boxes
+    (``pallas_bf.pack_tris_clustered`` with SUPER = 1).
+
+    Returns (rows [C * CLUSTER, 16], boxes [C, 8] with rows (min xyz,
+    max xyz, 0, 0)). Rows follow ``scene.cluster_order`` (computed here
+    with ``median_split_order`` when the scene has none), padded with zero
+    rows to a whole number of clusters. A box spans the three vertices of
+    its cluster's valid rows; an all-padding cluster collapses to the far
+    point EMPTY_BOX, which every slab test fails."""
+    cluster = CLUSTER
+    packed = dense.pack_tris(scene)
+    order = scene.cluster_order
+    if order is None:
+        order = torch.as_tensor(median_split_order(
+            *(np.asarray(x.cpu()) for x in (scene.tri_v0, scene.tri_e1,
+                                            scene.tri_e2, scene.tri_valid)),
+            leaf=cluster).astype(np.int32))
+    n = packed.shape[0]
+    t_pad = dense._pad_to(n, cluster)
+    idx = order.to(packed.device).long()
+    idx = torch.cat([idx, torch.arange(idx.shape[0], t_pad,
+                                       device=packed.device)])
+    rows = torch.nn.functional.pad(packed, (0, 0, 0, t_pad - n))[idx]
+
+    def corners(a):
+        return torch.nn.functional.pad(a, (0, 0, 0, t_pad - a.shape[0]))[idx]
+
+    v0 = scene.tri_v0
+    pts = torch.stack([corners(v0), corners(v0 + scene.tri_e1),
+                       corners(v0 + scene.tri_e2)])
+    valid = (rows[:, 12:13] > 0.5)[None]
+    big = 3e38
+    n_c = t_pad // cluster
+    lo = torch.where(valid, pts, big).amin(0).view(n_c, cluster, 3).amin(1)
+    hi = torch.where(valid, pts, -big).amax(0).view(n_c, cluster, 3).amax(1)
+    empty = (lo > hi).any(dim=1, keepdim=True)
+    lo = torch.where(empty, EMPTY_BOX, lo)
+    hi = torch.where(empty, EMPTY_BOX, hi)
+    boxes = torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], dim=1)
+    return rows.contiguous(), boxes.contiguous()
+
+
+def box_scale(boxes: torch.Tensor) -> float:
+    """The largest coordinate magnitude of the real (not collapsed) boxes:
+    the scene part of the kernels' culling margin (see BOX_MARGIN)."""
+    real = boxes[:, 0:1] < 1e30
+    return float(torch.where(real, boxes[:, 0:6].abs(), 0.0).max())
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path and the kernels' reference): a dense
+# exact sweep over every clustered row.
+# --------------------------------------------------------------------------
+
+# Plain version of K6: per ray, (t, packed row) of the closest hit with
+# t < tmax over all rows; t = T_FAR and row 0 on a miss, ties to the
+# lowest row.
+_closest_clustered_plain = dense._closest_plain
+# Plain version of K8: any hit with tmin < t < tmax[i] on a row whose
+# refractive column is < 0.5 (the same function as K2's). bool [N].
+_occluded_clustered_plain = dense._occluded_plain
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+def _check_tables(tris: torch.Tensor, boxes: torch.Tensor,
+                  device: torch.device) -> tuple[int, int]:
+    n_boxes = boxes.shape[0]
+    dense._check("boxes", boxes, torch.float32, (n_boxes, 8), device)
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must be 16-byte aligned (float4 loads)")
+    if not n_boxes or tris.shape[0] % n_boxes:
+        raise ValueError(f"{tris.shape[0]} rows do not split into "
+                         f"{n_boxes} clusters")
+    return n_boxes, tris.shape[0] // n_boxes
+
+
+def closest_clustered(origins: torch.Tensor, dirs: torch.Tensor,
+                      tris: torch.Tensor, boxes: torch.Tensor, scale: float,
+                      tmin: float, tmax: float = T_FAR):
+    """K6: per ray, (t, packed row) of the closest hit with t < tmax over
+    all clustered ``tris`` rows (t = T_FAR and row 0 on a miss). Rays
+    [N, 3] f32, rows [C * cluster, 16] f32, cluster boxes [C, 8] f32 and
+    their ``box_scale`` (the culling margin, BOX_MARGIN)."""
+    if dense._on_cpu(origins):
+        return _closest_clustered_plain(origins, dirs, tris, tmin, tmax)
+    from .. import _kernels
+    n, _ = dense._check_inputs(origins, dirs, tris)
+    dev = origins.device
+    n_boxes, cluster = _check_tables(tris, boxes, dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_clustered", origins.data_ptr(),
+                        dirs.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
+                        n, n_boxes, cluster, float(scale), BOX_MARGIN,
+                        float(tmin), float(tmax), t.data_ptr(),
+                        row.data_ptr(), dense._stream(dev))
+        LAUNCHES["closest_clustered"] += 1
+    return t, row
+
+
+def occluded_clustered(origins: torch.Tensor, dirs: torch.Tensor,
+                       tmax: torch.Tensor, tris: torch.Tensor,
+                       boxes: torch.Tensor, scale: float,
+                       tmin: float) -> torch.Tensor:
+    """K8: per ray, is any non-refractive clustered row hit with
+    tmin < t < tmax[i] (tmax[i] <= T_FAR)? Returns bool [N]."""
+    if dense._on_cpu(origins):
+        return _occluded_clustered_plain(origins, dirs, tmax, tris, tmin)
+    from .. import _kernels
+    n, _ = dense._check_inputs(origins, dirs, tris)
+    dev = origins.device
+    dense._check("tmax", tmax, torch.float32, (n,), dev)
+    n_boxes, cluster = _check_tables(tris, boxes, dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _kernels.launch("tpt_occluded_clustered", origins.data_ptr(),
+                        dirs.data_ptr(), tmax.data_ptr(), tris.data_ptr(),
+                        boxes.data_ptr(), n, n_boxes, cluster, float(scale),
+                        BOX_MARGIN, float(tmin), out.data_ptr(),
+                        dense._stream(dev))
+        LAUNCHES["occluded_clustered"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# Intersector entry points
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ClusteredTables:
+    """A big scene's tables, built once per render."""
+    rows: torch.Tensor            # K6 / K8 table, cluster order
+    boxes: torch.Tensor           # [C, 8] cluster boxes
+    scale: float                  # their box_scale
+    occ_rows: torch.Tensor | None  # K2 table (small occluder subset) or None
+    mat_bsdf: torch.Tensor        # [M] i32, for the first-hit occlusion quirk
+
+
+def prepare(scene: SceneArrays) -> ClusteredTables:
+    """Clustered tables of ``scene``. Shadow rays sweep the NEE occluder
+    subset with K2 when it has at most TRI_SLAB rows, and the whole
+    clustered table with K8 otherwise (``pallas_bf.intersect_occluded``)."""
+    rows, boxes = pack_tris_clustered(scene)
+    sub = dense._occ_subset(scene)
+    occ_rows = None
+    if sub is not None and sub[0].shape[0] <= dense.TRI_SLAB:
+        occ_rows = dense._trim_rows(sub[1], sub[0]).contiguous()
+    return ClusteredTables(rows=rows, boxes=boxes, scale=box_scale(boxes),
+                           occ_rows=occ_rows, mat_bsdf=scene.mat_bsdf)
+
+
+def _lean_resolve_packed(tris: torch.Tensor, origins, dirs, t, row,
+                         want_uv: bool) -> Hit:
+    """Hit from K6's (t, packed row) by a plain gather of the row
+    (``pallas_bf._lean_resolve_packed``): normal from columns 0:3,
+    material from 14, the original triangle id from 15, u/v from the edge
+    functions (columns 4:12) at the hit point."""
+    hit = t < T_FAR
+    rows = torch.where(hit[:, None], tris[row.long()], 0.0)
+    if want_uv:
+        p = origins + t[:, None] * dirs
+        u = torch.where(hit, v3.dot(rows[:, 4:7], p) + rows[:, 7], 0.0)
+        v = torch.where(hit, v3.dot(rows[:, 8:11], p) + rows[:, 11], 0.0)
+    else:
+        u = v = torch.zeros_like(t)
+    return Hit(t=t, tri=torch.round(rows[:, 15]).to(torch.int32), hit=hit,
+               normal=rows[:, 0:3], mat=torch.round(rows[:, 14]).to(torch.int32),
+               u=u, v=v)
+
+
+def closest_hit(tables: ClusteredTables, origins: torch.Tensor,
+                dirs: torch.Tensor, tmin: float = 0.01,
+                tmax: float = T_FAR, want_uv: bool = True) -> Hit:
+    """Closest hit through K6 and a gather of the winning rows
+    (``pallas_bf._intersect_closest_tiled``, clustered lean branch)."""
+    t, row = closest_clustered(origins, dirs, tables.rows, tables.boxes,
+                               tables.scale, tmin, tmax)
+    return _lean_resolve_packed(tables.rows, origins, dirs, t, row, want_uv)
+
+
+def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
+                 dirs: torch.Tensor, tmax: torch.Tensor, tmin: float = 0.01,
+                 quirk_first_hit: bool = False) -> torch.Tensor:
+    """Any-hit occlusion with per-ray tmax (``pallas_bf.intersect_occluded``):
+    K2 over a small occluder subset, else K8 over the clustered table;
+    refractive surfaces pass light."""
+    if quirk_first_hit:
+        h = closest_hit(tables, origins, dirs, tmin=tmin, want_uv=False)
+        in_range = h.hit & (h.t < tmax)
+        return in_range & (tables.mat_bsdf[h.mat.long()] != BSDF_REFRACTION)
+    if tables.occ_rows is not None:
+        return dense.occluded(origins, dirs, tmax, tables.occ_rows, tmin)
+    return occluded_clustered(origins, dirs, tmax, tables.rows, tables.boxes,
+                              tables.scale, tmin)

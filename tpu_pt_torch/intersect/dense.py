@@ -21,8 +21,8 @@ anything else it raises. ``LAUNCHES`` counts kernel launches per wrapper.
 The winner's normal and material after the lean kernel come from a plain
 gather of its packed row; the JAX package used a one-hot bf16 matmul there
 (``_lean_resolve``) only because TPU gathers are slow. Scenes above
-``TRI_SLAB`` packed rows need the clustered kernels, which are not ported
-yet (ROADMAP.md, Queue 2).
+``TRI_SLAB`` packed rows take the clustered kernels of ``clustered``
+instead (``intersect.kernel_module`` chooses).
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ from .moller import T_FAR, Hit
 TRI_BLOCK = 512        # packed tables pad to a multiple of this
 TRI_SLAB = 8192        # largest packed table the single-slab kernels take
 LEAN_MAX_TRIS = 2048   # above this (or with a finite tmax) K3 runs, not K1
-_PLAIN_PAIRS = 1 << 21  # ray x row pairs per chunk of the plain versions
+_PLAIN_PAIRS = 1 << 21  # ray x row pairs per block of the plain versions
+_PLAIN_ROWS = 4096      # rows per block (temporaries stay cache-sized)
 
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
@@ -138,37 +139,47 @@ def _pe_block(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
     return torch.where(hit, t, T_FAR), u, v
 
 
-def _ray_chunks(n: int, rows: int):
-    step = max(256, _PLAIN_PAIRS // max(rows, 1))
-    return ((r, min(r + step, n)) for r in range(0, n, step))
+def _blocks(n: int, rows: int):
+    """(ray ranges, row ranges) tiling the plain versions' ray x row
+    sweep into blocks of about _PLAIN_PAIRS pairs."""
+    block = max(1, min(rows, _PLAIN_ROWS))
+    step = max(1, _PLAIN_PAIRS // block)
+    return ([(r, min(r + step, n)) for r in range(0, n, step)],
+            [(s, min(s + block, rows)) for s in range(0, rows, block)])
 
 
 def _closest_plain(origins, dirs, tris, tmin: float, tmax: float = T_FAR,
                    full: bool = False, want_uv: bool = False):
     """Plain version of K1 (``full=False``: returns (t, row)) and K3
-    (``full=True``: returns (t, row, normal, mat, u, v), t clipped at
-    ``tmax``). Misses give t = T_FAR and zeros; ties go to the lowest row."""
+    (``full=True``: returns (t, row, normal, mat, u, v)); t is clipped at
+    ``tmax`` (K1 takes none). Misses give t = T_FAR and zeros; ties go to
+    the lowest row."""
     n, dev = origins.shape[0], origins.device
-    t_out = torch.empty(n, dtype=torch.float32, device=dev)
-    row_out = torch.empty(n, dtype=torch.int32, device=dev)
+    t_out = torch.full((n,), T_FAR, dtype=torch.float32, device=dev)
+    row_out = torch.zeros(n, dtype=torch.int32, device=dev)
     u_out = torch.zeros(n, dtype=torch.float32, device=dev)
     v_out = torch.zeros(n, dtype=torch.float32, device=dev)
     iota = torch.arange(tris.shape[0], dtype=torch.int32, device=dev)
-    for a, b in _ray_chunks(n, tris.shape[0]):
-        t, u, v = _pe_block(origins[a:b], dirs[a:b], tris, tmin)
-        if full and tmax < T_FAR:
-            t = torch.where(t < tmax, t, T_FAR)
-        best = t.min(dim=1).values
-        row = torch.where(t == best[:, None], iota, tris.shape[0])
-        row = row.min(dim=1).values
-        hit = best < T_FAR
-        row = torch.where(hit, row, 0)
-        t_out[a:b] = best
-        row_out[a:b] = row
-        if full and want_uv:
-            sel = row.long()[:, None]
-            u_out[a:b] = torch.where(hit, u.gather(1, sel)[:, 0], 0.0)
-            v_out[a:b] = torch.where(hit, v.gather(1, sel)[:, 0], 0.0)
+    ray_ranges, row_ranges = _blocks(n, tris.shape[0])
+    for a, b in ray_ranges:
+        # Row blocks in ascending order, each replacing the running best
+        # only on a strictly smaller t: ties go to the lowest row.
+        for s, e in row_ranges:
+            t, u, v = _pe_block(origins[a:b], dirs[a:b], tris[s:e], tmin)
+            if tmax < T_FAR:
+                t = torch.where(t < tmax, t, T_FAR)
+            best = t.min(dim=1).values
+            sub = torch.where(t == best[:, None], iota[s:e], tris.shape[0])
+            sub = sub.min(dim=1).values
+            better = best < t_out[a:b]
+            t_out[a:b] = torch.where(better, best, t_out[a:b])
+            row_out[a:b] = torch.where(better, sub, row_out[a:b])
+            if full and want_uv:
+                sel = (sub - s).long()[:, None]
+                u_out[a:b] = torch.where(better, u.gather(1, sel)[:, 0],
+                                         u_out[a:b])
+                v_out[a:b] = torch.where(better, v.gather(1, sel)[:, 0],
+                                         v_out[a:b])
     if not full:
         return t_out, row_out
     hit = t_out < T_FAR
@@ -181,12 +192,14 @@ def _closest_plain(origins, dirs, tris, tmin: float, tmax: float = T_FAR,
 def _occluded_plain(origins, dirs, tmax, tris, tmin: float) -> torch.Tensor:
     """Plain version of K2: any hit with tmin < t < tmax on a row whose
     refractive column is < 0.5. Returns bool [N]."""
-    out = torch.empty(origins.shape[0], dtype=torch.bool,
+    out = torch.zeros(origins.shape[0], dtype=torch.bool,
                       device=origins.device)
     opaque = tris[None, :, 13] < 0.5
-    for a, b in _ray_chunks(origins.shape[0], tris.shape[0]):
-        t, _, _ = _pe_block(origins[a:b], dirs[a:b], tris, tmin)
-        out[a:b] = ((t < tmax[a:b, None]) & opaque).any(dim=1)
+    ray_ranges, row_ranges = _blocks(origins.shape[0], tris.shape[0])
+    for a, b in ray_ranges:
+        for s, e in row_ranges:
+            t, _, _ = _pe_block(origins[a:b], dirs[a:b], tris[s:e], tmin)
+            out[a:b] |= ((t < tmax[a:b, None]) & opaque[:, s:e]).any(dim=1)
     return out
 
 
@@ -200,7 +213,7 @@ def _on_cpu(origins: torch.Tensor) -> bool:
     if origins.device.type == "cpu":
         return True
     if origins.device.type != "cuda":
-        raise ValueError(f"dense kernels take CPU or CUDA tensors, "
+        raise ValueError(f"the kernel wrappers take CPU or CUDA tensors, "
                          f"not {origins.device}")
     return False
 
@@ -314,14 +327,8 @@ class DenseTables:
 
 
 def prepare(scene: SceneArrays) -> DenseTables:
-    packed = pack_tris(scene)
-    if packed.shape[0] > TRI_SLAB:
-        raise NotImplementedError(
-            f"{packed.shape[0]} packed rows exceed TRI_SLAB={TRI_SLAB}: "
-            "scenes this large need the clustered kernels, which are not "
-            "ported yet (ROADMAP.md, Queue 1 'resolve above TRI_SLAB' and "
-            "Queue 2)")
-    rows = _trim_rows(scene.num_tris, packed)
+    """The scene's single-slab kernel tables (one table of every row)."""
+    rows = _trim_rows(scene.num_tris, pack_tris(scene))
     sub = _occ_subset(scene)
     occ_rows = rows if sub is None else _trim_rows(sub[1], sub[0])
     return DenseTables(rows=rows.contiguous(), occ_rows=occ_rows.contiguous(),

@@ -23,6 +23,9 @@ BSDF_REFRACTION = 2
 # Triangle arrays are padded to a multiple of this (the JAX package's
 # TRI_PAD, kept so both packages hold the same padded arrays).
 TRI_PAD = 128
+# Scenes with more padded rows than this carry a ``cluster_order`` (the
+# JAX package's threshold: smaller scenes never take the clustered path).
+CLUSTER_ORDER_MIN_ROWS = 4096
 
 _LIGHT_FIELDS = ("corner", "v1", "v2", "normal", "emission")
 
@@ -78,6 +81,10 @@ class SceneArrays:
     # segment, padded to a multiple of 8. None / -1 = unknown.
     occ_index: torch.Tensor | None = None   # [O_pad] i32
     num_occluders: int = -1
+    # Clustered-intersector row order (``median_split_order``): a
+    # permutation of the padded rows whose consecutive 128-row runs are
+    # balanced-kd leaves. Built for scenes above CLUSTER_ORDER_MIN_ROWS.
+    cluster_order: torch.Tensor | None = None   # [T] i32
 
     @property
     def num_tris_padded(self) -> int:
@@ -164,6 +171,46 @@ def nee_occluder_index(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
     return out, n_occ
 
 
+def median_split_order(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
+                       valid: np.ndarray, leaf: int = 128) -> np.ndarray:
+    """Equal-count recursive median-split (balanced-kd) triangle order
+    (``tpu_pt.scene.arrays.median_split_order``, the same operations, so
+    the same permutation).
+
+    Consecutive ``leaf``-row runs of the result are the leaves of a
+    balanced kd tree over triangle centroids: each node splits at the
+    count median along its widest centroid axis, rounded to a whole leaf,
+    so the clustered intersector's per-leaf boxes are compact and nearly
+    disjoint. Invalid (padding) rows sort to the tail. Host numpy, once
+    per scene; ``len(v0)`` should be a multiple of ``leaf``."""
+    t = v0.shape[0]
+    c = (v0 + (e1 + e2) / 3.0).astype(np.float64)
+    c = np.where(valid[:, None], c, np.inf)
+    out = np.empty(t, np.int64)
+    stack = [(0, np.arange(t))]
+    while stack:
+        off, idx = stack.pop()
+        n = idx.shape[0]
+        if n <= leaf:
+            out[off:off + n] = idx
+            continue
+        cc = c[idx]
+        fin = np.isfinite(cc[:, 0])
+        if not fin.any():
+            out[off:off + n] = idx
+            continue
+        lo = cc[fin].min(axis=0)
+        hi = cc[fin].max(axis=0)
+        axis = int(np.argmax(hi - lo))
+        # Whole-leaf split point, at least one leaf so the recursion
+        # always shrinks (also when n is not a leaf multiple).
+        nl = max(leaf, (n // leaf // 2) * leaf)
+        part = np.argpartition(cc[:, axis], nl)
+        stack.append((off, idx[part[:nl]]))
+        stack.append((off + nl, idx[part[nl:]]))
+    return out
+
+
 def build_scene_arrays(vertices: np.ndarray, indices: np.ndarray,
                        mat_ids: np.ndarray, materials: list[dict],
                        light: AreaLight | None = None,
@@ -221,9 +268,13 @@ def build_scene_arrays(vertices: np.ndarray, indices: np.ndarray,
     refr = bsdf[host_mat] == BSDF_REFRACTION
     occ_index, n_occ = nee_occluder_index(
         host_v0, host_e1, host_e2, host_valid, refr, the_light.host()[:3])
+    cluster_order = None
+    if t_pad > CLUSTER_ORDER_MIN_ROWS:
+        cluster_order = median_split_order(
+            host_v0, host_e1, host_e2, host_valid).astype(np.int32)
 
     def dev(a):
-        return torch.as_tensor(a, device=device)
+        return None if a is None else torch.as_tensor(a, device=device)
 
     return SceneArrays(
         tri_v0=dev(host_v0), tri_e1=dev(host_e1), tri_e2=dev(host_e2),
@@ -234,7 +285,8 @@ def build_scene_arrays(vertices: np.ndarray, indices: np.ndarray,
         mat_ior=dev(ior), mat_bsdf=dev(bsdf),
         mat_is_emissive=dev(is_emissive),
         light=the_light.to(device),
-        num_tris=t, occ_index=dev(occ_index), num_occluders=n_occ)
+        num_tris=t, occ_index=dev(occ_index), num_occluders=n_occ,
+        cluster_order=dev(cluster_order))
 
 
 def scene_from_numpy(leaves, num_tris: int, num_occluders: int,
@@ -242,7 +294,8 @@ def scene_from_numpy(leaves, num_tris: int, num_occluders: int,
     """SceneArrays from numpy leaves of another build of the same scene.
 
     ``leaves`` maps each tensor field of :class:`SceneArrays` to an array
-    (``occ_index`` may be None) and ``"light"`` to a mapping of the five
+    (``occ_index`` and ``cluster_order`` may be missing or None) and
+    ``"light"`` to a mapping of the five
     :class:`AreaLight` fields. This carries a scene built elsewhere (for
     example ``np.asarray`` of every leaf of a ``tpu_pt`` scene) over
     unchanged, so both packages trace the identical scene."""
@@ -250,7 +303,8 @@ def scene_from_numpy(leaves, num_tris: int, num_occluders: int,
     for f in dataclasses.fields(SceneArrays):
         if f.name in ("light", "num_tris", "num_occluders"):
             continue
-        val = leaves.get(f.name) if f.name == "occ_index" else leaves[f.name]
+        val = (leaves.get(f.name) if f.name in ("occ_index", "cluster_order")
+               else leaves[f.name])
         kw[f.name] = (None if val is None
                       else torch.as_tensor(np.array(val), device=device))
     light = leaves["light"]
