@@ -2,6 +2,9 @@
 """Drive tpu_pt_torch's main path once on one CUDA card and check it.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+``python3 chip_smoke.py --profile`` instead profiles one frame of each
+Whitted main-path run (device busy and idle share, time by kernel) and
+prints no result line.
 It needs one CUDA device, ``nvcc`` (the kernels are built from
 ``tpu_pt_torch/csrc/`` on first use) and nothing of JAX. Phases, one line
 each; any failure raises and exits non-zero before the last line:
@@ -23,7 +26,7 @@ each; any failure raises and exits non-zero before the last line:
    128^2, 32 spp, one frame) rendered through the kernels, RMSE < 0.01
    against tests/goldens/;
 6. main path: the reference app's launch (512^2, 128 spp, depth 4, IS+NEE,
-   mixed Cornell box, 3 progressive frames), bench.py's canonical frame
+   mixed Cornell box, 2 progressive frames), bench.py's canonical frame
    (1024^2, 16 spp, depth 8, IS+NEE, frame 0 warm-up, frames 1-4 timed),
    a sphere-box frame (2,264 triangles: the full-carry kernel), and
    tools/bench_big.py's big-mesh frame (512^2, 4 spp, depth 8, IS+NEE,
@@ -33,12 +36,42 @@ each; any failure raises and exits non-zero before the last line:
    CPU (plain versions) and on the card (kernels) agrees within
    tests/test_torch_render.py's bound.
 
+The glTF / Whitted pipeline and the instanced kernels K9 / K10:
+
+8. Whitted goldens: whitted-pbr and whitted-alpha-shadow at
+   tools/make_goldens.py's configurations through the kernels, RMSE <
+   0.01;
+9. Whitted main path: tools/bench_whitted.py's frame (512^2, 8 spp,
+   depth 8, pixelq; frame 0 warm-up, frames 1-3 timed) on the 1,001-
+   instance forest (auto must keep the instances: K9/K10), on pbr_big.glb
+   (100,354 triangles flattened: K6) and on foliage kept instanced
+   (2 spp), counters zeroed before each run and read after; each run's
+   warm-up frame records one call of every kernel it launches on each
+   table;
+10. instanced kernels: K9 and K10 bitwise against their plain versions
+   on the forest at the frame's 16,384-lane width with every eighth lane
+   parked (timed there and at 262,144 rays), K10 also on shadow rays from
+   above the forest's edge, blocked only in part, and both on the
+   mirrored / non-uniformly scaled fixture of tests/test_instanced.py
+   built by the port; then every call recorded in 9 (the forest's K9 /
+   K10, pbr_big's K6 / K8, foliage's K9 on both of its tables and K10),
+   bitwise;
+11. Whitted cross-checks: the forest at 64^2 x 2 spp instanced against
+   flattened (492,002 triangles through K6/K8), within
+   tests/test_torch_instanced.py's bound; a small instanced glTF at 32^2
+   on the CPU (plain versions) against the card.
+
+Every kernel's record carries its bound: the larger of the operations
+these inputs need over the card's f32 rate and the bytes over its memory
+rate.
+
 The last three lines are the kernels' JSON record, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -74,13 +107,69 @@ GOLDEN_MODES = [         # tools/make_goldens.py MODES
 ]
 _DENSE = "tpu_pt_torch/csrc/dense_intersect.cu"
 _CLUSTERED = "tpu_pt_torch/csrc/clustered_intersect.cu"
+_INSTANCED = "tpu_pt_torch/csrc/instanced_intersect.cu"
 KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "closest_lean": (_DENSE, "tpu_pt/intersect/pallas_bf.py:976"),
     "occluded": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1299"),
     "closest_full": (_DENSE, "tpu_pt/intersect/pallas_bf.py:938"),
     "closest_clustered": (_CLUSTERED, "tpu_pt/intersect/pallas_bf.py:1042"),
     "occluded_clustered": (_CLUSTERED, "tpu_pt/intersect/pallas_bf.py:1204"),
+    "closest_inst": (_INSTANCED, "tpu_pt/intersect/pallas_inst.py:236"),
+    "occluded_inst": (_INSTANCED, "tpu_pt/intersect/pallas_inst.py:292"),
 }
+# The bound: the larger of the operations over the card's f32 rate
+# without tensor cores and the bytes over its memory rate (H100 SXM data
+# sheet). Operations per ray-row pair (the plane + edge test, as counted
+# since the first kernels), per slab test of a box and per ray transform
+# into an instance's mesh space.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+PAIR_FLOPS = 28
+BOX_FLOPS = 24
+XFORM_FLOPS = 33
+# The Whitted pipeline: tools/bench_whitted.py's view and frame (512^2,
+# 8 spp, depth 8, pixelq), and tools/make_goldens.py's two Whitted goldens.
+WHITTED_VIEW = dict(eye=(6.0, 4.5, 7.0), lookat=(0.0, 0.8, 0.0), fov_y=40.0)
+WHITTED_BENCH = dict(width=512, height=512, spp=8, max_depth=8,
+                     background=(0.1, 0.15, 0.25))
+WHITTED_GOLDENS = [
+    ("whitted-pbr", "pbr_test.gltf", WHITTED_VIEW,
+     dict(width=128, height=128, spp=8, max_depth=8,
+          background=(0.1, 0.15, 0.25))),
+    ("whitted-alpha-shadow", "alpha_shadow.gltf",
+     dict(eye=(2.0, 6.0, 13.0), lookat=(0.0, 0.5, 0.0), fov_y=45.0),
+     dict(width=160, height=120, spp=8, max_depth=6,
+          background=(0.05, 0.07, 0.12))),
+]
+FOREST = "forest.gltf"
+# Whitted main-path runs: (tag, scene, instancing, frames rendered, last
+# frames timed, config, kernels the run must launch). The forest (1,001
+# instances; "auto" must keep them) takes K9/K10; pbr_big.glb (100,354
+# triangles, flattened) takes K6, its shadow rays K2 or K8 by the size of
+# its occluder subset; foliage keeps its 601 instances only when asked
+# ("auto" flattens its 9,602 triangles, as the JAX loader does), and its
+# alpha-masked leaves march through K9 over their subset table.
+WHITTED_RUNS = [
+    ("forest 512^2 x 8 spp, depth 8 (auto: instanced)", FOREST, "auto",
+     [0, 1, 2, 3], 3, WHITTED_BENCH, ("closest_inst", "occluded_inst")),
+    ("pbr_big 512^2 x 8 spp, depth 8 (flattened)", "pbr_big.glb", "auto",
+     [0, 1, 2, 3], 3, WHITTED_BENCH, ("closest_clustered",)),
+    ("foliage 512^2 x 2 spp, depth 8 (instanced)", "foliage.gltf",
+     "instanced", [0, 1, 2, 3], 3, {**WHITTED_BENCH, "spp": 2},
+     ("closest_inst", "occluded_inst")),
+]
+# The forest instanced against flattened (492,002 triangles through
+# K6/K8), seen from above its edge (tests/test_gltf_whitted.py's forest
+# view: the bench view inside the forest sees only shaded ground), and a
+# small instanced scene on the CPU against the card.
+FOREST_VIEW = dict(eye=(0.0, 35.0, 150.0), lookat=(0.0, 0.0, 0.0),
+                   fov_y=50.0)
+FOREST_CROSS = dict(width=64, height=64, spp=2, max_depth=8,
+                    background=(0.5, 0.7, 0.9))
+CITY_CROSS = dict(width=32, height=32, spp=2, max_depth=4,
+                  background=(0.2, 0.3, 0.5))
+INST_FLAT_RMSE = 2e-3    # tests/test_torch_instanced.py's bound
+N_INST_RAYS = 16384      # the forest frame's pixelq width (262,144 / 16)
 BIG_MESH = "big_mesh.obj"
 BENCH_BIG = dict(width=512, height=512, spp=4, max_depth=8)
 # Main-path workloads: (tag, scene, frames rendered, last frames timed,
@@ -93,7 +182,7 @@ BENCH_BIG = dict(width=512, height=512, spp=4, max_depth=8)
 # IS + NEE.
 MAIN_RUNS = [
     ("reference launch 512^2 x 128 spp, depth 4, mixed",
-     "cornell_box_mixed.obj", [0, 1, 2], 3,
+     "cornell_box_mixed.obj", [0, 1], 2,
      dict(width=512, height=512, spp=128, max_depth=4),
      ("closest_lean", "occluded")),
     ("bench.py 1024^2 x 16 spp, depth 8, mixed",
@@ -289,37 +378,213 @@ def _park(rays, shadow, every: int):
                                torch.where(park[:, 0], 0.0, st).contiguous())
 
 
+def _kernel_module(name: str):
+    """The intersect module whose wrapper ``name`` is."""
+    from tpu_pt_torch.intersect import clustered, dense, instanced
+    return next(m for m in (dense, clustered, instanced)
+                if name in m.LAUNCHES)
+
+
+class _Tap:
+    """Keeps the arguments of one call of each named kernel wrapper on
+    each table it is handed, while the wrappers run as usual: the first
+    call in which at least one lane in PARK_EVERY is parked and some lane
+    is live, else the first with a live lane, else the first call.
+    ``picked[(name, tables)]`` is (args, parked share), where
+    ``tables`` are the data pointers of the call's 2-D table arguments (a
+    wrapper swept over two tables, such as K9 over an instanced scene's
+    main and alpha-subset tables, is kept once for each)."""
+
+    def __init__(self, names):
+        self.names, self.picked = tuple(names), {}
+
+    def __enter__(self):
+        import torch
+        from tpu_pt_torch.render import PARK_COORD
+        self.saved = {k: getattr(_kernel_module(k), k) for k in self.names}
+
+        def rank(parked):
+            return (parked < 1.0) + (1.0 / PARK_EVERY <= parked < 1.0)
+
+        def tap(name, wrapper):
+            def call(*args):
+                parked = float((args[0][:, 0] == PARK_COORD).float().mean())
+                key = (name, tuple(a.data_ptr() for a in args[2:]
+                                   if torch.is_tensor(a) and a.dim() == 2))
+                old = self.picked.get(key)
+                if old is None or rank(old[1]) < rank(parked):
+                    self.picked[key] = (tuple(
+                        a.clone() if torch.is_tensor(a) else a
+                        for a in args), parked)
+                return wrapper(*args)
+            return call
+        for k, fn in self.saved.items():
+            setattr(_kernel_module(k), k, tap(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(_kernel_module(k), k, fn)
+
+
 def _record_big_calls(big, device):
     """The arguments of one K6 and one K8 call of a bench_big frame (frame
-    0, IS + NEE): for each wrapper the first call in which at least one
-    lane in PARK_EVERY is parked, so the set holds live and parked lanes."""
-    import torch
-    from tpu_pt_torch.intersect import clustered
-    from tpu_pt_torch.render import PARK_COORD
-    picked = {}
-
-    def tap(name, wrapper):
-        def call(*args):
-            parked = float((args[0][:, 0] == PARK_COORD).float().mean())
-            if name not in picked and parked >= 1.0 / PARK_EVERY:
-                picked[name] = (tuple(a.clone() if torch.is_tensor(a) else a
-                                      for a in args), parked)
-            return wrapper(*args)
-        return call
-
-    saved = clustered.closest_clustered, clustered.occluded_clustered
-    clustered.closest_clustered = tap("closest_clustered", saved[0])
-    clustered.occluded_clustered = tap("occluded_clustered", saved[1])
-    try:
+    0, IS + NEE): for each wrapper a call in which at least one lane in
+    PARK_EVERY is parked, so the set holds live and parked lanes."""
+    names = ("closest_clustered", "occluded_clustered")
+    with _Tap(names) as tap:
         _render(big, device, [0], use_direct_lighting=True,
                 use_importance_sampling=True, **BENCH_BIG)
-    finally:
-        clustered.closest_clustered, clustered.occluded_clustered = saved
-    for name in ("closest_clustered", "occluded_clustered"):
-        if name not in picked:
+    for name in names:
+        if not any(k[0] == name and parked >= 1.0 / PARK_EVERY
+                   for k, (_, parked) in tap.picked.items()):
             raise AssertionError(f"no {name} call of the bench_big frame "
                                  "had parked lanes")
-    return picked
+    return tap.picked
+
+
+def _plain(name: str, args):
+    """The plain version of wrapper ``name`` on a wrapper call's own
+    positional arguments."""
+    from tpu_pt_torch.intersect import clustered, dense, instanced
+    if name == "closest_lean":
+        o, d, tris, tmin = args
+        return dense._closest_plain(o, d, tris, tmin)
+    if name == "closest_full":
+        o, d, tris, tmin, tmax, want_uv = args
+        return dense._closest_plain(o, d, tris, tmin, tmax, True, want_uv)
+    if name == "occluded":
+        return dense._occluded_plain(*args)
+    if name == "closest_clustered":
+        o, d, rows, _, _, tmin, *tmax = args
+        return clustered._closest_clustered_plain(o, d, rows, tmin, *tmax)
+    if name == "occluded_clustered":
+        o, d, tmax, rows, _, _, tmin = args
+        return clustered._occluded_clustered_plain(o, d, tmax, rows, tmin)
+    if name == "closest_inst":
+        o, d, tris, _, _, inst_rows, _, tmin, *tmax = args
+        return instanced._closest_inst_plain(o, d, tris, clustered.CLUSTER,
+                                             inst_rows, tmin, *tmax)
+    o, d, tmax, tris, _, _, inst_rows, _, tmin = args      # occluded_inst
+    return instanced._occluded_inst_plain(o, d, tmax, tris, clustered.CLUSTER,
+                                          inst_rows, tmin)
+
+
+def _hold_recorded(records, picked, what: str):
+    """Each recorded wrapper call against its plain version on the same
+    arguments, bit for bit; appends a record per call."""
+    import torch
+    for (name, _), (args, parked) in picked.items():
+        if parked >= 1.0:
+            raise AssertionError(f"{name}: every recorded {what} call on a "
+                                 "table had all its lanes parked")
+        out_k = getattr(_kernel_module(name), name)(*args)
+        out_p = _plain(name, args)
+        torch.cuda.synchronize()
+        err, extra = _compare_exact(name, out_k, out_p)
+        tables = [tuple(a.shape) for a in args[2:]
+                  if torch.is_tensor(a) and a.dim() == 2]
+        records.setdefault(name, []).append(dict(
+            rows=tables[0][0], rays=args[0].shape[0], max_abs_err=err))
+        say("kernels", f"{name}: a {what} call, its own {args[0].shape[0]} "
+            f"rays ({parked:.4f} parked) on tables {tables}: max|err| {err}"
+            f" ({extra})")
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for this work (ms), and which
+    rate sets it."""
+    ops_ms, bytes_ms = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(flops=flops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _dense_work(o, rows, out_bytes: int):
+    """A closest-hit sweep needs every (ray, row) pair: each row could be
+    nearer. Bytes: rays in, the table, ``out_bytes`` per ray out."""
+    n, r = o.shape[0], rows.shape[0]
+    return n * r * PAIR_FLOPS, n * 24 + r * 64 + n * out_bytes
+
+
+def _dense_occluded_work(o, d, tmax, rows):
+    """An any-hit sweep in row order needs, per ray, the rows up to its
+    first blocking one, or every row when nothing blocks."""
+    import torch
+    from tpu_pt_torch.intersect import dense
+    n, r = o.shape[0], rows.shape[0]
+    pairs = 0
+    for a in range(0, n, 16384):
+        t, _, _ = dense._pe_block(o[a:a + 16384], d[a:a + 16384], rows,
+                                  0.01)
+        block = (t < tmax[a:a + 16384, None]) & (rows[None, :, 13] < 0.5)
+        first = block.to(torch.int32).argmax(1)
+        pairs += int(torch.where(block.any(1), first + 1, r).sum())
+    return pairs * PAIR_FLOPS, n * 28 + r * 64 + n
+
+
+def _slab_pass(o, d, lo, hi, m, tmin: float, bound):
+    """The kernels' slab test (pe_block.cuh): [R] rays x [B] boxes
+    (lo, hi [B, 3]) grown by m ([R] or [R, B]); does the parameter
+    interval meet (tmin, bound[r]]?"""
+    import torch
+    g = torch.where(d.abs() > 1e-12, d,
+                    torch.where(d >= 0, 1e-12, -1e-12).to(d.dtype))
+    inv = (1.0 / g)[:, None]
+    m = (m if m.dim() == 2 else m[:, None])[..., None]
+    t0 = (lo[None] - m - o[:, None]) * inv
+    t1 = (hi[None] + m - o[:, None]) * inv
+    tn = torch.minimum(t0, t1).amax(2)
+    tf = torch.maximum(t0, t1).amin(2)
+    return (tn <= tf) & (tf > tmin) & (tn <= bound[:, None])
+
+
+def _clustered_work(o, d, bound, rows, boxes, scale, out_bytes: int,
+                    occluded=None):
+    """A clustered traversal needs one slab test per (ray, box) and the
+    rows of every box the ray pierces up to ``bound`` (its closest hit,
+    or its shadow tmax); an occluded shadow ray needs one box's rows."""
+    import torch
+    from tpu_pt_torch.intersect import clustered
+    n, c = o.shape[0], boxes.shape[0]
+    pierced = 0
+    for a in range(0, n, 4096):
+        m = clustered.BOX_MARGIN * (scale + o[a:a + 4096].abs().amax(1))
+        cnt = _slab_pass(o[a:a + 4096], d[a:a + 4096], boxes[:, 0:3],
+                         boxes[:, 3:6], m, 0.01, bound[a:a + 4096]).sum(1)
+        if occluded is not None:
+            cnt = torch.where(occluded[a:a + 4096], cnt.clamp_max(1), cnt)
+        pierced += int(cnt.sum())
+    cluster = rows.shape[0] // c
+    flops = n * c * BOX_FLOPS + pierced * cluster * PAIR_FLOPS
+    return flops, n * (24 + (4 if occluded is not None else 0)) \
+        + rows.shape[0] * 64 + c * 32 + n * out_bytes
+
+
+def _check_kernel(records, name, kernel, plain, rows, compare, work,
+                  n=N_RAYS, reps=20, plain_reps=3, at_n_rays=None):
+    """Compare kernel() with plain() on the same n rays and time both;
+    ``work(out)`` gives the (operations, bytes) these inputs need;
+    ``at_n_rays``, when given, is the kernel on N_RAYS rays, timed too.
+    Appends the record to ``records[name]``."""
+    import torch
+    out_k = kernel()
+    out_p = plain()
+    torch.cuda.synchronize()
+    err, extra = compare(name, out_k, out_p)
+    ms = gpu_ms(kernel, reps)
+    plain_ms = gpu_ms(plain, plain_reps)
+    rec = dict(rows=rows, rays=n, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, **_bound(*work(out_k)))
+    wide = ""
+    if at_n_rays is not None:
+        rec["ms_at_n_rays"] = gpu_ms(at_n_rays, reps)
+        wide = f"; kernel at {N_RAYS} rays {rec['ms_at_n_rays']:.4f} ms"
+    records.setdefault(name, []).append(rec)
+    say("kernels", f"{name} x {rows} rows: max|err| {err} on {n} rays"
+        f" ({extra}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at "
+        f"{n} rays{wide}; bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}: {rec['flops']:.4g} flops, "
+        f"{rec['bytes']:.4g} bytes)")
 
 
 def phase_kernels(device, big):
@@ -332,27 +597,8 @@ def phase_kernels(device, big):
     tm, ts = dense.prepare(mixed), dense.prepare(sphere)
     records = {}
 
-    def run(name, kernel, plain, rows, compare, n=N_RAYS, reps=20,
-            plain_reps=3, at_n_rays=None):
-        """Compare kernel() with plain() on the same n rays and time both;
-        ``at_n_rays``, when given, is the kernel on N_RAYS rays, timed
-        too."""
-        out_k = kernel()
-        out_p = plain()
-        torch.cuda.synchronize()
-        err, extra = compare(name, out_k, out_p)
-        ms = gpu_ms(kernel, reps)
-        plain_ms = gpu_ms(plain, plain_reps)
-        rec = dict(rows=rows, rays=n, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms)
-        wide = ""
-        if at_n_rays is not None:
-            rec["ms_at_n_rays"] = gpu_ms(at_n_rays, reps)
-            wide = f"; kernel at {N_RAYS} rays {rec['ms_at_n_rays']:.4f} ms"
-        records.setdefault(name, []).append(rec)
-        say("kernels", f"{name} x {rows} rows: max|err| {err} on {n} rays"
-            f" ({extra}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at "
-            f"{n} rays{wide}")
+    def run(*args, **kw):
+        _check_kernel(records, *args, **kw)
 
     def plain_dense(rows):
         return lambda o, d: dense._closest_plain(o, d, rows, 0.01)
@@ -362,7 +608,7 @@ def phase_kernels(device, big):
     lean = tm.rows
     run("closest_lean", lambda: dense.closest_lean(o, d, lean, 0.01),
         lambda: dense._closest_plain(o, d, lean, 0.01), lean.shape[0],
-        _compare_closest)
+        _compare_closest, lambda out: _dense_work(o, lean, 8))
 
     occ = tm.occ_rows
 
@@ -373,7 +619,8 @@ def phase_kernels(device, big):
         return 0.0, f"{float(k.float().mean()):.4f} occluded"
     run("occluded", lambda: dense.occluded(so, sd, stmax, occ, 0.01),
         lambda: dense._occluded_plain(so, sd, stmax, occ, 0.01),
-        occ.shape[0], compare_occ)
+        occ.shape[0], compare_occ,
+        lambda out: _dense_occluded_work(so, sd, stmax, occ))
 
     o2, d2, _ = _phase3_rays(sphere, device, 2, ts.rows,
                              plain_dense(ts.rows), N_RAYS)
@@ -381,12 +628,13 @@ def phase_kernels(device, big):
     run("closest_full",
         lambda: dense.closest_full(o2, d2, full, 0.01, 1e16, True),
         lambda: dense._closest_plain(o2, d2, full, 0.01, 1e16, True, True),
-        full.shape[0], _compare_closest)
+        full.shape[0], _compare_closest, lambda out: _dense_work(o2, full, 32))
     full_m = tm.rows
     run("closest_full",
         lambda: dense.closest_full(o, d, full_m, 0.01, 600.0, True),
         lambda: dense._closest_plain(o, d, full_m, 0.01, 600.0, True, True),
-        full_m.shape[0], _compare_closest)
+        full_m.shape[0], _compare_closest,
+        lambda out: _dense_work(o, full_m, 32))
 
     # The big mesh at the big path's width, N_PLAIN_BIG lanes with one in
     # PARK_EVERY parked: K6 / K8 bitwise against their plain versions
@@ -417,32 +665,19 @@ def phase_kernels(device, big):
     oB, dB, shadow_B = _phase3_rays(big, device, 3, rows, k6, N_RAYS)
     torch.cuda.synchronize()
     run("closest_clustered", lambda: k6(ob, db), lambda: k6_plain(ob, db),
-        rows.shape[0], _compare_exact, n=N_PLAIN_BIG, reps=10, plain_reps=2,
-        at_n_rays=lambda: k6(oB, dB))
+        rows.shape[0], _compare_exact,
+        lambda out: _clustered_work(ob, db, out[0], rows, boxes, scale, 8),
+        n=N_PLAIN_BIG, reps=10, plain_reps=2, at_n_rays=lambda: k6(oB, dB))
     run("occluded_clustered", lambda: k8(*shadow), lambda: k8_plain(*shadow),
-        rows.shape[0], _compare_exact, n=N_PLAIN_BIG, reps=10, plain_reps=2,
+        rows.shape[0], _compare_exact,
+        lambda out: _clustered_work(shadow[0], shadow[1], shadow[2], rows,
+                                    boxes, scale, 1, occluded=out),
+        n=N_PLAIN_BIG, reps=10, plain_reps=2,
         at_n_rays=lambda: k8(*shadow_B))
 
     # The exact inputs of one K6 and one K8 call of a bench_big frame,
     # through each wrapper and its plain version.
-    plain_of = {
-        "closest_clustered":
-            lambda o, d, rows, boxes, scale, tmin, tmax:
-                clustered._closest_clustered_plain(o, d, rows, tmin, tmax),
-        "occluded_clustered":
-            lambda o, d, tmax, rows, boxes, scale, tmin:
-                clustered._occluded_clustered_plain(o, d, tmax, rows, tmin),
-    }
-    for name, (args, parked) in _record_big_calls(big, device).items():
-        out_k = getattr(clustered, name)(*args)
-        out_p = plain_of[name](*args)
-        torch.cuda.synchronize()
-        err, extra = _compare_exact(name, out_k, out_p)
-        n = args[0].shape[0]
-        records[name].append(dict(rows=rows.shape[0], rays=n,
-                                  max_abs_err=err))
-        say("kernels", f"{name}: a bench_big call's own {n} rays "
-            f"({parked:.4f} parked): max|err| {err} ({extra})")
+    _hold_recorded(records, _record_big_calls(big, device), "bench_big")
     return records
 
 
@@ -500,8 +735,17 @@ def phase_goldens(device):
 
 
 def _launch_counters():
-    from tpu_pt_torch.intersect import clustered, dense
-    return dense.LAUNCHES, clustered.LAUNCHES
+    from tpu_pt_torch.intersect import clustered, dense, instanced
+    return dense.LAUNCHES, clustered.LAUNCHES, instanced.LAUNCHES
+
+
+def _zero_counters():
+    for counter in _launch_counters():
+        counter.update(dict.fromkeys(counter, 0))
+
+
+def _read_counters() -> dict:
+    return {k: n for c in _launch_counters() for k, n in c.items()}
 
 
 def phase_main_path(device, smi, big):
@@ -510,17 +754,15 @@ def phase_main_path(device, smi, big):
     import tpu_pt_torch as tp
     scenes = {BIG_MESH: big}
     launches = dict.fromkeys(KERNELS, 0)
-    results = []
     for tag, scene_file, frames, timed, kw, expect in MAIN_RUNS:
         if scene_file not in scenes:
             scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
                                                device=device)
-        for counter in _launch_counters():
-            counter.update(dict.fromkeys(counter, 0))
+        _zero_counters()
         accum, _, per = _render(scenes[scene_file], device, frames,
                                 use_direct_lighting=True,
                                 use_importance_sampling=True, **kw)
-        counts = {k: n for c in _launch_counters() for k, n in c.items()}
+        counts = _read_counters()
         _check_frame(tag, accum, per)
         sec = sum(p[0] for p in per[-timed:])
         rays = sum(p[1] for p in per[-timed:])
@@ -534,10 +776,8 @@ def phase_main_path(device, smi, big):
                 raise AssertionError(f"{tag}: {k} never launched")
         for k, n in counts.items():
             launches[k] += n
-        results.append(dict(workload=tag, ms_per_frame=sec / timed * 1e3,
-                            mrays_per_s=rays / sec / 1e6))
     say("main", f"kernel launches on the main path: {launches}")
-    return launches, results
+    return launches
 
 
 def phase_cross_check(big):
@@ -564,16 +804,511 @@ def phase_cross_check(big):
         raise AssertionError("the CPU and card big-mesh frames disagree")
 
 
+# --------------------------------------------------------------------------
+# The glTF / Whitted pipeline and the instanced kernels K9 / K10
+# --------------------------------------------------------------------------
+
+def _whitted_camera(view, device):
+    import numpy as np
+    from tpu_pt_torch.camera import Camera
+    from tpu_pt_torch.render import CameraArrays
+    return CameraArrays.from_camera(Camera(
+        eye=np.array(view["eye"], np.float32),
+        lookat=np.array(view["lookat"], np.float32), fov_y=view["fov_y"]),
+        device=device)
+
+
+def _render_whitted(ws, device, view, frames, tap=None, **cfg_kw):
+    """Render ``frames`` progressive Whitted frames; returns (accum, u8,
+    per-frame [(seconds, rays, stats)]). ``tap`` (a context manager) is
+    entered around the first frame only, the warm-up, so that its reads
+    stay out of the timed frames."""
+    import torch
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.render import init_accum
+    cfg = tp.RenderConfig(**cfg_kw)
+    cam = _whitted_camera(view, device)
+    accum = init_accum(cfg, device=device)
+    out, u8 = [], None
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+    for f in frames:
+        sync()
+        t0 = time.perf_counter()
+        with (tap if tap is not None and f == frames[0]
+              else contextlib.nullcontext()):
+            accum, u8, stats = tp.render_whitted_frame(ws, cam, cfg, f,
+                                                       accum)
+        sync()
+        out.append((time.perf_counter() - t0,
+                    int(stats.rays_traced) + int(stats.shadow_rays), stats))
+    return accum, u8, out
+
+
+def phase_whitted_goldens(device):
+    """tools/make_goldens.py's two Whitted goldens through the kernels on
+    the card, RMSE < 0.01."""
+    import numpy as np
+    import tpu_pt_torch as tp
+    from tpu_pt_torch import film
+    for name, scene, view, kw in WHITTED_GOLDENS:
+        ws = tp.load_gltf(str(ASSETS / scene), device=device)
+        accum, u8, per = _render_whitted(ws, device, view, [0, 1], **kw)
+        _check_frame(name, accum, per)
+        golden = film.read_png(str(GOLDENS / f"{name}.png"))
+        err = film.rmse(tp.image_to_host(u8).astype(np.float32) / 255.0,
+                        golden.astype(np.float32) / 255.0)
+        say("goldens", f"{name}: RMSE {err:.5f} "
+            f"({sum(p[0] for p in per) * 1e3:.1f} ms for 2 frames)")
+        if not err < GOLDEN_RMSE:
+            raise AssertionError(f"{name}: RMSE {err} >= {GOLDEN_RMSE}")
+
+
+def phase_whitted_main(device, smi):
+    """Each Whitted main-path run with the launch counters zeroed just
+    before it and read just after. Each run's warm-up frame also records,
+    for every kernel it launches, one call's arguments on each table (a
+    call with parked lanes where there is one: on the forest at the bench
+    view every path ends at its first hit and no lane is parked). Returns
+    (launches summed per kernel, {run tag: recorded calls})."""
+    import tpu_pt_torch as tp
+    launches = dict.fromkeys(KERNELS, 0)
+    recorded = {}
+    for tag, scene, inst_mode, frames, timed, kw, expect in WHITTED_RUNS:
+        t0 = time.perf_counter()
+        ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
+                          device=device)
+        load_s = time.perf_counter() - t0
+        if scene == FOREST and (ws.inst is None or ws.inst.count != 1001):
+            raise AssertionError("auto must keep the forest's 1,001 "
+                                 "instances")
+        tap = _Tap(KERNELS)
+        _zero_counters()
+        accum, _, per = _render_whitted(ws, device, WHITTED_VIEW, frames,
+                                        tap=tap, **kw)
+        counts = _read_counters()
+        recorded[tag] = tap.picked
+        _check_frame(tag, accum, per)
+        sec = sum(p[0] for p in per[-timed:])
+        rays = sum(p[1] for p in per[-timed:])
+        iters = [int(p[2].wavefront_iterations) for p in per[-timed:]]
+        shadow = [int(p[2].shadow_rays) for p in per[-timed:]]
+        geo = (f"{ws.inst.count} instances of {ws.geom.num_tris} unique "
+               f"triangles" if ws.inst is not None
+               else f"{ws.geom.num_tris} triangles")
+        note = ""
+        if ws.inst is None:
+            note = ("; shadow rays through "
+                    + ("K8 (occluded_clustered)"
+                       if counts["occluded_clustered"] else
+                       "K2 (occluded)" if counts["occluded"] else "none"))
+        per_frame = {k: round(n / len(frames), 2) for k, n in counts.items()
+                     if n}
+        say("whitted", f"{tag}: {geo}, loaded in {load_s:.2f} s; "
+            f"{sec / timed * 1e3:.1f} ms/frame, {rays / sec / 1e6:.3f} "
+            f"Mrays/s over {timed} frame(s), {rays // timed} rays/frame "
+            f"(shadow {shadow}), rounds {iters}; launches "
+            f"{ {k: n for k, n in counts.items() if n} } over "
+            f"{len(frames)} frames, per frame {per_frame}{note}; {smi}")
+        for k in expect:
+            if counts[k] <= 0:
+                raise AssertionError(f"{tag}: {k} never launched")
+            if not any(name == k for name, _ in tap.picked):
+                raise AssertionError(f"{tag}: no {k} call was recorded")
+        for k, n in counts.items():
+            launches[k] += n
+    say("whitted", f"kernel launches on the Whitted main path: "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches, recorded
+
+
+def _inst_work(o, d, bound, tables, out_bytes: int, occluded=None):
+    """A two-level traversal needs one slab test per (ray, instance); for
+    each instance box a ray pierces up to ``bound`` (its closest hit or
+    shadow tmax), the transform and a slab test per cluster of its mesh;
+    and the rows of every cluster it pierces up to ``bound``. An occluded
+    shadow ray needs one cluster's rows per pierced instance at most."""
+    import torch
+    from tpu_pt_torch.intersect import clustered, instanced
+    table = tables.table
+    n, n_inst = o.shape[0], table.rows.shape[0]
+    cluster = clustered.CLUSTER
+    omax = o.abs().amax(1)
+    flops = n * n_inst * BOX_FLOPS
+    wb = table.boxes
+    meta = table.rows[:, 12:14].round().long().tolist()
+    for i, (clo, ncl) in enumerate(meta):
+        if ncl == 0:
+            continue
+        m = wb[i, 6] * omax + wb[i, 7]
+        sel = _slab_pass(o, d, wb[i:i + 1, 0:3], wb[i:i + 1, 3:6], m, 0.01,
+                         bound)[:, 0].nonzero()[:, 0]
+        if not sel.numel():
+            continue
+        om, dm = instanced._xform(table.rows[i:i + 1, 0:12], o[sel], d[sel])
+        mm = clustered.BOX_MARGIN * (tables.scale + om.abs().amax(1))
+        cb = tables.boxes[clo:clo + ncl]
+        cnt = _slab_pass(om, dm, cb[:, 0:3], cb[:, 3:6], mm, 0.01,
+                         bound[sel]).sum(1)
+        if occluded is not None:
+            cnt = torch.where(occluded[sel], cnt.clamp_max(1), cnt)
+        flops += sel.numel() * (XFORM_FLOPS + ncl * BOX_FLOPS) \
+            + int(cnt.sum()) * cluster * PAIR_FLOPS
+    nbytes = (n * (24 + (4 if occluded is not None else 0))
+              + tables.tris.shape[0] * 64 + tables.boxes.shape[0] * 32
+              + n_inst * 96 + n * out_bytes)
+    return flops, nbytes
+
+
+def _inst_rays(ws, tables, device, seed: int, n_rays: int,
+               view=WHITTED_VIEW):
+    """n_rays rays on the card: camera rays of ``view`` through
+    jittered pixels of a square grid, then as many leaving the surfaces
+    K9 finds (a hit's world normal side, random directions; misses leave
+    the eye); plus shadow rays from those points to the scene's first
+    light, tmax 0.001 short of it."""
+    import numpy as np
+    import torch
+    from tpu_pt_torch import rng
+    from tpu_pt_torch.intersect import instanced
+    from tpu_pt_torch.render import camera_rays
+    half = n_rays // 2
+    side = int(round(half ** 0.5))
+    cam = _whitted_camera(view, device)
+    pix = torch.arange(half, device=device)
+    jx, jy = rng.uniform2(pix, 0, seed, rng.STREAM_JITTER)
+    o, d = camera_rays(cam, pix, side, half // side, jx, jy)
+    h = instanced.closest_hit(tables, o, d)
+    nrm = torch.where((h.normal * d).sum(1, keepdim=True) > 0, -h.normal,
+                      h.normal)
+    p = torch.where(h.hit[:, None], o + d * h.t[:, None] + 1e-3 * nrm, o)
+    r = np.random.default_rng(seed)
+    rd = torch.as_tensor(r.normal(size=(half, 3)).astype(np.float32),
+                         device=device)
+    rd = torch.where((rd * nrm).sum(1, keepdim=True) < 0, -rd, rd)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    sp = torch.cat([p, p])
+    to_l = ws.light_pos[0] - sp
+    dist = to_l.norm(dim=1)
+    shadow = (sp.contiguous(), (to_l / dist[:, None]).contiguous(),
+              (dist - 0.001).contiguous())
+    return (torch.cat([o, p]).contiguous(), torch.cat([d, rd]).contiguous(),
+            shadow)
+
+
+def _fixture(device):
+    """tests/test_instanced.py's fixture, built by the port: a cube and a
+    glass tetrahedron instanced nine times (rotations, non-uniform scales,
+    one mirrored instance). Returns (tables, instance list)."""
+    import numpy as np
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import instanced
+    cv = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                   for z in (0, 1)], np.float32) - 0.5
+    cf = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                   [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                   [1, 5, 7], [1, 7, 3]], np.int64)
+    tv = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]],
+                  np.float32) - 0.25
+    tf = np.array([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]], np.int64)
+    mats = [dict(diffuse=(0.8, 0.2, 0.2), emission=(0, 0, 0), roughness=0.5,
+                 metallic=0.0, ior=1.5, bsdf=0),
+            dict(diffuse=(0.9, 0.9, 0.9), emission=(0, 0, 0), roughness=0.0,
+                 metallic=0.0, ior=1.5, bsdf=tp.scene.BSDF_REFRACTION)]
+    geom = tp.scene.build_scene_arrays(
+        np.concatenate([cv, tv]), np.concatenate([cf, tf + len(cv)]),
+        np.concatenate([np.zeros(len(cf), np.int64),
+                        np.ones(len(tf), np.int64)]), mats, device=device)
+    rng = np.random.default_rng(7)
+    instances = []
+    for i in range(9):
+        if i == 8:
+            scale = [-1.0, 1.0, 1.0]
+        elif i % 3 == 0:
+            scale = (0.4 + rng.random(3)).tolist()
+        else:
+            scale = [0.5 + 0.5 * rng.random()] * 3
+        tx, ang = rng.random(3) * 8 - 4, rng.random() * 6
+        c, s_ = np.cos(ang), np.sin(ang)
+        rot = [np.array([[1, 0, 0], [0, c, -s_], [0, s_, c]]),
+               np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]]),
+               np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]])][i % 3]
+        m = np.eye(4)
+        m[:3, :3] = rot * np.asarray(scale)
+        m[:3, 3] = tx
+        instances.append((i % 2, m))
+    table = instanced.build_instance_table(
+        [(0, len(cf)), (len(cf), len(cf) + len(tf))],
+        [(cv.min(0), cv.max(0)), (tv.min(0), tv.max(0))], instances)
+    return instanced.prepare(geom, table), instances
+
+
+def _aimed_rays(instances, n, seed, device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    targets = np.stack([m[:3, 3] for _, m in instances])
+    o = rng.normal(size=(n, 3))
+    o = o / np.linalg.norm(o, axis=1, keepdims=True) * 12
+    d = targets[rng.integers(0, len(targets), n)] - o \
+        + rng.normal(size=(n, 3)) * 0.3
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = rng.uniform(2.0, 20.0, n)
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device=device)
+    return t(o), t(d), t(tmax)
+
+
+def phase_inst_kernels(device, records):
+    """K9 and K10 against their plain versions on the card, bitwise: (b)
+    on the forest at the frame's width with every eighth lane parked,
+    timed there and at N_RAYS, and K10 again on shadow rays from the
+    surfaces seen from above the forest's edge, of which some reach the
+    light; (c) on the port's build of the mirrored / non-uniform fixture.
+    (a), the recorded calls of the Whitted runs, follows in
+    phase_whitted_calls."""
+    import torch
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import clustered, instanced
+    ws = tp.load_gltf(str(ASSETS / FOREST), device=device)
+    tables = instanced.prepare(ws.geom, ws.inst)
+
+    def k9(o, d, tb=tables):
+        return instanced.closest_inst(o, d, tb.tris, tb.boxes, tb.scale,
+                                      tb.table.rows, tb.table.boxes, 0.01)
+
+    def k9_plain(o, d, tb=tables):
+        return instanced._closest_inst_plain(o, d, tb.tris, clustered.CLUSTER,
+                                             tb.table.rows, 0.01)
+
+    def k10(o, d, tmax, tb=tables):
+        return instanced.occluded_inst(o, d, tmax, tb.tris, tb.boxes,
+                                       tb.scale, tb.table.rows,
+                                       tb.table.boxes, 0.01)
+
+    def k10_plain(o, d, tmax, tb=tables):
+        return instanced._occluded_inst_plain(o, d, tmax, tb.tris,
+                                              clustered.CLUSTER,
+                                              tb.table.rows, 0.01)
+
+    rows = tables.tris.shape[0]
+    o, d, shadow = _inst_rays(ws, tables, device, 5, N_INST_RAYS)
+    (ob, db), shadow_b = _park((o, d), shadow, PARK_EVERY)
+    oW, dW, shadow_W = _inst_rays(ws, tables, device, 6, N_RAYS)
+    torch.cuda.synchronize()
+    _check_kernel(records, "closest_inst", lambda: k9(ob, db),
+                  lambda: k9_plain(ob, db), rows, _compare_exact,
+                  lambda out: _inst_work(ob, db, out[0], tables, 12),
+                  n=N_INST_RAYS, reps=10, plain_reps=1,
+                  at_n_rays=lambda: k9(oW, dW))
+    _check_kernel(records, "occluded_inst", lambda: k10(*shadow_b),
+                  lambda: k10_plain(*shadow_b), rows, _compare_exact,
+                  lambda out: _inst_work(shadow_b[0], shadow_b[1],
+                                         shadow_b[2], tables, 1,
+                                         occluded=out),
+                  n=N_INST_RAYS, reps=10, plain_reps=1,
+                  at_n_rays=lambda: k10(*shadow_W))
+
+    # From the bench view inside the forest every live shadow ray is
+    # blocked, so that set cannot fail a K10 that always says "blocked".
+    # Shadow rays from what is seen from above the edge (canopy tops,
+    # open ground, misses leaving the eye) are blocked only in part.
+    _, _, shadow = _inst_rays(ws, tables, device, 8, N_INST_RAYS,
+                              view=FOREST_VIEW)
+    _, shadow_e = _park((o, d), shadow, PARK_EVERY)
+    out_k, out_p = k10(*shadow_e), k10_plain(*shadow_e)
+    torch.cuda.synchronize()
+    err, extra = _compare_exact("occluded_inst", out_k, out_p)
+    share = float(out_k[shadow_e[2] > 0].float().mean())
+    records["occluded_inst"].append(dict(rows=rows, rays=N_INST_RAYS,
+                                         max_abs_err=err))
+    say("kernels", f"occluded_inst: forest shadow rays from above the edge, "
+        f"{N_INST_RAYS} rays, one in {PARK_EVERY} parked: {share:.4f} of "
+        f"the live ones blocked; max|err| {err} ({extra})")
+    if not 0.0 < share < 1.0:
+        raise AssertionError("the forest shadow rays from above the edge "
+                             f"must be blocked only in part ({share})")
+
+    fx, instances = _fixture(device)
+    fo, fd, ftmax = _aimed_rays(instances, 4096, 7, device)
+    for name, out_k, out_p in (
+            ("closest_inst", k9(fo, fd, fx), k9_plain(fo, fd, fx)),
+            ("occluded_inst", k10(fo, fd, ftmax, fx),
+             k10_plain(fo, fd, ftmax, fx))):
+        torch.cuda.synchronize()
+        err, extra = _compare_exact(name, out_k, out_p)
+        records[name].append(dict(rows=fx.tris.shape[0], rays=4096,
+                                  max_abs_err=err))
+        say("kernels", f"{name}: the mirrored / non-uniform fixture, 4096 "
+            f"aimed rays: max|err| {err} ({extra})")
+
+
+def phase_whitted_calls(recorded, records):
+    """(a) Every kernel call recorded from a Whitted run's warm-up frame
+    (the forest's K9 / K10, pbr_big's K6 / K8 on its 100,354 rows at the
+    run's width, foliage's K9 on the main and the alpha-subset tables and
+    its K10) against its plain version on the same arguments, bitwise."""
+    for tag, picked in recorded.items():
+        _hold_recorded(records, picked, tag.split(" ")[0])
+
+
+def _write_city(path):
+    """tests/test_instanced.py's small glTF: one 12-triangle cube with
+    vertex normals, instanced 12 times (rotations, scales) on a grid."""
+    import base64
+    import numpy as np
+    cv = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                   for z in (0, 1)], np.float32) - 0.5
+    cf = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                   [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                   [1, 5, 7], [1, 7, 3]], np.int64)
+    nrm = cv / np.linalg.norm(cv, axis=1, keepdims=True)
+    pos_b, nrm_b = cv.tobytes(), nrm.astype(np.float32).tobytes()
+    idx_b = cf.astype(np.uint16).tobytes()
+    blob = pos_b + nrm_b + idx_b
+    rng = np.random.default_rng(5)
+    nodes = []
+    for i in range(12):
+        ang, s_ = float(rng.random() * 6), float(0.6 + rng.random())
+        c, sn = np.cos(ang), np.sin(ang)
+        m = np.eye(4)
+        m[:3, :3] = np.array([[c, 0, sn], [0, 1, 0], [-sn, 0, c]]) * s_
+        m[:3, 3] = [(i % 4) * 3.0 - 4.5, 0.0, (i // 4) * 3.0 - 3.0]
+        nodes.append(dict(mesh=0, matrix=[float(x) for x in m.T.reshape(-1)]))
+    doc = dict(
+        asset=dict(version="2.0"), scene=0,
+        scenes=[dict(nodes=list(range(12)))], nodes=nodes,
+        meshes=[dict(primitives=[dict(attributes=dict(POSITION=0, NORMAL=1),
+                                      indices=2, material=0)])],
+        materials=[dict(pbrMetallicRoughness=dict(
+            baseColorFactor=[0.7, 0.6, 0.5, 1.0], metallicFactor=0.0,
+            roughnessFactor=0.8))],
+        accessors=[dict(bufferView=0, componentType=5126, count=8,
+                        type="VEC3"),
+                   dict(bufferView=1, componentType=5126, count=8,
+                        type="VEC3"),
+                   dict(bufferView=2, componentType=5123, count=cf.size,
+                        type="SCALAR")],
+        bufferViews=[dict(buffer=0, byteOffset=0, byteLength=len(pos_b)),
+                     dict(buffer=0, byteOffset=len(pos_b),
+                          byteLength=len(nrm_b)),
+                     dict(buffer=0, byteOffset=len(pos_b) + len(nrm_b),
+                          byteLength=len(idx_b))],
+        buffers=[dict(byteLength=len(blob),
+                      uri="data:application/octet-stream;base64,"
+                          + base64.b64encode(blob).decode())])
+    path.write_text(json.dumps(doc))
+
+
+def phase_whitted_cross_check(device):
+    """The forest instanced (K9/K10) against flattened (K6/K8) on the
+    card, within tests/test_torch_instanced.py's bound; then a small
+    instanced scene on the CPU (plain versions) against the card."""
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import instanced
+    view = dict(eye=(0.0, 7.0, 14.0), lookat=(0.0, 0.0, 0.0), fov_y=45.0)
+    imgs = {}
+    for mode in ("instanced", "flatten"):
+        t0 = time.perf_counter()
+        ws = tp.load_gltf(str(ASSETS / FOREST), instancing=mode,
+                          device=device)
+        t1 = time.perf_counter()
+        accum, _, per = _render_whitted(ws, device, FOREST_VIEW, [0],
+                                        **FOREST_CROSS)
+        _check_frame(f"forest {mode}", accum, per)
+        imgs[mode] = accum.cpu()
+        say("cross-check", f"forest {mode} ({ws.geom.num_tris} triangles"
+            f"): loaded in {t1 - t0:.2f} s, {FOREST_CROSS} frame "
+            f"{per[0][0] * 1e3:.1f} ms")
+    err = float(((imgs["instanced"] - imgs["flatten"]) ** 2).mean().sqrt())
+    say("cross-check", f"forest instanced vs flattened: RMSE {err:.3e} "
+        f"(bound {INST_FLAT_RMSE})")
+    if not err < INST_FLAT_RMSE:
+        raise AssertionError("the instanced and flattened forests disagree")
+
+    city = BUILD_ASSETS / "city.gltf"
+    BUILD_ASSETS.mkdir(parents=True, exist_ok=True)
+    _write_city(city)
+    out = []
+    for dev in ("cpu", device):
+        ws = tp.load_gltf(str(city), instancing="instanced", device=dev)
+        before = instanced.LAUNCHES["closest_inst"]
+        accum, _, per = _render_whitted(ws, dev, view, [0], **CITY_CROSS)
+        _check_frame(f"city on {dev}", accum, per)
+        if (instanced.LAUNCHES["closest_inst"] > before) != (dev != "cpu"):
+            raise AssertionError("K9 must launch on the card only")
+        out.append((accum.cpu(), per[0][0]))
+    (cpu_img, cpu_s), (card_img, card_s) = out
+    diff = (cpu_img - card_img).abs().amax(dim=-1)
+    share = float((diff > PIXEL_TOL).float().mean())
+    say("cross-check", f"instanced city {CITY_CROSS}: CPU {cpu_s:.1f} s, "
+        f"card {card_s:.2f} s; mean |diff| {float(diff.mean()):.3e}, "
+        f"{share:.4f} of pixels beyond {PIXEL_TOL}, max "
+        f"{float(diff.max()):.3e}")
+    if not (float(diff.mean()) < PIXEL_TOL and share <= PIXEL_SHARE):
+        raise AssertionError("the CPU and card city frames disagree")
+
+
+def phase_profile(device, smi):
+    """One profiled frame of each Whitted main-path run (``--profile``):
+    frame 0 warms up, frame 1 is timed unprofiled, frame 2 runs under
+    torch.profiler. Device busy is the summed device time of frame 2's
+    kernels; idle is 1 - busy / frame 1's wall time."""
+    import torch
+    import tpu_pt_torch as tp
+    from torch.profiler import ProfilerActivity, profile
+    for tag, scene, inst_mode, _, _, kw, _ in WHITTED_RUNS:
+        ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
+                          device=device)
+        _, _, per = _render_whitted(ws, device, WHITTED_VIEW, [0, 1], **kw)
+        wall_ms = per[1][0] * 1e3
+        cfg = tp.RenderConfig(**kw)
+        cam = _whitted_camera(WHITTED_VIEW, device)
+        accum = tp.init_accum(cfg, device=device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tp.render_whitted_frame(ws, cam, cfg, 2, accum)
+            torch.cuda.synchronize(device)
+        by_name = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+            if us > 0:
+                by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        ours = {k: round(v, 3) for k, v in by_name.items()
+                if "_kernel" in k and ("inst" in k or "clustered" in k
+                                       or "closest" in k or "occluded" in k)}
+        say("profile", f"{tag}: unprofiled frame {wall_ms:.1f} ms, device "
+            f"busy {busy:.1f} ms ({busy / wall_ms:.1%}), idle "
+            f"{1 - busy / wall_ms:.1%}; intersection kernels {ours}; top "
+            + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top)
+            + f"; {smi}")
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
     t0 = time.perf_counter()
     device, smi = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--profile"]:
+        phase_profile(device, smi)
+        return 0
     big = phase_assets(device)
     records = phase_kernels(device, big)
     phase_goldens(device)
-    launches, _ = phase_main_path(device, smi, big)
+    phase_whitted_goldens(device)
+    launches = phase_main_path(device, smi, big)
+    w_launches, recorded = phase_whitted_main(device, smi)
+    phase_inst_kernels(device, records)
+    phase_whitted_calls(recorded, records)
+    del recorded
     phase_cross_check(big)
+    phase_whitted_cross_check(device)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     import torch
@@ -582,9 +1317,12 @@ def main() -> int:
         first = records[kname][0]
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname],
+            launches=launches[kname] + w_launches[kname],
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
-            ms=first["ms"], plain_ms=first["plain_ms"], rays=first["rays"]))
+            ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            # No PyTorch call computes a closest or any ray-triangle hit.
+            library_ms=None, rays=first["rays"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

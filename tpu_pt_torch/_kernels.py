@@ -49,6 +49,12 @@ _SIGNATURES = {
         "tpt_occluded_clustered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                    _P, _P),
     },
+    "instanced_intersect": {
+        "tpt_closest_inst": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                             _F, _P, _P, _P, _P),
+        "tpt_occluded_inst": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                              _F, _P, _P),
+    },
 }
 
 

@@ -43,10 +43,10 @@
 //   t < best, or t == best on a lower row, so the visit order does not
 //   matter. The per-pair test is pe_test of pe_block.cuh, built with
 //   --fmad=false.
-// - The slab test takes the eps-guarded reciprocal of _ray_inv
-//   (pallas_bf.py:533-542), so axis-parallel rays stay finite, and every
-//   quantity it forms is finite or +-inf, never NaN: a collapsed empty
-//   cluster (box at 3e37) fails it for every ray.
+// - The slab test (pe_block.cuh, slab_passes) takes the eps-guarded
+//   reciprocal of _ray_inv (pallas_bf.py:533-542), so axis-parallel rays
+//   stay finite, and every quantity it forms is finite or +-inf, never
+//   NaN: a collapsed empty cluster (box at 3e37) fails it for every ray.
 // - Parked lanes (origin 3e7, tmax 0) find every box behind them and miss.
 
 #include "pe_block.cuh"
@@ -56,47 +56,20 @@ namespace {
 constexpr int kThreads = 128;  // rays per block, one thread per ray
 using tpt::kTFar;
 using tpt::load_ray;
+using tpt::max_abs_origin;
 using tpt::pe_test;
 using tpt::Ray;
+using tpt::Slab;
+using tpt::slab_passes;
 
-// _ray_inv: 1 / where(|c| > 1e-12, c, where(c >= 0, 1e-12, -1e-12)).
-__device__ __forceinline__ float inv_dir(float c) {
-  const float g = fabsf(c) > 1e-12f ? c : (c >= 0.0f ? 1e-12f : -1e-12f);
-  return 1.0f / g;
-}
-
-struct Slab {
-  float ix, iy, iz;  // guarded reciprocal direction
-  float m;           // culling margin: margin * (scale + max_k |o_k|)
-};
-
-__device__ __forceinline__ Slab make_slab(const Ray& r, float scale,
-                                          float margin) {
-  const float o = fmaxf(fabsf(r.ox), fmaxf(fabsf(r.oy), fabsf(r.oz)));
-  return Slab{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz),
-              margin * (scale + o)};
-}
-
-// _box_near_far against box c of `boxes` ([C, 8] f32: min xyz, max xyz,
-// two unused) grown by s.m on every side, as two float4 loads:
-// (minx, miny, minz, maxx) and (maxy, maxz, -, -). Returns true when the
-// ray's parameter interval through the box meets (tmin, bound].
+// Cluster c of `boxes` ([C, 8] f32: min xyz, max xyz, two unused) grown by
+// m: does the ray's parameter interval through it meet (tmin, bound]?
 __device__ __forceinline__ bool box_passes(const Ray& r, const Slab& s,
+                                           float m,
                                            const float4* __restrict__ boxes,
                                            int c, float tmin, float bound) {
-  const float4 a = __ldg(boxes + 2 * (size_t)c);
-  const float4 b = __ldg(boxes + 2 * (size_t)c + 1);
-  float t0 = (a.x - s.m - r.ox) * s.ix, t1 = (a.w + s.m - r.ox) * s.ix;
-  float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
-  t0 = (a.y - s.m - r.oy) * s.iy;
-  t1 = (b.x + s.m - r.oy) * s.iy;
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  t0 = (a.z - s.m - r.oz) * s.iz;
-  t1 = (b.y + s.m - r.oz) * s.iz;
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  return tn <= tf && tf > tmin && tn <= bound;
+  return slab_passes(r, s, __ldg(boxes + 2 * (size_t)c),
+                     __ldg(boxes + 2 * (size_t)c + 1), m, tmin, bound);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -110,14 +83,16 @@ closest_clustered_kernel(const float* __restrict__ orig,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray r = load_ray(orig, dir, i);
-  const Slab s = make_slab(r, scale, margin);
+  const Slab s = tpt::make_slab(r);
+  // Culling margin: margin * (scale + max_k |o_k|) (clustered.BOX_MARGIN).
+  const float m = margin * (scale + max_abs_origin(r));
   const float4* bx = reinterpret_cast<const float4*>(boxes);
   const float4* rows = reinterpret_cast<const float4*>(tris);
 
   float best = kTFar;
   int best_row = 0;
   for (int c = 0; c < n_boxes; ++c) {
-    if (!box_passes(r, s, bx, c, tmin, fminf(best, tmax))) continue;
+    if (!box_passes(r, s, m, bx, c, tmin, fminf(best, tmax))) continue;
     const int base = c * cluster;
     for (int j = 0; j < cluster; ++j) {
       const int row = base + j;
@@ -151,12 +126,13 @@ occluded_clustered_kernel(const float* __restrict__ orig,
   // shadow rays carry tm = 0).
   if (tm > tmin) {
     const Ray r = load_ray(orig, dir, i);
-    const Slab s = make_slab(r, scale, margin);
+    const Slab s = tpt::make_slab(r);
+    const float m = margin * (scale + max_abs_origin(r));
     const float4* bx = reinterpret_cast<const float4*>(boxes);
     const float4* rows = reinterpret_cast<const float4*>(tris);
     for (int c = 0; c < n_boxes && !blocked; ++c) {
       // A box entered at tn >= tm holds no blocking hit (t > tn).
-      if (!box_passes(r, s, bx, c, tmin, tm)) continue;
+      if (!box_passes(r, s, m, bx, c, tmin, tm)) continue;
       const int base = c * cluster;
       // Any-hit: the thread stops at its first blocking row.
       for (int j = 0; j < cluster && !blocked; ++j) {

@@ -1,4 +1,5 @@
-// The per-pair ray-triangle test shared by every kernel of tpu_pt_torch.
+// The per-pair ray-triangle test shared by every kernel of tpu_pt_torch,
+// and the ray-vs-box slab test of the culling kernels.
 //
 // Packed rows are [T, 16] f32 as tpu_pt_torch.intersect.dense.pack_tris
 // builds them: n xyz, d0, wu xyz, cu, wv xyz, cv, valid, refr, mat, id.
@@ -51,6 +52,49 @@ __device__ __forceinline__ float pe_test(const Ray& r, float4 a, float4 b,
   const float v = c.x * px + c.y * py + c.z * pz + c.w;
   const bool hit = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > tmin);
   return hit ? t : kTFar;
+}
+
+// The ray-vs-box slab test of the culling kernels (_ray_inv and
+// _box_near_far, pallas_bf.py:533-559).
+
+struct Slab {
+  float ix, iy, iz;  // guarded reciprocal direction
+};
+
+// _ray_inv: 1 / where(|c| > 1e-12, c, where(c >= 0, 1e-12, -1e-12)), so
+// axis-parallel rays stay finite (the slab only grows).
+__device__ __forceinline__ float inv_dir(float c) {
+  const float g = fabsf(c) > 1e-12f ? c : (c >= 0.0f ? 1e-12f : -1e-12f);
+  return 1.0f / g;
+}
+
+__device__ __forceinline__ Slab make_slab(const Ray& r) {
+  return Slab{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
+}
+
+__device__ __forceinline__ float max_abs_origin(const Ray& r) {
+  return fmaxf(fabsf(r.ox), fmaxf(fabsf(r.oy), fabsf(r.oz)));
+}
+
+// Box [8] f32 (min xyz, max xyz, two more columns) as two float4 loads,
+// a = (minx, miny, minz, maxx) and b = (maxy, maxz, -, -), grown by m on
+// every side. True when the ray's parameter interval through the box
+// meets (tmin, bound]. Every quantity formed is finite or +-inf, never
+// NaN, so a box collapsed to a far point fails for every ray.
+__device__ __forceinline__ bool slab_passes(const Ray& r, const Slab& s,
+                                            float4 a, float4 b, float m,
+                                            float tmin, float bound) {
+  float t0 = (a.x - m - r.ox) * s.ix, t1 = (a.w + m - r.ox) * s.ix;
+  float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
+  t0 = (a.y - m - r.oy) * s.iy;
+  t1 = (b.x + m - r.oy) * s.iy;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  t0 = (a.z - m - r.oz) * s.iz;
+  t1 = (b.y + m - r.oz) * s.iz;
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  return tn <= tf && tf > tmin && tn <= bound;
 }
 
 }  // namespace tpt

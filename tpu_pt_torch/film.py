@@ -4,7 +4,7 @@ ported yet).
 
 - progressive running mean (``pathTracerPrograms.cu:803-811``)
 - sRGB tonemap + 8-bit quantisation (``cuda/helpers.h:35-62``)
-- dependency-free PNG read/write (host numpy)
+- dependency-free PNG read/write (host numpy), RGBA for textures
 """
 
 from __future__ import annotations
@@ -72,13 +72,11 @@ def write_png(path: str, rgb_u8: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
-def read_png(path: str) -> np.ndarray:
-    """Read a non-interlaced 8-bit PNG (gray, gray+alpha, RGB or RGBA).
-    Returns uint8 [H, W, 3]."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _png_channels(data: bytes, name: str = "PNG") -> np.ndarray:
+    """Decode a non-interlaced 8-bit PNG (gray, gray+alpha, RGB or RGBA)
+    held in memory. Returns uint8 [H, W, channels]."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
+        raise ValueError(f"{name}: not a PNG")
     pos = 8
     w = h = None
     channels = 3
@@ -92,17 +90,49 @@ def read_png(path: str) -> np.ndarray:
             w, h, bits, ctype, _, _, interlace = struct.unpack(
                 ">IIBBBBB", payload)
             if bits != 8 or interlace != 0 or ctype not in (0, 2, 4, 6):
-                raise ValueError(f"{path}: unsupported PNG format")
+                raise ValueError(f"{name}: unsupported PNG format")
             channels = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
         elif tag == b"IDAT":
             idat += payload
         elif tag == b"IEND":
             break
     img = _unfilter_scanlines(zlib.decompress(idat), h, w, channels)
-    img = img.reshape(h, w, channels)
-    if channels < 3:                     # gray (+ alpha) -> RGB
+    return img.reshape(h, w, channels)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a non-interlaced 8-bit PNG (gray, gray+alpha, RGB or RGBA).
+    Returns uint8 [H, W, 3]."""
+    with open(path, "rb") as f:
+        img = _png_channels(f.read(), path)
+    if img.shape[2] < 3:                 # gray (+ alpha) -> RGB
         img = np.repeat(img[:, :, :1], 3, axis=2)
     return img[:, :, :3]
+
+
+def png_rgba(data: bytes, name: str = "PNG") -> np.ndarray:
+    """A PNG held in memory as uint8 [H, W, 4], alpha kept (255 where the
+    file has none): the texture path of glTF materials, whose base-color
+    alpha drives alpha masking and blending."""
+    img = _png_channels(data, name)
+    h, w, c = img.shape
+    out = np.full((h, w, 4), 255, np.uint8)
+    if c == 1:
+        out[:, :, :3] = np.repeat(img, 3, axis=2)
+    elif c == 2:
+        out[:, :, :3] = np.repeat(img[:, :, :1], 3, axis=2)
+        out[:, :, 3] = img[:, :, 1]
+    else:
+        out[:, :, :c] = img
+    return out
+
+
+def read_png_rgba(path: str) -> np.ndarray:
+    """Like :func:`read_png` but keeps the alpha channel (255 when the
+    file has none). Returns uint8 [H, W, 4]
+    (``tpu_pt.film.read_png_rgba``)."""
+    with open(path, "rb") as f:
+        return png_rgba(f.read(), path)
 
 
 def _unfilter_scanlines(raw: bytes, h: int, w: int,

@@ -31,6 +31,9 @@ class Hit:
     mat: torch.Tensor      # [N] i32 material id, 0 on miss
     u: torch.Tensor        # [N] f32 barycentric u (0 on miss)
     v: torch.Tensor        # [N] f32 barycentric v (0 on miss)
+    # [N] i32 winning instance of an instanced scene (0 on miss); None
+    # for world-space (flattened) scenes.
+    inst: torch.Tensor | None = None
 
 
 def _fit_tri_block(requested: int, n_tri: int) -> int:

@@ -184,7 +184,8 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
             pixel_ids, sample_idx, frame_idx, origin, direction, atten,
             depth) -> dict:
     """One trace + shade round for the whole wavefront. ``sample_idx`` and
-    ``depth`` are ints (scan) or per-lane int64 tensors (pixelq)."""
+    ``depth`` are ints (scan) or per-lane int64 tensors (pixelq).
+    ``shadow_count`` is the lane's number of shadow rays (0 or 1)."""
     depth_t = torch.as_tensor(depth, dtype=torch.int64, device=origin.device)
     sa = rng.STREAM_BOUNCE_A + 2 * depth_t
     sb = rng.STREAM_BOUNCE_B + 2 * depth_t
@@ -236,7 +237,8 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
     atten_cont = v3.safe_divide(atten_new, p_rr)
     return dict(contrib=contrib, atten_new=atten_new, atten_cont=atten_cont,
                 new_origin=shade["new_origin"], new_dir=shade["new_dir"],
-                done=done, reason=reason, shadow_mask=shadow_mask)
+                done=done, reason=reason,
+                shadow_count=shadow_mask.to(torch.int64))
 
 
 def _zero_count(device) -> torch.Tensor:
@@ -268,7 +270,7 @@ def _render_scan(scene, cam, cfg, pixel_start, n, frame_idx, closest_fn,
             result = result + step["contrib"] * alive_f
             reason = torch.where(alive & step["done"], step["reason"], reason)
             n_rays += alive.sum()
-            n_shadow += (alive & step["shadow_mask"]).sum()
+            n_shadow += (step["shadow_count"] * alive).sum()
             alive_next = (alive & ~step["done"])[:, None]
             atten = torch.where(alive_next, step["atten_cont"],
                                 step["atten_new"])
@@ -283,8 +285,8 @@ def _render_scan(scene, cam, cfg, pixel_start, n, frame_idx, closest_fn,
     return acc * (1.0 / cfg.spp), stats
 
 
-def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, closest_fn,
-                   occluded_fn):
+def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
+                   items_per_lane: int):
     """Persistent wavefront over a pixel-granular work queue.
 
     Item g covers pixel slot g % n, samples (g // n) * chunk onward, with
@@ -292,14 +294,16 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, closest_fn,
     back to back, accumulating radiance in ``pending``; when the item's
     last path ends it adds ``pending`` into the frame and claims the next
     unissued item (tickets by exclusive cumsum over finishing lanes).
-    The wavefront holds min(lanes, max(4096, items // 8), items) lanes, so
-    each lane averages about eight items and the queue keeps lanes busy
-    until it drains."""
-    dev = scene.device
+    The wavefront holds min(lanes, max(4096, items // items_per_lane),
+    items) lanes on device ``dev``.
+
+    ``bounce_fn(pix, sample, origin, direction, atten, depth)`` is the
+    integrator's round (``_bounce``, or the Whitted step); its step dict
+    counts each lane's shadow rays in ``shadow_count``."""
     chunk = max(1, min(cfg.spp, cfg.samples_per_item))
     n_chunks = (cfg.spp + chunk - 1) // chunk
     total = n * n_chunks
-    n_lanes = min(cfg.lanes, max(4096, total // 8), total)
+    n_lanes = min(cfg.lanes, max(4096, total // items_per_lane), total)
 
     def item_pixel(g):
         return g % n, (g // n) * chunk          # (pixel slot, first sample)
@@ -324,13 +328,13 @@ def _render_pixelq(scene, cam, cfg, pixel_start, n, frame_idx, closest_fn,
 
     while bool(active.any()):
         j, chunk0 = item_pixel(g)
-        step = _bounce(scene, cfg, closest_fn, occluded_fn, pixel_start + j,
-                       sample, frame_idx, origin, direction, atten, depth)
+        step = bounce_fn(pixel_start + j, sample, origin, direction, atten,
+                         depth)
         pending = pending + step["contrib"] * active.to(torch.float32)[:, None]
         path_done = active & step["done"]
         hist.index_add_(0, step["reason"], path_done.to(torch.int64))
         n_rays += active.sum()
-        n_shadow += (active & step["shadow_mask"]).sum()
+        n_shadow += (step["shadow_count"] * active).sum()
 
         item_end = torch.clamp_max(chunk0 + chunk, cfg.spp)
         more_samples = path_done & (sample + 1 < item_end)
@@ -380,12 +384,19 @@ def render_wavefront(scene: SceneArrays, cam: CameraArrays,
     pixels from flat index ``pixel_start``. Returns (radiance [n, 3] f32,
     RenderStats)."""
     closest_fn, occluded_fn = get_intersectors(scene, cfg, want_uv=False)
-    impls = {"scan": _render_scan, "pixelq": _render_pixelq}
-    if cfg.scheduler not in impls:
+    if cfg.scheduler == "scan":
+        return _render_scan(scene, cam, cfg, pixel_start, n_pixels,
+                            frame_idx, closest_fn, occluded_fn)
+    if cfg.scheduler != "pixelq":
         raise NotImplementedError(f"scheduler {cfg.scheduler!r} is not "
                                   "ported (use pixelq or scan)")
-    return impls[cfg.scheduler](scene, cam, cfg, pixel_start, n_pixels,
-                                frame_idx, closest_fn, occluded_fn)
+
+    def bounce(pix, sample, origin, direction, atten, depth):
+        return _bounce(scene, cfg, closest_fn, occluded_fn, pix, sample,
+                       frame_idx, origin, direction, atten, depth)
+    # 8 items per lane: tpu_pt.render._render_pixelq's path-trace default.
+    return _render_pixelq(scene.device, cam, cfg, pixel_start, n_pixels,
+                          frame_idx, bounce, items_per_lane=8)
 
 
 def render_frame(scene: SceneArrays, cam: CameraArrays, cfg: RenderConfig,

@@ -190,8 +190,9 @@ def load_scene(path: str, light: AreaLight | None = None,
     (``auto_light``), else the reference's Cornell light."""
     if not path.lower().endswith(".obj"):
         raise NotImplementedError(
-            f"{path}: only OBJ scenes are ported so far (glTF and scene "
-            "JSON are queued in ROADMAP.md)")
+            f"{path}: the path tracer loads OBJ scenes only so far (glTF "
+            "loads with load_gltf for the Whitted pipeline; scene JSON is "
+            "queued in ROADMAP.md)")
     mesh = load_obj(path)
     if light is None and auto_light:
         light = detect_area_light(mesh)
