@@ -2,9 +2,10 @@
 """Drive tpu_pt_torch's main path once on one CUDA card and check it.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-``python3 chip_smoke.py --profile`` instead profiles one frame of each
-Whitted main-path run (device busy and idle share, time by kernel) and
-prints no result line.
+``python3 chip_smoke.py --profile`` instead profiles one frame of
+bench.py's frame (unfused, fused_nee and regen), of the sphere box
+(unfused and fused) and of each Whitted main-path run (device busy and
+idle share, time by kernel) and prints no result line.
 It needs one CUDA device, ``nvcc`` (the kernels are built from
 ``tpu_pt_torch/csrc/`` on first use) and nothing of JAX. Phases, one line
 each; any failure raises and exits non-zero before the last line:
@@ -61,6 +62,26 @@ The glTF / Whitted pipeline and the instanced kernels K9 / K10:
    tests/test_torch_instanced.py's bound; a small instanced glTF at 32^2
    on the CPU (plain versions) against the card.
 
+The fused closest-hit + NEE kernels K4 / K5 (``RenderConfig.fused_nee``)
+and the entry points around the path tracer:
+
+12. fused kernels: K4 on the mixed box (432 rows, 24-row occluder subset)
+   and K5 on the sphere box (2,280 rows) at 262,144 rays, light samples
+   from the counter RNG, one lane in eight parked, bitwise against their
+   plain versions (t, row, K5's normal and material; the occlusion flag
+   on hit lanes); the direct-lighting goldens under ``fused_nee``;
+13. fused main path: bench.py's frame under ``fused_nee`` (K4 once per
+   round, K1 and K2 never) and the sphere-box frame (K5 once per round),
+   each against its unfused twin of phase 6, and bench.py's frame on the
+   ``regen`` scheduler against ``pixelq``; then the K4 / K5 calls
+   recorded from the two fused warm-up frames, bitwise;
+14. entry points: ``python -m tpu_pt_torch.cli render`` on the mixed box
+   (two frames with --checkpoint, then --resume for two more, bitwise
+   equal to four straight frames), a glTF render through the Whitted
+   route with --validate, ``python -m tpu_pt_torch.bench`` on a short
+   BENCH_* setting, and ``debug.trace_pixel`` under ``fused_nee``, whose
+   per-bounce contributions sum to that pixel in a 1-spp frame.
+
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
 rate.
@@ -116,6 +137,8 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "occluded_clustered": (_CLUSTERED, "tpu_pt/intersect/pallas_bf.py:1204"),
     "closest_inst": (_INSTANCED, "tpu_pt/intersect/pallas_inst.py:236"),
     "occluded_inst": (_INSTANCED, "tpu_pt/intersect/pallas_inst.py:292"),
+    "closest_nee_lean": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1263"),
+    "closest_nee_full": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1222"),
 }
 # The bound: the larger of the operations over the card's f32 rate
 # without tensor cores and the bytes over its memory rate (H100 SXM data
@@ -197,6 +220,26 @@ MAIN_RUNS = [
      BIG_MESH, [0, 1, 2], 2, BENCH_BIG,
      ("closest_clustered", "occluded_clustered")),
 ]
+# Fused twins of main-path runs (tag of the unfused run, kernel the fused
+# run launches once per round, kernels it must not launch), and the regen
+# run of bench.py's frame.
+FUSED_TWINS = [
+    ("bench.py 1024^2 x 16 spp, depth 8, mixed", "closest_nee_lean",
+     ("closest_lean", "occluded", "closest_full")),
+    ("sphere box 512^2 x 16 spp, depth 4", "closest_nee_full",
+     ("closest_full", "occluded", "closest_lean")),
+]
+REGEN_OF = "bench.py 1024^2 x 16 spp, depth 8, mixed"
+TWIN_RMSE = 0.01         # fused / regen frame against its twin (sRGB)
+# The entry points on the card: the CLI render and its resume, a Whitted
+# render with --validate, the bench on a short setting, trace_pixel.
+CLI_RENDER = ["--width", "128", "--height", "128", "--spp", "8",
+              "--depth", "4", "--direct-lighting", "--importance-sampling"]
+CLI_WHITTED = ["--width", "64", "--height", "64", "--spp", "2",
+               "--depth", "4", "--validate", "--stats"]
+BENCH_SHORT = dict(BENCH_SIZE="256", BENCH_SPP="4", BENCH_FRAMES="2")
+TRACE = dict(width=32, height=32, spp=1, max_depth=4, fused_nee=True,
+             use_direct_lighting=True, use_importance_sampling=True)
 # CPU (plain versions) vs card (kernels) big-mesh frame, and its bound
 # (tests/test_torch_render.py).
 CROSS_CHECK = dict(width=32, height=32, spp=2, max_depth=4)
@@ -359,6 +402,26 @@ def _compare_exact(name, kernel_out, plain_out):
     return err, extra + ", bitwise equal"
 
 
+def _compare_fused(name, kernel_out, plain_out):
+    """Fused kernel vs plain: the closest-hit outputs bit for bit (after
+    the checks of _compare_closest), the occlusion flag bit for bit on hit
+    lanes (on a miss lane it is meaningless), and every flag a 0 or 1
+    byte (a lane left unwritten would hold anything)."""
+    import torch
+    occ_k, occ_p = kernel_out[-1], plain_out[-1]
+    err, extra = _compare_exact(name, kernel_out[:-1], plain_out[:-1])
+    if int(occ_k.view(torch.uint8).max()) > 1:
+        raise AssertionError(f"{name}: occlusion flags other than 0 / 1")
+    hit = kernel_out[0] < 1e15
+    bad = int((hit & (occ_k != occ_p)).sum())
+    if bad:
+        raise AssertionError(f"{name}: occlusion differs on {bad} hit lanes")
+    miss_diff = int((~hit & (occ_k != occ_p)).sum())
+    return err, (f"{extra}; occlusion bitwise on {int(hit.sum())} hit lanes"
+                 f" ({float(occ_k[hit].float().mean()):.4f} occluded), "
+                 f"{miss_diff} of {int((~hit).sum())} miss lanes differ")
+
+
 def _park(rays, shadow, every: int):
     """Park every ``every``-th lane as the wavefront parks retired lanes
     and ineligible shadow rays (render.py): origin PARK_COORD, direction
@@ -455,6 +518,12 @@ def _plain(name: str, args):
         return dense._closest_plain(o, d, tris, tmin, tmax, True, want_uv)
     if name == "occluded":
         return dense._occluded_plain(*args)
+    if name == "closest_nee_lean":
+        return dense._closest_nee_plain(*args)
+    if name == "closest_nee_full":
+        o, d, lz1, lz2, tris, light, tmin, tmax = args
+        return dense._closest_nee_plain(o, d, lz1, lz2, tris, tris, light,
+                                        tmin, tmax, full=True)
     if name == "closest_clustered":
         o, d, rows, _, _, tmin, *tmax = args
         return clustered._closest_clustered_plain(o, d, rows, tmin, *tmax)
@@ -481,7 +550,9 @@ def _hold_recorded(records, picked, what: str):
         out_k = getattr(_kernel_module(name), name)(*args)
         out_p = _plain(name, args)
         torch.cuda.synchronize()
-        err, extra = _compare_exact(name, out_k, out_p)
+        compare = (_compare_fused if name.startswith("closest_nee")
+                   else _compare_exact)
+        err, extra = compare(name, out_k, out_p)
         tables = [tuple(a.shape) for a in args[2:]
                   if torch.is_tensor(a) and a.dim() == 2]
         records.setdefault(name, []).append(dict(
@@ -681,9 +752,10 @@ def phase_kernels(device, big):
     return records
 
 
-def _render(scene, device, frames, **cfg_kw):
+def _render(scene, device, frames, tap=None, **cfg_kw):
     """Render ``frames`` progressive frames; returns (accum, u8, per-frame
-    [(seconds, rays, stats)])."""
+    [(seconds, rays, stats)]). ``tap`` (a context manager) is entered
+    around the first frame only, the warm-up."""
     import torch
     import tpu_pt_torch as tp
     from tpu_pt_torch.render import CameraArrays, init_accum, render_frame
@@ -695,7 +767,9 @@ def _render(scene, device, frames, **cfg_kw):
     for f in frames:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        accum, u8, stats = render_frame(scene, cam, cfg, f, accum)
+        with (tap if tap is not None and f == frames[0]
+              else contextlib.nullcontext()):
+            accum, u8, stats = render_frame(scene, cam, cfg, f, accum)
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0,
                     int(stats.rays_traced) + int(stats.shadow_rays), stats))
@@ -750,11 +824,14 @@ def _read_counters() -> dict:
 
 def phase_main_path(device, smi, big):
     """Each main-path run with the launch counters zeroed just before it
-    and read just after; returns the launches summed per kernel."""
+    and read just after; returns the launches summed per kernel, and for
+    each run of FUSED_TWINS (tag -> (run, accum, s/frame, Mrays/s))."""
     import tpu_pt_torch as tp
     scenes = {BIG_MESH: big}
     launches = dict.fromkeys(KERNELS, 0)
-    for tag, scene_file, frames, timed, kw, expect in MAIN_RUNS:
+    twins = {}
+    for run in MAIN_RUNS:
+        tag, scene_file, frames, timed, kw, expect = run
         if scene_file not in scenes:
             scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
                                                device=device)
@@ -776,8 +853,10 @@ def phase_main_path(device, smi, big):
                 raise AssertionError(f"{tag}: {k} never launched")
         for k, n in counts.items():
             launches[k] += n
+        if any(tag == t[0] for t in FUSED_TWINS):
+            twins[tag] = (run, accum, sec / timed, rays / sec / 1e6)
     say("main", f"kernel launches on the main path: {launches}")
-    return launches
+    return launches, twins
 
 
 def phase_cross_check(big):
@@ -802,6 +881,265 @@ def phase_cross_check(big):
         f"{float(diff.max()):.3e}")
     if not (float(diff.mean()) < PIXEL_TOL and share <= PIXEL_SHARE):
         raise AssertionError("the CPU and card big-mesh frames disagree")
+
+
+# --------------------------------------------------------------------------
+# The fused closest-hit + NEE kernels K4 / K5 and the entry points
+# --------------------------------------------------------------------------
+
+def _light_samples(n: int, seed: int, device):
+    """(lz1, lz2) [n] from the counter RNG, as _bounce draws them."""
+    import torch
+    from tpu_pt_torch import rng
+    pix = torch.arange(n, device=device)
+    lz1, lz2, _, _ = rng.uniform4(pix, 0, seed, rng.STREAM_BOUNCE_B)
+    return lz1.contiguous(), lz2.contiguous()
+
+
+def _fused_work(o, d, lz1, lz2, light, rows, occ_rows, out, out_bytes: int):
+    """A fused call needs the closest-hit sweep's every (ray, row) pair,
+    then the any-hit sweep of the shadow ray (traced on every lane, from
+    the kernel's hits) up to its first blocking row. Bytes: rays and light
+    samples in, both tables, ``out_bytes`` per ray out."""
+    from tpu_pt_torch.intersect import dense
+    flops, _ = _dense_work(o, rows, 0)
+    so, sd, st = dense._shadow_rays(o, d, out[0], lz1, lz2, light)
+    occ_flops, _ = _dense_occluded_work(so, sd, st, occ_rows)
+    n = o.shape[0]
+    return (flops + occ_flops,
+            n * 32 + (rows.shape[0] + occ_rows.shape[0]) * 64 + 36
+            + n * out_bytes)
+
+
+def phase_fused_kernels(device, records):
+    """K4 on the mixed box and K5 on the sphere box at N_RAYS rays (camera
+    rays and bounce rays, one lane in PARK_EVERY parked, light samples from
+    the counter RNG) against their plain versions, timed; bound from
+    _dense_work / _dense_occluded_work."""
+    import torch
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import dense
+    for name, scene_file, seed, full in (
+            ("closest_nee_lean", "cornell_box_mixed.obj", 11, False),
+            ("closest_nee_full", "cornell_box_sphere.obj", 12, True)):
+        scene = tp.load_scene(str(ASSETS / scene_file), device=device)
+        tables, light = dense.prepare(scene), dense.light_vector(scene)
+        rows = tables.rows
+        occ = rows if full else tables.occ_rows
+        if (rows.shape[0] <= dense.LEAN_MAX_TRIS) == full:
+            raise AssertionError(f"{scene_file}: {rows.shape[0]} rows do not "
+                                 f"take {name}")
+        o, d, shadow = _phase3_rays(
+            scene, device, seed, rows,
+            lambda o, d: dense._closest_plain(o, d, rows, 0.01), N_RAYS)
+        (o, d), _ = _park((o, d), shadow, PARK_EVERY)
+        lz1, lz2 = _light_samples(N_RAYS, seed, device)
+        if full:
+            def kernel():
+                return dense.closest_nee_full(o, d, lz1, lz2, rows, light,
+                                              0.01, 1e16)
+
+            def plain():
+                return _plain(name, (o, d, lz1, lz2, rows, light, 0.01, 1e16))
+        else:
+            def kernel():
+                return dense.closest_nee_lean(o, d, lz1, lz2, rows, occ,
+                                              light, 0.01)
+
+            def plain():
+                return _plain(name, (o, d, lz1, lz2, rows, occ, light, 0.01))
+        torch.cuda.synchronize()
+        _check_kernel(records, name, kernel, plain, rows.shape[0],
+                      _compare_fused,
+                      lambda out: _fused_work(o, d, lz1, lz2, light, rows,
+                                              occ, out, 25 if full else 9),
+                      reps=10, plain_reps=2)
+        records[name][-1]["occ_rows"] = occ.shape[0]
+
+
+def phase_fused_goldens(device):
+    """The direct-lighting golden modes under ``fused_nee``: K4 renders
+    them (and K1 / K2 never), RMSE < 0.01 against tests/goldens/."""
+    import numpy as np
+    import tpu_pt_torch as tp
+    from tpu_pt_torch import film
+    scene = tp.load_scene(str(ASSETS / "cornell_box_mixed.obj"), device=device)
+    for name, overrides in GOLDEN_MODES:
+        if not overrides.get("use_direct_lighting"):
+            continue
+        kw = {**dict(width=128, height=128, spp=32, max_depth=4), **overrides}
+        _zero_counters()
+        accum, u8, per = _render(scene, device, [0], fused_nee=True, **kw)
+        counts = _read_counters()
+        _check_frame(name, accum, per)
+        if counts["closest_nee_lean"] <= 0 or counts["closest_lean"] \
+                or counts["occluded"]:
+            raise AssertionError(f"{name} under fused_nee: launches {counts}")
+        golden = film.read_png(str(GOLDENS / f"{name}.png"))
+        err = film.rmse(tp.image_to_host(u8).astype(np.float32) / 255.0,
+                        golden.astype(np.float32) / 255.0)
+        say("goldens", f"{name} under fused_nee: RMSE {err:.5f} "
+            f"({per[0][0] * 1e3:.1f} ms, K4 x {counts['closest_nee_lean']})")
+        if not err < GOLDEN_RMSE:
+            raise AssertionError(f"{name} fused: RMSE {err} >= {GOLDEN_RMSE}")
+
+
+def _u8_rmse(a, b) -> float:
+    from tpu_pt_torch import film
+    return film.rmse(film.make_color(a).cpu().numpy() / 255.0,
+                     film.make_color(b).cpu().numpy() / 255.0)
+
+
+def phase_fused_main(device, smi, twins, records):
+    """Each run of FUSED_TWINS under ``fused_nee`` and bench.py's frame on
+    the ``regen`` scheduler, counters zeroed just before each run and read
+    just after; frame time, Mrays/s and the sRGB RMSE against the unfused
+    pixelq twin of phase 6 (``twins``: tag -> (run, accum, s/frame, Mrays/s)).
+    The fused kernel must launch once per round and the kernels it
+    replaces never. The warm-up frames record one call of each fused
+    kernel, then held bitwise against its plain version. Returns the
+    launches summed per kernel."""
+    import tpu_pt_torch as tp
+    launches = dict.fromkeys(KERNELS, 0)
+    tap = _Tap(("closest_nee_lean", "closest_nee_full"))
+    runs = [(tag, dict(fused_nee=True), fused, banned)
+            for tag, fused, banned in FUSED_TWINS]
+    runs.append((REGEN_OF, dict(scheduler="regen"), "closest_lean", ()))
+    scenes = {}
+    for tag, extra, once, banned in runs:
+        (_, scene_file, frames, timed, kw, _), base, base_s, base_mr = \
+            twins[tag]
+        if scene_file not in scenes:
+            scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
+                                               device=device)
+        _zero_counters()
+        accum, _, per = _render(scenes[scene_file], device, frames,
+                                tap=tap if "fused_nee" in extra else None,
+                                use_direct_lighting=True,
+                                use_importance_sampling=True, **kw, **extra)
+        counts = _read_counters()
+        what = "fused_nee" if "fused_nee" in extra else "regen"
+        _check_frame(f"{tag} {what}", accum, per)
+        rounds = sum(int(p[2].wavefront_iterations) for p in per)
+        sec = sum(p[0] for p in per[-timed:])
+        rays = sum(p[1] for p in per[-timed:])
+        err = _u8_rmse(accum, base)
+        say("main", f"{tag}, {what}: {sec / timed * 1e3:.1f} ms/frame, "
+            f"{rays / sec / 1e6:.3f} Mrays/s (pixelq unfused "
+            f"{base_s * 1e3:.1f} ms/frame, {base_mr:.3f} Mrays/s); "
+            f"{rays // timed} rays/frame, {rounds} rounds in "
+            f"{len(frames)} frames; launches "
+            f"{ {k: n for k, n in counts.items() if n} }; sRGB RMSE against "
+            f"the pixelq unfused frame {err:.6f}; {smi}")
+        if counts[once] != rounds:
+            raise AssertionError(f"{tag} {what}: {once} launched "
+                                 f"{counts[once]} times in {rounds} rounds")
+        for k in banned:
+            if counts[k]:
+                raise AssertionError(f"{tag} {what}: {k} launched")
+        if not err < TWIN_RMSE:
+            raise AssertionError(f"{tag} {what}: RMSE {err} >= {TWIN_RMSE}")
+        for k, n in counts.items():
+            launches[k] += n
+    _hold_recorded(records, tap.picked, "fused main-path")
+    for name in ("closest_nee_lean", "closest_nee_full"):
+        if not any(k[0] == name for k in tap.picked):
+            raise AssertionError(f"no {name} call was recorded")
+    return launches
+
+
+def _run(cmd, what: str, env=None, timeout=600):
+    """Run a command from the repository root; raise with its output if it
+    fails. Returns its standard output."""
+    import os
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout, env={**os.environ, **(env or {})})
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def phase_entry_points(device, smi):
+    """The user's entry points on the card: the CLI (a checkpointed render
+    resumed bitwise, the Whitted route with --validate), the bench module,
+    and trace_pixel under fused_nee."""
+    import numpy as np
+    import torch
+    import tpu_pt_torch as tp
+    from tpu_pt_torch import debug, film
+    from tpu_pt_torch.intersect import dense
+    from tpu_pt_torch.render import CameraArrays, render_wavefront
+    out = REPO / "build" / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    cli = [sys.executable, "-m", "tpu_pt_torch.cli", "render"]
+    mixed = str(ASSETS / "cornell_box_mixed.obj")
+    t0 = time.perf_counter()
+    _run(cli + [mixed, "-o", str(out / "two.png"), "--frames", "2",
+                "--checkpoint", str(out / "two.npz"), *CLI_RENDER],
+         "cli render --checkpoint")
+    resumed = _run(cli + [mixed, "-o", str(out / "resumed.exr"), "--frames",
+                          "2", "--resume", str(out / "two.npz"),
+                          "--checkpoint", str(out / "resumed.npz"),
+                          "--stats"], "cli render --resume")
+    _run(cli + [mixed, "-o", str(out / "four.ppm"), "--frames", "4",
+                "--checkpoint", str(out / "four.npz"), *CLI_RENDER],
+         "cli render, four frames")
+    with np.load(out / "resumed.npz") as a, np.load(out / "four.npz") as b:
+        same = np.array_equal(a["accum"], b["accum"])
+        frames = (int(a["frame_idx"]), int(b["frame_idx"]))
+    say("entry", f"cli render 128^2 x 8 spp: 2 frames + --resume 2 against "
+        f"4 straight: accumulators bitwise equal {same}, frames {frames} "
+        f"({time.perf_counter() - t0:.1f} s for 3 CLI runs); "
+        + resumed.strip().splitlines()[0].split("\r")[-1].strip())
+    if not same or frames != (4, 4):
+        raise AssertionError("the resumed CLI render differs from four "
+                             "straight frames")
+    if film.read_ppm(str(out / "four.ppm")).shape != (128, 128, 3):
+        raise AssertionError("cli: bad PPM output")
+    if not np.isfinite(film.read_exr(str(out / "resumed.exr"))).all():
+        raise AssertionError("cli: non-finite EXR output")
+
+    t0 = time.perf_counter()
+    text = _run(cli + [str(ASSETS / "pbr_test.gltf"), "-o",
+                       str(out / "whitted.png"), "--frames", "1",
+                       *CLI_WHITTED], "cli render --validate (Whitted)")
+    say("entry", f"cli render pbr_test.gltf {CLI_WHITTED}: ok in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        + text.strip().splitlines()[0].split("\r")[-1].strip())
+
+    line = _run([sys.executable, "-m", "tpu_pt_torch.bench"], "bench",
+                env=BENCH_SHORT).strip().splitlines()[-1]
+    result = json.loads(line)
+    missing = {"metric", "value", "unit", "ms_per_frame", "rays_per_frame",
+               "device"} - set(result)
+    if missing or not result["value"] > 0:
+        raise AssertionError(f"bench line lacks {missing}: {line}")
+    say("entry", f"python -m tpu_pt_torch.bench {BENCH_SHORT}: {line}")
+
+    scene = tp.load_scene(mixed, device=device)
+    cfg = tp.RenderConfig(**TRACE)
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device=device)
+    radiance, _ = render_wavefront(scene, cam, cfg, 0,
+                                   cfg.width * cfg.height, 0)
+    worst, depths = 0.0, []
+    for x, y in ((16, 16), (5, 27), (26, 6), (12, 3)):
+        before = dict(dense.LAUNCHES)
+        records = debug.trace_pixel(scene, cam, cfg, x, y)
+        fused = dense.LAUNCHES["closest_nee_lean"] - before["closest_nee_lean"]
+        if fused != len(records) or dense.LAUNCHES["closest_lean"] \
+                != before["closest_lean"]:
+            raise AssertionError("trace_pixel did not go through K4")
+        total = torch.tensor([r["contrib"] for r in records]).sum(0)
+        want = radiance[y * cfg.width + x].cpu()
+        worst = max(worst, float((total - want).abs().max()))
+        depths.append(len(records))
+        if not torch.allclose(total, want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"trace_pixel({x}, {y}) sums to {total}, "
+                                 f"the frame has {want}")
+    say("entry", f"trace_pixel under fused_nee ({cfg.width}^2 x 1 spp): four "
+        f"pixels, {depths} bounces, contributions sum to the frame's pixel, "
+        f"max |diff| {worst:.3e}")
 
 
 # --------------------------------------------------------------------------
@@ -1252,42 +1590,99 @@ def phase_whitted_cross_check(device):
         raise AssertionError("the CPU and card city frames disagree")
 
 
-def phase_profile(device, smi):
-    """One profiled frame of each Whitted main-path run (``--profile``):
-    frame 0 warms up, frame 1 is timed unprofiled, frame 2 runs under
-    torch.profiler. Device busy is the summed device time of frame 2's
-    kernels; idle is 1 - busy / frame 1's wall time."""
+# Path-trace runs of ``--profile``: bench.py's frame unfused, under
+# fused_nee and on regen, then fused and unfused again (the host's speed
+# drifts during a call, so each variant is read before and after the
+# others), and the sphere box unfused and fused.
+PROFILE_PT = [
+    ("bench frame, pixelq", "cornell_box_mixed.obj", {}),
+    ("bench frame, pixelq, fused_nee", "cornell_box_mixed.obj",
+     dict(fused_nee=True)),
+    ("bench frame, regen", "cornell_box_mixed.obj", dict(scheduler="regen")),
+    ("bench frame, pixelq, fused_nee", "cornell_box_mixed.obj",
+     dict(fused_nee=True)),
+    ("bench frame, pixelq", "cornell_box_mixed.obj", {}),
+    ("sphere box, pixelq", "cornell_box_sphere.obj", {}),
+    ("sphere box, pixelq, fused_nee", "cornell_box_sphere.obj",
+     dict(fused_nee=True)),
+]
+
+
+def _profile_frame(tag, render_one, wall_ms, rounds, smi):
+    """Run ``render_one()`` (one frame) under torch.profiler and report
+    device busy = the summed time of the device's own events (kernels,
+    copies, fills; one stream, so they do not overlap), against
+    ``wall_ms``, the same frame's unprofiled wall time. The host-side op
+    entries (``aten::mul`` ...) carry the device time of the kernels they
+    launch as well, so they are left out, or that time would count
+    twice."""
     import torch
-    import tpu_pt_torch as tp
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render_one()
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+    if not by_name:
+        raise RuntimeError(f"{tag}: the profile holds no device events")
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ours = {k: round(v, 3) for k, v in by_name.items()
+            if "_kernel" in k and ("inst" in k or "clustered" in k
+                                   or "closest" in k or "occluded" in k)}
+    say("profile", f"{tag}: unprofiled frame {wall_ms:.1f} ms, {rounds} "
+        f"rounds, device busy {busy:.1f} ms ({busy / wall_ms:.1%}), idle "
+        f"{1 - busy / wall_ms:.1%}; intersection kernels {ours}; top "
+        + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top) + f"; {smi}")
+
+
+def phase_profile(device, smi):
+    """One profiled frame of each run of PROFILE_PT and of each Whitted
+    main-path run (``--profile``): frame 0 warms up, frame 1 is timed
+    unprofiled, frame 2 runs under torch.profiler. Device busy is the
+    summed device time of frame 2's kernels; idle is 1 - busy / frame 1's
+    wall time."""
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.render import CameraArrays, init_accum, render_frame
+    scenes = {}
+    bench_kw = next(r[4] for r in MAIN_RUNS if r[0] == REGEN_OF)
+    for tag, scene_file, extra in PROFILE_PT:
+        if scene_file not in scenes:
+            scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
+                                               device=device)
+        kw = dict(bench_kw if scene_file == "cornell_box_mixed.obj" else
+                  next(r[4] for r in MAIN_RUNS if r[1] == scene_file),
+                  use_direct_lighting=True, use_importance_sampling=True,
+                  **extra)
+        _, _, per = _render(scenes[scene_file], device, [0, 1], **kw)
+        cfg = tp.RenderConfig(**kw)
+        cam = CameraArrays.from_camera(tp.cornell_default_camera(),
+                                       device=device)
+        accum = init_accum(cfg, device=device)
+        _profile_frame(f"{tag} ({kw['width']}^2 x {kw['spp']} spp)",
+                       lambda: render_frame(scenes[scene_file], cam, cfg, 2,
+                                            accum),
+                       per[1][0] * 1e3, int(per[1][2].wavefront_iterations),
+                       smi)
     for tag, scene, inst_mode, _, _, kw, _ in WHITTED_RUNS:
         ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
                           device=device)
         _, _, per = _render_whitted(ws, device, WHITTED_VIEW, [0, 1], **kw)
-        wall_ms = per[1][0] * 1e3
         cfg = tp.RenderConfig(**kw)
         cam = _whitted_camera(WHITTED_VIEW, device)
         accum = tp.init_accum(cfg, device=device)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            tp.render_whitted_frame(ws, cam, cfg, 2, accum)
-            torch.cuda.synchronize(device)
-        by_name = {}
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-            if us > 0:
-                by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        ours = {k: round(v, 3) for k, v in by_name.items()
-                if "_kernel" in k and ("inst" in k or "clustered" in k
-                                       or "closest" in k or "occluded" in k)}
-        say("profile", f"{tag}: unprofiled frame {wall_ms:.1f} ms, device "
-            f"busy {busy:.1f} ms ({busy / wall_ms:.1%}), idle "
-            f"{1 - busy / wall_ms:.1%}; intersection kernels {ours}; top "
-            + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top)
-            + f"; {smi}")
+        _profile_frame(tag, lambda: tp.render_whitted_frame(ws, cam, cfg, 2,
+                                                            accum),
+                       per[1][0] * 1e3, int(per[1][2].wavefront_iterations),
+                       smi)
 
 
 def main() -> int:
@@ -1300,15 +1695,20 @@ def main() -> int:
         return 0
     big = phase_assets(device)
     records = phase_kernels(device, big)
+    phase_fused_kernels(device, records)
     phase_goldens(device)
+    phase_fused_goldens(device)
     phase_whitted_goldens(device)
-    launches = phase_main_path(device, smi, big)
+    launches, twins = phase_main_path(device, smi, big)
+    f_launches = phase_fused_main(device, smi, twins, records)
+    del twins
     w_launches, recorded = phase_whitted_main(device, smi)
     phase_inst_kernels(device, records)
     phase_whitted_calls(recorded, records)
     del recorded
     phase_cross_check(big)
     phase_whitted_cross_check(device)
+    phase_entry_points(device, smi)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     import torch
@@ -1317,7 +1717,8 @@ def main() -> int:
         first = records[kname][0]
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname] + w_launches[kname],
+            launches=(launches[kname] + w_launches[kname]
+                      + f_launches[kname]),
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],

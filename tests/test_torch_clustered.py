@@ -54,7 +54,7 @@ def sphere_scenes(sphere_arrays):
     verts, tris = sphere_arrays
     mats = np.zeros(tris.shape[0], np.int64)
     return (jarrays.build_scene_arrays(verts, tris, mats, []),
-            tp.scene.build_scene_arrays(verts, tris, mats, []))
+            tp.scene.build_scene_arrays(verts, tris, mats, [], device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -63,14 +63,16 @@ def unit_sphere_scene(sphere_arrays):
     verts, tris = sphere_arrays
     unit = ((verts - np.float32([278, 220, 280])) / np.float32(160.0))
     return tp.scene.build_scene_arrays(unit.astype(np.float32), tris,
-                                       np.zeros(tris.shape[0], np.int64), [])
+                                       np.zeros(tris.shape[0], np.int64), [],
+                                       device="cpu")
 
 
 @pytest.fixture(scope="module")
 def mixed_scenes(mixed_scene):
     return mixed_scene, scene_from_numpy(numpy_leaves(mixed_scene),
                                          mixed_scene.num_tris,
-                                         mixed_scene.num_occluders)
+                                         mixed_scene.num_occluders,
+                                         device="cpu")
 
 
 def _shrink(monkeypatch, tri_slab=256, cluster=64):
@@ -335,8 +337,10 @@ def test_render_clustered_matches_reference(mixed_scene, mixed_scenes,
         assert closest.func is clustered.closest_hit
         assert occluded_fn.keywords["quirk_first_hit"] is False
         assert clustered.prepare(tscene).occ_rows is None
-        cam = CameraArrays.from_camera(tp.cornell_default_camera())
-        accum, _, stats = render_frame(tscene, cam, cfg, 0, init_accum(cfg))
+        cam = CameraArrays.from_camera(tp.cornell_default_camera(),
+                                       device="cpu")
+        accum, _, stats = render_frame(tscene, cam, cfg, 0,
+                                       init_accum(cfg, device="cpu"))
     finally:
         torch.set_num_threads(n)
     jcfg = tpu_pt.RenderConfig(**BASE)

@@ -89,9 +89,10 @@ def fixture():
             np.concatenate(flat_m))
     jgeom = jarrays.build_scene_arrays(verts, faces, mat_ids, MATS)
     jtable = pi.build_instance_table(mesh_ranges, mesh_aabbs, instances)
-    geom = tp.scene.build_scene_arrays(verts, faces, mat_ids, MATS)
+    geom = tp.scene.build_scene_arrays(verts, faces, mat_ids, MATS,
+                                       device="cpu")
     table = instanced.build_instance_table(mesh_ranges, mesh_aabbs, instances)
-    fgeom = tp.scene.build_scene_arrays(*flat, MATS)
+    fgeom = tp.scene.build_scene_arrays(*flat, MATS, device="cpu")
     return dict(instances=instances, jgeom=jgeom, jtable=jtable, geom=geom,
                 table=table, fgeom=fgeom, mesh_ranges=mesh_ranges)
 
@@ -332,7 +333,8 @@ def test_whitted_instanced_matches_flattened(tmp_path):
     assert ws_f.inst is None and ws_i.inst.count == 12
     cam = CameraArrays.from_camera(Camera(
         eye=np.array([0.0, 7.0, 14.0], np.float32),
-        lookat=np.array([0.0, 0.0, 0.0], np.float32), fov_y=45.0))
+        lookat=np.array([0.0, 0.0, 0.0], np.float32), fov_y=45.0),
+        device="cpu")
     cfg = tp.RenderConfig(width=40, height=30, spp=1, max_depth=2,
                           background=(0.2, 0.3, 0.5), intersector="bruteforce")
     a, sa = render_whitted_wavefront(ws_f, cam, cfg, 0, 40 * 30, 0)

@@ -68,9 +68,11 @@ def sphere_scene(assets_dir):
 @pytest.fixture(scope="module")
 def scenes(mixed_scene, sphere_scene, assets_dir):
     return {"mixed": (mixed_scene,
-                      tp.load_scene(str(assets_dir / "cornell_box_mixed.obj"))),
+                      tp.load_scene(str(assets_dir / "cornell_box_mixed.obj"),
+                                    device="cpu")),
             "sphere": (sphere_scene,
-                       tp.load_scene(str(assets_dir / "cornell_box_sphere.obj")))}
+                       tp.load_scene(str(assets_dir / "cornell_box_sphere.obj"),
+                                     device="cpu"))}
 
 
 def _t(a):
@@ -201,7 +203,8 @@ def test_above_tri_slab_takes_clustered():
     n = dense.TRI_SLAB + 1
     verts = r.uniform(0.0, 100.0, (3 * n, 3)).astype(np.float32)
     scene = tp.scene.build_scene_arrays(
-        verts, np.arange(3 * n).reshape(n, 3), np.zeros(n, np.int64), [])
+        verts, np.arange(3 * n).reshape(n, 3), np.zeros(n, np.int64), [],
+        device="cpu")
     assert kernel_module(scene) is clustered
     tables = clustered.prepare(scene)
     assert tables.rows.shape[0] > dense.TRI_SLAB
@@ -219,12 +222,17 @@ def test_above_tri_slab_takes_clustered():
 
 
 def test_get_intersectors_resolution(scenes):
+    """auto is brute force on the CPU; fused_nee leaves the two-kernel
+    intersectors as they are (the fused kernels come from
+    get_fused_closest_nee, tests/test_torch_fused_nee.py); bvh is not
+    ported."""
     _, tscene = scenes["mixed"]
     cfg = tp.RenderConfig(width=8, height=8, spp=1)
     closest, _ = get_intersectors(tscene, cfg)
     assert closest.func is tmoller.intersect_closest   # auto on the CPU
-    closest, _ = get_intersectors(tscene, cfg.with_(intersector="dense"))
-    assert closest.func is dense.closest_hit
-    for bad in (cfg.with_(intersector="bvh"), cfg.with_(fused_nee=True)):
-        with pytest.raises(NotImplementedError):
-            get_intersectors(tscene, bad)
+    for c in (cfg.with_(intersector="dense"),
+              cfg.with_(intersector="dense", fused_nee=True)):
+        closest, _ = get_intersectors(tscene, c)
+        assert closest.func is dense.closest_hit
+    with pytest.raises(NotImplementedError):
+        get_intersectors(tscene, cfg.with_(intersector="bvh"))

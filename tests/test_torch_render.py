@@ -56,20 +56,21 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def port_scene(mixed_scene):
     return scene_from_numpy(numpy_leaves(mixed_scene), mixed_scene.num_tris,
-                            mixed_scene.num_occluders)
+                            mixed_scene.num_occluders, device="cpu")
 
 
 def _port_frame(scene, **overrides):
     cfg = tp.RenderConfig(**{**BASE, **overrides})
-    cam = CameraArrays.from_camera(tp.cornell_default_camera())
-    accum, u8, stats = render_frame(scene, cam, cfg, 0, init_accum(cfg))
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device="cpu")
+    accum, u8, stats = render_frame(scene, cam, cfg, 0,
+                                    init_accum(cfg, device="cpu"))
     return accum.numpy(), u8, stats
 
 
 @pytest.fixture(scope="module")
 def port_frames(port_scene):
     return {s: _port_frame(port_scene, scheduler=s)
-            for s in ("scan", "pixelq")}
+            for s in ("scan", "pixelq", "regen")}
 
 
 def _stats_vector(st):
@@ -77,7 +78,7 @@ def _stats_vector(st):
                            [float(st.rays_traced), float(st.shadow_rays)]])
 
 
-@pytest.mark.parametrize("scheduler", ["scan", "pixelq"])
+@pytest.mark.parametrize("scheduler", ["scan", "pixelq", "regen"])
 def test_frame_matches_reference(mixed_scene, port_frames, scheduler):
     cfg = tpu_pt.RenderConfig(scheduler=scheduler, **BASE)
     cam = jrender.CameraArrays.from_camera(tpu_pt.cornell_default_camera())
@@ -107,11 +108,30 @@ def test_scan_matches_pixelq(port_frames):
                                   _stats_vector(scan_stats))
 
 
+@pytest.mark.parametrize("bounces_per_round", [1, 3])
+def test_regen_matches_pixelq(port_frames, port_scene, bounces_per_round):
+    """The regen scheduler traces the same paths (equal stats); its
+    per-round index_add_ sums a pixel's samples in another order, so the
+    radiance matches up to float add order. More bounces per round change
+    only the rounds counted."""
+    pixq, _, pixq_stats = port_frames["pixelq"]
+    if bounces_per_round == 1:
+        regen, _, regen_stats = port_frames["regen"]
+    else:
+        regen, _, regen_stats = _port_frame(
+            port_scene, scheduler="regen",
+            bounces_per_round=bounces_per_round)
+    np.testing.assert_allclose(regen, pixq, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(_stats_vector(regen_stats),
+                                  _stats_vector(pixq_stats))
+    assert int(regen_stats.wavefront_iterations) % bounces_per_round == 0
+
+
 def test_pixelq_progressive_accumulation(port_scene):
     """Frame k folds into the accumulator in place as the running mean."""
     cfg = tp.RenderConfig(**{**BASE, "width": 16, "height": 16, "spp": 2})
-    cam = CameraArrays.from_camera(tp.cornell_default_camera())
-    accum = init_accum(cfg)
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device="cpu")
+    accum = init_accum(cfg, device="cpu")
     frames = []
     for k in range(3):
         radiance, _ = render_wavefront(port_scene, cam, cfg, 0, 16 * 16, k)
@@ -128,12 +148,14 @@ def test_golden_importance_with_direct(assets_dir):
     (tools/make_goldens.py: 128^2, 32 spp, depth 4, 1 frame), rendered by
     the port's pixelq scheduler through the dense intersector (the plain
     versions of the CUDA kernels, on the CPU)."""
-    scene = tp.load_scene(str(assets_dir / "cornell_box_mixed.obj"))
+    scene = tp.load_scene(str(assets_dir / "cornell_box_mixed.obj"),
+                          device="cpu")
     cfg = tp.RenderConfig(width=128, height=128, spp=32, max_depth=4,
                           use_importance_sampling=True,
                           use_direct_lighting=True, intersector="dense")
-    cam = CameraArrays.from_camera(tp.cornell_default_camera())
-    _, u8, stats = render_frame(scene, cam, cfg, 0, init_accum(cfg))
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device="cpu")
+    _, u8, stats = render_frame(scene, cam, cfg, 0,
+                                init_accum(cfg, device="cpu"))
     assert int(stats.done_histogram[NOT_DONE]) == 0
     golden = film.read_png(str(REPO / "tests" / "goldens"
                                / "importance-with-direct.png"))
@@ -147,7 +169,9 @@ def test_port_imports_neither_jax_nor_reference():
             "sys.modules['tpu_pt'] = None; sys.modules['flax'] = None; "
             "import tpu_pt_torch, tpu_pt_torch.render, "
             "tpu_pt_torch.intersect.dense, tpu_pt_torch.intersect.clustered, "
-            "tpu_pt_torch._kernels")
+            "tpu_pt_torch._kernels, tpu_pt_torch.cli, "
+            "tpu_pt_torch.checkpoint, tpu_pt_torch.debug, "
+            "tpu_pt_torch.profiling, tpu_pt_torch.bench")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=120)

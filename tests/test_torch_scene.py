@@ -46,11 +46,13 @@ def assert_same_scene(tscene, jscene):
 @pytest.mark.parametrize("name", SCENES)
 def test_load_scene_matches_reference(assets_dir, name):
     path = str(assets_dir / name)
-    assert_same_scene(tp.load_scene(path), tpu_pt.load_scene(path))
+    assert_same_scene(tp.load_scene(path, device="cpu"),
+                      tpu_pt.load_scene(path))
 
 
 def test_mixed_occluder_subset(assets_dir):
-    scene = tp.load_scene(str(assets_dir / "cornell_box_mixed.obj"))
+    scene = tp.load_scene(str(assets_dir / "cornell_box_mixed.obj"),
+                          device="cpu")
     assert scene.num_tris == 428 and scene.num_tris_padded == 512
     assert scene.num_occluders == 24
     assert scene.occ_index.shape[0] % 8 == 0
@@ -58,12 +60,25 @@ def test_mixed_occluder_subset(assets_dir):
 
 def test_scene_from_numpy_roundtrip(mixed_scene):
     scene = scene_from_numpy(numpy_leaves(mixed_scene), mixed_scene.num_tris,
-                             mixed_scene.num_occluders)
+                             mixed_scene.num_occluders, device="cpu")
     assert_same_scene(scene, mixed_scene)
     moved = scene.to("cpu")
     assert moved.device.type == "cpu" and moved.num_occluders == 24
 
 
+def test_load_scene_defaults_to_the_card(assets_dir):
+    """With no device, load_scene builds on the card; a torch without
+    CUDA raises rather than quietly building on the CPU."""
+    path = str(assets_dir / "cornell_box_mixed.obj")
+    if torch.cuda.is_available():
+        assert tp.load_scene(path).device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        tp.load_scene(path)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        tp.init_accum(tp.RenderConfig(width=4, height=4))
+
+
 def test_non_obj_scenes_not_ported(assets_dir):
     with pytest.raises(NotImplementedError):
-        tp.load_scene(str(assets_dir / "cornell_prims.json"))
+        tp.load_scene(str(assets_dir / "cornell_prims.json"), device="cpu")

@@ -128,7 +128,7 @@ def test_camera_frame_and_rays():
         for a, b in zip(jc.uvw_frame(), tc.uvw_frame()):
             np.testing.assert_array_equal(a, b)
     cam_j = JCam.from_camera(tpu_pt.cornell_default_camera())
-    cam_t = TCam.from_camera(tp.cornell_default_camera())
+    cam_t = TCam.from_camera(tp.cornell_default_camera(), device="cpu")
     w, h = 64, 48
     pix = (np.arange(N, dtype=np.uint32) * 37) % (w * h)
     jx = _rng(17).random(N).astype(np.float32)

@@ -234,8 +234,8 @@ def test_golden(assets_dir, golden):
     scene, cam_spec, kw = GOLDEN_RUNS[golden]
     ws = tp.load_gltf(str(assets_dir / scene), device="cpu")
     cfg = tp.RenderConfig(intersector="dense", **kw)
-    cam = CameraArrays.from_camera(_camera(cam_spec))
-    accum = init_accum(cfg)
+    cam = CameraArrays.from_camera(_camera(cam_spec), device="cpu")
+    accum = init_accum(cfg, device="cpu")
     for f in range(2):
         accum, img, stats = tp.render_whitted_frame(ws, cam, cfg, f, accum)
     ref = film.read_png(str(GOLDENS / f"{golden}.png")).astype(np.float32)
@@ -273,9 +273,9 @@ def test_frame_matches_reference(assets_dir, scene, cam_spec):
     ref, ref_stats = _jax_frame(jws, cam_spec, tpu_pt.RenderConfig(**kw))
     ws = whitted_scene_from_numpy(whitted_leaves(jws), device="cpu")
     cfg = tp.RenderConfig(**kw)
-    cam = CameraArrays.from_camera(_camera(cam_spec))
+    cam = CameraArrays.from_camera(_camera(cam_spec), device="cpu")
     accum, _, stats = tp.render_whitted_frame(ws, cam, cfg, 0,
-                                              init_accum(cfg))
+                                              init_accum(cfg, device="cpu"))
     ours = accum.numpy()
     paths = 32 * 32 * 2
     assert int(stats.done_histogram.sum()) == paths
@@ -293,7 +293,7 @@ def test_pixelq_matches_wide_loop(assets_dir):
     (the counter RNG keys every draw by pixel, sample and depth): equal
     stats, radiance up to float add order."""
     ws = tp.load_gltf(str(assets_dir / "pbr_test.gltf"), device="cpu")
-    cam = CameraArrays.from_camera(_camera(PBR_CAM))
+    cam = CameraArrays.from_camera(_camera(PBR_CAM), device="cpu")
     out = {}
     for s in ("pixelq", "scan"):
         cfg = tp.RenderConfig(width=24, height=24, spp=3, max_depth=6,

@@ -49,11 +49,15 @@ class RenderConfig:
 
     # Engine knobs (no reference analog).
     intersector: str = "auto"   # auto | bruteforce | dense
-    scheduler: str = "pixelq"   # pixelq (pixel-queue wavefront) | scan
-    lanes: int = 262144         # wavefront width cap (pixelq)
-    bounces_per_round: int = 1  # regen scheduler only (not ported yet)
+    scheduler: str = "pixelq"   # pixelq (pixel-queue wavefront) | regen
+                                # (path-queue wavefront) | scan
+    lanes: int = 262144         # wavefront width cap (pixelq, regen)
+    bounces_per_round: int = 1  # regen: bounces per round, whose radiance
+                                # goes into the frame in one index_add_
     samples_per_item: int = 12  # pixelq: consecutive samples per work item
-    fused_nee: bool = False     # fused closest + NEE kernel (not ported yet)
+    fused_nee: bool = False     # dense backend with NEE: the closest hit
+                                # and the shadow ray in one kernel (K4 up
+                                # to LEAN_MAX_TRIS rows, else K5)
     ray_chunk: int = 8192       # bruteforce: rays per chunk
     tri_block: int = 512        # bruteforce: triangles per block
     spp_chunk: int = 1          # samples traced per scan step

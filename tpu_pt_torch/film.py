@@ -1,10 +1,13 @@
-"""Film: progressive accumulation, sRGB tonemapping, PNG IO, RMSE
-(counterpart of ``tpu_pt/film.py:29-210``; EXR, PPM and JPEG are not
-ported yet).
+"""Film: progressive accumulation, sRGB tonemapping, image IO, RMSE
+(counterpart of ``tpu_pt/film.py``).
 
 - progressive running mean (``pathTracerPrograms.cu:803-811``)
 - sRGB tonemap + 8-bit quantisation (``cuda/helpers.h:35-62``)
-- dependency-free PNG read/write (host numpy), RGBA for textures
+- dependency-free image IO on the host (numpy): PNG read/write (RGBA for
+  textures), PPM read/write, and scanline OpenEXR read/write with the
+  NO_COMPRESSION, RLE, ZIPS and ZIP codecs. The EXR PIZ codec and JPEG
+  are not ported yet (ROADMAP.md): ``write_exr(..., "piz")`` and reading a
+  PIZ block raise.
 """
 
 from __future__ import annotations
@@ -133,6 +136,300 @@ def read_png_rgba(path: str) -> np.ndarray:
     (``tpu_pt.film.read_png_rgba``)."""
     with open(path, "rb") as f:
         return png_rgba(f.read(), path)
+
+
+def read_ppm(path: str) -> np.ndarray:
+    """Read a P6 (binary) or P3 (ascii) PPM (``sutil::PPMLoader`` parity).
+    Returns uint8 [H, W, 3]."""
+    with open(path, "rb") as f:
+        data = f.read()
+    # Header tokens, skipping comments.
+    tokens = []
+    pos = 0
+    while len(tokens) < 4:
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.find(b"\n", pos) + 1
+            continue
+        start = pos
+        while pos < len(data) and not data[pos:pos + 1].isspace():
+            pos += 1
+        tokens.append(data[start:pos])
+    magic, w, h, maxval = (tokens[0], int(tokens[1]), int(tokens[2]),
+                           int(tokens[3]))
+    pos += 1  # single whitespace after maxval
+    if magic == b"P6":
+        img = np.frombuffer(data, np.uint8, w * h * 3, pos)
+    elif magic == b"P3":
+        vals = data[pos:].split()
+        img = np.array(vals[: w * h * 3], np.int64).astype(np.uint8)
+    else:
+        raise ValueError(f"unsupported PPM magic {magic!r}")
+    if maxval != 255:
+        img = (img.astype(np.float32) * (255.0 / maxval)).astype(np.uint8)
+    return img.reshape(h, w, 3).copy()
+
+
+def write_ppm(path: str, rgb_u8: np.ndarray) -> None:
+    """Binary PPM writer (``sutil::saveImage`` PPM parity)."""
+    img = np.ascontiguousarray(np.asarray(rgb_u8, np.uint8))
+    h, w, _ = img.shape
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(img.tobytes())
+
+
+# --------------------------------------------------------------------------
+# OpenEXR (float HDR) IO: the reference vendors tinyexr for this
+# (``support/tinyexr``, used by ``sutil::loadImage``); here a
+# dependency-free subset: scanline images, FLOAT or HALF channels.
+# --------------------------------------------------------------------------
+
+_EXR_MAGIC = 20000630
+_EXR_PT_UINT, _EXR_PT_HALF, _EXR_PT_FLOAT = 0, 1, 2
+_EXR_COMP = {"none": 0, "rle": 1, "zips": 2, "zip": 3}   # lines/block 1,1,1,16
+_EXR_PIZ = 4
+_PIZ_TODO = ("the EXR PIZ codec is not ported yet (ROADMAP.md); use none, "
+             "rle, zips or zip")
+
+
+def _exr_predict(data: bytes) -> np.ndarray:
+    """The OpenEXR compressors' pre-pass: reorder the bytes into two
+    halves, then delta-encode (+128 bias). ZIP deflates the result; RLE
+    run-length-packs it."""
+    arr = np.frombuffer(data, np.uint8)
+    half = (arr.size + 1) // 2
+    reordered = np.empty(arr.size, np.uint8)
+    reordered[:half] = arr[0::2]
+    reordered[half:] = arr[1::2]
+    enc = reordered.copy()
+    enc[1:] -= reordered[:-1]
+    enc[1:] += 128                                # uint8 wraps mod 256
+    return enc
+
+
+def _exr_unpredict(enc: np.ndarray) -> bytes:
+    enc = enc.copy()
+    enc[1:] += 128                                # undo the +128 bias: -128
+    rec = np.cumsum(enc, dtype=np.uint8)
+    half = (rec.size + 1) // 2
+    out = np.empty(rec.size, np.uint8)
+    out[0::2] = rec[:half]
+    out[1::2] = rec[half:]
+    return out.tobytes()
+
+
+def _exr_rle_encode(data: bytes) -> bytes:
+    """OpenEXR RLE (ImfRle.cpp scheme): the pre-pass, then runs of >= 3
+    equal bytes stored as (count - 1, byte) with count <= 128 and literal
+    spans as (-len, bytes...) with len <= 127. Run boundaries are found
+    vectorised; only the emit loop walks the (far shorter) span list."""
+    src = _exr_predict(data)
+    n = src.size
+    if n == 0:
+        return b""
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(src)) + 1])
+    lens = np.diff(np.concatenate([starts, [n]]))
+    srcb = src.tobytes()
+    out = bytearray()
+    lit_s, lit_n = -1, 0                        # open literal span
+
+    def flush_literals():
+        nonlocal lit_s, lit_n
+        p = lit_s
+        while lit_n > 0:
+            take = min(lit_n, 127)
+            out.append(256 - take)              # -len, two's complement
+            out.extend(srcb[p:p + take])
+            p += take
+            lit_n -= take
+        lit_s = -1
+
+    for s, ln in zip(starts.tolist(), lens.tolist()):
+        if ln >= 3:
+            flush_literals()
+            b = srcb[s:s + 1]
+            while ln > 0:
+                take = min(ln, 128)
+                if take < 3:                    # tail too short for a run
+                    if lit_s < 0:
+                        lit_s = s
+                    lit_n += take
+                    break
+                out.append(take - 1)
+                out.extend(b)
+                s += take
+                ln -= take
+        else:
+            if lit_s < 0:
+                lit_s = s
+            lit_n += ln
+    flush_literals()
+    return bytes(out)
+
+
+def _exr_rle_decode(data: bytes, expect: int) -> bytes:
+    """Inverse of :func:`_exr_rle_encode` (any conformant OpenEXR RLE
+    stream); a block that decodes short raises."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n and len(out) < expect:
+        c = data[i]
+        i += 1
+        if c >= 128:                              # negative: literal span
+            ln = 256 - c
+            out.extend(data[i:i + ln])
+            i += ln
+        else:                                     # run of c + 1 bytes
+            out.extend(data[i:i + 1] * (c + 1))
+            i += 1
+    if len(out) < expect:
+        raise ValueError(
+            f"EXR RLE block decoded {len(out)} of {expect} bytes")
+    return _exr_unpredict(np.frombuffer(bytes(out[:expect]), np.uint8))
+
+
+def write_exr(path: str, rgb: np.ndarray, half: bool = False,
+              compression: str = "none") -> None:
+    """Write a linear float RGB image as a scanline EXR.
+
+    ``rgb`` is [H, W, 3] float; ``half`` selects HALF (float16) channels;
+    ``compression`` is ``"none"``, ``"rle"``, ``"zips"`` (ZIP, 1
+    scanline per block) or ``"zip"`` (ZIP, 16 scanlines per block);
+    ``"piz"`` raises (not ported yet). Channels are stored B, G, R
+    (alphabetical, as EXR requires). Incompressible blocks are stored
+    raw, as the format prescribes."""
+    if compression == "piz":
+        raise NotImplementedError(_PIZ_TODO)
+    img = np.asarray(rgb, np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3], got {img.shape}")
+    comp = _EXR_COMP[compression]
+    lines_per_block = 16 if comp == 3 else 1
+    h, w, _ = img.shape
+    ptype = _EXR_PT_HALF if half else _EXR_PT_FLOAT
+    dtype = np.dtype("<f2") if half else np.dtype("<f4")
+
+    def attr(name: bytes, typ: bytes, data: bytes) -> bytes:
+        return name + b"\0" + typ + b"\0" + struct.pack("<i", len(data)) + data
+
+    chans = b""
+    for ch in (b"B", b"G", b"R"):
+        chans += ch + b"\0" + struct.pack("<i", ptype) + b"\0\0\0\0"
+        chans += struct.pack("<ii", 1, 1)
+    chans += b"\0"
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    header = (
+        attr(b"channels", b"chlist", chans)
+        + attr(b"compression", b"compression", bytes([comp]))
+        + attr(b"dataWindow", b"box2i", box)
+        + attr(b"displayWindow", b"box2i", box)
+        + attr(b"lineOrder", b"lineOrder", b"\0")
+        + attr(b"pixelAspectRatio", b"float", struct.pack("<f", 1.0))
+        + attr(b"screenWindowCenter", b"v2f", struct.pack("<ff", 0.0, 0.0))
+        + attr(b"screenWindowWidth", b"float", struct.pack("<f", 1.0))
+        + b"\0"
+    )
+    preamble = struct.pack("<ii", _EXR_MAGIC, 2) + header
+    bgr = img[:, :, ::-1].astype(dtype)           # scanlines store B, G, R
+    n_blocks = (h + lines_per_block - 1) // lines_per_block
+    payloads = []
+    for b in range(n_blocks):
+        rows = bgr[b * lines_per_block:(b + 1) * lines_per_block]
+        raw = b"".join(row.tobytes(order="F") for row in rows)
+        if comp == 1:
+            z = _exr_rle_encode(raw)
+        elif comp:
+            z = zlib.compress(_exr_predict(raw).tobytes(), 6)
+        else:
+            z = raw
+        payloads.append(z if len(z) < len(raw) else raw)
+    with open(path, "wb") as f:
+        f.write(preamble)
+        off = len(preamble) + 8 * n_blocks
+        for payload in payloads:
+            f.write(struct.pack("<Q", off))
+            off += 8 + len(payload)
+        for b, payload in enumerate(payloads):
+            f.write(struct.pack("<ii", b * lines_per_block, len(payload)))
+            f.write(payload)
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read a single-part scanline EXR with FLOAT / HALF / UINT channels
+    and NO_COMPRESSION, RLE, ZIPS or ZIP blocks (a PIZ block raises).
+    Returns [H, W, 3] float32 (R, G, B), or the channels in file order
+    when R, G and B are not all present."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    magic, version = struct.unpack_from("<ii", buf, 0)
+    if magic != _EXR_MAGIC:
+        raise ValueError("not an EXR file")
+    if version & 0x200:
+        raise ValueError("multi-part EXR not supported")
+    pos = 8
+    attrs = {}
+    while buf[pos] != 0:
+        e = buf.index(b"\0", pos)
+        name = buf[pos:e].decode()
+        pos = e + 1
+        e = buf.index(b"\0", pos)
+        typ = buf[pos:e].decode()
+        pos = e + 1
+        (size,) = struct.unpack_from("<i", buf, pos)
+        pos += 4
+        attrs[name] = (typ, buf[pos:pos + size])
+        pos += size
+    pos += 1
+
+    comp = attrs["compression"][1][0]
+    if comp not in (0, 1, 2, 3, _EXR_PIZ):
+        raise ValueError(f"unsupported EXR compression {comp} (none, rle, "
+                         "zips, zip)")
+    lines_per_block = {3: 16, _EXR_PIZ: 32}.get(comp, 1)
+    x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+
+    chans = []
+    cb = attrs["channels"][1]
+    cpos = 0
+    while cb[cpos] != 0:
+        e = cb.index(b"\0", cpos)
+        (ptype,) = struct.unpack_from("<i", cb, e + 1)
+        chans.append((cb[cpos:e].decode(), ptype))
+        cpos = e + 1 + 16
+    dtypes = {_EXR_PT_HALF: np.dtype("<f2"), _EXR_PT_FLOAT: np.dtype("<f4"),
+              _EXR_PT_UINT: np.dtype("<u4")}
+    line_bytes = sum(w * dtypes[pt].itemsize for _, pt in chans)
+
+    n_blocks = (h + lines_per_block - 1) // lines_per_block
+    offsets = struct.unpack_from(f"<{n_blocks}Q", buf, pos)
+    out = {}
+    for off in offsets:
+        y, nbytes = struct.unpack_from("<ii", buf, off)
+        lines = min(lines_per_block, h - (y - y0))
+        raw_size = lines * line_bytes
+        data = buf[off + 8:off + 8 + nbytes]
+        if comp and nbytes < raw_size:        # raw-stored blocks pass through
+            if comp == _EXR_PIZ:
+                raise NotImplementedError(_PIZ_TODO)
+            if comp == 1:
+                data = _exr_rle_decode(data, raw_size)
+            else:
+                data = _exr_unpredict(
+                    np.frombuffer(zlib.decompress(data), np.uint8))
+        p = 0
+        for li in range(lines):
+            for cname, ptype in chans:        # stored alphabetically
+                dt = dtypes[ptype]
+                row = np.frombuffer(data, dt, w, p).astype(np.float32)
+                out.setdefault(cname,
+                               np.zeros((h, w), np.float32))[y - y0 + li] = row
+                p += w * dt.itemsize
+    if all(c in out for c in "RGB"):
+        return np.stack([out["R"], out["G"], out["B"]], axis=2)
+    return np.stack([out[c] for c, _ in chans], axis=2)
 
 
 def _unfilter_scanlines(raw: bytes, h: int, w: int,

@@ -10,8 +10,10 @@
   scene on the CPU (as the JAX package runs its Pallas kernels only on a
   TPU).
 
-Analytic primitives, curves, the LBVH and the fused closest-hit + NEE
-kernel are not ported yet.
+``get_fused_closest_nee`` returns the fused closest-hit + NEE kernels
+(K4 / K5 of ``dense``) where the JAX package fuses, else None.
+
+Analytic primitives, curves and the LBVH are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from . import clustered, dense
 from .moller import Hit, intersect_closest, intersect_occluded
 
 __all__ = ["Hit", "intersect_closest", "intersect_occluded",
-           "get_intersectors", "kernel_module"]
+           "get_intersectors", "get_fused_closest_nee", "kernel_module"]
 
 
 def _resolve(scene: SceneArrays, cfg: RenderConfig) -> str:
@@ -42,12 +44,25 @@ def kernel_module(scene: SceneArrays):
     return clustered if rows > dense.TRI_SLAB else dense
 
 
+def get_fused_closest_nee(scene: SceneArrays, cfg: RenderConfig):
+    """``fused_fn(o, d, lz1, lz2) -> (Hit, occluded)``, the fused
+    closest-hit + NEE-occlusion kernels, or None
+    (``tpu_pt.intersect.get_fused_closest_nee``, with ``dense`` for
+    ``pallas``). None, so that the two-kernel path runs, when
+    ``fused_nee`` is off, the backend is not ``dense``, the scene has no
+    light, the quirk occlusion mode is on, or the scene is above
+    ``dense.TRI_SLAB`` rows (the fused kernels sweep one table)."""
+    if (not cfg.fused_nee or _resolve(scene, cfg) != "dense"
+            or scene.light is None or cfg.quirks.occlusion_first_hit_only
+            or scene.num_tris_padded > dense.TRI_SLAB):
+        return None
+    return partial(dense.closest_nee_hit, dense.prepare(scene),
+                   dense.light_vector(scene), tmin=cfg.t_min, tmax=cfg.t_max)
+
+
 def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
                      want_uv: bool = True):
     """Returns (closest_fn(o, d) -> Hit, occluded_fn(o, d, tmax) -> bool)."""
-    if cfg.fused_nee:
-        raise NotImplementedError("fused_nee: the fused closest-hit + NEE "
-                                  "kernel is not ported yet (ROADMAP.md)")
     backend = _resolve(scene, cfg)
     quirk = cfg.quirks.occlusion_first_hit_only
     if backend == "dense":

@@ -2,16 +2,23 @@
 kernels on the path tracer's main path (single-slab part of
 ``tpu_pt/intersect/pallas_bf.py``).
 
-Three kernels, each with a wrapper, a plain PyTorch version and a launch
-counter:
+Five kernels, each with a wrapper, a plain PyTorch version and a launch
+counter (wrapper: the kernel it replaces, via its call site; plain
+version):
 
-======================  ==========================================  =================
-wrapper                 replaces (``tpu_pt/intersect/pallas_bf.py``)  plain version
-======================  ==========================================  =================
-``closest_lean`` (K1)   ``_closest_kernel_lean`` via ``_closest_call_lean``  ``_closest_plain``
-``occluded`` (K2)       ``_occluded_kernel`` via ``_occluded_call``           ``_occluded_plain``
-``closest_full`` (K3)   ``_closest_kernel`` via ``_closest_call``             ``_closest_plain(full=True)``
-======================  ==========================================  =================
+- ``closest_lean`` (K1): ``_closest_kernel_lean`` via
+  ``_closest_call_lean``; ``_closest_plain``;
+- ``occluded`` (K2): ``_occluded_kernel`` via ``_occluded_call``;
+  ``_occluded_plain``;
+- ``closest_full`` (K3): ``_closest_kernel`` via ``_closest_call``;
+  ``_closest_plain(full=True)``;
+- ``closest_nee_lean`` (K4): ``_closest_nee_kernel_lean`` via
+  ``_closest_nee_call_lean``; ``_closest_nee_plain``;
+- ``closest_nee_full`` (K5): ``_closest_nee_kernel`` via
+  ``_closest_nee_call``; ``_closest_nee_plain(full=True)``.
+
+K4 and K5 are the fused closest hit + NEE shadow ray of
+``RenderConfig.fused_nee`` (``intersect_closest_nee``).
 
 The CUDA kernels are in ``csrc/dense_intersect.cu`` (bound by
 ``tpu_pt_torch._kernels``). A wrapper runs the plain version only for
@@ -43,7 +50,9 @@ _PLAIN_ROWS = 4096      # rows per block (temporaries stay cache-sized)
 
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
-LAUNCHES = {"closest_lean": 0, "occluded": 0, "closest_full": 0}
+LAUNCHES = {"closest_lean": 0, "occluded": 0, "closest_full": 0,
+            "closest_nee_lean": 0, "closest_nee_full": 0}
+NEE_EPS = 0.01         # shadow-ray range shrink (cu:1017 "Ldist - 0.01")
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -203,6 +212,37 @@ def _occluded_plain(origins, dirs, tmax, tris, tmin: float) -> torch.Tensor:
     return out
 
 
+def _shadow_rays(origins, dirs, t, lz1, lz2, light):
+    """The fused kernels' NEE shadow rays, traced on every lane: from
+    p = o + t d toward the light point corner + v1 lz1 + v2 lz2 (``light``
+    [9] = corner, v1, v2), tmax |to_light| - NEE_EPS. 1/|to_light| is an
+    IEEE square root and division, as in the kernels (XLA's rsqrt in the
+    JAX kernel differs by an ulp)."""
+    p = origins + t[:, None] * dirs
+    tl = (light[0:3] + light[3:6] * lz1[:, None]
+          + light[6:9] * lz2[:, None] - p)
+    dist2 = tl[:, 0] * tl[:, 0] + tl[:, 1] * tl[:, 1] + tl[:, 2] * tl[:, 2]
+    inv = 1.0 / torch.sqrt(torch.clamp_min(dist2, 1e-12))
+    return p, tl * inv[:, None], dist2 * inv - NEE_EPS
+
+
+def _closest_nee_plain(origins, dirs, lz1, lz2, tris, occ_tris, light,
+                       tmin: float, tmax: float = T_FAR, full: bool = False):
+    """Plain version of K4 (``full=False``: K1's sweep, then the shadow
+    ray any-hit over ``occ_tris``; returns (t, row, occ)) and K5
+    (``full=True``: K3's sweep clipped at ``tmax`` without u/v, the shadow
+    ray over ``tris``; returns (t, row, normal, mat, occ)). The occlusion
+    flag of a miss lane is meaningless."""
+    if full:
+        t, row, normal, mat, _, _ = _closest_plain(origins, dirs, tris, tmin,
+                                                   tmax, full=True)
+    else:
+        t, row = _closest_plain(origins, dirs, tris, tmin)
+    so, sd, stmax = _shadow_rays(origins, dirs, t, lz1, lz2, light)
+    occ = _occluded_plain(so, sd, stmax, occ_tris, tmin)
+    return (t, row, normal, mat, occ) if full else (t, row, occ)
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
@@ -314,6 +354,70 @@ def occluded(origins: torch.Tensor, dirs: torch.Tensor, tmax: torch.Tensor,
     return out
 
 
+def _check_nee(origins, lz1, lz2, light) -> None:
+    n, dev = origins.shape[0], origins.device
+    _check("lz1", lz1, torch.float32, (n,), dev)
+    _check("lz2", lz2, torch.float32, (n,), dev)
+    _check("light", light, torch.float32, (9,), dev)
+
+
+def closest_nee_lean(origins: torch.Tensor, dirs: torch.Tensor,
+                     lz1: torch.Tensor, lz2: torch.Tensor, tris: torch.Tensor,
+                     occ_tris: torch.Tensor, light: torch.Tensor,
+                     tmin: float):
+    """K4: K1 over ``tris``, then per ray the NEE shadow ray toward the
+    light point (lz1, lz2) any-hit over ``occ_tris``. ``light`` [9] f32 is
+    (corner, v1, v2). Returns (t, row, occluded bool [N])."""
+    if _on_cpu(origins):
+        return _closest_nee_plain(origins, dirs, lz1, lz2, tris, occ_tris,
+                                  light, tmin)
+    from .. import _kernels
+    n, rows = _check_inputs(origins, dirs, tris)
+    _, n_occ = _check_inputs(origins, dirs, occ_tris)
+    _check_nee(origins, lz1, lz2, light)
+    dev = origins.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_nee_lean", origins.data_ptr(),
+                        dirs.data_ptr(), lz1.data_ptr(), lz2.data_ptr(),
+                        tris.data_ptr(), rows, occ_tris.data_ptr(), n_occ,
+                        light.data_ptr(), n, float(tmin), t.data_ptr(),
+                        row.data_ptr(), occ.data_ptr(), _stream(dev))
+        LAUNCHES["closest_nee_lean"] += 1
+    return t, row, occ
+
+
+def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
+                     lz1: torch.Tensor, lz2: torch.Tensor, tris: torch.Tensor,
+                     light: torch.Tensor, tmin: float, tmax: float):
+    """K5: K3 over ``tris`` clipped at ``tmax`` (no u/v), then the NEE
+    shadow ray any-hit over the same rows. Returns (t, row, normal [N, 3],
+    mat, occluded bool [N])."""
+    if _on_cpu(origins):
+        return _closest_nee_plain(origins, dirs, lz1, lz2, tris, tris, light,
+                                  tmin, tmax, full=True)
+    from .. import _kernels
+    n, rows = _check_inputs(origins, dirs, tris)
+    _check_nee(origins, lz1, lz2, light)
+    dev = origins.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    mat = torch.empty(n, dtype=torch.int32, device=dev)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_nee_full", origins.data_ptr(),
+                        dirs.data_ptr(), lz1.data_ptr(), lz2.data_ptr(),
+                        tris.data_ptr(), rows, light.data_ptr(), n,
+                        float(tmin), float(tmax), t.data_ptr(),
+                        row.data_ptr(), normal.data_ptr(), mat.data_ptr(),
+                        occ.data_ptr(), _stream(dev))
+        LAUNCHES["closest_nee_full"] += 1
+    return t, row, normal, mat, occ
+
+
 # --------------------------------------------------------------------------
 # Intersector entry points
 # --------------------------------------------------------------------------
@@ -375,6 +479,44 @@ def occluded_hit(tables: DenseTables, origins: torch.Tensor,
         in_range = h.hit & (h.t < tmax)
         return in_range & (tables.mat_bsdf[h.mat.long()] != BSDF_REFRACTION)
     return occluded(origins, dirs, tmax, tables.occ_rows, tmin)
+
+
+def light_vector(scene: SceneArrays) -> torch.Tensor:
+    """The area light as the fused kernels take it: [9] f32 (corner, v1,
+    v2) on the scene's device."""
+    light = scene.light
+    return torch.cat([light.corner, light.v1, light.v2]).to(
+        torch.float32).contiguous()
+
+
+def closest_nee_hit(tables: DenseTables, light: torch.Tensor,
+                    origins: torch.Tensor, dirs: torch.Tensor,
+                    lz1: torch.Tensor, lz2: torch.Tensor, tmin: float = 0.01,
+                    tmax: float = T_FAR) -> tuple[Hit, torch.Tensor]:
+    """Closest hit plus the NEE shadow ray's occlusion in one kernel
+    (``pallas_bf.intersect_closest_nee``): K4 when the table has at most
+    LEAN_MAX_TRIS rows, whatever tmax is (its shadow sweep takes the
+    occluder subset), else K5. Returns (Hit without u/v, occluded [N]
+    bool); the flag is meaningful only on hit lanes."""
+    if tables.rows.shape[0] <= LEAN_MAX_TRIS:
+        t, row, occ = closest_nee_lean(origins, dirs, lz1, lz2, tables.rows,
+                                       tables.occ_rows, light, tmin)
+        return _lean_resolve(tables.rows, origins, dirs, t, row, False), occ
+    t, row, normal, mat, occ = closest_nee_full(origins, dirs, lz1, lz2,
+                                                tables.rows, light, tmin, tmax)
+    zero = torch.zeros_like(t)
+    return Hit(t=t, tri=row, hit=t < T_FAR, normal=normal, mat=mat, u=zero,
+               v=zero), occ
+
+
+def intersect_closest_nee(scene: SceneArrays, origins: torch.Tensor,
+                          dirs: torch.Tensor, lz1: torch.Tensor,
+                          lz2: torch.Tensor, tmin: float = 0.01,
+                          tmax: float = T_FAR) -> tuple[Hit, torch.Tensor]:
+    """Closest hit plus NEE shadow-ray occlusion over a flat ray batch
+    (``pallas_bf.intersect_closest_nee``)."""
+    return closest_nee_hit(prepare(scene), light_vector(scene), origins, dirs,
+                           lz1, lz2, tmin, tmax)
 
 
 def intersect_closest(scene: SceneArrays, origins: torch.Tensor,

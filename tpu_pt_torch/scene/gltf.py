@@ -677,8 +677,9 @@ def load_gltf(path: str, default_lights: bool = True,
         verts = tv[sel].reshape(-1, 3)
         idx = np.arange(verts.shape[0], dtype=np.int64).reshape(-1, 3)
         return build_scene_arrays(verts, idx, tmat[sel], pt_mats,
-                                  light=default_cornell_light(),
-                                  extra_endpoints=extra_endpoints)
+                                  light=default_cornell_light("cpu"),
+                                  extra_endpoints=extra_endpoints,
+                                  device="cpu")
 
     everything = np.ones(n_t, bool)
     geom = scene_arrays(everything, extra)

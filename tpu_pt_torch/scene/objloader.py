@@ -183,8 +183,9 @@ def detect_area_light(mesh: ObjMesh) -> AreaLight | None:
 
 
 def load_scene(path: str, light: AreaLight | None = None,
-               auto_light: bool = True, device=None) -> SceneArrays:
-    """OBJ file -> SceneArrays on ``device``.
+               auto_light: bool = True, device="cuda") -> SceneArrays:
+    """OBJ file -> SceneArrays on ``device`` (the card unless the caller
+    asks for the CPU).
 
     The light is ``light`` if given, else the scene's emissive quad
     (``auto_light``), else the reference's Cornell light."""
@@ -197,7 +198,7 @@ def load_scene(path: str, light: AreaLight | None = None,
     if light is None and auto_light:
         light = detect_area_light(mesh)
     if light is None:
-        light = default_cornell_light()
+        light = default_cornell_light("cpu")
     return build_scene_arrays(
         mesh.vertices, mesh.indices, mesh.mat_indices,
         [m.as_dict() for m in mesh.materials], light=light, device=device)

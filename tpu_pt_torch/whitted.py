@@ -153,7 +153,8 @@ def _uv_affine(uvx: torch.Tensor, uu, vv):
             uvx[:, 3] * uu + uvx[:, 4] * vv + uvx[:, 5])
 
 
-def _make_occlusion(ws: WhittedScene, cfg: RenderConfig, occluded_fn):
+def _make_occlusion(ws: WhittedScene, cfg: RenderConfig, occluded_fn,
+                    intersectors=_intersectors):
     """Shadow-ray transmission ``(o, d, tmax) -> [N] f32``
     (``whitted_cuda.h:127-159`` and ``__anyhit__occlusion``,
     ``whitted.cu:113-138``). Without textured alpha occluders it is the
@@ -166,8 +167,8 @@ def _make_occlusion(ws: WhittedScene, cfg: RenderConfig, occluded_fn):
     if ao is None:
         return lambda o, d, tmax: torch.where(occluded_fn(o, d, tmax),
                                               0.0, 1.0)
-    _, occ_opaque = _intersectors(ao.occ_geom, ao.occ_inst, cfg)
-    closest_alpha, _ = _intersectors(ao.geom, ao.inst, cfg)
+    _, occ_opaque = intersectors(ao.occ_geom, ao.occ_inst, cfg)
+    closest_alpha, _ = intersectors(ao.geom, ao.inst, cfg)
 
     def occ_att(o, d, tmax):
         trans = torch.where(occ_opaque(o, d, tmax), 0.0, 1.0)
@@ -430,14 +431,17 @@ def _render_wide(ws, cam, cfg, pixel_start, n, frame_idx, step_fn,
 
 def render_whitted_wavefront(ws: WhittedScene, cam: CameraArrays,
                              cfg: RenderConfig, pixel_start: int,
-                             n_pixels: int, frame_idx: int):
+                             n_pixels: int, frame_idx: int,
+                             intersectors=_intersectors):
     """Direct-lighting estimate over ``cfg.spp`` jittered samples per
     pixel for ``n_pixels`` pixels from flat index ``pixel_start``.
     Returns (radiance [n, 3], RenderStats); the histogram's slots are
     [miss, depth-capped, absorbed, 0, 0]. ``cfg.scheduler`` is ``pixelq``
-    (default) or ``scan`` (the wide depth loop)."""
-    closest_fn, occluded_fn = _intersectors(ws.geom, ws.inst, cfg)
-    occ_att_fn = _make_occlusion(ws, cfg, occluded_fn)
+    (default) or ``scan`` (the wide depth loop). ``intersectors(geom,
+    table, cfg)`` gives each scene part's (closest_fn, occluded_fn)
+    (``debug.validate_whitted_frame`` hands in checked ones)."""
+    closest_fn, occluded_fn = intersectors(ws.geom, ws.inst, cfg)
+    occ_att_fn = _make_occlusion(ws, cfg, occluded_fn, intersectors)
     depth_cap = min(cfg.max_depth, MAX_TRACE_DEPTH)
     step_fn = _make_whitted_step(ws, cfg, closest_fn, occ_att_fn, frame_idx,
                                  depth_cap)
