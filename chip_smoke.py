@@ -4,8 +4,9 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --profile`` instead profiles one frame of
 bench.py's frame (unfused, fused_nee and regen), of the sphere box
-(unfused and fused) and of each Whitted main-path run (device busy and
-idle share, time by kernel) and prints no result line.
+(unfused and fused), of the big-mesh frame through each pair of clustered
+kernels (interleaved with the lean one) and of each Whitted main-path run
+(device busy and idle share, time by kernel) and prints no result line.
 It needs one CUDA device, ``nvcc`` (the kernels are built from
 ``tpu_pt_torch/csrc/`` on first use) and nothing of JAX. Phases, one line
 each; any failure raises and exits non-zero before the last line:
@@ -82,6 +83,34 @@ and the entry points around the path tracer:
    BENCH_* setting, and ``debug.trace_pixel`` under ``fused_nee``, whose
    per-bounce contributions sum to that pixel in a 1-spp frame.
 
+The rest of the clustered kernels (K6f: the full carry; K7 lean and full
+and K8b: a thread block builds and sweeps a shared work list) and the rest
+of the geometry (LBVH, scene-JSON and glTF-extras primitives and curves):
+
+15. kernels (in phase 4): K6f, K7 lean, K7 full and K8b on the big mesh at
+   32,768 rays with every eighth lane parked, bitwise against their plain
+   versions (u and v included) and against K6 / K8 on the same rays, timed
+   there and at 262,144 rays;
+16. big-mesh variants: tools/bench_big.py's frame three more times, under
+   ``TPT_LEAN_BIG=0`` (K6f + K8, K6 never), ``TPT_INKB=1`` (K7 lean + K8b,
+   K6 and K8 never) and both (K7 full + K8b), each accumulator equal to
+   the lean frame's bit for bit; pbr_big.glb's Whitted frame under
+   ``TPT_LEAN_UV=0`` (K6f with u, v) against the lean one within
+   tests/test_torch_whitted.py's bound; one call of each new wrapper
+   recorded from a warm-up frame, bitwise;
+17. huge mesh: ``tools/make_assets.py --huge`` (1,001,124 triangles) under
+   build/assets, loaded (seconds spent writing, parsing, ordering, building
+   the LBVH and packing), bench_big's frame through K6 + K8 and through
+   K7 + K8b: NOT_DONE == 0, finite, the two accumulators equal;
+18. LBVH: the big mesh's primary rays (64^2) through ``bvh`` against
+   ``dense`` (hit / miss and ids agree on >= 0.999 of them: the walk tests
+   Moller-Trumbore, the kernels the plane + edge form, and they may
+   disagree on an edge), a 64^2 x 2 spp frame through each within
+   tests/test_torch_render.py's bound, and the time of one closest call
+   at 32,768 rays;
+19. goldens (in phases 5 and 8): primitives.png and curves.png (scene
+   JSON, path tracer) and whitted-prims-curves.png (pbr_prims.gltf).
+
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
 rate.
@@ -126,9 +155,14 @@ GOLDEN_MODES = [         # tools/make_goldens.py MODES
     ("16-bounce", dict(use_importance_sampling=True,
                        use_direct_lighting=True, max_depth=16)),
 ]
+# Scene-JSON goldens (analytic primitives; swept-sphere curves), at the
+# path-trace goldens' configuration with IS + NEE.
+JSON_GOLDENS = [("primitives", "cornell_prims.json"),
+                ("curves", "cornell_curves.json")]
 _DENSE = "tpu_pt_torch/csrc/dense_intersect.cu"
 _CLUSTERED = "tpu_pt_torch/csrc/clustered_intersect.cu"
 _INSTANCED = "tpu_pt_torch/csrc/instanced_intersect.cu"
+_BUILD = "tpu_pt_torch/csrc/clustered_build.cu"
 KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "closest_lean": (_DENSE, "tpu_pt/intersect/pallas_bf.py:976"),
     "occluded": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1299"),
@@ -139,6 +173,12 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "occluded_inst": (_INSTANCED, "tpu_pt/intersect/pallas_inst.py:292"),
     "closest_nee_lean": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1263"),
     "closest_nee_full": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1222"),
+    "closest_clustered_full": (_CLUSTERED,
+                               "tpu_pt/intersect/pallas_bf.py:993"),
+    "closest_clustered_b": (_BUILD, "tpu_pt/intersect/pallas_bf.py:1137"),
+    "closest_clustered_full_b": (_BUILD,
+                                 "tpu_pt/intersect/pallas_bf.py:1088"),
+    "occluded_clustered_b": (_BUILD, "tpu_pt/intersect/pallas_bf.py:1182"),
 }
 # The bound: the larger of the operations over the card's f32 rate
 # without tensor cores and the bytes over its memory rate (H100 SXM data
@@ -157,6 +197,9 @@ WHITTED_BENCH = dict(width=512, height=512, spp=8, max_depth=8,
                      background=(0.1, 0.15, 0.25))
 WHITTED_GOLDENS = [
     ("whitted-pbr", "pbr_test.gltf", WHITTED_VIEW,
+     dict(width=128, height=128, spp=8, max_depth=8,
+          background=(0.1, 0.15, 0.25))),
+    ("whitted-prims-curves", "pbr_prims.gltf", WHITTED_VIEW,
      dict(width=128, height=128, spp=8, max_depth=8,
           background=(0.1, 0.15, 0.25))),
     ("whitted-alpha-shadow", "alpha_shadow.gltf",
@@ -194,6 +237,7 @@ CITY_CROSS = dict(width=32, height=32, spp=2, max_depth=4,
 INST_FLAT_RMSE = 2e-3    # tests/test_torch_instanced.py's bound
 N_INST_RAYS = 16384      # the forest frame's pixelq width (262,144 / 16)
 BIG_MESH = "big_mesh.obj"
+BIG_TAG = "bench_big 512^2 x 4 spp, depth 8, big mesh"
 BENCH_BIG = dict(width=512, height=512, spp=4, max_depth=8)
 # Main-path workloads: (tag, scene, frames rendered, last frames timed,
 # config, kernels the run must launch). The reference app's per-launch
@@ -216,10 +260,32 @@ MAIN_RUNS = [
      "cornell_box_sphere.obj", [0], 1,
      dict(width=512, height=512, spp=16, max_depth=4),
      ("closest_full", "occluded")),
-    ("bench_big 512^2 x 4 spp, depth 8, big mesh",
-     BIG_MESH, [0, 1, 2], 2, BENCH_BIG,
+    (BIG_TAG, BIG_MESH, [0, 1, 2], 2, BENCH_BIG,
      ("closest_clustered", "occluded_clustered")),
 ]
+# The big-mesh frame through the other clustered kernels: (what, the JAX
+# package's variables that select them, kernels the run must launch,
+# kernels it must not).
+BIG_VARIANTS = [
+    ("full carry", dict(TPT_LEAN_BIG="0"),
+     ("closest_clustered_full", "occluded_clustered"),
+     ("closest_clustered", "closest_clustered_b", "closest_clustered_full_b",
+      "occluded_clustered_b")),
+    ("in-kernel list", dict(TPT_INKB="1"),
+     ("closest_clustered_b", "occluded_clustered_b"),
+     ("closest_clustered", "occluded_clustered", "closest_clustered_full",
+      "closest_clustered_full_b")),
+    ("full carry, in-kernel list", dict(TPT_LEAN_BIG="0", TPT_INKB="1"),
+     ("closest_clustered_full_b", "occluded_clustered_b"),
+     ("closest_clustered", "occluded_clustered", "closest_clustered_full",
+      "closest_clustered_b")),
+]
+NEW_WRAPPERS = ("closest_clustered_full", "closest_clustered_b",
+                "closest_clustered_full_b", "occluded_clustered_b")
+WHITTED_TOL, WHITTED_SHARE = 1e-3, 0.02   # tests/test_torch_whitted.py
+HUGE_MESH = "huge_mesh.obj"
+HUGE_MIN_TRIS = 1_000_000
+LBVH_CHECK = dict(width=64, height=64, spp=2, max_depth=8)
 # Fused twins of main-path runs (tag of the unfused run, kernel the fused
 # run launches once per round, kernels it must not launch), and the regen
 # run of bench.py's frame.
@@ -524,10 +590,14 @@ def _plain(name: str, args):
         o, d, lz1, lz2, tris, light, tmin, tmax = args
         return dense._closest_nee_plain(o, d, lz1, lz2, tris, tris, light,
                                         tmin, tmax, full=True)
-    if name == "closest_clustered":
+    if name in ("closest_clustered", "closest_clustered_b"):
         o, d, rows, _, _, tmin, *tmax = args
         return clustered._closest_clustered_plain(o, d, rows, tmin, *tmax)
-    if name == "occluded_clustered":
+    if name in ("closest_clustered_full", "closest_clustered_full_b"):
+        o, d, rows, _, _, tmin, *rest = args
+        return clustered._closest_clustered_full_plain(o, d, rows, tmin,
+                                                       *rest)
+    if name in ("occluded_clustered", "occluded_clustered_b"):
         o, d, tmax, rows, _, _, tmin = args
         return clustered._occluded_clustered_plain(o, d, tmax, rows, tmin)
     if name == "closest_inst":
@@ -746,6 +816,63 @@ def phase_kernels(device, big):
         n=N_PLAIN_BIG, reps=10, plain_reps=2,
         at_n_rays=lambda: k8(*shadow_B))
 
+    # The rest of the clustered kernels on the same rays: K6f (the full
+    # carry, with u and v), K7 lean and full and K8b (the block's shared
+    # work list), each bitwise against its plain version, then against
+    # K6 / K8. The bound is the least the card could take for the function:
+    # K6's work (K8's) per ray, whatever list a block shares; the full
+    # carry writes 32 bytes per ray.
+    def full(kernel, o, d):
+        return kernel(o, d, rows, boxes, scale, 0.01, 1e16, True)
+
+    def full_plain(o, d):
+        return clustered._closest_clustered_full_plain(o, d, rows, 0.01,
+                                                       1e16, True)
+
+    def k7(o, d):
+        return clustered.closest_clustered_b(o, d, rows, boxes, scale, 0.01)
+
+    def k8b(o, d, tmax):
+        return clustered.occluded_clustered_b(o, d, tmax, rows, boxes, scale,
+                                              0.01)
+
+    for name, kernel, plain, nbytes, wide in (
+            ("closest_clustered_full",
+             lambda: full(clustered.closest_clustered_full, ob, db),
+             lambda: full_plain(ob, db), 32,
+             lambda: full(clustered.closest_clustered_full, oB, dB)),
+            ("closest_clustered_b", lambda: k7(ob, db),
+             lambda: k6_plain(ob, db), 8, lambda: k7(oB, dB)),
+            ("closest_clustered_full_b",
+             lambda: full(clustered.closest_clustered_full_b, ob, db),
+             lambda: full_plain(ob, db), 32,
+             lambda: full(clustered.closest_clustered_full_b, oB, dB))):
+        run(name, kernel, plain, rows.shape[0], _compare_exact,
+            lambda out, nbytes=nbytes: _clustered_work(
+                ob, db, out[0], rows, boxes, scale, nbytes),
+            n=N_PLAIN_BIG, reps=10, plain_reps=1, at_n_rays=wide)
+    run("occluded_clustered_b", lambda: k8b(*shadow),
+        lambda: k8_plain(*shadow), rows.shape[0], _compare_exact,
+        lambda out: _clustered_work(shadow[0], shadow[1], shadow[2], rows,
+                                    boxes, scale, 1, occluded=out),
+        n=N_PLAIN_BIG, reps=10, plain_reps=1,
+        at_n_rays=lambda: k8b(*shadow_B))
+    t6, row6 = k6(ob, db)
+    f6 = full(clustered.closest_clustered_full, ob, db)
+    ids = torch.where(t6 < 1e15, rows[row6.long(), 15], 0.0).to(torch.int32)
+    for what, a, b in (
+            ("K7 lean against K6", k7(ob, db), (t6, row6)),
+            ("K6f against K6 (t, id of the row)", f6[:2], (t6, ids)),
+            ("K7 full against K6f",
+             full(clustered.closest_clustered_full_b, ob, db), f6),
+            ("K8b against K8", (k8b(*shadow),), (k8(*shadow),))):
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: the kernels differ")
+        say("kernels", f"{what}: bitwise equal on {N_PLAIN_BIG} rays")
+    if not bool(f6[4].any()) or not bool(f6[5].any()):
+        raise AssertionError("K6f returned no u, v")
+
     # The exact inputs of one K6 and one K8 call of a bench_big frame,
     # through each wrapper and its plain version.
     _hold_recorded(records, _record_big_calls(big, device), "bench_big")
@@ -805,6 +932,29 @@ def phase_goldens(device):
         if not err < GOLDEN_RMSE:
             raise AssertionError(f"{name}: RMSE {err} >= {GOLDEN_RMSE}")
         worst = max(worst, err)
+    # Scene JSON: analytic primitives and curves beside the triangles'
+    # kernels (IS + NEE).
+    for name, scene_file in JSON_GOLDENS:
+        scene = tp.load_scene(str(ASSETS / scene_file), device=device)
+        _zero_counters()
+        accum, u8, per = _render(scene, device, [0], width=128, height=128,
+                                 spp=32, max_depth=4,
+                                 use_importance_sampling=True,
+                                 use_direct_lighting=True)
+        counts = _read_counters()
+        _check_frame(name, accum, per)
+        if counts["closest_lean"] <= 0 or counts["occluded"] <= 0:
+            raise AssertionError(f"{name}: launches {counts}")
+        golden = film.read_png(str(GOLDENS / f"{name}.png"))
+        err = film.rmse(tp.image_to_host(u8).astype(np.float32) / 255.0,
+                        golden.astype(np.float32) / 255.0)
+        say("goldens", f"{name} ({scene_file}: "
+            f"{0 if scene.prims is None else scene.prims.count} primitives, "
+            f"{0 if scene.curves is None else scene.curves.count} curve "
+            f"segments): RMSE {err:.5f} ({per[0][0] * 1e3:.1f} ms)")
+        if not err < GOLDEN_RMSE:
+            raise AssertionError(f"{name}: RMSE {err} >= {GOLDEN_RMSE}")
+        worst = max(worst, err)
     return worst
 
 
@@ -825,7 +975,8 @@ def _read_counters() -> dict:
 def phase_main_path(device, smi, big):
     """Each main-path run with the launch counters zeroed just before it
     and read just after; returns the launches summed per kernel, and for
-    each run of FUSED_TWINS (tag -> (run, accum, s/frame, Mrays/s))."""
+    each run of FUSED_TWINS and for the big-mesh run (tag -> (run, accum,
+    s/frame, Mrays/s))."""
     import tpu_pt_torch as tp
     scenes = {BIG_MESH: big}
     launches = dict.fromkeys(KERNELS, 0)
@@ -853,7 +1004,7 @@ def phase_main_path(device, smi, big):
                 raise AssertionError(f"{tag}: {k} never launched")
         for k, n in counts.items():
             launches[k] += n
-        if any(tag == t[0] for t in FUSED_TWINS):
+        if tag == BIG_TAG or any(tag == t[0] for t in FUSED_TWINS):
             twins[tag] = (run, accum, sec / timed, rays / sec / 1e6)
     say("main", f"kernel launches on the main path: {launches}")
     return launches, twins
@@ -873,14 +1024,258 @@ def phase_cross_check(big):
         _check_frame(f"cross-check on {scene.device}", accum, per)
         out.append((accum.cpu(), time.perf_counter() - t0))
     (cpu_img, cpu_s), (card_img, card_s) = out
-    diff = (cpu_img - card_img).abs().amax(dim=-1)
-    share = float((diff > PIXEL_TOL).float().mean())
+    line = _image_bound("the CPU and card big-mesh frames", cpu_img, card_img,
+                        PIXEL_TOL, PIXEL_SHARE)
     say("cross-check", f"big mesh {CROSS_CHECK}: CPU {cpu_s:.1f} s, "
-        f"card {card_s:.2f} s; mean |diff| {float(diff.mean()):.3e},"
-        f" {share:.4f} of pixels beyond {PIXEL_TOL}, max "
-        f"{float(diff.max()):.3e}")
-    if not (float(diff.mean()) < PIXEL_TOL and share <= PIXEL_SHARE):
-        raise AssertionError("the CPU and card big-mesh frames disagree")
+        f"card {card_s:.2f} s; {line}")
+
+
+# --------------------------------------------------------------------------
+# K6f / K7 / K8b on their main paths, the huge mesh and the LBVH
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _env(**variables):
+    """The JAX package's dispatch variables, set for the block."""
+    import os
+    saved = {k: os.environ.get(k) for k in variables}
+    os.environ.update(variables)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _image_bound(tag, a, b, tol, share_max):
+    """Two accumulators within (mean |diff| < tol, share of pixels beyond
+    tol <= share_max); returns the line to print."""
+    diff = (a - b).abs().amax(dim=-1)
+    share = float((diff > tol).float().mean())
+    if not (float(diff.mean()) < tol and share <= share_max):
+        raise AssertionError(f"{tag}: the frames disagree (mean |diff| "
+                             f"{float(diff.mean()):.3e}, {share:.4f} of "
+                             f"pixels beyond {tol})")
+    return (f"mean |diff| {float(diff.mean()):.3e}, {share:.4f} of pixels "
+            f"beyond {tol}, max {float(diff.max()):.3e}")
+
+
+def phase_big_variants(device, smi, big, lean, records):
+    """bench_big's frame through the other clustered kernels (BIG_VARIANTS),
+    counters zeroed just before each run and read just after: the kernels
+    the variables select launch, the ones they replace never, and the
+    accumulator equals the lean run's (``lean``: its twins entry) bit for
+    bit, since the path tracer reads no u, v. Then pbr_big.glb's Whitted
+    frame under TPT_LEAN_UV=0 (K6f with u, v) against the lean one. Each
+    warm-up frame records one call of each new wrapper, held bitwise
+    against its plain version. Returns the launches summed per kernel."""
+    import torch
+    import tpu_pt_torch as tp
+    launches = dict.fromkeys(KERNELS, 0)
+    (_, _, frames, timed, kw, _), lean_accum, lean_s, lean_mr = lean
+    for what, variables, expect, banned in BIG_VARIANTS:
+        tap = _Tap(NEW_WRAPPERS)
+        with _env(**variables):
+            _zero_counters()
+            accum, _, per = _render(big, device, frames, tap=tap,
+                                    use_direct_lighting=True,
+                                    use_importance_sampling=True, **kw)
+            counts = _read_counters()
+        tag = f"{BIG_TAG}, {what} {variables}"
+        _check_frame(tag, accum, per)
+        sec = sum(p[0] for p in per[-timed:])
+        rays = sum(p[1] for p in per[-timed:])
+        same = torch.equal(accum, lean_accum)
+        say("main", f"{tag}: {sec / timed * 1e3:.1f} ms/frame, "
+            f"{rays / sec / 1e6:.3f} Mrays/s over {timed} frame(s) (lean: "
+            f"{lean_s * 1e3:.1f} ms/frame, {lean_mr:.3f} Mrays/s); launches "
+            f"{ {k: n for k, n in counts.items() if n} }; accumulator "
+            f"bitwise equal to the lean run's: {same}; {smi}")
+        for k in expect:
+            if counts[k] <= 0:
+                raise AssertionError(f"{tag}: {k} never launched")
+        for k in banned:
+            if counts[k]:
+                raise AssertionError(f"{tag}: {k} launched")
+        if not same:
+            raise AssertionError(f"{tag}: the frame differs from the lean "
+                                 "one (bound: bitwise)")
+        for k, n in counts.items():
+            launches[k] += n
+        _hold_recorded(records, tap.picked, f"bench_big ({what})")
+        for k in expect:
+            if k in NEW_WRAPPERS and not any(n == k for n, _ in tap.picked):
+                raise AssertionError(f"{tag}: no {k} call was recorded")
+
+    # pbr_big.glb (Whitted, u and v wanted): lean K6 + gather against the
+    # full carry K6f. u and v differ by float association only.
+    ws = tp.load_gltf(str(ASSETS / "pbr_big.glb"), device=device)
+    out = {}
+    for what, variables in (("lean", {}),
+                            ("full carry", dict(TPT_LEAN_UV="0"))):
+        tap = _Tap(NEW_WRAPPERS)
+        with _env(**variables):
+            _zero_counters()
+            accum, _, per = _render_whitted(ws, device, WHITTED_VIEW, [0, 1],
+                                            tap=tap, **WHITTED_BENCH)
+            counts = _read_counters()
+        _check_frame(f"pbr_big {what}", accum, per)
+        out[what] = (accum.clone(), counts, per[1][0])
+        for k, n in counts.items():
+            launches[k] += n
+        _hold_recorded(records, tap.picked, f"pbr_big ({what})")
+    counts = out["full carry"][1]
+    if counts["closest_clustered_full"] <= 0 or counts["closest_clustered"] \
+            or out["lean"][1]["closest_clustered_full"]:
+        raise AssertionError(f"pbr_big under TPT_LEAN_UV=0: launches {counts}")
+    line = _image_bound("pbr_big full carry vs lean", out["full carry"][0],
+                        out["lean"][0], WHITTED_TOL, WHITTED_SHARE)
+    say("whitted", f"pbr_big 512^2 x 8 spp under TPT_LEAN_UV=0: "
+        f"{out['full carry'][2] * 1e3:.1f} ms/frame (lean "
+        f"{out['lean'][2] * 1e3:.1f}); launches "
+        f"{ {k: n for k, n in counts.items() if n} } in 2 frames; against "
+        f"the lean frame: {line}; {smi}")
+    return launches
+
+
+def phase_huge_mesh(device, smi):
+    """The 1M-triangle mesh: written, loaded (with the seconds each step
+    took), and bench_big's frame through K6 + K8 and through K7 + K8b."""
+    import torch
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import clustered, kernel_module, lbvh
+    from tpu_pt_torch.scene import arrays, objloader
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_assets.py"),
+                    "--huge", "--out", str(BUILD_ASSETS)], check=True,
+                   capture_output=True, timeout=900)
+    written = time.perf_counter() - t0
+    spent = {}
+
+    def timed(module, name):
+        fn = getattr(module, name)
+
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            return out
+        setattr(module, name, call)
+        return fn
+    saved = [(m, n, timed(m, n)) for m, n in (
+        (objloader, "load_obj"), (arrays, "median_split_order"),
+        (arrays, "nee_occluder_index"), (lbvh, "build_lbvh"))]
+    try:
+        t0 = time.perf_counter()
+        scene = tp.load_scene(str(BUILD_ASSETS / HUGE_MESH), device=device)
+        torch.cuda.synchronize()
+        loaded = time.perf_counter() - t0
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    if kernel_module(scene) is not clustered or scene.num_tris < HUGE_MIN_TRIS:
+        raise AssertionError("the huge mesh must take the clustered kernels")
+    t0 = time.perf_counter()
+    tables = clustered.prepare(scene)
+    torch.cuda.synchronize()
+    packed = time.perf_counter() - t0
+    say("huge", f"{HUGE_MESH}: {scene.num_tris} triangles, "
+        f"{tables.boxes.shape[0]} clusters, {scene.num_occluders} NEE "
+        f"occluders; written in {written:.1f} s; load_scene {loaded:.1f} s "
+        f"(parsing {spent['load_obj']:.1f} s, ordering "
+        f"{spent['median_split_order']:.1f} s, occluder analysis "
+        f"{spent['nee_occluder_index']:.1f} s, LBVH build on the card "
+        f"{spent['build_lbvh']:.1f} s); packing {packed * 1e3:.1f} ms")
+    del tables
+    launches = dict.fromkeys(KERNELS, 0)
+    frames = {}
+    for what, variables, expect in (
+            ("K6 + K8", {}, ("closest_clustered", "occluded_clustered")),
+            ("K7 + K8b", dict(TPT_INKB="1"),
+             ("closest_clustered_b", "occluded_clustered_b"))):
+        with _env(**variables):
+            _zero_counters()
+            accum, _, per = _render(scene, device, [0, 1],
+                                    use_direct_lighting=True,
+                                    use_importance_sampling=True, **BENCH_BIG)
+            counts = _read_counters()
+        _check_frame(f"huge mesh {what}", accum, per)
+        for k in expect:
+            if counts[k] <= 0:
+                raise AssertionError(f"huge mesh {what}: {k} never launched")
+        for k, n in counts.items():
+            launches[k] += n
+        frames[what] = accum.clone()
+        say("huge", f"bench_big's frame through {what}: frame 1 "
+            f"{per[1][0] * 1e3:.1f} ms, "
+            f"{per[1][1] / per[1][0] / 1e6:.3f} Mrays/s, rounds "
+            f"{int(per[1][2].wavefront_iterations)}; launches "
+            f"{ {k: n for k, n in counts.items() if n} } in 2 frames; {smi}")
+    if not torch.equal(frames["K6 + K8"], frames["K7 + K8b"]):
+        raise AssertionError("the huge mesh's frames differ between the two "
+                             "designs")
+    say("huge", "the two designs' accumulators are bitwise equal")
+    return launches
+
+
+def phase_lbvh(device, smi, big):
+    """The LBVH on the card against the kernels, on the big mesh."""
+    import torch
+    import tpu_pt_torch as tp
+    from tpu_pt_torch import rng
+    from tpu_pt_torch.intersect import clustered, lbvh
+    from tpu_pt_torch.render import CameraArrays, camera_rays
+    if big.bvh is None:
+        raise AssertionError("load_scene must attach the LBVH")
+    tables = clustered.prepare(big)
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device=device)
+    side = LBVH_CHECK["width"]
+    pix = torch.arange(side * side, device=device)
+    jx, jy = rng.uniform2(pix, 0, 0, rng.STREAM_JITTER)
+    o, d = camera_rays(cam, pix, side, side, jx, jy)
+    hb = lbvh.intersect_closest(big, o, d)
+    hd = clustered.closest_hit(tables, o, d)
+    hit_same = float((hb.hit == hd.hit).float().mean())
+    both = hb.hit & hd.hit
+    id_same = float((hb.tri == hd.tri)[both].float().mean())
+    dt = float((hb.t - hd.t)[both].abs().max())
+    say("lbvh", f"{side}^2 primary rays on the big mesh ({big.bvh.num_nodes} "
+        f"nodes): hit / miss agree on {hit_same:.4f}, ids on {id_same:.4f} "
+        f"of the {int(both.sum())} hits, max |dt| {dt:.3e}")
+    if hit_same < ROW_AGREE or id_same < ROW_AGREE or dt > 1e-2:
+        raise AssertionError("the LBVH walk and the kernels disagree")
+    imgs = {}
+    for backend in ("bvh", "dense"):
+        accum, _, per = _render(big, device, [0], intersector=backend,
+                                use_direct_lighting=True,
+                                use_importance_sampling=True, **LBVH_CHECK)
+        _check_frame(f"big mesh through {backend}", accum, per)
+        imgs[backend] = (accum.clone(), per[0][0],
+                         int(per[0][2].wavefront_iterations))
+    line = _image_bound("bvh vs dense", imgs["bvh"][0], imgs["dense"][0],
+                        PIXEL_TOL, PIXEL_SHARE)
+    say("lbvh", f"big mesh {LBVH_CHECK}: bvh {imgs['bvh'][1]:.2f} s, dense "
+        f"{imgs['dense'][1]:.2f} s, {imgs['bvh'][2]} rounds; {line}")
+    rays = _phase3_rays(big, device, 3, tables.rows,
+                        lambda o, d: clustered.closest_clustered(
+                            o, d, tables.rows, tables.boxes, tables.scale,
+                            0.01), N_PLAIN_BIG)
+    (ob, db), _ = _park(rays[:2], rays[2], PARK_EVERY)
+    lbvh.intersect_closest(big, ob, db)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lbvh.intersect_closest(big, ob, db)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    k6_ms = gpu_ms(lambda: clustered.closest_clustered(
+        ob, db, tables.rows, tables.boxes, tables.scale, 0.01), 5)
+    say("lbvh", f"one closest call at {N_PLAIN_BIG} rays (one in "
+        f"{PARK_EVERY} parked): LBVH walk {walk_s * 1e3:.1f} ms (host "
+        f"clock; the end of the walk is read every {lbvh.CUDA_CHECK_EVERY} "
+        f"steps), K6 {k6_ms:.4f} ms; {smi}")
 
 
 # --------------------------------------------------------------------------
@@ -1580,14 +1975,10 @@ def phase_whitted_cross_check(device):
             raise AssertionError("K9 must launch on the card only")
         out.append((accum.cpu(), per[0][0]))
     (cpu_img, cpu_s), (card_img, card_s) = out
-    diff = (cpu_img - card_img).abs().amax(dim=-1)
-    share = float((diff > PIXEL_TOL).float().mean())
+    line = _image_bound("the CPU and card city frames", cpu_img, card_img,
+                        PIXEL_TOL, PIXEL_SHARE)
     say("cross-check", f"instanced city {CITY_CROSS}: CPU {cpu_s:.1f} s, "
-        f"card {card_s:.2f} s; mean |diff| {float(diff.mean()):.3e}, "
-        f"{share:.4f} of pixels beyond {PIXEL_TOL}, max "
-        f"{float(diff.max()):.3e}")
-    if not (float(diff.mean()) < PIXEL_TOL and share <= PIXEL_SHARE):
-        raise AssertionError("the CPU and card city frames disagree")
+        f"card {card_s:.2f} s; {line}")
 
 
 # Path-trace runs of ``--profile``: bench.py's frame unfused, under
@@ -1644,6 +2035,29 @@ def _profile_frame(tag, render_one, wall_ms, rounds, smi):
         + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top) + f"; {smi}")
 
 
+def _profile_big(device, smi):
+    """The big-mesh frame through each pair of clustered kernels, the lean
+    one before and after each other variant."""
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.render import CameraArrays, init_accum, render_frame
+    big = phase_assets(device)
+    kw = dict(BENCH_BIG, use_direct_lighting=True,
+              use_importance_sampling=True)
+    cfg = tp.RenderConfig(**kw)
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device=device)
+    order = [("lean (K6 + K8)", {})]
+    for what, variables, _, _ in BIG_VARIANTS:
+        order += [(what, variables), ("lean (K6 + K8)", {})]
+    for what, variables in order:
+        with _env(**variables):
+            _, _, per = _render(big, device, [0, 1], **kw)
+            accum = init_accum(cfg, device=device)
+            _profile_frame(f"big mesh, {what} {variables or ''}".strip(),
+                           lambda: render_frame(big, cam, cfg, 2, accum),
+                           per[1][0] * 1e3,
+                           int(per[1][2].wavefront_iterations), smi)
+
+
 def phase_profile(device, smi):
     """One profiled frame of each run of PROFILE_PT and of each Whitted
     main-path run (``--profile``): frame 0 warms up, frame 1 is timed
@@ -1672,6 +2086,7 @@ def phase_profile(device, smi):
                                             accum),
                        per[1][0] * 1e3, int(per[1][2].wavefront_iterations),
                        smi)
+    _profile_big(device, smi)
     for tag, scene, inst_mode, _, _, kw, _ in WHITTED_RUNS:
         ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
                           device=device)
@@ -1700,6 +2115,8 @@ def main() -> int:
     phase_fused_goldens(device)
     phase_whitted_goldens(device)
     launches, twins = phase_main_path(device, smi, big)
+    b_launches = phase_big_variants(device, smi, big, twins[BIG_TAG],
+                                    records)
     f_launches = phase_fused_main(device, smi, twins, records)
     del twins
     w_launches, recorded = phase_whitted_main(device, smi)
@@ -1707,7 +2124,9 @@ def main() -> int:
     phase_whitted_calls(recorded, records)
     del recorded
     phase_cross_check(big)
+    phase_lbvh(device, smi, big)
     phase_whitted_cross_check(device)
+    h_launches = phase_huge_mesh(device, smi)
     phase_entry_points(device, smi)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -1717,8 +2136,8 @@ def main() -> int:
         first = records[kname][0]
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=(launches[kname] + w_launches[kname]
-                      + f_launches[kname]),
+            launches=sum(part[kname] for part in (
+                launches, w_launches, f_launches, b_launches, h_launches)),
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],

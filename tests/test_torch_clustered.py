@@ -1,6 +1,8 @@
 """Port parity for the big-scene path: tpu_pt_torch.intersect.clustered
-(the CPU path of the clustered CUDA kernels K6 and K8) against
-tpu_pt.intersect.pallas_bf's clustered path, run in interpret mode.
+(the CPU path of the clustered CUDA kernels K6, K6f, K7, K8 and K8b)
+against tpu_pt.intersect.pallas_bf's clustered path, run in interpret
+mode, under the same ``TPT_LEAN_BIG`` / ``TPT_LEAN_UV`` / ``TPT_INKB``
+variables.
 
 Scenes here are small, so the size knobs are shrunk by monkeypatch as
 ``tests/test_pallas_bf.py`` does: ``TRI_SLAB`` (both packages) sends the
@@ -12,7 +14,14 @@ equal; t is held as in ``test_torch_intersect.py`` (|dt| * |n.d| within
 T_ATOL + T_RTOL * t). The winning triangle, its material and normal are
 equal except on ties: the JAX kernels keep the first cluster they visit
 among equal t, the port the lowest packed row, so a mismatch must be a
-second triangle hit at the same t within that tolerance.
+second triangle hit at the same t within that tolerance. The full carry's
+u and v agree with the JAX kernels' to UV_ATOL = 1e-4 where the triangles
+do: u = wu . p + cu, and the packed cu (hundreds in the Cornell box, one
+ulp 3e-5) itself differs by up to 2e-4 between the packages, since XLA
+fuses ``pack_tris``' multiply-adds (see the packing test below; 1.3e-5 is
+the most seen here). Within the port, the full carry against the lean
+kernel and its gather, they agree to 1e-5, the JAX package's own bound
+between its two (tests/test_pallas_bf.py).
 """
 
 import importlib.util
@@ -376,3 +385,147 @@ def test_clustered_resolve_reads_original_ids(sphere_scenes):
     same = t.tri.numpy() == np.asarray(j.tri)
     np.testing.assert_allclose(t.u.numpy()[same], np.asarray(j.u)[same],
                                atol=5e-4)
+
+
+def _spy(monkeypatch, module, names):
+    """Count the calls of ``module``'s wrappers ``names`` while they run."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def counted(*a, _fn=getattr(module, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+UV_ATOL = 1e-4
+CLOSEST_WRAPPERS = ("closest_clustered", "closest_clustered_full",
+                    "closest_clustered_b", "closest_clustered_full_b")
+
+
+@pytest.mark.parametrize("env, want_uv", [({"TPT_LEAN_BIG": "0"}, False),
+                                          ({"TPT_LEAN_BIG": "0"}, True),
+                                          ({"TPT_LEAN_UV": "0"}, True)])
+def test_full_carry_matches_pallas(mixed_scenes, monkeypatch, env, want_uv):
+    """K6f's plain version, taken by ``closest_hit`` under the JAX
+    package's variables, against the full-carry clustered Pallas kernels
+    under the same variables: hit, t, id, material and normal as K6's
+    test holds them, u and v to UV_ATOL."""
+    jscene, tscene = mixed_scenes
+    _shrink(monkeypatch)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    calls = _spy(monkeypatch, clustered, CLOSEST_WRAPPERS)
+    o, d, _, _, _ = _rays(jscene, 512, seed=17)
+    tables = clustered.prepare(tscene)
+    j = pallas_bf.intersect_closest(jscene, jnp.asarray(o), jnp.asarray(d),
+                                    want_uv=want_uv)
+    t = clustered.closest_hit(tables, _t(o), _t(d), want_uv=want_uv)
+    assert calls == {**dict.fromkeys(CLOSEST_WRAPPERS, 0),
+                     "closest_clustered_full": 1}
+    hit = _assert_same_clustered_hit(j, t, o, d, tscene)
+    assert 0.5 < hit.mean() < 1.0
+    same = t.tri.numpy() == np.asarray(j.tri)
+    if want_uv:
+        np.testing.assert_allclose(t.u.numpy()[same], np.asarray(j.u)[same],
+                                   atol=UV_ATOL)
+        np.testing.assert_allclose(t.v.numpy()[same], np.asarray(j.v)[same],
+                                   atol=UV_ATOL)
+        assert t.u.numpy()[hit].any()
+    else:
+        assert not t.u.any() and not t.v.any()
+    # The full carry equals the lean kernel and its gather, u and v to
+    # float association.
+    for k in env:
+        monkeypatch.delenv(k)
+    lean = clustered.closest_hit(tables, _t(o), _t(d), want_uv=want_uv)
+    assert calls["closest_clustered"] == 1
+    for k in ("t", "tri", "hit", "normal", "mat"):
+        assert torch.equal(getattr(t, k), getattr(lean, k)), k
+    np.testing.assert_allclose(t.u.numpy(), lean.u.numpy(), atol=1e-5)
+    np.testing.assert_allclose(t.v.numpy(), lean.v.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("lean_big", ["1", "0"])
+def test_inkb_dispatch_matches_pallas(mixed_scenes, monkeypatch, lean_big):
+    """``TPT_INKB=1`` sends the clustered calls to the kernels that build
+    their work list (K7 lean or full, K8b); on the CPU their plain
+    versions, held against the JAX package under the same variable."""
+    jscene, tscene = mixed_scenes
+    _shrink(monkeypatch)
+    monkeypatch.setenv("TPT_INKB", "1")
+    monkeypatch.setenv("TPT_LEAN_BIG", lean_big)
+    names = CLOSEST_WRAPPERS + ("occluded_clustered", "occluded_clustered_b")
+    calls = _spy(monkeypatch, clustered, names)
+    monkeypatch.setattr(dense, "TRI_SLAB", 16)      # shadow rays take K8(b)
+    o, d, p, ld, tmax = _rays(jscene, 512, seed=18)
+    tables = clustered.prepare(tscene)
+    assert tables.occ_rows is None
+    before = dict(clustered.LAUNCHES)
+    j = pallas_bf.intersect_closest(jscene, jnp.asarray(o), jnp.asarray(d),
+                                    want_uv=False)
+    t = clustered.closest_hit(tables, _t(o), _t(d), want_uv=False)
+    _assert_same_clustered_hit(j, t, o, d, tscene)
+    occ = clustered.occluded_hit(tables, _t(p), _t(ld), _t(tmax))
+    jocc = pallas_bf._intersect_occluded_tiled(
+        jscene, jnp.asarray(p), jnp.asarray(ld), jnp.asarray(tmax))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+    taken = ("closest_clustered_b" if lean_big == "1"
+             else "closest_clustered_full_b")
+    assert calls == {**dict.fromkeys(names, 0), taken: 1,
+                     "occluded_clustered_b": 1}
+    assert clustered.LAUNCHES == before         # CPU tensors: plain versions
+    assert set(names) == set(clustered.LAUNCHES)
+
+
+def test_variables_are_read_at_call_time(mixed_scenes, monkeypatch):
+    """The intersectors made once switch kernels when a variable changes
+    between two calls."""
+    _, tscene = mixed_scenes
+    _shrink(monkeypatch)
+    for k in ("TPT_LEAN_BIG", "TPT_LEAN_UV", "TPT_INKB"):
+        monkeypatch.delenv(k, raising=False)
+    assert clustered.variant(True) == clustered.variant(False) == (False,
+                                                                   False)
+    calls = _spy(monkeypatch, clustered, CLOSEST_WRAPPERS)
+    cfg = tp.RenderConfig(width=8, height=8, spp=1, intersector="dense")
+    closest, _ = get_intersectors(tscene, cfg, want_uv=True)
+    o = torch.tensor([[278.0, 273.0, -800.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0]])
+    closest(o, d)
+    monkeypatch.setenv("TPT_LEAN_UV", "0")
+    assert clustered.variant(True) == (True, False)
+    assert clustered.variant(False) == (False, False)
+    closest(o, d)
+    monkeypatch.setenv("TPT_INKB", "1")
+    assert clustered.variant(True) == (True, True)
+    closest(o, d)
+    monkeypatch.setenv("TPT_LEAN_UV", "1")
+    closest(o, d)
+    assert calls == dict.fromkeys(CLOSEST_WRAPPERS, 1)
+    monkeypatch.setenv("TPT_LEAN_BIG", "0")
+    assert clustered.variant(False) == (True, True)
+
+
+def test_lean_uv0_single_slab_takes_full_kernel(mixed_scenes, monkeypatch):
+    """On a single-slab scene ``TPT_LEAN_UV=0`` sends a call that wants
+    u, v to K3 instead of K1 and its gather, as the JAX package does;
+    u and v agree with the JAX full-carry kernel to UV_ATOL."""
+    jscene, tscene = mixed_scenes
+    calls = _spy(monkeypatch, dense, ("closest_lean", "closest_full"))
+    tables = dense.prepare(tscene)
+    o, d, _, _, _ = _rays(jscene, 512, seed=19)
+    lean = dense.closest_hit(tables, _t(o), _t(d), want_uv=True)
+    monkeypatch.setenv("TPT_LEAN_UV", "0")
+    dense.closest_hit(tables, _t(o), _t(d), want_uv=False)
+    assert calls == {"closest_lean": 2, "closest_full": 0}
+    full = dense.closest_hit(tables, _t(o), _t(d), want_uv=True)
+    assert calls == {"closest_lean": 2, "closest_full": 1}
+    j = pallas_bf.intersect_closest(jscene, jnp.asarray(o), jnp.asarray(d),
+                                    want_uv=True)
+    for k in ("t", "tri", "hit", "normal", "mat"):
+        assert torch.equal(getattr(full, k), getattr(lean, k)), k
+    np.testing.assert_array_equal(full.tri.numpy(), np.asarray(j.tri))
+    np.testing.assert_allclose(full.u.numpy(), np.asarray(j.u), atol=UV_ATOL)
+    np.testing.assert_allclose(full.v.numpy(), np.asarray(j.v), atol=UV_ATOL)
+    np.testing.assert_allclose(full.u.numpy(), lean.u.numpy(), atol=1e-5)

@@ -224,8 +224,8 @@ def test_above_tri_slab_takes_clustered():
 def test_get_intersectors_resolution(scenes):
     """auto is brute force on the CPU; fused_nee leaves the two-kernel
     intersectors as they are (the fused kernels come from
-    get_fused_closest_nee, tests/test_torch_fused_nee.py); bvh is not
-    ported."""
+    get_fused_closest_nee, tests/test_torch_fused_nee.py); bvh takes the
+    LBVH walk and an unknown name raises."""
     _, tscene = scenes["mixed"]
     cfg = tp.RenderConfig(width=8, height=8, spp=1)
     closest, _ = get_intersectors(tscene, cfg)
@@ -234,5 +234,9 @@ def test_get_intersectors_resolution(scenes):
               cfg.with_(intersector="dense", fused_nee=True)):
         closest, _ = get_intersectors(tscene, c)
         assert closest.func is dense.closest_hit
-    with pytest.raises(NotImplementedError):
-        get_intersectors(tscene, cfg.with_(intersector="bvh"))
+    from tpu_pt_torch.intersect import lbvh
+    closest, occluded = get_intersectors(tscene, cfg.with_(intersector="bvh"))
+    assert closest.func is lbvh.intersect_closest
+    assert occluded.func is lbvh.intersect_occluded
+    with pytest.raises(ValueError):
+        get_intersectors(tscene, cfg.with_(intersector="pallas"))

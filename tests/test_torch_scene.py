@@ -1,5 +1,9 @@
 """Port parity: tpu_pt_torch.load_scene builds the same scene as tpu_pt's,
-leaf for leaf and bit for bit, including the NEE occluder subset."""
+leaf for leaf and bit for bit, including the NEE occluder subset, the
+analytic primitives and the curves. The LBVH's node table is held equal in
+tests/test_torch_lbvh.py (the JAX loader may build its tree with its
+native host build, whose topology differs): here both scenes must carry
+one of the same size."""
 
 import dataclasses
 
@@ -13,6 +17,10 @@ import tpu_pt_torch as tp  # noqa: E402
 from tpu_pt_torch.scene import SceneArrays, scene_from_numpy  # noqa: E402
 
 LIGHT_FIELDS = ("corner", "v1", "v2", "normal", "emission")
+BVH_FIELDS = ("nodes", "left", "skip", "tri")
+PRIM_FIELDS = ("params", "mat")
+CURVE_FIELDS = ("k0", "k1", "k2", "k3", "mat")
+PARTS = {"bvh": BVH_FIELDS, "prims": PRIM_FIELDS, "curves": CURVE_FIELDS}
 SCENES = ["cornell_box.obj", "cornell_box_mixed.obj", "cornell_box_monkey.obj"]
 
 
@@ -21,20 +29,40 @@ def numpy_leaves(jscene) -> dict:
     leaves = {f.name: (None if getattr(jscene, f.name) is None
                        else np.asarray(getattr(jscene, f.name)))
               for f in dataclasses.fields(SceneArrays)
-              if f.name not in ("light", "num_tris", "num_occluders")}
+              if f.name not in ("light", "num_tris", "num_occluders", *PARTS)}
     leaves["light"] = {k: np.asarray(getattr(jscene.light, k))
                        for k in LIGHT_FIELDS}
+    for name, fields in PARTS.items():
+        part = getattr(jscene, name, None)
+        if part is None:
+            continue
+        leaves[name] = {k: np.asarray(getattr(part, k)) for k in fields}
+        if name == "prims":
+            leaves[name]["kind"] = part.kind
+        if name != "bvh":
+            leaves[name]["occludes"] = part.occludes
     return leaves
 
 
 def assert_same_scene(tscene, jscene):
     for f in dataclasses.fields(SceneArrays):
         ours, ref = getattr(tscene, f.name), getattr(jscene, f.name)
-        if f.name == "light":
-            for k in LIGHT_FIELDS:
+        if f.name == "bvh":
+            assert (ours is None) == (ref is None)
+            assert ours is None or ours.num_nodes == ref.num_nodes
+        elif f.name in ("light", "prims", "curves"):
+            assert (ours is None) == (ref is None), f.name
+            if ours is None:
+                continue
+            for k in (LIGHT_FIELDS if f.name == "light" else PARTS[f.name]):
                 a, b = getattr(ours, k).numpy(), np.asarray(getattr(ref, k))
                 assert a.dtype == b.dtype, k
                 np.testing.assert_array_equal(a, b, err_msg=k)
+            if f.name != "light":
+                assert ours.occludes == ref.occludes
+                assert ours.count == ref.count
+            if f.name == "prims":
+                assert ours.kind == ref.kind
         elif isinstance(ours, torch.Tensor):
             a, b = ours.numpy(), np.asarray(ref)
             assert a.dtype == b.dtype, (f.name, a.dtype, b.dtype)
@@ -80,5 +108,13 @@ def test_load_scene_defaults_to_the_card(assets_dir):
 
 
 def test_non_obj_scenes_not_ported(assets_dir):
+    """Scene JSON and glTF load for the path tracer now; what stays
+    unported is the JAX package's native host LBVH build."""
+    scene = tp.load_scene(str(assets_dir / "cornell_prims.json"),
+                          device="cpu")
+    assert scene.prims.count == 3 and scene.bvh is not None
+    assert tp.load_scene(str(assets_dir / "pbr_test.gltf"),
+                         device="cpu").num_tris == 806
+    from tpu_pt_torch.intersect.lbvh import with_bvh
     with pytest.raises(NotImplementedError):
-        tp.load_scene(str(assets_dir / "cornell_prims.json"), device="cpu")
+        with_bvh(scene, build="native")

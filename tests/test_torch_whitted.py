@@ -127,9 +127,9 @@ def _assert_same_table(ours, ref):
 
 def assert_same_whitted(ours: WhittedScene, ref) -> None:
     """Every leaf equal: tables bitwise (dtype included), textures exactly,
-    the static fields, the geometry (BVH leaves aside: the LBVH is not
-    ported, ROADMAP.md Queue 1 item 12), instance tables and the alpha
-    split."""
+    the static fields, the geometry (its analytic primitives and curves
+    included; of the LBVH its size, tests/test_torch_lbvh.py holds the
+    rest), instance tables and the alpha split."""
     assert_same_scene(ours.geom, ref.geom)
     for k in TABLES:
         a, b = getattr(ours, k).numpy(), np.asarray(getattr(ref, k))
@@ -204,10 +204,13 @@ def test_instanced_alpha_split_matches_reference(assets_dir):
 
 
 def test_unported_inputs_raise(assets_dir, tmp_path):
-    """The extras analytic primitives and curves, and JPEG textures, name
-    the ROADMAP item that will port them."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tp.load_gltf(str(assets_dir / "pbr_prims.gltf"), device="cpu")
+    """JPEG textures name the ROADMAP item that will port them; the extras
+    analytic primitives and curves load, equal to the JAX loader's."""
+    path = str(assets_dir / "pbr_prims.gltf")
+    ours = tp.load_gltf(path, device="cpu")
+    assert ours.geom.prims.count == 3 and ours.geom.curves.count == 3
+    assert ours.inst is None
+    assert_same_whitted(ours, jgltf.load_gltf(path))
     import json
     doc = json.loads((assets_dir / "alpha_shadow.gltf").read_text())
     (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))

@@ -1,10 +1,11 @@
 """tpu_pt_torch — the PyTorch + CUDA port of ``tpu_pt`` for NVIDIA Hopper.
 
-A progressive wavefront path tracer: OBJ Cornell scenes with diffuse,
-GGX-metal and dielectric BSDFs, area-light next-event estimation, Russian
-roulette and progressive sRGB accumulation; and the Whitted
-direct-lighting pipeline over glTF scenes, flattened or instanced. It
-imports only ``torch`` and ``numpy``. The ray-triangle sweeps are
+A progressive wavefront path tracer: OBJ, scene-JSON and glTF scenes
+(triangles, analytic spheres, shells and parallelograms, swept-sphere
+curves) with diffuse, GGX-metal and dielectric BSDFs, area-light
+next-event estimation, Russian roulette and progressive sRGB
+accumulation; and the Whitted direct-lighting pipeline over glTF scenes,
+flattened or instanced. It imports only ``torch`` and ``numpy``. The ray-triangle sweeps are
 hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use
 on a CUDA device; on CPU tensors their plain PyTorch versions run
 instead. Scenes, cameras and accumulators land on the card unless the

@@ -48,7 +48,7 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-importance-sampling", dest="importance_sampling",
                    action="store_false")
     p.add_argument("--intersector", default="auto",
-                   choices=["auto", "bruteforce", "dense"])
+                   choices=["auto", "bruteforce", "dense", "bvh"])
     p.add_argument("--scheduler", default="pixelq",
                    choices=["pixelq", "regen", "scan"])
     p.add_argument("--reference-quirks", action="store_true",

@@ -48,7 +48,7 @@ class RenderConfig:
     quirks: Quirks = dataclasses.field(default_factory=Quirks)
 
     # Engine knobs (no reference analog).
-    intersector: str = "auto"   # auto | bruteforce | dense
+    intersector: str = "auto"   # auto | bruteforce | dense | bvh
     scheduler: str = "pixelq"   # pixelq (pixel-queue wavefront) | regen
                                 # (path-queue wavefront) | scan
     lanes: int = 262144         # wavefront width cap (pixelq, regen)

@@ -10,6 +10,16 @@
 //                              launched by _closest_call_clustered (:1989):
 //                              per ray, the closest (t, packed row) over the
 //                              whole clustered table, with t < tmax.
+//   tpt_closest_clustered_full
+//                           <- _closest_kernel_clustered (:993) and
+//                              _closest_kernel_chained (:1012), the same call
+//                              site with lean=False: the same traversal with
+//                              the full carry of _closest_sweep (:722-765),
+//                              the winner's normal, material, original
+//                              triangle id and (want_uv) u, v, so that no
+//                              gather follows. One entry point for both
+//                              bodies: the chained one exists because a TPU
+//                              table is cut into VMEM slabs.
 //   tpt_occluded_clustered  <- _occluded_kernel_clustered (:1204), launched
 //                              by _occluded_call_clustered (:2128): is any
 //                              non-refractive row hit with tmin < t < tmax_ray?
@@ -42,7 +52,9 @@
 //   hit that could change the result, and the best hit is replaced when
 //   t < best, or t == best on a lower row, so the visit order does not
 //   matter. The per-pair test is pe_test of pe_block.cuh, built with
-//   --fmad=false.
+//   --fmad=false. The full carry is write_attrs of pe_block.cuh, the
+//   device code of the dense full-carry kernel (tpt_closest_full): u and v
+//   are formed once from the winning row, never reduced over rows.
 // - The slab test (pe_block.cuh, slab_passes) takes the eps-guarded
 //   reciprocal of _ray_inv (pallas_bf.py:533-542), so axis-parallel rays
 //   stay finite, and every quantity it forms is finite or +-inf, never
@@ -72,14 +84,20 @@ __device__ __forceinline__ bool box_passes(const Ray& r, const Slab& s,
                      __ldg(boxes + 2 * (size_t)c + 1), m, tmin, bound);
 }
 
+// kFull: row_out takes the winner's original triangle id (column 15) and
+// the attribute outputs are written; else row_out takes its packed row.
+template <bool kFull>
 __global__ void __launch_bounds__(kThreads)
 closest_clustered_kernel(const float* __restrict__ orig,
                          const float* __restrict__ dir,
                          const float* __restrict__ tris,
                          const float* __restrict__ boxes, int n_rays,
                          int n_boxes, int cluster, float scale, float margin,
-                         float tmin, float tmax, float* __restrict__ t_out,
-                         int* __restrict__ row_out) {
+                         float tmin, float tmax, int want_uv,
+                         float* __restrict__ t_out, int* __restrict__ row_out,
+                         float* __restrict__ nrm_out,
+                         int* __restrict__ mat_out, float* __restrict__ u_out,
+                         float* __restrict__ v_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray r = load_ray(orig, dir, i);
@@ -106,7 +124,11 @@ closest_clustered_kernel(const float* __restrict__ orig,
     }
   }
   t_out[i] = best;
-  row_out[i] = best < kTFar ? best_row : 0;
+  if (kFull)
+    tpt::write_attrs(tris, r, i, best, best_row, want_uv, nrm_out, mat_out,
+                     u_out, v_out, row_out);
+  else
+    row_out[i] = best < kTFar ? best_row : 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -164,10 +186,24 @@ int tpt_closest_clustered(const float* orig, const float* dir,
                           int n_boxes, int cluster, float scale, float margin,
                           float tmin, float tmax, float* t_out, int* row_out,
                           void* stream) {
-  closest_clustered_kernel<<<grid_for(n_rays), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      orig, dir, tris, boxes, n_rays, n_boxes, cluster, scale, margin, tmin,
-      tmax, t_out, row_out);
+  closest_clustered_kernel<false>
+      <<<grid_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+          orig, dir, tris, boxes, n_rays, n_boxes, cluster, scale, margin,
+          tmin, tmax, 0, t_out, row_out, nullptr, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+int tpt_closest_clustered_full(const float* orig, const float* dir,
+                               const float* tris, const float* boxes,
+                               int n_rays, int n_boxes, int cluster,
+                               float scale, float margin, float tmin,
+                               float tmax, int want_uv, float* t_out,
+                               int* id_out, float* nrm_out, int* mat_out,
+                               float* u_out, float* v_out, void* stream) {
+  closest_clustered_kernel<true>
+      <<<grid_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+          orig, dir, tris, boxes, n_rays, n_boxes, cluster, scale, margin,
+          tmin, tmax, want_uv, t_out, id_out, nrm_out, mat_out, u_out, v_out);
   return (int)cudaGetLastError();
 }
 

@@ -44,7 +44,8 @@
 //   sums, and one degenerate row's NaN once poisoned them (the round-2/3
 //   whitted shading bug, ARCHITECTURE.md:435-448, invisible to CPU tests).
 //   Here no reduction exists: u and v are recomputed once, from the winning
-//   row only, after the loop, and written as 0 on a miss.
+//   row only, after the loop, and written as 0 on a miss (write_attrs of
+//   pe_block.cuh, shared with the clustered full-carry kernels).
 // - Padded and degenerate rows reject themselves through IEEE inf/NaN, and
 //   the library is built with --fmad=false, so the kernels agree with the
 //   plain PyTorch versions in dense.py bit for bit (see pe_block.cuh).
@@ -66,14 +67,8 @@ using tpt::kTFar;
 using tpt::load_ray;
 using tpt::pe_test;
 using tpt::Ray;
-
-// Cooperative copy of rows [base, base + rows) into shared memory.
-__device__ __forceinline__ void stage_rows(float4* s_rows,
-                                           const float* __restrict__ tris,
-                                           int base, int rows) {
-  const float4* src = reinterpret_cast<const float4*>(tris + (size_t)base * kCols);
-  for (int k = threadIdx.x; k < rows * 4; k += blockDim.x) s_rows[k] = src[k];
-}
+using tpt::stage_rows;
+using tpt::write_attrs;
 
 // Closest-hit sweep over rows [0, n_rows) staged tile by tile through
 // s_rows; every thread of the block calls it (non-live threads help stage).
@@ -130,41 +125,6 @@ __device__ __forceinline__ bool occluded_sweep(float4* s_rows, const Ray& r,
     }
   }
   return blocked;
-}
-
-// The winner's normal and material (and u/v with want_uv) from its packed
-// row, zeros on a miss.
-__device__ __forceinline__ void write_attrs(const float* __restrict__ tris,
-                                            const Ray& r, int i, float best,
-                                            int best_row, bool want_uv,
-                                            float* __restrict__ nrm_out,
-                                            int* __restrict__ mat_out,
-                                            float* __restrict__ u_out,
-                                            float* __restrict__ v_out) {
-  float nx = 0.0f, ny = 0.0f, nz = 0.0f, u = 0.0f, v = 0.0f;
-  int mat = 0;
-  if (best < kTFar) {
-    const float* row = tris + (size_t)best_row * kCols;
-    nx = row[0];
-    ny = row[1];
-    nz = row[2];
-    mat = (int)row[14];
-    if (want_uv) {
-      const float px = r.ox + best * r.dx;
-      const float py = r.oy + best * r.dy;
-      const float pz = r.oz + best * r.dz;
-      u = row[4] * px + row[5] * py + row[6] * pz + row[7];
-      v = row[8] * px + row[9] * py + row[10] * pz + row[11];
-    }
-  }
-  nrm_out[3 * (size_t)i] = nx;
-  nrm_out[3 * (size_t)i + 1] = ny;
-  nrm_out[3 * (size_t)i + 2] = nz;
-  mat_out[i] = mat;
-  if (u_out != nullptr) {
-    u_out[i] = u;
-    v_out[i] = v;
-  }
 }
 
 template <bool kFull>

@@ -1,5 +1,6 @@
 // The per-pair ray-triangle test shared by every kernel of tpu_pt_torch,
-// and the ray-vs-box slab test of the culling kernels.
+// the full carry written from the winning row, the staging of rows into
+// shared memory, and the ray-vs-box slab test of the culling kernels.
 //
 // Packed rows are [T, 16] f32 as tpu_pt_torch.intersect.dense.pack_tris
 // builds them: n xyz, d0, wu xyz, cu, wv xyz, cv, valid, refr, mat, id.
@@ -52,6 +53,57 @@ __device__ __forceinline__ float pe_test(const Ray& r, float4 a, float4 b,
   const float v = c.x * px + c.y * py + c.z * pz + c.w;
   const bool hit = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > tmin);
   return hit ? t : kTFar;
+}
+
+// Cooperative copy of packed rows [base, base + rows) into shared memory,
+// by every thread of the block (coalesced float4 loads).
+__device__ __forceinline__ void stage_rows(float4* s_rows,
+                                           const float* __restrict__ tris,
+                                           int base, int rows) {
+  const float4* src = reinterpret_cast<const float4*>(tris + (size_t)base * kCols);
+  for (int k = threadIdx.x; k < rows * 4; k += blockDim.x) s_rows[k] = src[k];
+}
+
+// The full carry of a closest hit: the winner's normal and material (and
+// u/v with want_uv) from its packed row, zeros on a miss. u and v are the
+// edge functions at the hit point o + best d, the operations pe_test itself
+// formed for that row, so no reduction over rows exists that a degenerate
+// row's NaN could poison. With id_out, also the winner's original triangle
+// id (column 15; tables in cluster order are permuted).
+__device__ __forceinline__ void write_attrs(const float* __restrict__ tris,
+                                            const Ray& r, int i, float best,
+                                            int best_row, bool want_uv,
+                                            float* __restrict__ nrm_out,
+                                            int* __restrict__ mat_out,
+                                            float* __restrict__ u_out,
+                                            float* __restrict__ v_out,
+                                            int* __restrict__ id_out = nullptr) {
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, u = 0.0f, v = 0.0f;
+  int mat = 0, id = 0;
+  if (best < kTFar) {
+    const float* row = tris + (size_t)best_row * kCols;
+    nx = row[0];
+    ny = row[1];
+    nz = row[2];
+    mat = (int)row[14];
+    id = (int)row[15];
+    if (want_uv) {
+      const float px = r.ox + best * r.dx;
+      const float py = r.oy + best * r.dy;
+      const float pz = r.oz + best * r.dz;
+      u = row[4] * px + row[5] * py + row[6] * pz + row[7];
+      v = row[8] * px + row[9] * py + row[10] * pz + row[11];
+    }
+  }
+  nrm_out[3 * (size_t)i] = nx;
+  nrm_out[3 * (size_t)i + 1] = ny;
+  nrm_out[3 * (size_t)i + 2] = nz;
+  mat_out[i] = mat;
+  if (u_out != nullptr) {
+    u_out[i] = u;
+    v_out[i] = v;
+  }
+  if (id_out != nullptr) id_out[i] = id;
 }
 
 // The ray-vs-box slab test of the culling kernels (_ray_inv and

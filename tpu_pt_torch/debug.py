@@ -115,8 +115,13 @@ def _check_hit(hit, n_rows: int, n_mats: int, n_inst: int | None) -> None:
 
 def _checked(closest_fn, occluded_fn, geom: SceneArrays, n_inst=None,
              fused_fn=None):
-    """The intersectors with every result checked as it comes."""
-    bounds = (geom.num_tris_padded, geom.num_materials, n_inst)
+    """The intersectors with every result checked as it comes. Hit ids
+    range over the padded triangles, then the scene's analytic primitives,
+    then its curve segments."""
+    n_ids = geom.num_tris_padded + sum(
+        0 if part is None else part.count for part in (geom.prims,
+                                                       geom.curves))
+    bounds = (n_ids, geom.num_materials, n_inst)
 
     def closest(o, d):
         hit = closest_fn(o, d)

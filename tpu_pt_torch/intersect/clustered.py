@@ -4,32 +4,49 @@ packed rows: the port of the big-scene part of
 
 The packed rows are put in the scene's balanced-kd order
 (``scene.cluster_order``, ``median_split_order``) and cut into clusters of
-``CLUSTER`` rows, each with an axis-aligned box. Two kernels, each with a
-wrapper, a plain PyTorch version and a launch counter:
+``CLUSTER`` rows, each with an axis-aligned box. Six kernels, each with a
+wrapper, a plain PyTorch version and a launch counter (wrapper: the kernel
+bodies of ``tpu_pt/intersect/pallas_bf.py`` it replaces, via their call
+site; plain version):
 
-=============================  =====================================================  ==============================
-wrapper                        replaces (``tpu_pt/intersect/pallas_bf.py``)             plain version
-=============================  =====================================================  ==============================
-``closest_clustered`` (K6)     ``_closest_kernel_clustered_lean`` /                     ``_closest_clustered_plain``
-                               ``_closest_kernel_chained_lean`` via
-                               ``_closest_call_clustered``
-``occluded_clustered`` (K8)    ``_occluded_kernel_clustered`` via                       ``_occluded_clustered_plain``
-                               ``_occluded_call_clustered``
-=============================  =====================================================  ==============================
+- ``closest_clustered`` (K6): ``_closest_kernel_clustered_lean`` /
+  ``_closest_kernel_chained_lean`` via ``_closest_call_clustered``;
+  ``_closest_clustered_plain``;
+- ``closest_clustered_full`` (K6f): ``_closest_kernel_clustered`` /
+  ``_closest_kernel_chained`` via ``_closest_call_clustered(lean=False)``;
+  ``_closest_clustered_full_plain``;
+- ``occluded_clustered`` (K8): ``_occluded_kernel_clustered`` via
+  ``_occluded_call_clustered``; ``_occluded_clustered_plain``;
+- ``closest_clustered_b`` (K7 lean): ``_closest_kernel_clustered_lean_b`` /
+  ``_closest_kernel_chained_lean_b`` via
+  ``_closest_call_clustered(build=True)``; K6's plain version;
+- ``closest_clustered_full_b`` (K7 full): ``_closest_kernel_clustered_b`` /
+  ``_closest_kernel_chained_b``; K6f's plain version;
+- ``occluded_clustered_b`` (K8b): ``_occluded_kernel_clustered_b`` via
+  ``_occluded_call_clustered(build=True)``; K8's plain version.
 
-The CUDA kernels are in ``csrc/clustered_intersect.cu``. Each thread
-traverses for its own ray, culling clusters by their boxes, in one launch
-per call: the TPU path's chained slabs, ray sort and per-tile work lists
-exist only because its table had to fit in VMEM and a ray tile shares one
-list. The results are those of a dense sweep over every row, which is what
-the plain versions compute. A wrapper runs the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel, and for
-anything else it raises.
+Two designs. In ``csrc/clustered_intersect.cu`` (K6, K6f, K8) each thread
+traverses for its own ray, culling clusters by their boxes. In
+``csrc/clustered_build.cu`` (K7, K8b) a thread block of 128 consecutive
+lanes builds one shared work list, the boxes any of its rays pierces
+within its bound, and sweeps the listed clusters in lockstep from shared
+memory, as the TPU kernels with the in-kernel candidate build do. Either
+way one launch covers the table: the TPU path's chained slabs and ray sort
+exist only because its table had to fit in VMEM. The results are those of
+a dense sweep over every row, which is what the plain versions compute. A
+wrapper runs the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel, and for anything else it raises.
+
+``closest_hit`` / ``occluded_hit`` pick among them as the JAX package does
+(``variant``): ``TPT_LEAN_BIG=0``, or ``TPT_LEAN_UV=0`` on a call that wants
+u, v, takes the full carry; ``TPT_INKB=1`` the kernels that build their
+list. The variables are read at every call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -56,7 +73,11 @@ BOX_MARGIN = 1e-4
 
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
-LAUNCHES = {"closest_clustered": 0, "occluded_clustered": 0}
+LAUNCHES = {"closest_clustered": 0, "occluded_clustered": 0,
+            "closest_clustered_full": 0, "closest_clustered_b": 0,
+            "closest_clustered_full_b": 0, "occluded_clustered_b": 0}
+# Rows per cluster the list-building kernels' shared row buffers hold.
+BUILD_MAX_CLUSTER = 128
 
 
 def pack_tris_clustered(scene: SceneArrays):
@@ -123,6 +144,18 @@ _closest_clustered_plain = dense._closest_plain
 _occluded_clustered_plain = dense._occluded_plain
 
 
+def _closest_clustered_full_plain(origins, dirs, tris, tmin: float,
+                                  tmax: float = T_FAR, want_uv: bool = True):
+    """Plain version of K6f: K3's plain version (the dense full-carry
+    sweep) over the clustered rows, with the winner's original triangle id
+    read from column 15. Returns (t, id, normal, mat, u, v), zeros on a
+    miss; u, v are zeros without ``want_uv``."""
+    t, row, normal, mat, u, v = dense._closest_plain(
+        origins, dirs, tris, tmin, tmax, full=True, want_uv=want_uv)
+    tri = torch.where(t < T_FAR, tris[row.long(), 15], 0.0).to(torch.int32)
+    return t, tri, normal, mat, u, v
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
@@ -139,6 +172,80 @@ def _check_tables(tris: torch.Tensor, boxes: torch.Tensor,
     return n_boxes, tris.shape[0] // n_boxes
 
 
+def _check_build(cluster: int) -> None:
+    if cluster > BUILD_MAX_CLUSTER:
+        raise ValueError(f"the list-building kernels hold clusters of at "
+                         f"most {BUILD_MAX_CLUSTER} rows, not {cluster}")
+
+
+def _launch_lean(name: str, origins, dirs, tris, boxes, scale, tmin, tmax):
+    """Launch a closest (t, packed row) kernel: K6 or K7 lean."""
+    from .. import _kernels
+    n, _ = dense._check_inputs(origins, dirs, tris)
+    dev = origins.device
+    n_boxes, cluster = _check_tables(tris, boxes, dev)
+    if name.endswith("_b"):
+        _check_build(cluster)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _kernels.launch("tpt_" + name, origins.data_ptr(),
+                        dirs.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
+                        n, n_boxes, cluster, float(scale), BOX_MARGIN,
+                        float(tmin), float(tmax), t.data_ptr(),
+                        row.data_ptr(), dense._stream(dev))
+        LAUNCHES[name] += 1
+    return t, row
+
+
+def _launch_full(name: str, origins, dirs, tris, boxes, scale, tmin, tmax,
+                 want_uv):
+    """Launch a full-carry closest-hit kernel: K6f or K7 full."""
+    from .. import _kernels
+    n, _ = dense._check_inputs(origins, dirs, tris)
+    dev = origins.device
+    n_boxes, cluster = _check_tables(tris, boxes, dev)
+    if name.endswith("_b"):
+        _check_build(cluster)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    mat = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    if n:
+        _kernels.launch("tpt_" + name, origins.data_ptr(),
+                        dirs.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
+                        n, n_boxes, cluster, float(scale), BOX_MARGIN,
+                        float(tmin), float(tmax), int(bool(want_uv)),
+                        t.data_ptr(), tri.data_ptr(), normal.data_ptr(),
+                        mat.data_ptr(), u.data_ptr(), v.data_ptr(),
+                        dense._stream(dev))
+        LAUNCHES[name] += 1
+    return t, tri, normal, mat, u, v
+
+
+def _launch_occluded(name: str, origins, dirs, tmax, tris, boxes, scale,
+                     tmin):
+    """Launch a clustered any-hit kernel: K8 or K8b."""
+    from .. import _kernels
+    n, _ = dense._check_inputs(origins, dirs, tris)
+    dev = origins.device
+    dense._check("tmax", tmax, torch.float32, (n,), dev)
+    n_boxes, cluster = _check_tables(tris, boxes, dev)
+    if name.endswith("_b"):
+        _check_build(cluster)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _kernels.launch("tpt_" + name, origins.data_ptr(),
+                        dirs.data_ptr(), tmax.data_ptr(), tris.data_ptr(),
+                        boxes.data_ptr(), n, n_boxes, cluster, float(scale),
+                        BOX_MARGIN, float(tmin), out.data_ptr(),
+                        dense._stream(dev))
+        LAUNCHES[name] += 1
+    return out
+
+
 def closest_clustered(origins: torch.Tensor, dirs: torch.Tensor,
                       tris: torch.Tensor, boxes: torch.Tensor, scale: float,
                       tmin: float, tmax: float = T_FAR):
@@ -148,20 +255,46 @@ def closest_clustered(origins: torch.Tensor, dirs: torch.Tensor,
     their ``box_scale`` (the culling margin, BOX_MARGIN)."""
     if dense._on_cpu(origins):
         return _closest_clustered_plain(origins, dirs, tris, tmin, tmax)
-    from .. import _kernels
-    n, _ = dense._check_inputs(origins, dirs, tris)
-    dev = origins.device
-    n_boxes, cluster = _check_tables(tris, boxes, dev)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    row = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
-        _kernels.launch("tpt_closest_clustered", origins.data_ptr(),
-                        dirs.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
-                        n, n_boxes, cluster, float(scale), BOX_MARGIN,
-                        float(tmin), float(tmax), t.data_ptr(),
-                        row.data_ptr(), dense._stream(dev))
-        LAUNCHES["closest_clustered"] += 1
-    return t, row
+    return _launch_lean("closest_clustered", origins, dirs, tris, boxes,
+                        scale, tmin, tmax)
+
+
+def closest_clustered_b(origins: torch.Tensor, dirs: torch.Tensor,
+                        tris: torch.Tensor, boxes: torch.Tensor, scale: float,
+                        tmin: float, tmax: float = T_FAR):
+    """K7 lean: K6's function through the kernel whose thread blocks build
+    and sweep a shared work list."""
+    if dense._on_cpu(origins):
+        return _closest_clustered_plain(origins, dirs, tris, tmin, tmax)
+    return _launch_lean("closest_clustered_b", origins, dirs, tris, boxes,
+                        scale, tmin, tmax)
+
+
+def closest_clustered_full(origins: torch.Tensor, dirs: torch.Tensor,
+                           tris: torch.Tensor, boxes: torch.Tensor,
+                           scale: float, tmin: float, tmax: float = T_FAR,
+                           want_uv: bool = True):
+    """K6f: K6 with the full carry. Per ray (t, original triangle id,
+    normal [N, 3], material id, u, v) of the closest hit with t < tmax,
+    zeros on a miss; u, v are the winning row's edge functions at the hit
+    point, zeros without ``want_uv``."""
+    if dense._on_cpu(origins):
+        return _closest_clustered_full_plain(origins, dirs, tris, tmin, tmax,
+                                             want_uv)
+    return _launch_full("closest_clustered_full", origins, dirs, tris, boxes,
+                        scale, tmin, tmax, want_uv)
+
+
+def closest_clustered_full_b(origins: torch.Tensor, dirs: torch.Tensor,
+                             tris: torch.Tensor, boxes: torch.Tensor,
+                             scale: float, tmin: float, tmax: float = T_FAR,
+                             want_uv: bool = True):
+    """K7 full: K6f's function through the list-building kernel."""
+    if dense._on_cpu(origins):
+        return _closest_clustered_full_plain(origins, dirs, tris, tmin, tmax,
+                                             want_uv)
+    return _launch_full("closest_clustered_full_b", origins, dirs, tris,
+                        boxes, scale, tmin, tmax, want_uv)
 
 
 def occluded_clustered(origins: torch.Tensor, dirs: torch.Tensor,
@@ -172,20 +305,20 @@ def occluded_clustered(origins: torch.Tensor, dirs: torch.Tensor,
     tmin < t < tmax[i] (tmax[i] <= T_FAR)? Returns bool [N]."""
     if dense._on_cpu(origins):
         return _occluded_clustered_plain(origins, dirs, tmax, tris, tmin)
-    from .. import _kernels
-    n, _ = dense._check_inputs(origins, dirs, tris)
-    dev = origins.device
-    dense._check("tmax", tmax, torch.float32, (n,), dev)
-    n_boxes, cluster = _check_tables(tris, boxes, dev)
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    if n:
-        _kernels.launch("tpt_occluded_clustered", origins.data_ptr(),
-                        dirs.data_ptr(), tmax.data_ptr(), tris.data_ptr(),
-                        boxes.data_ptr(), n, n_boxes, cluster, float(scale),
-                        BOX_MARGIN, float(tmin), out.data_ptr(),
-                        dense._stream(dev))
-        LAUNCHES["occluded_clustered"] += 1
-    return out
+    return _launch_occluded("occluded_clustered", origins, dirs, tmax, tris,
+                            boxes, scale, tmin)
+
+
+def occluded_clustered_b(origins: torch.Tensor, dirs: torch.Tensor,
+                         tmax: torch.Tensor, tris: torch.Tensor,
+                         boxes: torch.Tensor, scale: float,
+                         tmin: float) -> torch.Tensor:
+    """K8b: K8's function through the list-building kernel, each block's
+    list bounded by its rays' own tmax."""
+    if dense._on_cpu(origins):
+        return _occluded_clustered_plain(origins, dirs, tmax, tris, tmin)
+    return _launch_occluded("occluded_clustered_b", origins, dirs, tmax, tris,
+                            boxes, scale, tmin)
 
 
 # --------------------------------------------------------------------------
@@ -234,13 +367,34 @@ def _lean_resolve_packed(tris: torch.Tensor, origins, dirs, t, row,
                u=u, v=v)
 
 
+def variant(want_uv: bool) -> tuple[bool, bool]:
+    """(full carry?, list built in the kernel?) for a clustered call, from
+    the JAX package's variables, read now: the lean (t, row) carry unless
+    ``TPT_LEAN_BIG=0``, or ``TPT_LEAN_UV=0`` on a call that wants u, v
+    (``pallas_bf.py:2354-2357``); the list-building kernels with
+    ``TPT_INKB=1`` (``pallas_bf._inkb``; its supercluster limit is a
+    bf16-exactness limit of the TPU's matmuls and has no twin)."""
+    env = os.environ.get
+    lean = ((not want_uv or env("TPT_LEAN_UV", "1") == "1")
+            and env("TPT_LEAN_BIG", "1") == "1")
+    return not lean, env("TPT_INKB", "0") == "1"
+
+
 def closest_hit(tables: ClusteredTables, origins: torch.Tensor,
                 dirs: torch.Tensor, tmin: float = 0.01,
                 tmax: float = T_FAR, want_uv: bool = True) -> Hit:
-    """Closest hit through K6 and a gather of the winning rows
-    (``pallas_bf._intersect_closest_tiled``, clustered lean branch)."""
-    t, row = closest_clustered(origins, dirs, tables.rows, tables.boxes,
-                               tables.scale, tmin, tmax)
+    """Closest hit (``pallas_bf._intersect_closest_tiled``, clustered
+    branches): K6 (or K7 lean) and a gather of the winning rows, or with
+    the full carry K6f (or K7 full) and no gather; ``variant`` chooses."""
+    full, build = variant(want_uv)
+    args = (origins, dirs, tables.rows, tables.boxes, tables.scale, tmin,
+            tmax)
+    if full:
+        kernel = closest_clustered_full_b if build else closest_clustered_full
+        t, tri, normal, mat, u, v = kernel(*args, want_uv)
+        return Hit(t=t, tri=tri, hit=t < T_FAR, normal=normal, mat=mat, u=u,
+                   v=v)
+    t, row = (closest_clustered_b if build else closest_clustered)(*args)
     return _lean_resolve_packed(tables.rows, origins, dirs, t, row, want_uv)
 
 
@@ -248,13 +402,14 @@ def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
                  dirs: torch.Tensor, tmax: torch.Tensor, tmin: float = 0.01,
                  quirk_first_hit: bool = False) -> torch.Tensor:
     """Any-hit occlusion with per-ray tmax (``pallas_bf.intersect_occluded``):
-    K2 over a small occluder subset, else K8 over the clustered table;
-    refractive surfaces pass light."""
+    K2 over a small occluder subset, else K8 (K8b with ``TPT_INKB=1``)
+    over the clustered table; refractive surfaces pass light."""
     if quirk_first_hit:
         h = closest_hit(tables, origins, dirs, tmin=tmin, want_uv=False)
         in_range = h.hit & (h.t < tmax)
         return in_range & (tables.mat_bsdf[h.mat.long()] != BSDF_REFRACTION)
     if tables.occ_rows is not None:
         return dense.occluded(origins, dirs, tmax, tables.occ_rows, tmin)
-    return occluded_clustered(origins, dirs, tmax, tables.rows, tables.boxes,
-                              tables.scale, tmin)
+    kernel = occluded_clustered_b if variant(False)[1] else occluded_clustered
+    return kernel(origins, dirs, tmax, tables.rows, tables.boxes,
+                  tables.scale, tmin)

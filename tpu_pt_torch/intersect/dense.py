@@ -35,6 +35,7 @@ instead (``intersect.kernel_module`` chooses).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -460,8 +461,11 @@ def closest_hit(tables: DenseTables, origins: torch.Tensor,
                 dirs: torch.Tensor, tmin: float = 0.01,
                 tmax: float = T_FAR, want_uv: bool = True) -> Hit:
     """Closest hit: K1 + gather for small tables at tmax = T_FAR, else K3
-    (``pallas_bf._intersect_closest_tiled``, single-slab branches)."""
-    if tmax >= T_FAR and tables.rows.shape[0] <= LEAN_MAX_TRIS:
+    (``pallas_bf._intersect_closest_tiled``, single-slab branches).
+    ``TPT_LEAN_UV=0``, read at every call, sends a call that wants u, v to
+    K3 whatever the table's size (``pallas_bf.py:2324-2339``)."""
+    lean_ok = not want_uv or os.environ.get("TPT_LEAN_UV", "1") == "1"
+    if lean_ok and tmax >= T_FAR and tables.rows.shape[0] <= LEAN_MAX_TRIS:
         t, row = closest_lean(origins, dirs, tables.rows, tmin)
         return _lean_resolve(tables.rows, origins, dirs, t, row, want_uv)
     t, row, normal, mat, u, v = closest_full(origins, dirs, tables.rows,

@@ -7,6 +7,8 @@ from .gltf import (AlphaOccluders, WhittedScene, load_gltf,
                    whitted_scene_from_numpy)
 from .objloader import (Material, ObjMesh, classify_bsdf, detect_area_light,
                         load_obj, load_scene, parse_mtl)
+from .refine import split_large_tris
+from .scenejson import load_scene_json
 
 __all__ = [
     "AreaLight", "SceneArrays", "build_scene_arrays",
@@ -15,5 +17,5 @@ __all__ = [
     "whitted_scene_from_numpy",
     "BSDF_DIFFUSE", "BSDF_METALLIC", "BSDF_REFRACTION", "Material",
     "ObjMesh", "classify_bsdf", "detect_area_light", "load_obj",
-    "load_scene", "parse_mtl",
+    "load_scene", "parse_mtl", "split_large_tris", "load_scene_json",
 ]

@@ -85,6 +85,14 @@ class SceneArrays:
     # permutation of the padded rows whose consecutive 128-row runs are
     # balanced-kd leaves. Built for scenes above CLUSTER_ORDER_MIN_ROWS.
     cluster_order: torch.Tensor | None = None   # [T] i32
+    # The scene's LBVH (``intersect.lbvh.BVH``), built by the loaders.
+    bvh: object | None = None
+    # Analytic primitives (``intersect.primitives.Primitives``) and
+    # swept-sphere curves (``intersect.curves.CurveSegments``), intersected
+    # beside the triangles and combined by min-t; their ids lie past the
+    # padded triangles, curves past the primitives.
+    prims: object | None = None
+    curves: object | None = None
 
     @property
     def num_tris_padded(self) -> int:
@@ -103,9 +111,7 @@ class SceneArrays:
         kw = {}
         for f in dataclasses.fields(self):
             val = getattr(self, f.name)
-            kw[f.name] = (val.to(device)
-                          if isinstance(val, (torch.Tensor, AreaLight))
-                          else val)
+            kw[f.name] = val.to(device) if hasattr(val, "to") else val
         return SceneArrays(**kw)
 
 
@@ -310,17 +316,41 @@ def scene_from_numpy(leaves, num_tris: int, num_occluders: int,
     ``leaves`` maps each tensor field of :class:`SceneArrays` to an array
     (``occ_index`` and ``cluster_order`` may be missing or None) and
     ``"light"`` to a mapping of the five
-    :class:`AreaLight` fields. This carries a scene built elsewhere (for
-    example ``np.asarray`` of every leaf of a ``tpu_pt`` scene) over
-    unchanged, so both packages trace the identical scene."""
+    :class:`AreaLight` fields. Optional: ``"bvh"`` maps the four arrays of
+    ``intersect.lbvh.BVH``; ``"prims"`` maps ``kind`` and ``occludes``
+    (tuples) and the arrays ``params`` and ``mat`` of
+    ``intersect.primitives.Primitives``; ``"curves"`` maps ``k0`` ..
+    ``k3``, ``mat`` and ``occludes`` of ``intersect.curves.CurveSegments``.
+    This carries a scene built elsewhere (for example ``np.asarray`` of
+    every leaf of a ``tpu_pt`` scene) over unchanged, so both packages
+    trace the identical scene."""
+    def dev(a):
+        return torch.as_tensor(np.array(a), device=device)
+
     kw = {}
     for f in dataclasses.fields(SceneArrays):
-        if f.name in ("light", "num_tris", "num_occluders"):
+        if f.name in ("light", "num_tris", "num_occluders", "bvh", "prims",
+                      "curves"):
             continue
         val = (leaves.get(f.name) if f.name in ("occ_index", "cluster_order")
                else leaves[f.name])
-        kw[f.name] = (None if val is None
-                      else torch.as_tensor(np.array(val), device=device))
+        kw[f.name] = None if val is None else dev(val)
+    if leaves.get("bvh") is not None:
+        from ..intersect.lbvh import BVH
+        kw["bvh"] = BVH(**{k: dev(leaves["bvh"][k])
+                           for k in ("nodes", "left", "skip", "tri")})
+    if leaves.get("prims") is not None:
+        from ..intersect.primitives import Primitives
+        p = leaves["prims"]
+        kw["prims"] = Primitives(
+            kind=tuple(int(k) for k in p["kind"]), params=dev(p["params"]),
+            mat=dev(p["mat"]), occludes=tuple(bool(x) for x in p["occludes"]))
+    if leaves.get("curves") is not None:
+        from ..intersect.curves import CurveSegments
+        c = leaves["curves"]
+        kw["curves"] = CurveSegments(
+            **{k: dev(c[k]) for k in ("k0", "k1", "k2", "k3", "mat")},
+            occludes=tuple(bool(x) for x in c["occludes"]))
     light = leaves["light"]
     return SceneArrays(
         light=AreaLight(*(_f32(light[k], device) for k in _LIGHT_FIELDS)),

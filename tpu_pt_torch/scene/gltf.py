@@ -6,8 +6,10 @@ Buffers (external files, data: URIs, GLB chunks), strided and sparse
 accessors, triangle meshes with POSITION / NORMAL / TEXCOORD_0, node TRS
 or matrix hierarchies, ``EXT_mesh_gpu_instancing``, PBR
 metallic-roughness materials with PNG textures, ``KHR_texture_transform``,
-alpha modes, ``KHR_lights_punctual`` point lights and the first
-perspective camera. The host build runs in numpy with the JAX package's
+alpha modes, ``KHR_lights_punctual`` point lights, the first perspective
+camera, and analytic primitives and swept-sphere curves declared in the
+document's ``extras`` (``tpu_pt_primitives`` / ``tpu_pt_curves``, with glTF
+material indices). The host build runs in numpy with the JAX package's
 operations, so both loaders hold the same tables.
 
 Geometry contracts (``instancing``):
@@ -23,9 +25,9 @@ Geometry contracts (``instancing``):
   more flattened triangles; flatten otherwise. The thresholds are the
   JAX package's defaults, so both packages pick the same contract.
 
-Not ported yet: JPEG and PPM textures (ROADMAP.md Queue 1 item 13), the
-``extras`` analytic primitives and curves (item 11) and the LBVH
-(item 12).
+The flattened tables carry their LBVH (``intersect.lbvh``), as the JAX
+loader's do. Not ported yet: JPEG and PPM textures (ROADMAP.md Queue 1
+item 13).
 """
 
 from __future__ import annotations
@@ -74,8 +76,7 @@ ALPHA_MARCH_MAX = 8
 
 _ROADMAP_CODECS = ("ROADMAP.md Queue 1 item 13 (glTF/Whitted pipeline: "
                    "JPEG and PPM codecs)")
-_ROADMAP_PRIMS = ("ROADMAP.md Queue 1 item 11 (analytic primitives and "
-                  "curves)")
+_PRIM_KINDS = {"sphere": 0, "parallelogram": 1, "sphere_shell": 2}
 
 
 def _move(x, device):
@@ -394,11 +395,16 @@ def _decode_image(g: _Gltf, img: dict) -> np.ndarray:
     return film.png_rgba(blob).astype(np.float32) / 255.0
 
 
-def _instancing_eligible(inst_records, mesh_tris):
-    """(ok, reason): can the asset keep its instances? Not when the
-    instance count or the packed unique-mesh rows (counted with the mesh
-    table's padding, ``instanced.table_rows``) pass the bounds, or when an
-    instance transform is singular."""
+def _instancing_eligible(doc, inst_records, mesh_tris):
+    """(ok, reason): can the asset keep its instances? Not when it
+    declares extras primitives or curves (analytic geometry has no
+    mesh-space table), when the instance count or the packed unique-mesh
+    rows (counted with the mesh table's padding, ``instanced.table_rows``)
+    pass the bounds, or when an instance transform is singular."""
+    if doc.get("extras", {}).get("tpu_pt_primitives"):
+        return False, "asset declares extras analytic primitives"
+    if doc.get("extras", {}).get("tpu_pt_curves"):
+        return False, "asset declares extras curves"
     if len(inst_records) > instanced.INST_MAX_INST:
         return False, (f"{len(inst_records)} instances > "
                        f"{instanced.INST_MAX_INST}")
@@ -425,12 +431,6 @@ def load_gltf(path: str, default_lights: bool = True,
                          f"got {instancing!r}")
     g = _Gltf(path)
     doc = g.doc
-    extras = doc.get("extras", {})
-    if extras.get("tpu_pt_primitives") or extras.get("tpu_pt_curves"):
-        raise NotImplementedError(
-            f"{os.path.basename(path)}: extras analytic primitives and "
-            f"curves are not ported yet: {_ROADMAP_PRIMS}")
-
     mesh_cache: dict = {}
 
     def decoded_mesh(mesh_idx: int):
@@ -498,7 +498,8 @@ def load_gltf(path: str, default_lights: bool = True,
     flat_total = sum(mesh_tris(m) for m, _ in inst_records)
     use_inst, reason = False, "no mesh instances"
     if instancing != "flatten" and inst_records:
-        use_inst, reason = _instancing_eligible(inst_records, mesh_tris)
+        use_inst, reason = _instancing_eligible(doc, inst_records,
+                                                    mesh_tris)
         if instancing == "auto" and use_inst:
             unique_total = sum(mesh_tris(m) for m in {m for m, _ in
                                                       inst_records})
@@ -681,8 +682,9 @@ def load_gltf(path: str, default_lights: bool = True,
                                   extra_endpoints=extra_endpoints,
                                   device="cpu")
 
+    from ..intersect.lbvh import with_bvh
     everything = np.ones(n_t, bool)
-    geom = scene_arrays(everything, extra)
+    geom = with_bvh(scene_arrays(everything, extra))
     t_pad = geom.num_tris_padded
     vtx_attr = np.zeros((t_pad, 16), np.float32)
     vtx_attr[:n_t, 0:9] = tn.reshape(n_t, 9)
@@ -721,9 +723,55 @@ def load_gltf(path: str, default_lights: bool = True,
         max_hits = min(n_a * (len(inst_records) if use_inst else 1),
                        ALPHA_MARCH_MAX)
         alpha_occ = AlphaOccluders(
-            occ_geom=scene_arrays(~tri_alpha, extra), geom=alpha_geom,
+            occ_geom=with_bvh(scene_arrays(~tri_alpha, extra)),
+            geom=alpha_geom,
             uv=torch.as_tensor(alpha_uv), max_hits=max_hits,
             occ_inst=occ_inst, inst=alpha_inst)
+
+    # --- analytic primitives and curves from the document's extras ---------
+    # The reference binds sphere / sphere-shell / parallelogram programs
+    # into its Whitted SBT from hardcoded sample setup
+    # (``sutil/Scene.cpp:1368-1450``) and carries four round-curve types
+    # (``cuda/GeometryData.h:95-127``); here the asset declares them:
+    #   "extras": {"tpu_pt_primitives": [{"type": "sphere", "center": [..],
+    #                "radius": r, "material": <glTF material index>}, ...],
+    #              "tpu_pt_curves": [{"basis": "cubic_bspline", "points":
+    #                [[x, y, z], ...], "radii": r | [r, ...],
+    #                "material": <index>}]}
+    # Their hits shade with the analytic normal and carry the glTF
+    # material; KIND_GLASS ones pass shadow rays. Every ray is tested
+    # against every primitive and every curve piece: fine for decorative
+    # strands, wrong for a 10k-segment hair asset.
+    extras = doc.get("extras", {})
+    fake_bsdf = np.where(tables["kind"] == KIND_GLASS, BSDF_REFRACTION,
+                         BSDF_DIFFUSE)
+    analytic = {}
+    if extras.get("tpu_pt_primitives"):
+        from ..intersect.primitives import make_primitives
+        specs = []
+        for p in extras["tpu_pt_primitives"]:
+            d = dict(kind=_PRIM_KINDS[p["type"]],
+                     mat=int(p.get("material", 0)))
+            if p["type"] == "sphere":
+                d.update(center=p["center"], radius=p["radius"])
+            elif p["type"] == "sphere_shell":
+                d.update(center=p["center"], radius1=p["radius1"],
+                         radius2=p["radius2"])
+            else:
+                d.update(anchor=p["anchor"], v1=p["v1"], v2=p["v2"])
+            specs.append(d)
+        analytic["prims"] = make_primitives(specs, mat_bsdf=fake_bsdf)
+    if extras.get("tpu_pt_curves"):
+        from ..intersect.curves import expand_curve_spec, make_curves
+        segs = []
+        for c in extras["tpu_pt_curves"]:
+            segs.extend(expand_curve_spec(c, int(c.get("material", 0))))
+        analytic["curves"] = make_curves(segs, mat_bsdf=fake_bsdf)
+    if analytic:
+        geom = dataclasses.replace(geom, **analytic)
+        if alpha_occ is not None:    # they stop shadow rays outright
+            alpha_occ.occ_geom = dataclasses.replace(alpha_occ.occ_geom,
+                                                     **analytic)
 
     ws = WhittedScene(
         geom=geom,

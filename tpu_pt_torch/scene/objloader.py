@@ -1,6 +1,6 @@
-"""Wavefront OBJ + MTL loader (counterpart of the Python OBJ path of
-``tpu_pt/scene/objloader.py``; the native parser, glTF and scene JSON are
-not ported yet).
+"""Wavefront OBJ + MTL loader and the path tracer's ``load_scene``
+(counterpart of the Python OBJ path of ``tpu_pt/scene/objloader.py``; the
+native parser is not ported).
 
 Triangulating OBJ parse, per-face material indices and the reference's
 BSDF-by-material-name rule (``TinyObjWrapper.cpp:153-164``): a name
@@ -183,22 +183,63 @@ def detect_area_light(mesh: ObjMesh) -> AreaLight | None:
 
 
 def load_scene(path: str, light: AreaLight | None = None,
-               auto_light: bool = True, device="cuda") -> SceneArrays:
-    """OBJ file -> SceneArrays on ``device`` (the card unless the caller
-    asks for the CPU).
+               auto_light: bool = True, build_bvh: bool = True,
+               split_large: bool = False, device="cuda") -> SceneArrays:
+    """OBJ, scene JSON or glTF / GLB file -> SceneArrays on ``device`` (the
+    card unless the caller asks for the CPU), its LBVH attached
+    (``build_bvh``).
 
-    The light is ``light`` if given, else the scene's emissive quad
-    (``auto_light``), else the reference's Cornell light."""
-    if not path.lower().endswith(".obj"):
-        raise NotImplementedError(
-            f"{path}: the path tracer loads OBJ scenes only so far (glTF "
-            "loads with load_gltf for the Whitted pipeline; scene JSON is "
-            "queued in ROADMAP.md)")
+    A ``.json`` goes through :mod:`.scenejson` (an OBJ mesh plus analytic
+    primitives and curves). A glTF asset goes through :mod:`.gltf`
+    flattened: the path tracer takes its world-space geometry and
+    PBR-derived materials, and for NEE a small downward quad at the
+    asset's first point light. For an OBJ the light is ``light`` if given,
+    else the scene's emissive quad (``auto_light``), else the reference's
+    Cornell light.
+
+    ``split_large`` bisects world-spanning triangles at load time on
+    scenes big enough for the clustered kernels (:mod:`.refine`); small
+    scenes are never touched."""
+    if path.lower().endswith(".json"):
+        from .scenejson import load_scene_json
+        return load_scene_json(path, light=light, auto_light=auto_light,
+                               build_bvh=build_bvh, device=device)
+    if path.lower().endswith((".gltf", ".glb")):
+        from .gltf import load_gltf
+        # The path tracer takes world-space flattened geometry only (the
+        # instanced contract is the Whitted pipeline's).
+        ws = load_gltf(path, instancing="flatten", device="cpu")
+        scene = ws.geom
+        if light is not None:
+            scene = dataclasses.replace(scene, light=light)
+        elif auto_light and ws.light_pos.shape[0] > 0:
+            pos = ws.light_pos[0].numpy()
+            col = ws.light_color[0].numpy()
+            v = scene.tri_v0.numpy()[scene.tri_valid.numpy()]
+            size = 0.05 * float(np.linalg.norm(v.max(0) - v.min(0)))
+            area = max(size * size, 1e-6)
+            scene = dataclasses.replace(scene, light=AreaLight(
+                corner=_f32(pos - [size / 2, 0, size / 2]),
+                v1=_f32([size, 0.0, 0.0]), v2=_f32([0.0, 0.0, size]),
+                normal=_f32([0.0, -1.0, 0.0]),
+                # Point intensity -> area radiance over the quad.
+                emission=_f32(col / area)))
+        return scene.to(device)
     mesh = load_obj(path)
     if light is None and auto_light:
         light = detect_area_light(mesh)
     if light is None:
         light = default_cornell_light("cpu")
-    return build_scene_arrays(
-        mesh.vertices, mesh.indices, mesh.mat_indices,
-        [m.as_dict() for m in mesh.materials], light=light, device=device)
+    verts, idx, mids = mesh.vertices, mesh.indices, mesh.mat_indices
+    if split_large:
+        from ..intersect.dense import TRI_SLAB
+        if idx.shape[0] > TRI_SLAB:
+            from .refine import split_large_tris
+            verts, idx, mids = split_large_tris(verts, idx, mids)
+    scene = build_scene_arrays(
+        verts, idx, mids, [m.as_dict() for m in mesh.materials], light=light,
+        device=device)
+    if build_bvh:
+        from ..intersect.lbvh import with_bvh
+        scene = with_bvh(scene)
+    return scene

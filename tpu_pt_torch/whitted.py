@@ -221,12 +221,21 @@ def _make_whitted_step(ws: WhittedScene, cfg: RenderConfig, closest_fn,
         kind = props["kind"]
         metallic, roughness = props["metallic"], props["roughness"]
 
-        tri_rows = tri_tbl[hit.tri.long()]
+        # Analytic primitives and curves (ids past the padded triangles)
+        # have no vertex attributes: they shade with the intersector's
+        # analytic normal (``cuda/sphere.cu:37-97``, ``geometry.cu:38-144``)
+        # at UV (0, 0).
+        analytic = hit.tri >= tri_tbl.shape[0]
+        tri_rows = tri_tbl[torch.clamp_max(hit.tri.long(),
+                                           tri_tbl.shape[0] - 1)]
         ns, uu, vv = _interp_attrs_rows(tri_rows, hit)
         if ws.inst is not None:
             # Mesh-space vertex normals -> world by the winning instance
             # (interpolate, then rotate).
             ns = instanced.world_normal(ws.inst, ns, hit.inst, hmask)
+        ns = torch.where(analytic[:, None], hit.normal, ns)
+        uu = torch.where(analytic, 0.0, uu)
+        vv = torch.where(analytic, 0.0, vv)
         # Face the shading normal toward the ray (whitted.cu:221-223).
         ns = torch.where((v3.dot(ns, direction) > 0.0)[:, None], -ns, ns)
 
