@@ -7,6 +7,9 @@ bench.py's frame (unfused, fused_nee and regen), of the sphere box
 (unfused and fused), of the big-mesh frame through each pair of clustered
 kernels (interleaved with the lean one) and of each Whitted main-path run
 (device busy and idle share, time by kernel) and prints no result line.
+It runs as two halves, each inside 1,200 s: ``--profile rest`` (the bench
+frame, the sphere box, the Whitted runs) and ``--profile big`` (the
+big-mesh frames); ``--profile`` alone runs both, one after the other.
 It needs one CUDA device, ``nvcc`` (the kernels are built from
 ``tpu_pt_torch/csrc/`` on first use) and nothing of JAX. Phases, one line
 each; any failure raises and exits non-zero before the last line:
@@ -111,6 +114,28 @@ of the geometry (LBVH, scene-JSON and glTF-extras primitives and curves):
 19. goldens (in phases 5 and 8): primitives.png and curves.png (scene
    JSON, path tracer) and whitted-prims-curves.png (pbr_prims.gltf).
 
+The first three scheduler families of pallas_ablations.py (K11 rotated,
+K12 streamed, K13 cluster-binned: ``tpu_pt_torch/intersect/ablations.py``):
+
+20. kernels (in phase 4): ``closest_rotated``, ``closest_streamed``,
+   ``occluded_streamed``, ``closest_cbin`` and ``occluded_cbin`` on the big
+   mesh at 32,768 rays with every eighth lane parked, bitwise against
+   their plain versions and (through their whole paths) against K6 / K8,
+   also at 1,000 and 77 rays; K12 with the guard on and off, K13 at
+   ``CBIN_GROUP`` 1 and 8 and with starved caps, K11 under an unknown, the
+   oracle and a cycled wrong prediction; the kernels and their schedule
+   builds (``stream_candidates``, ``cbin_pairs``) timed apart;
+21. big-mesh variants (in phase 16): the frame under ``TPT_SEED=1``,
+   ``TPT_STREAM=1`` and ``TPT_CBIN=1``, accumulators bitwise equal to the
+   lean frame's, the selected wrappers launched once per round (K13's
+   frame also K12 and K8, its completion passes), the replaced ones
+   never; the lean frame again under ``TPT_PRED=0``, bitwise equal; one
+   call of each wrapper recorded from a warm-up frame, bitwise;
+22. incoherent rays: ``tools/bench_incoherent_torch.py``'s 262,144 random
+   rays on the big mesh through every scheduler (K6, K7, K11, K12, K13;
+   K8, K8b, K12, K13), all results equal, device times in interleaved
+   pairs against K6 / K8.
+
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
 rate.
@@ -163,6 +188,7 @@ _DENSE = "tpu_pt_torch/csrc/dense_intersect.cu"
 _CLUSTERED = "tpu_pt_torch/csrc/clustered_intersect.cu"
 _INSTANCED = "tpu_pt_torch/csrc/instanced_intersect.cu"
 _BUILD = "tpu_pt_torch/csrc/clustered_build.cu"
+_ABLATIONS = "tpu_pt_torch/csrc/ablations_intersect.cu"
 KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "closest_lean": (_DENSE, "tpu_pt/intersect/pallas_bf.py:976"),
     "occluded": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1299"),
@@ -179,6 +205,15 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "closest_clustered_full_b": (_BUILD,
                                  "tpu_pt/intersect/pallas_bf.py:1088"),
     "occluded_clustered_b": (_BUILD, "tpu_pt/intersect/pallas_bf.py:1182"),
+    "closest_rotated": (_ABLATIONS,
+                        "tpu_pt/intersect/pallas_ablations.py:84"),
+    "closest_streamed": (_ABLATIONS,
+                         "tpu_pt/intersect/pallas_ablations.py:210"),
+    "occluded_streamed": (_ABLATIONS,
+                          "tpu_pt/intersect/pallas_ablations.py:275"),
+    "closest_cbin": (_ABLATIONS, "tpu_pt/intersect/pallas_ablations.py:905"),
+    "occluded_cbin": (_ABLATIONS,
+                      "tpu_pt/intersect/pallas_ablations.py:1014"),
 }
 # The bound: the larger of the operations over the card's f32 rate
 # without tensor cores and the bytes over its memory rate (H100 SXM data
@@ -279,9 +314,30 @@ BIG_VARIANTS = [
      ("closest_clustered_full_b", "occluded_clustered_b"),
      ("closest_clustered", "occluded_clustered", "closest_clustered_full",
       "closest_clustered_b")),
+    ("rotated chain", dict(TPT_SEED="1"),
+     ("closest_rotated", "occluded_clustered"),
+     ("closest_clustered", "closest_streamed", "closest_cbin")),
+    ("streamed", dict(TPT_STREAM="1"),
+     ("closest_streamed", "occluded_streamed"),
+     ("closest_clustered", "occluded_clustered", "closest_rotated",
+      "closest_cbin", "occluded_cbin")),
+    # K13 finishes its overflow through K12 (closest) and K8 (any-hit),
+    # every round.
+    ("cluster-binned", dict(TPT_CBIN="1"),
+     ("closest_cbin", "occluded_cbin", "closest_streamed",
+      "occluded_clustered"),
+     ("closest_clustered", "closest_rotated", "occluded_streamed")),
+    # Without the landing-slab prediction: the same kernels, the same frame.
+    ("no prediction", dict(TPT_PRED="0"),
+     ("closest_clustered", "occluded_clustered"),
+     ("closest_rotated", "closest_streamed", "closest_cbin")),
 ]
 NEW_WRAPPERS = ("closest_clustered_full", "closest_clustered_b",
-                "closest_clustered_full_b", "occluded_clustered_b")
+                "closest_clustered_full_b", "occluded_clustered_b",
+                "closest_rotated", "closest_streamed", "occluded_streamed",
+                "closest_cbin", "occluded_cbin")
+N_RAGGED = (1000, 77)    # ray counts that leave a ragged last block
+INCOHERENT = dict(n=262144, reps=3)   # tools/bench_incoherent_torch.py
 WHITTED_TOL, WHITTED_SHARE = 1e-3, 0.02   # tests/test_torch_whitted.py
 HUGE_MESH = "huge_mesh.obj"
 HUGE_MIN_TRIS = 1_000_000
@@ -509,8 +565,8 @@ def _park(rays, shadow, every: int):
 
 def _kernel_module(name: str):
     """The intersect module whose wrapper ``name`` is."""
-    from tpu_pt_torch.intersect import clustered, dense, instanced
-    return next(m for m in (dense, clustered, instanced)
+    from tpu_pt_torch.intersect import ablations, clustered, dense, instanced
+    return next(m for m in (dense, clustered, instanced, ablations)
                 if name in m.LAUNCHES)
 
 
@@ -535,6 +591,11 @@ class _Tap:
         def rank(parked):
             return (parked < 1.0) + (1.0 / PARK_EVERY <= parked < 1.0)
 
+        def keep(a):
+            if isinstance(a, tuple):        # K12's lists
+                return tuple(keep(x) for x in a)
+            return a.clone() if torch.is_tensor(a) else a
+
         def tap(name, wrapper):
             def call(*args):
                 parked = float((args[0][:, 0] == PARK_COORD).float().mean())
@@ -542,9 +603,7 @@ class _Tap:
                                    if torch.is_tensor(a) and a.dim() == 2))
                 old = self.picked.get(key)
                 if old is None or rank(old[1]) < rank(parked):
-                    self.picked[key] = (tuple(
-                        a.clone() if torch.is_tensor(a) else a
-                        for a in args), parked)
+                    self.picked[key] = (tuple(keep(a) for a in args), parked)
                 return wrapper(*args)
             return call
         for k, fn in self.saved.items():
@@ -575,7 +634,22 @@ def _record_big_calls(big, device):
 def _plain(name: str, args):
     """The plain version of wrapper ``name`` on a wrapper call's own
     positional arguments."""
-    from tpu_pt_torch.intersect import clustered, dense, instanced
+    from tpu_pt_torch.intersect import ablations, clustered, dense, instanced
+    if name == "closest_rotated":
+        o, d, tris, _, _, pred, slab_rows, tmin, *tmax = args
+        return ablations._closest_rotated_plain(o, d, tris, pred, slab_rows,
+                                                tmin, *tmax)
+    if name == "closest_streamed":
+        rays, tris, boxes, scale, lists, rt, tmin, tmax, guard = args
+        return ablations._streamed_plain(rays, tris, boxes, scale, lists, rt,
+                                         tmin, tmax, guard, occluded=False)
+    if name == "occluded_streamed":
+        rays, tris, boxes, scale, lists, rt, tmin, guard = args
+        return ablations._streamed_plain(rays, tris, boxes, scale, lists, rt,
+                                         tmin, 1e16, guard, occluded=True)
+    if name in ("closest_cbin", "occluded_cbin"):
+        return ablations._cbin_sweep_plain(*args,
+                                           occluded=name == "occluded_cbin")
     if name == "closest_lean":
         o, d, tris, tmin = args
         return dense._closest_plain(o, d, tris, tmin)
@@ -609,12 +683,14 @@ def _plain(name: str, args):
                                           inst_rows, tmin)
 
 
-def _hold_recorded(records, picked, what: str):
+def _hold_recorded(records, picked, what: str, all_parked_ok=()):
     """Each recorded wrapper call against its plain version on the same
-    arguments, bit for bit; appends a record per call."""
+    arguments, bit for bit; appends a record per call. A call whose lanes
+    are all parked is refused, but for the wrappers of ``all_parked_ok``
+    (K13's completion pass has live lanes only where a cap overflowed)."""
     import torch
     for (name, _), (args, parked) in picked.items():
-        if parked >= 1.0:
+        if parked >= 1.0 and name not in all_parked_ok:
             raise AssertionError(f"{name}: every recorded {what} call on a "
                                  "table had all its lanes parked")
         out_k = getattr(_kernel_module(name), name)(*args)
@@ -626,7 +702,8 @@ def _hold_recorded(records, picked, what: str):
         tables = [tuple(a.shape) for a in args[2:]
                   if torch.is_tensor(a) and a.dim() == 2]
         records.setdefault(name, []).append(dict(
-            rows=tables[0][0], rays=args[0].shape[0], max_abs_err=err))
+            rows=tables[0][0] if tables else args[1].shape[0],
+            rays=args[0].shape[0], max_abs_err=err))
         say("kernels", f"{name}: a {what} call, its own {args[0].shape[0]} "
             f"rays ({parked:.4f} parked) on tables {tables}: max|err| {err}"
             f" ({extra})")
@@ -680,10 +757,12 @@ def _slab_pass(o, d, lo, hi, m, tmin: float, bound):
 
 
 def _clustered_work(o, d, bound, rows, boxes, scale, out_bytes: int,
-                    occluded=None):
+                    occluded=None, box_tests=None, list_bytes: int = 0):
     """A clustered traversal needs one slab test per (ray, box) and the
     rows of every box the ray pierces up to ``bound`` (its closest hit,
-    or its shadow tmax); an occluded shadow ray needs one box's rows."""
+    or its shadow tmax); an occluded shadow ray needs one box's rows. A
+    kernel handed a work list tests ``box_tests`` (ray, box) pairs, not
+    all of them, and reads ``list_bytes`` of lists besides."""
     import torch
     from tpu_pt_torch.intersect import clustered
     n, c = o.shape[0], boxes.shape[0]
@@ -696,9 +775,38 @@ def _clustered_work(o, d, bound, rows, boxes, scale, out_bytes: int,
             cnt = torch.where(occluded[a:a + 4096], cnt.clamp_max(1), cnt)
         pierced += int(cnt.sum())
     cluster = rows.shape[0] // c
-    flops = n * c * BOX_FLOPS + pierced * cluster * PAIR_FLOPS
+    tests = n * c if box_tests is None else box_tests
+    flops = tests * BOX_FLOPS + pierced * cluster * PAIR_FLOPS
     return flops, n * (24 + (4 if occluded is not None else 0)) \
-        + rows.shape[0] * 64 + c * 32 + n * out_bytes
+        + rows.shape[0] * 64 + c * 32 + n * out_bytes + list_bytes
+
+
+def _cbin_work(pair_rays, rows, jtab, cluster: int, rt: int, occluded: bool):
+    """K13's own work, from the wrapper's inputs: every live pair lane (a
+    job with a cluster, a ray that is not the parked sentinel) against its
+    job's rows, all of them for the closest hit, up to the first blocking
+    one for the any-hit. Bytes: the pair rays and the job table in, each
+    distinct cluster's rows once, 8 (t, row) or 4 bytes per lane out."""
+    import torch
+    from tpu_pt_torch.intersect import ablations
+    j_cap = jtab.shape[0]
+    live = ((jtab >= 0)[:, None]
+            & (pair_rays.view(j_cap, rt, 8)[:, :, 0] < 1e7)).view(-1)
+    pairs = int(live.sum()) * cluster
+    if occluded:
+        pairs = 0
+        for j0 in range(0, j_cap, 256):
+            jt = jtab[j0:j0 + 256]
+            pr = pair_rays[j0 * rt:(j0 + 256) * rt].view(-1, rt, 8)
+            blk = rows.view(-1, cluster, 16)[jt.clamp_min(0).long()]
+            t = ablations._pe_rows(pr[:, :, 0:3], pr[:, :, 3:6], blk, 0.01)
+            block = (t < pr[:, :, 6:7]) & (blk[:, None, :, 13] < 0.5)
+            first = block.to(torch.int32).argmax(2)
+            need = torch.where(block.any(2), first + 1, cluster)
+            pairs += int(need.view(-1)[live[j0 * rt:(j0 + 256) * rt]].sum())
+    used = int(torch.unique(jtab[jtab >= 0]).numel())
+    return pairs * PAIR_FLOPS, pair_rays.numel() * 4 + j_cap * 4 \
+        + used * cluster * 64 + j_cap * rt * (4 if occluded else 8)
 
 
 def _check_kernel(records, name, kernel, plain, rows, compare, work,
@@ -726,6 +834,249 @@ def _check_kernel(records, name, kernel, plain, rows, compare, work,
         f"{n} rays{wide}; bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}: {rec['flops']:.4g} flops, "
         f"{rec['bytes']:.4g} bytes)")
+
+
+def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
+                     k6_out, k8_out):
+    """K11, K12 and K13 on the big mesh. At N_PLAIN_BIG rays (one lane in
+    PARK_EVERY parked): each wrapper bitwise against its plain version on
+    the same schedule, timed (the kernel alone; its schedule build apart),
+    with the bound of the kernel's own work: K6's / K8's for K11, whose
+    function and per-ray work are theirs; for K12 the slab tests of the
+    listed boxes only; for K13 its live pair lanes against their clusters
+    and no slab test, since those ran in the build. The whole path (build,
+    kernel, reduce, completion pass) is timed too, beside K6's / K8's
+    bound (``path_ms``, ``path_bound_ms``). Then each whole path bitwise
+    against K6 / K8 (``k6_out``, ``k8_out``) under every knob setting,
+    there and at N_RAGGED rays."""
+    import torch
+    from tpu_pt_torch.intersect import ablations, clustered
+    rows, boxes, scale = tb.rows, tb.boxes, tb.scale
+    rt, cluster = ablations.RAY_TILE_C, rows.shape[0] // boxes.shape[0]
+    (o, d), (oW, dW) = rays, rays_wide
+    t6, row6 = k6_out
+    srows = clustered._clustered_slab_rows(rows.shape[0])
+    s_count = -(-rows.shape[0] // srows)
+    n = o.shape[0]
+    table = (rows, boxes, scale)
+
+    def closest_work(out, **kw):
+        return _clustered_work(o, d, t6, rows, boxes, scale, 8, **kw)
+
+    def occluded_work(out, **kw):
+        return _clustered_work(*shadow, rows, boxes, scale, 1,
+                               occluded=k8_out, **kw)
+
+    def k8_finish(o, d, tmax):
+        return clustered.occluded_clustered(o, d, tmax, *table, 0.01)
+
+    def streamed_work(lists, whole):
+        """K12 on ``lists``: slab tests on its tiles' listed boxes only;
+        it reads the listed (box, key) entries, cnt and far besides."""
+        listed = int(lists[2].sum())
+        return lambda out: whole(out, box_tests=listed * rt,
+                                 list_bytes=listed * 8 + n // rt * 4 + n * 4)
+
+    def run(name, kernel, plain, work, wide, build=None, path=None,
+            path_work=None):
+        _check_kernel(records, name, kernel, plain, rows.shape[0],
+                      _compare_exact, work, n=n, reps=10, plain_reps=1,
+                      at_n_rays=wide)
+        if build is None:
+            return
+        rec = records[name][-1]
+        path()
+        rec["build_ms"] = gpu_ms(build, 5)
+        rec["path_ms"] = gpu_ms(path, 5)
+        whole = _bound(*path_work(None))
+        rec["path_bound_ms"], rec["path_bound_by"] = (whole["bound_ms"],
+                                                      whole["bound_by"])
+        say("kernels", f"{name}: its schedule build at {n} rays "
+            f"{rec['build_ms']:.4f} ms per call; the whole path "
+            f"{rec['path_ms']:.4f} ms beside the function's bound "
+            f"{rec['path_bound_ms']:.4f} ms ({rec['path_bound_by']})")
+
+    # K11: the predictions are the unknown one (the fixed order), the
+    # oracle (K6's own landing slabs) and a cycled wrong one.
+    arange = torch.arange(n, device=o.device)
+    preds = {
+        "unknown": torch.full((n,), clustered.SLAB_UNKNOWN,
+                              dtype=torch.int32, device=o.device),
+        "oracle": torch.where(t6 < 1e15, row6 // srows,
+                              clustered.SLAB_UNKNOWN).to(torch.int32),
+        "cycled": (arange % s_count).to(torch.int32)}
+    unknown_w = torch.full((oW.shape[0],), clustered.SLAB_UNKNOWN,
+                           dtype=torch.int32, device=o.device)
+
+    def k11(o, d, pred):
+        return ablations.closest_rotated(o, d, *table, pred, srows, 0.01)
+    run("closest_rotated", lambda: k11(o, d, preds["oracle"]),
+        lambda: ablations._closest_rotated_plain(o, d, rows, preds["oracle"],
+                                                 srows, 0.01),
+        closest_work, lambda: k11(oW, dW, unknown_w))
+    for what, pred in preds.items():
+        records["closest_rotated"][-1][f"ms_{what}"] = gpu_ms(
+            lambda: k11(o, d, pred), 10)
+    say("kernels", f"closest_rotated: {s_count} slabs of {srows} rows; ms "
+        f"per call under each prediction "
+        f"{ {w: round(records['closest_rotated'][-1]['ms_' + w], 4) for w in preds} }")
+
+    # K12: lists built once, the kernel timed alone.
+    r8 = ablations.pack_rays(o, d, 1e16, n)
+    s8 = ablations.pack_rays(*shadow, n)
+    rW = ablations.pack_rays(oW, dW, 1e16, oW.shape[0])
+    sW = ablations.pack_rays(*shadow_wide, oW.shape[0])
+
+    def lists_of(r, closest):
+        return ablations.stream_candidates(r, boxes, scale, rt, 0.01,
+                                           1e16 if closest else r[:, 6])
+    lc, lo, lcW, loW = (lists_of(r8, True), lists_of(s8, False),
+                        lists_of(rW, True), lists_of(sW, False))
+    say("kernels", f"stream_candidates: tiles of {rt} lanes list "
+        f"{float(lc[2].float().mean()):.1f} (closest) and "
+        f"{float(lo[2].float().mean()):.1f} (any-hit) of {boxes.shape[0]} "
+        f"boxes at {n} rays")
+    run("closest_streamed",
+        lambda: ablations.closest_streamed(r8, *table, lc, rt, 0.01),
+        lambda: ablations._streamed_plain(r8, *table, lc, rt, 0.01, 1e16,
+                                          True, False),
+        streamed_work(lc, closest_work),
+        lambda: ablations.closest_streamed(rW, *table, lcW, rt, 0.01),
+        build=lambda: lists_of(r8, True),
+        path=lambda: ablations.closest_stream_path(o, d, *table, 0.01),
+        path_work=closest_work)
+    run("occluded_streamed",
+        lambda: ablations.occluded_streamed(s8, *table, lo, rt, 0.01),
+        lambda: ablations._streamed_plain(s8, *table, lo, rt, 0.01, 1e16,
+                                          True, True),
+        streamed_work(lo, occluded_work),
+        lambda: ablations.occluded_streamed(sW, *table, loW, rt, 0.01),
+        build=lambda: lists_of(s8, False),
+        path=lambda: ablations.occluded_stream_path(*shadow, *table, 0.01),
+        path_work=occluded_work)
+
+    # K13: the job table built once, the per-pair kernel timed alone.
+    pc, po = (ablations.cbin_pairs(r, boxes, scale, 0.01) for r in (r8, s8))
+    pcW, poW = (ablations.cbin_pairs(r, boxes, scale, 0.01)
+                for r in (rW, sW))
+    say("kernels", f"cbin_pairs: {int((pc[1] >= 0).sum())} (closest) and "
+        f"{int((po[1] >= 0).sum())} (any-hit) of {pc[1].shape[0]} jobs of "
+        f"{rt} pair lanes used at {n} rays; "
+        f"{float(pc[3].float().mean()):.4f} / {float(po[3].float().mean()):.4f}"
+        f" of lanes incomplete")
+    for name, sweep, p, pW, work, r, path in (
+            ("closest_cbin", ablations.closest_cbin, pc, pcW, closest_work,
+             r8, lambda: ablations.closest_cbin_path(o, d, *table, 0.01)),
+            ("occluded_cbin", ablations.occluded_cbin, po, poW,
+             occluded_work, s8,
+             lambda: ablations.occluded_cbin_path(*shadow, *table, 0.01,
+                                                  finish=k8_finish))):
+        any_hit = name == "occluded_cbin"
+        run(name, lambda: sweep(p[0], rows, p[1], cluster, rt, 0.01),
+            lambda: ablations._cbin_sweep_plain(
+                p[0], rows, p[1], cluster, rt, 0.01, occluded=any_hit),
+            lambda out: _cbin_work(p[0], rows, p[1], cluster, rt, any_hit),
+            lambda: sweep(pW[0], rows, pW[1], cluster, rt, 0.01),
+            build=lambda: ablations.cbin_pairs(r, boxes, scale, 0.01),
+            path=path, path_work=work)
+
+    # The whole paths against K6 / K8 under every knob, at n and at ragged
+    # ray counts.
+    def with_caps(caps, fn):
+        """fn() under (CBIN_GROUP, CBIN_PAIR_MULT, CBIN_K_OUT) = caps."""
+        names = ("CBIN_GROUP", "CBIN_PAIR_MULT", "CBIN_K_OUT")
+        saved = [getattr(ablations, k) for k in names]
+        for k, v in zip(names, caps):
+            setattr(ablations, k, v)
+        try:
+            return fn()
+        finally:
+            for k, v in zip(names, saved):
+                setattr(ablations, k, v)
+
+    starved = (1, 1, 2)
+    for m in (n,) + N_RAGGED:
+        oo, dd = o[:m].contiguous(), d[:m].contiguous()
+        sh = tuple(x[:m].contiguous() for x in shadow)
+        want_c, want_o = (t6[:m], row6[:m]), (k8_out[:m],)
+
+        def stream_c():
+            return ablations.closest_stream_path(oo, dd, *table, 0.01)
+
+        def stream_o():
+            return (ablations.occluded_stream_path(*sh, *table, 0.01),)
+
+        def cbin_c():
+            return ablations.closest_cbin_path(oo, dd, *table, 0.01)
+
+        def cbin_o():
+            return (ablations.occluded_cbin_path(*sh, *table, 0.01,
+                                                 finish=k8_finish),)
+        checks = [(f"K11 {w}", lambda p=p: k11(oo, dd, p[:m].contiguous()),
+                   want_c) for w, p in preds.items()]
+        for guard in ("1", "0"):
+            for what, fn, want in (("closest", stream_c, want_c),
+                                   ("any-hit", stream_o, want_o)):
+                def guarded(fn=fn, guard=guard):
+                    with _env(TPT_STREAM_GUARD=guard):
+                        return fn()
+                checks.append((f"K12 {what}, guard {guard}", guarded, want))
+        for caps in ((1, 12, 32), (8, 12, 32), starved):
+            for what, fn, want in (("closest", cbin_c, want_c),
+                                   ("any-hit", cbin_o, want_o)):
+                checks.append((f"K13 {what}, group / pair mult / k {caps}",
+                               lambda fn=fn, caps=caps: with_caps(caps, fn),
+                               want))
+        for what, fn, want in checks:
+            got = fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{what} at {m} rays differs from "
+                                     "K6 / K8")
+        say("kernels", f"K11 ({len(preds)} predictions), K12 (guard on and "
+            f"off) and K13 (3 cap settings, one starved), closest and "
+            f"any-hit paths: {len(checks)} results bitwise equal to K6 / K8 "
+            f"on {m} rays")
+    share = float(with_caps(starved, lambda: ablations.cbin_pairs(
+        r8, boxes, scale, 0.01))[3].float().mean())
+    say("kernels", f"K13 with starved caps (pair mult 1, k 2): "
+        f"{share:.4f} of lanes go through the completion pass")
+    if share < 0.5:
+        raise AssertionError("the starved caps must leave most lanes to the "
+                             "completion pass")
+
+
+def phase_incoherent(device, smi, big):
+    """tools/bench_incoherent_torch.py's rays on the big mesh through
+    every scheduler's entry point: results equal to the default path's
+    (the tool raises otherwise), device times in interleaved pairs.
+    Returns the launches per kernel."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "bench_incoherent_torch", REPO / "tools" / "bench_incoherent_torch.py")
+    inc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(inc)
+    _zero_counters()
+    out = inc.run(big, INCOHERENT["n"], INCOHERENT["reps"], True, device,
+                  smi=smi)
+    counts = _read_counters()
+    for p in out:
+        parts = ""
+        if "build_ms" in p:
+            parts = (f" (schedule build {p['build_ms']:.4f} ms, kernel alone "
+                     f"{p['kernel_ms']:.4f} ms; "
+                     + ", ".join(f"{k} {p[k]}" for k in (
+                         "listed_boxes_per_tile", "boxes", "jobs", "job_cap",
+                         "incomplete_share") if k in p) + ")")
+        say("incoherent", f"{p['metric']}: {p['ms']:.4f} ms "
+            f"{[round(x, 4) for x in p['ms_runs']]}, the default path beside "
+            f"it {[round(x, 4) for x in p['default_ms_runs']]} ms, "
+            f"{p['value']:.3f} Mrays/s{parts}; equal to the default path; "
+            f"{p['device']}")
+    for k in NEW_WRAPPERS[4:]:
+        if counts[k] <= 0:
+            raise AssertionError(f"incoherent: {k} never launched")
+    return counts
 
 
 def phase_kernels(device, big):
@@ -873,6 +1224,9 @@ def phase_kernels(device, big):
     if not bool(f6[4].any()) or not bool(f6[5].any()):
         raise AssertionError("K6f returned no u, v")
 
+    _check_ablations(records, tb, (ob, db), shadow, (oB, dB), shadow_B,
+                     (t6, row6), k8(*shadow))
+
     # The exact inputs of one K6 and one K8 call of a bench_big frame,
     # through each wrapper and its plain version.
     _hold_recorded(records, _record_big_calls(big, device), "bench_big")
@@ -959,8 +1313,9 @@ def phase_goldens(device):
 
 
 def _launch_counters():
-    from tpu_pt_torch.intersect import clustered, dense, instanced
-    return dense.LAUNCHES, clustered.LAUNCHES, instanced.LAUNCHES
+    from tpu_pt_torch.intersect import ablations, clustered, dense, instanced
+    return (dense.LAUNCHES, clustered.LAUNCHES, instanced.LAUNCHES,
+            ablations.LAUNCHES)
 
 
 def _zero_counters():
@@ -1094,9 +1449,11 @@ def phase_big_variants(device, smi, big, lean, records):
             f"{lean_s * 1e3:.1f} ms/frame, {lean_mr:.3f} Mrays/s); launches "
             f"{ {k: n for k, n in counts.items() if n} }; accumulator "
             f"bitwise equal to the lean run's: {same}; {smi}")
+        rounds = sum(int(p[2].wavefront_iterations) for p in per)
         for k in expect:
-            if counts[k] <= 0:
-                raise AssertionError(f"{tag}: {k} never launched")
+            if counts[k] != rounds:
+                raise AssertionError(f"{tag}: {k} launched {counts[k]} "
+                                     f"times in {rounds} rounds")
         for k in banned:
             if counts[k]:
                 raise AssertionError(f"{tag}: {k} launched")
@@ -1105,7 +1462,9 @@ def phase_big_variants(device, smi, big, lean, records):
                                  "one (bound: bitwise)")
         for k, n in counts.items():
             launches[k] += n
-        _hold_recorded(records, tap.picked, f"bench_big ({what})")
+        _hold_recorded(records, tap.picked, f"bench_big ({what})",
+                       all_parked_ok=("closest_streamed",)
+                       if "TPT_CBIN" in variables else ())
         for k in expect:
             if k in NEW_WRAPPERS and not any(n == k for n, _ in tap.picked):
                 raise AssertionError(f"{tag}: no {k} call was recorded")
@@ -2058,9 +2417,9 @@ def _profile_big(device, smi):
                            int(per[1][2].wavefront_iterations), smi)
 
 
-def phase_profile(device, smi):
+def _profile_rest(device, smi):
     """One profiled frame of each run of PROFILE_PT and of each Whitted
-    main-path run (``--profile``): frame 0 warms up, frame 1 is timed
+    main-path run (``--profile rest``): frame 0 warms up, frame 1 is timed
     unprofiled, frame 2 runs under torch.profiler. Device busy is the
     summed device time of frame 2's kernels; idle is 1 - busy / frame 1's
     wall time."""
@@ -2086,7 +2445,6 @@ def phase_profile(device, smi):
                                             accum),
                        per[1][0] * 1e3, int(per[1][2].wavefront_iterations),
                        smi)
-    _profile_big(device, smi)
     for tag, scene, inst_mode, _, _, kw, _ in WHITTED_RUNS:
         ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
                           device=device)
@@ -2105,8 +2463,12 @@ def main() -> int:
     t0 = time.perf_counter()
     device, smi = phase_device()
     phase_build()
-    if sys.argv[1:] == ["--profile"]:
-        phase_profile(device, smi)
+    if sys.argv[1:2] == ["--profile"]:
+        # The two halves each fit one 1,200 s run; both together do not.
+        halves = {"rest": _profile_rest, "big": _profile_big}
+        for half in sys.argv[2:] or list(halves):
+            halves[half](device, smi)
+        say("done", f"profiled in {time.perf_counter() - t0:.1f} s")
         return 0
     big = phase_assets(device)
     records = phase_kernels(device, big)
@@ -2127,6 +2489,7 @@ def main() -> int:
     phase_lbvh(device, smi, big)
     phase_whitted_cross_check(device)
     h_launches = phase_huge_mesh(device, smi)
+    i_launches = phase_incoherent(device, smi, big)
     phase_entry_points(device, smi)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -2137,12 +2500,17 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=sum(part[kname] for part in (
-                launches, w_launches, f_launches, b_launches, h_launches)),
+                launches, w_launches, f_launches, b_launches, h_launches,
+                i_launches)),
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             # No PyTorch call computes a closest or any ray-triangle hit.
-            library_ms=None, rays=first["rays"]))
+            library_ms=None, rays=first["rays"],
+            # K12 / K13: the schedule build and the whole path (build,
+            # kernel, reduce, completion) beside the whole function's bound.
+            **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
+                                     "path_bound_by") if k in first}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -170,6 +170,27 @@ def test_cli_whitted_stats_checkpoint_resume_validate(tmp_path, assets_dir,
                                   film.read_png(str(tmp_path / "c.png")))
 
 
+def test_cli_whitted_regen_scheduler_and_resume(tmp_path, assets_dir):
+    """``render scene.gltf --scheduler regen`` renders (the wide loop, as
+    in the JAX package), and a checkpoint whose config says ``regen``
+    resumes: two frames that way equal two straight frames and two
+    ``scan`` frames."""
+    scene = str(assets_dir / "pbr_test.gltf")
+    ck = tmp_path / "r.npz"
+    cli.main(["render", scene, "-o", str(tmp_path / "a.png"), "--scheduler",
+              "regen", "--checkpoint", str(ck), *SMALL])
+    cli.main(["render", scene, "-o", str(tmp_path / "b.png"), "--resume",
+              str(ck), "--device", "cpu"])
+    cli.main(["render", scene, "-o", str(tmp_path / "c.png"), "--frames",
+              "2", "--scheduler", "regen", *SMALL])
+    cli.main(["render", scene, "-o", str(tmp_path / "d.png"), "--frames",
+              "2", "--scheduler", "scan", *SMALL])
+    b = film.read_png(str(tmp_path / "b.png"))
+    np.testing.assert_array_equal(b, film.read_png(str(tmp_path / "c.png")))
+    np.testing.assert_array_equal(b, film.read_png(str(tmp_path / "d.png")))
+    assert b.std() > 5
+
+
 def test_resume_restores_instancing(tmp_path):
     """A checkpoint records the glTF contract and a resume without
     --instancing reloads the scene with it (tpu_pt's CLI does not record
@@ -206,16 +227,20 @@ def test_cli_view_not_ported(assets_dir):
 
 
 def test_exr_piz_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="PIZ"):
-        film.write_exr(str(tmp_path / "a.exr"), np.zeros((4, 4, 3)),
-                       compression="piz")
-    # A PIZ file written by tpu_pt (a flat image compresses, so its
-    # blocks are PIZ-coded, not stored raw) raises too.
+    """PIZ is ported now (the name stays): ``write_exr(..., "piz")``
+    writes, and a PIZ file written by tpu_pt (a flat image compresses, so
+    its blocks are PIZ-coded, not stored raw) reads back exactly."""
+    film.write_exr(str(tmp_path / "a.exr"), np.zeros((4, 4, 3)),
+                   compression="piz")
+    np.testing.assert_array_equal(film.read_exr(str(tmp_path / "a.exr")),
+                                  np.zeros((4, 4, 3), np.float32))
     from tpu_pt import film as jfilm
     jfilm.write_exr(str(tmp_path / "b.exr"), np.ones((40, 8, 3)),
                     compression="piz")
-    with pytest.raises(NotImplementedError, match="PIZ"):
-        film.read_exr(str(tmp_path / "b.exr"))
+    raw = (tmp_path / "b.exr").read_bytes()
+    assert len(raw) < 40 * 8 * 12          # PIZ-coded blocks, not raw ones
+    np.testing.assert_array_equal(film.read_exr(str(tmp_path / "b.exr")),
+                                  np.ones((40, 8, 3), np.float32))
 
 
 def test_bench_cpu_shrink(monkeypatch, capsys):

@@ -151,8 +151,18 @@ def test_auto_picks_bvh_above_crossover(sphere_arrays, sphere_box):  # noqa: F81
     with pytest.raises(ValueError, match="no BVH"):
         tintersect.get_intersectors(scene, cfg.with_(intersector="bvh"))[0](
             torch.zeros(1, 3), torch.ones(1, 3))
+    bare = scene
     scene = lbvh.with_bvh(scene)
     assert tintersect._resolve(scene, cfg) == "bvh"
+    # The JAX package's signature: builder "auto" and "device" build on
+    # the scene's device, ``host`` is accepted, "native" is not ported.
+    for kwargs in (dict(builder="auto"), dict(builder="device", host={})):
+        again = lbvh.with_bvh(bare, **kwargs)
+        assert torch.equal(again.bvh.nodes, scene.bvh.nodes)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        lbvh.with_bvh(bare, builder="native")
+    with pytest.raises(ValueError, match="unknown LBVH builder"):
+        lbvh.with_bvh(bare, builder="gpu")
     closest, occluded = tintersect.get_intersectors(scene, cfg)
     assert closest.func is lbvh.intersect_closest
     assert occluded.func is lbvh.intersect_occluded

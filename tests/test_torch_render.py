@@ -127,6 +127,72 @@ def test_regen_matches_pixelq(port_frames, port_scene, bounces_per_round):
     assert int(regen_stats.wavefront_iterations) % bounces_per_round == 0
 
 
+@pytest.mark.parametrize("scheduler", ["scan", "pixelq", "regen"])
+def test_sample_offset_matches_reference(mixed_scene, port_scene, scheduler):
+    """``render_wavefront(..., sample_offset=k)`` against
+    tpu_pt.render.render_wavefront at 16^2, under the bound of
+    ``test_frame_matches_reference``; the offset changes the samples."""
+    kw = {**BASE, "width": 16, "height": 16, "scheduler": scheduler}
+    n = 16 * 16
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device="cpu")
+    jcam = jrender.CameraArrays.from_camera(tpu_pt.cornell_default_camera())
+    ours, stats = render_wavefront(port_scene, cam, tp.RenderConfig(**kw), 0,
+                                   n, 0, sample_offset=5)
+    ref, ref_stats = jrender.render_wavefront(
+        mixed_scene, jcam, tpu_pt.RenderConfig(**kw), 0, n, 0,
+        sample_offset=5)
+    delta = np.abs(_stats_vector(stats) - _stats_vector(ref_stats))
+    assert (delta <= max(1.0, 1e-3 * n * kw["spp"])).all(), delta
+    diff = np.abs(ours.numpy() - np.asarray(ref)).max(axis=-1)
+    assert diff.mean() < 1e-4, diff.mean()
+    assert (diff > 1e-4).mean() <= 0.01, np.sort(diff.ravel())[-6:]
+    plain, _ = render_wavefront(port_scene, cam, tp.RenderConfig(**kw), 0, n,
+                                0)
+    assert float((plain - ours).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("scheduler", ["scan", "pixelq", "regen"])
+def test_sample_offset_splits_samples(port_scene, scheduler):
+    """Two half-spp calls at offsets 0 and spp / 2 average to the full-spp
+    call: on ``scan`` every call is bit for bit the ordered sum of its
+    1-spp samples (so the halves hold exactly the full call's samples;
+    their mean and the full call differ by the add order alone, 1e-6),
+    within the float add order ``pixelq`` and ``regen`` already state
+    (1e-5) otherwise."""
+    kw = {**BASE, "width": 16, "height": 16, "scheduler": scheduler}
+    n = 16 * 16
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device="cpu")
+    full, full_stats = render_wavefront(port_scene, cam,
+                                        tp.RenderConfig(**kw), 0, n, 0)
+    half_cfg = tp.RenderConfig(**{**kw, "spp": 2})
+    a, sa = render_wavefront(port_scene, cam, half_cfg, 0, n, 0)
+    b, sb = render_wavefront(port_scene, cam, half_cfg, 0, n, 0,
+                             sample_offset=2)
+    mean = 0.5 * (a + b)
+    np.testing.assert_array_equal(
+        _stats_vector(sa)[:NUM_DONE_REASONS]
+        + _stats_vector(sb)[:NUM_DONE_REASONS],
+        _stats_vector(full_stats)[:NUM_DONE_REASONS])
+    if scheduler == "scan":
+        # Bit for bit, sample by sample: with s_k the 1-spp call at offset
+        # k, each call is its samples added in order and scaled by a power
+        # of two. The halves' mean, ((s0 + s1) + (s2 + s3)) / 4, and the
+        # full call, (((s0 + s1) + s2) + s3) / 4, then differ only by that
+        # add order: within an ulp of each term.
+        one_cfg = tp.RenderConfig(**{**kw, "spp": 1})
+        s = [render_wavefront(port_scene, cam, one_cfg, 0, n, 0,
+                              sample_offset=k)[0] for k in range(4)]
+        assert torch.equal(a, (s[0] + s[1]) * 0.5)
+        assert torch.equal(b, (s[2] + s[3]) * 0.5)
+        assert torch.equal(mean, ((s[0] + s[1]) + (s[2] + s[3])) * 0.25)
+        assert torch.equal(full, (((s[0] + s[1]) + s[2]) + s[3]) * 0.25)
+        np.testing.assert_allclose(mean.numpy(), full.numpy(), rtol=0,
+                                   atol=1e-6)
+    else:
+        np.testing.assert_allclose(mean.numpy(), full.numpy(), rtol=0,
+                                   atol=1e-5)
+
+
 def test_pixelq_progressive_accumulation(port_scene):
     """Frame k folds into the accumulator in place as the running mean."""
     cfg = tp.RenderConfig(**{**BASE, "width": 16, "height": 16, "spp": 2})
@@ -171,7 +237,9 @@ def test_port_imports_neither_jax_nor_reference():
             "tpu_pt_torch.intersect.dense, tpu_pt_torch.intersect.clustered, "
             "tpu_pt_torch._kernels, tpu_pt_torch.cli, "
             "tpu_pt_torch.checkpoint, tpu_pt_torch.debug, "
-            "tpu_pt_torch.profiling, tpu_pt_torch.bench")
+            "tpu_pt_torch.profiling, tpu_pt_torch.bench, "
+            "tpu_pt_torch.intersect.ablations, tpu_pt_torch.jpeg, "
+            "tpu_pt_torch.vmath")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -117,4 +117,28 @@ def test_non_obj_scenes_not_ported(assets_dir):
                          device="cpu").num_tris == 806
     from tpu_pt_torch.intersect.lbvh import with_bvh
     with pytest.raises(NotImplementedError):
-        with_bvh(scene, build="native")
+        with_bvh(scene, builder="native")
+
+
+def test_vmath_is_exported():
+    """``tpu_pt_torch.vmath``, the [N, 3] vector math under the JAX
+    package's name, holds every function ``tpu_pt.vmath`` has, agreeing
+    with it on random vectors."""
+    import tpu_pt
+    import jax.numpy as jnp
+    names = [n for n in dir(tpu_pt.vmath)
+             if callable(getattr(tpu_pt.vmath, n)) and not n.startswith("_")
+             and n not in ("annotations", "jnp", "Vec3")]
+    assert set(names) <= set(dir(tp.vmath)), set(names) - set(dir(tp.vmath))
+    r = np.random.default_rng(3)
+    a, b = (r.normal(size=(64, 3)).astype(np.float32) for _ in range(2))
+    for name in ("dot", "cross", "length", "normalize", "reflect"):
+        args = (a,) if name in ("length", "normalize") else (a, b)
+        ours = getattr(tp.vmath, name)(*(torch.as_tensor(x) for x in args))
+        ref = getattr(tpu_pt.vmath, name)(*(jnp.asarray(x) for x in args))
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-6)
+    np.testing.assert_allclose(
+        tp.vmath.lerp(torch.as_tensor(a), torch.as_tensor(b), 0.25).numpy(),
+        np.asarray(tpu_pt.vmath.lerp(jnp.asarray(a), jnp.asarray(b), 0.25)),
+        rtol=1e-6)

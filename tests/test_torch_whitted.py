@@ -204,20 +204,32 @@ def test_instanced_alpha_split_matches_reference(assets_dir):
 
 
 def test_unported_inputs_raise(assets_dir, tmp_path):
-    """JPEG textures name the ROADMAP item that will port them; the extras
-    analytic primitives and curves load, equal to the JAX loader's."""
+    """Nothing of these inputs is unported now (the name stays): a JPEG
+    texture loads, equal to the JAX loader's; the extras analytic
+    primitives and curves load, equal to the JAX loader's."""
     path = str(assets_dir / "pbr_prims.gltf")
     ours = tp.load_gltf(path, device="cpu")
     assert ours.geom.prims.count == 3 and ours.geom.curves.count == 3
     assert ours.inst is None
     assert_same_whitted(ours, jgltf.load_gltf(path))
     import json
+    from tpu_pt_torch import jpeg
     doc = json.loads((assets_dir / "alpha_shadow.gltf").read_text())
-    (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
+    png = film.read_png(str(assets_dir / doc["images"][0]["uri"]))
+    (tmp_path / "a.jpg").write_bytes(jpeg.encode_jpeg(png, quality=90))
+    for img in doc["images"][1:]:
+        (tmp_path / img["uri"]).write_bytes(
+            (assets_dir / img["uri"]).read_bytes())
+    for buf in doc["buffers"]:
+        if "uri" in buf and not buf["uri"].startswith("data:"):
+            (tmp_path / buf["uri"]).write_bytes(
+                (assets_dir / buf["uri"]).read_bytes())
     doc["images"][0]["uri"] = "a.jpg"
     (tmp_path / "a.gltf").write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tp.load_gltf(str(tmp_path / "a.gltf"), device="cpu")
+    ours = tp.load_gltf(str(tmp_path / "a.gltf"), device="cpu")
+    ref = jgltf.load_gltf(str(tmp_path / "a.gltf"))
+    assert ours.textures[0].shape[:2] == png.shape[:2]
+    assert_same_whitted(ours, ref)
 
 
 def _camera(spec):
@@ -308,6 +320,69 @@ def test_pixelq_matches_wide_loop(assets_dir):
     assert int(sa.rays_traced) == int(sb.rays_traced)
     assert int(sa.shadow_rays) == int(sb.shadow_rays)
     assert torch.equal(sa.done_histogram, sb.done_histogram)
+
+
+@pytest.mark.parametrize("scheduler", ["regen", "scan"])
+def test_every_scheduler_but_pixelq_takes_the_wide_loop(assets_dir,
+                                                        scheduler):
+    """``regen`` (like ``scan``) renders through the wide depth loop, as
+    tpu_pt.whitted does for every scheduler but ``pixelq``: the same
+    frame as the JAX package's under that scheduler, and the same as the
+    port's ``scan`` frame."""
+    kw = dict(width=16, height=16, spp=2, max_depth=8,
+              background=(0.1, 0.15, 0.25), intersector="bruteforce")
+    jws = jgltf.load_gltf(str(assets_dir / "pbr_test.gltf"))
+    ref, ref_stats = _jax_frame(jws, PBR_CAM,
+                                tpu_pt.RenderConfig(scheduler=scheduler, **kw))
+    ws = whitted_scene_from_numpy(whitted_leaves(jws), device="cpu")
+    cam = CameraArrays.from_camera(_camera(PBR_CAM), device="cpu")
+    out = {}
+    for s in (scheduler, "scan"):
+        cfg = tp.RenderConfig(scheduler=s, **kw)
+        out[s] = tp.render_whitted_frame(ws, cam, cfg, 0,
+                                         init_accum(cfg, device="cpu"))
+    accum, _, stats = out[scheduler]
+    assert torch.equal(accum, out["scan"][0])
+    paths = 16 * 16 * 2
+    assert int(stats.done_histogram.sum()) == paths
+    delta = np.abs(_stats(stats) - _stats(ref_stats))
+    assert (delta <= max(1.0, 5e-3 * paths)).all(), delta
+    diff = np.abs(accum.numpy() - ref).max(axis=-1)
+    assert diff.mean() < 1e-3, diff.mean()
+    assert (diff > 1e-3).mean() <= 0.02, np.sort(diff.ravel())[-6:]
+
+
+@pytest.mark.parametrize("scheduler", ["pixelq", "scan"])
+def test_whitted_sample_offset(assets_dir, scheduler):
+    """``render_whitted_wavefront(..., sample_offset=k)`` shifts the RNG's
+    sample axis: two 1-spp calls at offsets 0 and 1 average to the 2-spp
+    call (float add order), and agree with the JAX package's call at the
+    same offset."""
+    kw = dict(width=16, height=16, max_depth=8, scheduler=scheduler,
+              background=(0.1, 0.15, 0.25), intersector="bruteforce")
+    jws = jgltf.load_gltf(str(assets_dir / "pbr_test.gltf"))
+    ws = whitted_scene_from_numpy(whitted_leaves(jws), device="cpu")
+    cam = CameraArrays.from_camera(_camera(PBR_CAM), device="cpu")
+    n = 16 * 16
+    full, _ = render_whitted_wavefront(ws, cam, tp.RenderConfig(spp=2, **kw),
+                                       0, n, 0)
+    one = tp.RenderConfig(spp=1, **kw)
+    a, _ = render_whitted_wavefront(ws, cam, one, 0, n, 0)
+    b, sb = render_whitted_wavefront(ws, cam, one, 0, n, 0, sample_offset=1)
+    np.testing.assert_allclose((0.5 * (a + b)).numpy(), full.numpy(), rtol=0,
+                               atol=1e-6)
+    assert float((a - b).abs().max()) > 1e-2
+    from tpu_pt.camera import Camera as JCamera
+    jcam = jrender.CameraArrays.from_camera(JCamera(
+        eye=np.array(PBR_CAM["eye"], np.float32),
+        lookat=np.array(PBR_CAM["lookat"], np.float32),
+        fov_y=PBR_CAM["fov_y"]))
+    ref, ref_stats = jwhitted.render_whitted_wavefront(
+        jws, jcam, tpu_pt.RenderConfig(spp=1, **kw), 0, n, 0,
+        sample_offset=1)
+    diff = np.abs(b.numpy() - np.asarray(ref)).max(axis=-1)
+    assert diff.mean() < 1e-3 and (diff > 1e-3).mean() <= 0.02
+    assert abs(float(sb.rays_traced) - float(ref_stats.rays_traced)) <= 2
 
 
 def test_scene_moves_between_devices(assets_dir):

@@ -28,3 +28,4 @@ from .profiling import RenderProfiler  # noqa: F401
 from .scene import load_scene, SceneArrays, scene_from_numpy  # noqa: F401
 from .scene.gltf import WhittedScene, load_gltf  # noqa: F401
 from .whitted import render_whitted_frame  # noqa: F401
+from . import vmath  # noqa: F401  (the public [N, 3] vector math)

@@ -64,6 +64,16 @@ _SIGNATURES = {
         "tpt_occluded_clustered_b": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                                      _F, _P, _P),
     },
+    "ablations_intersect": {
+        "tpt_closest_rotated": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                                _F, _F, _P, _P, _P),
+        "tpt_closest_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _F, _F, _F, _F, _I, _P, _P, _P),
+        "tpt_occluded_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _F, _F, _F, _I, _P, _P),
+        "tpt_closest_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
+        "tpt_occluded_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
+    },
     "instanced_intersect": {
         "tpt_closest_inst": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                              _F, _P, _P, _P, _P),

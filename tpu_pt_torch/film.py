@@ -4,10 +4,8 @@
 - progressive running mean (``pathTracerPrograms.cu:803-811``)
 - sRGB tonemap + 8-bit quantisation (``cuda/helpers.h:35-62``)
 - dependency-free image IO on the host (numpy): PNG read/write (RGBA for
-  textures), PPM read/write, and scanline OpenEXR read/write with the
-  NO_COMPRESSION, RLE, ZIPS and ZIP codecs. The EXR PIZ codec and JPEG
-  are not ported yet (ROADMAP.md): ``write_exr(..., "piz")`` and reading a
-  PIZ block raise.
+  textures), PPM and JPEG read/write (``jpeg``), and scanline OpenEXR
+  read/write with the NO_COMPRESSION, RLE, ZIPS, ZIP and PIZ codecs.
 """
 
 from __future__ import annotations
@@ -138,11 +136,29 @@ def read_png_rgba(path: str) -> np.ndarray:
         return png_rgba(f.read(), path)
 
 
+def write_jpeg(path: str, rgb_u8: np.ndarray, quality: int = 90) -> None:
+    """Write a baseline JPEG (``tpu_pt.film.write_jpeg``; ``jpeg``)."""
+    from . import jpeg
+    with open(path, "wb") as f:
+        f.write(jpeg.encode_jpeg(np.asarray(rgb_u8, np.uint8), quality))
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """Read a baseline or progressive JPEG to uint8 [H, W, 3]."""
+    from . import jpeg
+    with open(path, "rb") as f:
+        return jpeg.decode_jpeg(f.read())
+
+
 def read_ppm(path: str) -> np.ndarray:
     """Read a P6 (binary) or P3 (ascii) PPM (``sutil::PPMLoader`` parity).
     Returns uint8 [H, W, 3]."""
     with open(path, "rb") as f:
-        data = f.read()
+        return ppm_rgb(f.read())
+
+
+def ppm_rgb(data: bytes) -> np.ndarray:
+    """A P6 or P3 PPM held in memory as uint8 [H, W, 3]."""
     # Header tokens, skipping comments.
     tokens = []
     pos = 0
@@ -188,10 +204,9 @@ def write_ppm(path: str, rgb_u8: np.ndarray) -> None:
 
 _EXR_MAGIC = 20000630
 _EXR_PT_UINT, _EXR_PT_HALF, _EXR_PT_FLOAT = 0, 1, 2
-_EXR_COMP = {"none": 0, "rle": 1, "zips": 2, "zip": 3}   # lines/block 1,1,1,16
+# lines per block: 1, 1, 1, 16, 32
+_EXR_COMP = {"none": 0, "rle": 1, "zips": 2, "zip": 3, "piz": 4}
 _EXR_PIZ = 4
-_PIZ_TODO = ("the EXR PIZ codec is not ported yet (ROADMAP.md); use none, "
-             "rle, zips or zip")
 
 
 def _exr_predict(data: bytes) -> np.ndarray:
@@ -290,23 +305,414 @@ def _exr_rle_decode(data: bytes, expect: int) -> bytes:
     return _exr_unpredict(np.frombuffer(bytes(out[:expect]), np.uint8))
 
 
+# --------------------------------------------------------------------------
+# PIZ compression (OpenEXR's wavelet + Huffman scheme, the default of many
+# DCC tools), the port's own copy of ``tpu_pt/film.py``'s codec (host-side
+# numpy): the format's published algorithm, channel-planar u16 reorder,
+# bitmap value compaction, the 14/16-bit 2-D wavelet, canonical Huffman
+# with a run-length pseudo-symbol.
+
+_PIZ_SHORT_ZERORUN = 59       # packed-code-length zero-run escapes
+_PIZ_LONG_ZERORUN = 63
+_PIZ_SHORTEST_LONG_RUN = 2 + _PIZ_LONG_ZERORUN - _PIZ_SHORT_ZERORUN  # 6
+_PIZ_ENCSIZE = 65537          # 64k symbols + the run-length code
+
+
+def _piz_wenc(a, b, w14):
+    """One wavelet butterfly (encode): (a, b) -> (low, high) u16."""
+    if w14:
+        av = a.astype(np.int16).astype(np.int32)
+        bv = b.astype(np.int16).astype(np.int32)
+        m = (av + bv) >> 1
+        d = av - bv
+        return (m.astype(np.int16).astype(np.uint16),
+                d.astype(np.int16).astype(np.uint16))
+    ao = (a.astype(np.int64) + 32768) & 65535
+    bv = b.astype(np.int64)
+    m = (ao + bv) >> 1
+    d = ao - bv
+    m = np.where(d < 0, (m + 32768) & 65535, m)
+    return m.astype(np.uint16), (d & 65535).astype(np.uint16)
+
+
+def _piz_wdec(l, h, w14):
+    """Inverse butterfly: (low, high) -> (a, b) u16."""
+    if w14:
+        ls = l.astype(np.int16).astype(np.int32)
+        hi = h.astype(np.int16).astype(np.int32)
+        ai = ls + (hi & 1) + (hi >> 1)
+        return (ai.astype(np.int16).astype(np.uint16),
+                (ai - hi).astype(np.int16).astype(np.uint16))
+    m = l.astype(np.int64)
+    d = h.astype(np.int64)
+    b = (m - (d >> 1)) & 65535
+    a = (d + b - 32768) & 65535
+    return a.astype(np.uint16), b.astype(np.uint16)
+
+
+def _piz_wav2(a, mx, encode):
+    """In-place 2-D wavelet (ImfWav scheme) over u16 [ny, nx]."""
+    ny, nx = a.shape
+    n = min(nx, ny)
+    w14 = mx < (1 << 14)
+    levels = []
+    p, p2 = 1, 2
+    while p2 <= n:
+        levels.append((p, p2))
+        p, p2 = p2, p2 * 2
+    if not encode:
+        levels.reverse()
+    for p, p2 in levels:
+        rows = np.arange(0, ny - p2 + 1, p2)
+        cols = np.arange(0, nx - p2 + 1, p2)
+        r = rows[:, None]
+        c = cols[None, :]
+        # The odd remainder column/row sits one step past the quads.
+        cx = (cols[-1] + p2) if cols.size else 0
+        ry = (rows[-1] + p2) if rows.size else 0
+        if encode:
+            if rows.size and cols.size:
+                a00, a01 = a[r, c], a[r, c + p]
+                a10, a11 = a[r + p, c], a[r + p, c + p]
+                i00, i01 = _piz_wenc(a00, a01, w14)
+                i10, i11 = _piz_wenc(a10, a11, w14)
+                a[r, c], a[r + p, c] = _piz_wenc(i00, i10, w14)
+                a[r, c + p], a[r + p, c + p] = _piz_wenc(i01, i11, w14)
+            if (nx & p) and rows.size:
+                l, h = _piz_wenc(a[rows, cx], a[rows + p, cx], w14)
+                a[rows, cx], a[rows + p, cx] = l, h
+            if (ny & p) and cols.size:
+                l, h = _piz_wenc(a[ry, cols], a[ry, cols + p], w14)
+                a[ry, cols], a[ry, cols + p] = l, h
+        else:
+            if rows.size and cols.size:
+                i00, i10 = _piz_wdec(a[r, c], a[r + p, c], w14)
+                i01, i11 = _piz_wdec(a[r, c + p], a[r + p, c + p], w14)
+                a[r, c], a[r, c + p] = _piz_wdec(i00, i01, w14)
+                a[r + p, c], a[r + p, c + p] = _piz_wdec(i10, i11, w14)
+            if (nx & p) and rows.size:
+                x, y = _piz_wdec(a[rows, cx], a[rows + p, cx], w14)
+                a[rows, cx], a[rows + p, cx] = x, y
+            if (ny & p) and cols.size:
+                x, y = _piz_wdec(a[ry, cols], a[ry, cols + p], w14)
+                a[ry, cols], a[ry, cols + p] = x, y
+
+
+class _BitWriter:
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = 0
+        self.n = 0
+
+    def put(self, nbits, value):
+        self.acc = (self.acc << nbits) | (value & ((1 << nbits) - 1))
+        self.n += nbits
+        while self.n >= 8:
+            self.n -= 8
+            self.out.append((self.acc >> self.n) & 0xFF)
+
+    def flush(self):
+        if self.n:
+            self.out.append((self.acc << (8 - self.n)) & 0xFF)
+            self.acc = self.n = 0
+        return bytes(self.out)
+
+
+class _BitReader:
+    def __init__(self, data):
+        self.data = data
+        self.pos = 0
+        self.acc = 0
+        self.n = 0
+
+    def get(self, nbits):
+        while self.n < nbits:
+            b = self.data[self.pos] if self.pos < len(self.data) else 0
+            self.pos += 1
+            self.acc = (self.acc << 8) | b
+            self.n += 8
+        self.n -= nbits
+        v = (self.acc >> self.n) & ((1 << nbits) - 1)
+        self.acc &= (1 << self.n) - 1
+        return v
+
+
+def _piz_canonical_codes(lengths: np.ndarray) -> np.ndarray:
+    """OpenEXR canonical code assignment: same-length codes get
+    consecutive values, allocated longest-first (ImfHuf scheme)."""
+    n = np.zeros(59, np.int64)
+    for ln in lengths[lengths > 0]:
+        n[ln] += 1
+    c = 0
+    for i in range(58, 0, -1):
+        nc = (c + n[i]) >> 1
+        n[i] = c
+        c = nc
+    codes = np.zeros(lengths.shape[0], np.int64)
+    for i in np.flatnonzero(lengths > 0):
+        ln = lengths[i]
+        codes[i] = n[ln]
+        n[ln] += 1
+    return codes
+
+
+def _piz_code_lengths(freq: np.ndarray):
+    """Huffman code lengths over the nonzero-frequency symbols plus the
+    run-length pseudo-symbol. Returns (lengths, im, iM) where iM is the
+    pseudo-symbol's index (max nonzero + 1, ImfHuf parity)."""
+    import heapq
+    nz = np.flatnonzero(freq)
+    im = int(nz[0]) if nz.size else 0
+    i_max = int(nz[-1]) if nz.size else 0
+    rlc = i_max + 1                       # run-length pseudo-symbol
+    syms = list(nz) + [rlc]
+    lengths = np.zeros(_PIZ_ENCSIZE, np.int64)
+    if len(syms) == 1:
+        lengths[syms[0]] = 1
+        return lengths, im, rlc
+    # Heap of (freq, tiebreak, [symbols]); each merge deepens both sides.
+    heap = [(int(freq[s]) if s != rlc else 1, s, [s]) for s in syms]
+    heapq.heapify(heap)
+    while len(heap) > 1:
+        fa, ta, sa = heapq.heappop(heap)
+        fb, tb, sb = heapq.heappop(heap)
+        for s in sa + sb:
+            lengths[s] += 1
+        heapq.heappush(heap, (fa + fb, min(ta, tb), sa + sb))
+    while lengths.max() > 58:             # depth limit (rare): flatten
+        lengths[lengths > 1] -= 1
+    return lengths, im, rlc
+
+
+def _piz_pack_lengths(lengths, im, iM) -> bytes:
+    """6-bit code lengths with zero-run escapes (hufPackEncTable)."""
+    w = _BitWriter()
+    i = im
+    while i <= iM:
+        ln = int(lengths[i])
+        if ln == 0:
+            zerun = 1
+            j = i
+            while (j < iM and zerun < 255 + _PIZ_SHORTEST_LONG_RUN
+                   and lengths[j + 1] == 0):
+                j += 1
+                zerun += 1
+            if zerun >= 2:
+                if zerun >= _PIZ_SHORTEST_LONG_RUN:
+                    w.put(6, _PIZ_LONG_ZERORUN)
+                    w.put(8, zerun - _PIZ_SHORTEST_LONG_RUN)
+                else:
+                    w.put(6, _PIZ_SHORT_ZERORUN + zerun - 2)
+                i = j + 1
+                continue
+        w.put(6, ln)
+        i += 1
+    return w.flush()
+
+
+def _piz_unpack_lengths(r: _BitReader, im, iM) -> np.ndarray:
+    lengths = np.zeros(_PIZ_ENCSIZE, np.int64)
+    i = im
+    while i <= iM:
+        ln = r.get(6)
+        if ln == _PIZ_LONG_ZERORUN:
+            i += r.get(8) + _PIZ_SHORTEST_LONG_RUN
+        elif ln >= _PIZ_SHORT_ZERORUN:
+            i += ln - _PIZ_SHORT_ZERORUN + 2
+        else:
+            lengths[i] = ln
+            i += 1
+    return lengths
+
+
+def _piz_huf_compress(raw: np.ndarray) -> bytes:
+    """hufCompress: header, packed code-length table, coded data."""
+    freq = np.bincount(raw, minlength=_PIZ_ENCSIZE).astype(np.int64)
+    lengths, im, rlc = _piz_code_lengths(freq)
+    codes = _piz_canonical_codes(lengths)
+    table = _piz_pack_lengths(lengths, im, rlc)
+
+    w = _BitWriter()
+
+    def put_code(s):
+        w.put(int(lengths[s]), int(codes[s]))
+
+    i = 0
+    n = raw.shape[0]
+    vals = raw.tolist()
+    while i < n:
+        s = vals[i]
+        run = 0
+        while i + run + 1 < n and vals[i + run + 1] == s and run < 255:
+            run += 1
+        # A run emits symbol + rlc + 8-bit count when cheaper.
+        if (run and lengths[s] + lengths[rlc] + 8 <
+                lengths[s] * (run + 1)):
+            put_code(s)
+            put_code(rlc)
+            w.put(8, run)
+        else:
+            for _ in range(run + 1):
+                put_code(s)
+        i += run + 1
+    n_bits = w.n + 8 * len(w.out)
+    data = w.flush()
+    head = struct.pack("<IIIII", im, rlc, len(table), n_bits, 0)
+    return head + table + data
+
+
+def _piz_huf_decompress(buf: bytes, n_out: int) -> np.ndarray:
+    im, iM, table_len, n_bits, _ = struct.unpack_from("<IIIII", buf, 0)
+    r = _BitReader(buf[20:20 + table_len])
+    lengths = _piz_unpack_lengths(r, im, iM)
+    codes = _piz_canonical_codes(lengths)
+    # Decode table {(len, code): symbol}; bit-serial decode (max 58).
+    dec = {(int(lengths[s]), int(codes[s])): int(s)
+           for s in np.flatnonzero(lengths > 0)}
+    # Coded data starts right after the (byte-aligned) packed table.
+    data = _BitReader(buf[20 + table_len:])
+    out = np.empty(n_out, np.uint16)
+    k = 0
+    c = 0
+    ln = 0
+    rlc = iM
+    bits_read = 0
+    while k < n_out:
+        if bits_read >= n_bits + 8:
+            raise ValueError("EXR PIZ: Huffman stream exhausted early")
+        c = (c << 1) | data.get(1)
+        bits_read += 1
+        ln += 1
+        s = dec.get((ln, c))
+        if s is None:
+            if ln > 58:
+                raise ValueError("EXR PIZ: invalid Huffman code")
+            continue
+        if s == rlc:
+            if k == 0:
+                raise ValueError("EXR PIZ: run-length code first")
+            cnt = data.get(8)
+            bits_read += 8
+            if k + cnt > n_out:
+                raise ValueError("EXR PIZ: run overflows output")
+            out[k:k + cnt] = out[k - 1]
+            k += cnt
+        else:
+            out[k] = s
+            k += 1
+        c = 0
+        ln = 0
+    return out
+
+
+def _piz_channel_views(chans, ny):
+    """Per-channel (nx, size-in-u16s, rows) layout for a PIZ block."""
+    return [(nx, size, ny) for nx, size in chans]
+
+
+def _exr_piz_encode(raw: bytes, chans, ny: int) -> bytes:
+    """PIZ-compress one scanline block.
+
+    ``raw`` is the uncompressed block (scanline-major, channels in
+    header order within each scanline); ``chans`` is [(width,
+    size_in_u16s), ...] per channel; ``ny`` the scanline count."""
+    u16 = np.frombuffer(raw, "<u2").copy()
+    # Reorder scanline-major -> channel-planar (ImfPizCompressor's
+    # ChannelData copy): plane k is [ny, nx*size] u16.
+    row_u16 = sum(nx * size for nx, size in chans)
+    planes = []
+    pos = 0
+    rows = u16.reshape(ny, row_u16)
+    for nx, size in chans:
+        planes.append(rows[:, pos:pos + nx * size].copy())
+        pos += nx * size
+    flat = np.concatenate([p.reshape(-1) for p in planes])
+
+    # Bitmap of present values; zero is never stored. (packbits, NOT a
+    # fancy-indexed |= — duplicate byte indices don't accumulate.)
+    present = np.zeros(65536, bool)
+    present[flat] = True
+    present[0] = False
+    bitmap = np.packbits(present.astype(np.uint8), bitorder="little")
+    # Forward LUT: dense index per present value (0 always present).
+    lut_src = np.flatnonzero(np.concatenate(([True], present[1:])))
+    max_value = lut_src.size - 1
+    fwd = np.zeros(65536, np.uint16)
+    fwd[lut_src] = np.arange(lut_src.size, dtype=np.uint16)
+
+    off = 0
+    out_planes = []
+    for nx, size in chans:
+        plane = fwd[flat[off:off + ny * nx * size]].reshape(ny, nx * size)
+        off += ny * nx * size
+        for j in range(size):
+            view = plane[:, j::size].copy()
+            _piz_wav2(view, max_value, encode=True)
+            plane[:, j::size] = view
+        out_planes.append(plane.reshape(-1))
+    coded = _piz_huf_compress(np.concatenate(out_planes))
+
+    nz = np.flatnonzero(bitmap)
+    min_nz = int(nz[0]) if nz.size else 8191
+    max_nz = int(nz[-1]) if nz.size else 0
+    head = struct.pack("<HH", min_nz, max_nz)
+    if min_nz <= max_nz:
+        head += bitmap[min_nz:max_nz + 1].tobytes()
+    return head + struct.pack("<I", len(coded)) + coded
+
+
+def _exr_piz_decode(data: bytes, chans, ny: int) -> bytes:
+    """Inverse of :func:`_exr_piz_encode` (accepts any conformant
+    OpenEXR PIZ block)."""
+    min_nz, max_nz = struct.unpack_from("<HH", data, 0)
+    pos = 4
+    bitmap = np.zeros(8192, np.uint8)
+    if min_nz <= max_nz:
+        n = max_nz - min_nz + 1
+        bitmap[min_nz:max_nz + 1] = np.frombuffer(data, np.uint8, n, pos)
+        pos += n
+    (coded_len,) = struct.unpack_from("<I", data, pos)
+    pos += 4
+
+    bits = np.unpackbits(bitmap, bitorder="little")
+    bits[0] = 1                                  # zero always present
+    rev = np.flatnonzero(bits).astype(np.uint16)  # dense index -> value
+    max_value = rev.size - 1
+
+    n_u16 = ny * sum(nx * size for nx, size in chans)
+    flat = _piz_huf_decompress(data[pos:pos + coded_len], n_u16)
+
+    row_u16 = sum(nx * size for nx, size in chans)
+    out = np.empty((ny, row_u16), np.uint16)
+    off = 0
+    col = 0
+    for nx, size in chans:
+        plane = flat[off:off + ny * nx * size].reshape(ny, nx * size).copy()
+        off += ny * nx * size
+        for j in range(size):
+            view = plane[:, j::size].copy()
+            _piz_wav2(view, max_value, encode=False)
+            plane[:, j::size] = view
+        out[:, col:col + nx * size] = rev[plane]
+        col += nx * size
+    return out.tobytes()
+
+
 def write_exr(path: str, rgb: np.ndarray, half: bool = False,
               compression: str = "none") -> None:
     """Write a linear float RGB image as a scanline EXR.
 
     ``rgb`` is [H, W, 3] float; ``half`` selects HALF (float16) channels;
     ``compression`` is ``"none"``, ``"rle"``, ``"zips"`` (ZIP, 1
-    scanline per block) or ``"zip"`` (ZIP, 16 scanlines per block);
-    ``"piz"`` raises (not ported yet). Channels are stored B, G, R
-    (alphabetical, as EXR requires). Incompressible blocks are stored
-    raw, as the format prescribes."""
-    if compression == "piz":
-        raise NotImplementedError(_PIZ_TODO)
+    scanline per block), ``"zip"`` (ZIP, 16 scanlines per block) or
+    ``"piz"`` (wavelet + Huffman, 32 scanlines per block). Channels are
+    stored B, G, R (alphabetical, as EXR requires). Incompressible blocks
+    are stored raw, as the format prescribes."""
     img = np.asarray(rgb, np.float32)
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected [H, W, 3], got {img.shape}")
     comp = _EXR_COMP[compression]
-    lines_per_block = 16 if comp == 3 else 1
+    lines_per_block = {3: 16, _EXR_PIZ: 32}.get(comp, 1)
     h, w, _ = img.shape
     ptype = _EXR_PT_HALF if half else _EXR_PT_FLOAT
     dtype = np.dtype("<f2") if half else np.dtype("<f4")
@@ -340,6 +746,10 @@ def write_exr(path: str, rgb: np.ndarray, half: bool = False,
         raw = b"".join(row.tobytes(order="F") for row in rows)
         if comp == 1:
             z = _exr_rle_encode(raw)
+        elif comp == _EXR_PIZ:
+            # u16s per sample: 1 for HALF, 2 for FLOAT
+            z = _exr_piz_encode(raw, [(w, 1 if half else 2)] * 3,
+                                rows.shape[0])
         elif comp:
             z = zlib.compress(_exr_predict(raw).tobytes(), 6)
         else:
@@ -358,7 +768,7 @@ def write_exr(path: str, rgb: np.ndarray, half: bool = False,
 
 def read_exr(path: str) -> np.ndarray:
     """Read a single-part scanline EXR with FLOAT / HALF / UINT channels
-    and NO_COMPRESSION, RLE, ZIPS or ZIP blocks (a PIZ block raises).
+    and NO_COMPRESSION, RLE, ZIPS, ZIP or PIZ blocks.
     Returns [H, W, 3] float32 (R, G, B), or the channels in file order
     when R, G and B are not all present."""
     with open(path, "rb") as f:
@@ -386,7 +796,7 @@ def read_exr(path: str) -> np.ndarray:
     comp = attrs["compression"][1][0]
     if comp not in (0, 1, 2, 3, _EXR_PIZ):
         raise ValueError(f"unsupported EXR compression {comp} (none, rle, "
-                         "zips, zip)")
+                         "zips, zip, piz)")
     lines_per_block = {3: 16, _EXR_PIZ: 32}.get(comp, 1)
     x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
     w, h = x1 - x0 + 1, y1 - y0 + 1
@@ -413,8 +823,10 @@ def read_exr(path: str) -> np.ndarray:
         data = buf[off + 8:off + 8 + nbytes]
         if comp and nbytes < raw_size:        # raw-stored blocks pass through
             if comp == _EXR_PIZ:
-                raise NotImplementedError(_PIZ_TODO)
-            if comp == 1:
+                data = _exr_piz_decode(
+                    data, [(w, dtypes[pt].itemsize // 2) for _, pt in chans],
+                    lines)
+            elif comp == 1:
                 data = _exr_rle_decode(data, raw_size)
             else:
                 data = _exr_unpredict(

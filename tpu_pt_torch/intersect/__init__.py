@@ -22,15 +22,18 @@ intersected beside whichever backend it takes and combined by min-t.
 from __future__ import annotations
 
 import dataclasses
+import os
 from functools import partial
 
 from ..config import RenderConfig
 from ..scene.arrays import SceneArrays
 from . import clustered, dense
+from .clustered import SLAB_UNKNOWN
 from .moller import Hit, intersect_closest, intersect_occluded
 
 __all__ = ["Hit", "intersect_closest", "intersect_occluded",
-           "get_intersectors", "get_fused_closest_nee", "kernel_module"]
+           "get_intersectors", "get_fused_closest_nee", "kernel_module",
+           "SLAB_UNKNOWN"]
 
 # Dense all-pairs testing beats the LBVH walk below these padded triangle
 # counts (the JAX package's thresholds: the walk is gather-bound, so the
@@ -85,11 +88,24 @@ def get_fused_closest_nee(scene: SceneArrays, cfg: RenderConfig):
 
 def _with_analytic(closest_fn, occluded_fn, closest_extra, occluded_extra):
     """Bind analytic geometry into the pipeline: its closest hit joins the
-    backend's by min-t, its any-hit by or."""
+    backend's by min-t, its any-hit by or. A landing-slab prediction
+    passes through to the backend, and the slab that comes back is reset
+    to ``SLAB_UNKNOWN`` where the analytic geometry wins."""
+    import torch
     from .primitives import combine_hits
+    supports_pred = getattr(closest_fn, "supports_pred", False)
 
-    def closest(o, d):
-        return combine_hits(closest_fn(o, d), closest_extra(o, d))
+    def closest(o, d, pred=None, want_slab=False):
+        extra = closest_extra(o, d)
+        if want_slab:
+            hit, slab = closest_fn(o, d, pred=pred, want_slab=True)
+            slab = torch.where(extra.t < hit.t, SLAB_UNKNOWN, slab)
+            return combine_hits(hit, extra), slab
+        hit = (closest_fn(o, d, pred=pred) if supports_pred
+               else closest_fn(o, d))
+        return combine_hits(hit, extra)
+
+    closest.supports_pred = supports_pred
 
     def occluded(o, d, tmax):
         return occluded_fn(o, d, tmax) | occluded_extra(o, d, tmax)
@@ -128,7 +144,12 @@ def _with_curves(scene: SceneArrays, cfg: RenderConfig, closest_fn,
 
 def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
                      want_uv: bool = True):
-    """Returns (closest_fn(o, d) -> Hit, occluded_fn(o, d, tmax) -> bool)."""
+    """Returns (closest_fn(o, d) -> Hit, occluded_fn(o, d, tmax) -> bool).
+    On the clustered kernels ``closest_fn`` also takes ``pred=`` (per-ray
+    predicted landing slabs) and ``want_slab=True`` (returns (Hit, slab
+    [N] i32)), and carries ``supports_pred``: true where the JAX package
+    predicts (no u, v wanted, a scene above ``TRI_SLAB``, ``TPT_LEAN_BIG``
+    not 0, ``TPT_PRED`` not 0)."""
     if _count(scene.curves):
         base = dataclasses.replace(scene, curves=None)
         return _with_curves(scene, cfg,
@@ -146,6 +167,15 @@ def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
                           tmax=cfg.t_max, want_uv=want_uv)
         occluded = partial(kernels.occluded_hit, tables, tmin=cfg.t_min,
                            quirk_first_hit=quirk)
+        if kernels is clustered:
+            # The landing-slab prediction pays only where the clustered
+            # lean path runs: it takes the prediction (K11's slab order)
+            # and gives the next one (the winning row's slab).
+            # TPT_PRED=0 turns it off.
+            env = os.environ.get
+            closest.supports_pred = (not want_uv
+                                     and env("TPT_LEAN_BIG", "1") == "1"
+                                     and env("TPT_PRED", "1") != "0")
         return closest, occluded
     if backend == "bvh":
         from . import lbvh

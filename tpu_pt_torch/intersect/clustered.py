@@ -40,7 +40,10 @@ tensors it launches the kernel, and for anything else it raises.
 ``closest_hit`` / ``occluded_hit`` pick among them as the JAX package does
 (``variant``): ``TPT_LEAN_BIG=0``, or ``TPT_LEAN_UV=0`` on a call that wants
 u, v, takes the full carry; ``TPT_INKB=1`` the kernels that build their
-list. The variables are read at every call.
+list. Ahead of those come the schedulers of ``ablations`` (K11-K13,
+``closest_scheduler`` / ``occluded_scheduler``): ``TPT_CBIN=1``, then
+``TPT_STREAM=1``, then ``TPT_SEED=1``. The variables are read at every
+call.
 """
 
 from __future__ import annotations
@@ -78,6 +81,27 @@ LAUNCHES = {"closest_clustered": 0, "occluded_clustered": 0,
             "closest_clustered_full_b": 0, "occluded_clustered_b": 0}
 # Rows per cluster the list-building kernels' shared row buffers hold.
 BUILD_MAX_CLUSTER = 128
+# Landing-slab sentinel of the prediction-ordered scheduler: "no
+# prediction" in, "slab not recoverable" (any miss) out; far above any
+# slab count (``tpu_pt.intersect.SLAB_UNKNOWN``).
+SLAB_UNKNOWN = 1 << 30
+# The slabs the rotated chain (K11) visits and the landing-slab prediction
+# counts in: TPT_CSLABS overrides their number, TPT_CSLAB their size.
+CLUSTERED_SLABS = int(os.environ.get("TPT_CSLABS", 0))   # 0 = derive
+CLUSTERED_SLAB = int(os.environ.get("TPT_CSLAB", 0))     # 0 = derive
+
+
+def _clustered_slab_rows(n_rows: int) -> int:
+    """Rows per slab of a clustered table of ``n_rows`` rows
+    (``pallas_bf._clustered_slab_rows``): 16 * (rows / 100k)^0.3 slabs,
+    between 4 and 64, each a multiple of 8 clusters."""
+    if CLUSTERED_SLAB:
+        return CLUSTERED_SLAB
+    count = CLUSTERED_SLABS or max(4, min(64, round(
+        16.0 * (n_rows / 1e5) ** 0.3)))
+    quantum = 8 * CLUSTER
+    per_slab = -(-n_rows // count)
+    return max(quantum, -(-per_slab // quantum) * quantum)
 
 
 def pack_tris_clustered(scene: SceneArrays):
@@ -380,36 +404,113 @@ def variant(want_uv: bool) -> tuple[bool, bool]:
     return not lean, env("TPT_INKB", "0") == "1"
 
 
+def closest_scheduler(want_uv: bool, has_pred: bool, n_rows: int) -> str:
+    """Which scheduler a clustered closest-hit call takes
+    (``pallas_bf.py:2354-2375``, ``:2442-2474``), the variables read now:
+    ``"cbin"`` (``TPT_CBIN=1``) before ``"stream"`` (``TPT_STREAM=1``)
+    before ``"rot"`` (``TPT_SEED=1``), else ``"chain"``: K6 / K7 or their
+    full-carry twins by ``variant``. All three need the lean carry;
+    ``rot`` also needs a prediction, ``TPT_SORT_KEY`` unset or ``dir12``,
+    and a table of more than one slab."""
+    env = os.environ.get
+    if variant(want_uv)[0]:
+        return "chain"
+    if env("TPT_CBIN", "0") == "1":
+        return "cbin"
+    if env("TPT_STREAM", "0") == "1":
+        return "stream"
+    if (has_pred and env("TPT_SEED", "0") == "1"
+            and env("TPT_SORT_KEY", "dir12") == "dir12"
+            and n_rows > _clustered_slab_rows(n_rows)):
+        return "rot"
+    return "chain"
+
+
+def occluded_scheduler(allow_cbin: bool = True) -> str:
+    """Which scheduler a clustered any-hit call takes
+    (``pallas_bf.py:2609-2647``): ``"cbin"`` (``TPT_CBIN=1`` unless
+    ``TPT_CBIN_OCC=0``) before ``"stream"`` before ``"chain"`` (K8 / K8b)."""
+    env = os.environ.get
+    if (allow_cbin and env("TPT_CBIN", "0") == "1"
+            and env("TPT_CBIN_OCC", "1") == "1"):
+        return "cbin"
+    if env("TPT_STREAM", "0") == "1":
+        return "stream"
+    return "chain"
+
+
 def closest_hit(tables: ClusteredTables, origins: torch.Tensor,
                 dirs: torch.Tensor, tmin: float = 0.01,
-                tmax: float = T_FAR, want_uv: bool = True) -> Hit:
+                tmax: float = T_FAR, want_uv: bool = True, pred=None,
+                want_slab: bool = False):
     """Closest hit (``pallas_bf._intersect_closest_tiled``, clustered
     branches): K6 (or K7 lean) and a gather of the winning rows, or with
-    the full carry K6f (or K7 full) and no gather; ``variant`` chooses."""
+    the full carry K6f (or K7 full) and no gather; ``variant`` chooses.
+    ``closest_scheduler`` puts K13, K12 or K11 in K6's place. ``pred``
+    [N] i32 is each ray's predicted landing slab (it orders K11's slab
+    visits and nothing else). With ``want_slab`` returns (Hit, slab [N]
+    i32): the slab of the winning row on the lean carry, ``SLAB_UNKNOWN``
+    on a miss and on the full carry."""
     full, build = variant(want_uv)
     args = (origins, dirs, tables.rows, tables.boxes, tables.scale, tmin,
             tmax)
     if full:
         kernel = closest_clustered_full_b if build else closest_clustered_full
         t, tri, normal, mat, u, v = kernel(*args, want_uv)
-        return Hit(t=t, tri=tri, hit=t < T_FAR, normal=normal, mat=mat, u=u,
-                   v=v)
-    t, row = (closest_clustered_b if build else closest_clustered)(*args)
-    return _lean_resolve_packed(tables.rows, origins, dirs, t, row, want_uv)
+        hit = Hit(t=t, tri=tri, hit=t < T_FAR, normal=normal, mat=mat, u=u,
+                  v=v)
+        if not want_slab:
+            return hit
+        return hit, torch.full((origins.shape[0],), SLAB_UNKNOWN,
+                               dtype=torch.int32, device=origins.device)
+    from . import ablations
+    n_rows = tables.rows.shape[0]
+    how = closest_scheduler(want_uv, pred is not None, n_rows)
+    if how == "cbin":
+        t, row = ablations.closest_cbin_path(*args)
+    elif how == "stream":
+        t, row = ablations.closest_stream_path(*args)
+    elif how == "rot":
+        t, row = ablations.closest_rotated(
+            origins, dirs, tables.rows, tables.boxes, tables.scale,
+            pred.to(torch.int32).contiguous(), _clustered_slab_rows(n_rows),
+            tmin, tmax)
+    else:
+        t, row = (closest_clustered_b if build else closest_clustered)(*args)
+    hit = _lean_resolve_packed(tables.rows, origins, dirs, t, row, want_uv)
+    if not want_slab:
+        return hit
+    # The lean carry's row is the packed row: its slab is a division.
+    slab = torch.where(t < T_FAR, row // _clustered_slab_rows(n_rows),
+                       SLAB_UNKNOWN).to(torch.int32)
+    return hit, slab
 
 
 def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
                  dirs: torch.Tensor, tmax: torch.Tensor, tmin: float = 0.01,
-                 quirk_first_hit: bool = False) -> torch.Tensor:
+                 quirk_first_hit: bool = False,
+                 allow_cbin: bool = True) -> torch.Tensor:
     """Any-hit occlusion with per-ray tmax (``pallas_bf.intersect_occluded``):
-    K2 over a small occluder subset, else K8 (K8b with ``TPT_INKB=1``)
-    over the clustered table; refractive surfaces pass light."""
+    K2 over a small occluder subset, else over the clustered table K13,
+    K12 (``occluded_scheduler``) or K8 (K8b with ``TPT_INKB=1``);
+    refractive surfaces pass light. K13 finishes its overflow through this
+    function with ``allow_cbin=False``."""
     if quirk_first_hit:
         h = closest_hit(tables, origins, dirs, tmin=tmin, want_uv=False)
         in_range = h.hit & (h.t < tmax)
         return in_range & (tables.mat_bsdf[h.mat.long()] != BSDF_REFRACTION)
     if tables.occ_rows is not None:
         return dense.occluded(origins, dirs, tmax, tables.occ_rows, tmin)
+    how = occluded_scheduler(allow_cbin)
+    if how != "chain":
+        from . import ablations
+        table = (tables.rows, tables.boxes, tables.scale, tmin)
+        if how == "stream":
+            return ablations.occluded_stream_path(origins, dirs, tmax, *table)
+        return ablations.occluded_cbin_path(
+            origins, dirs, tmax, *table,
+            finish=lambda o, d, tm: occluded_hit(tables, o, d, tm, tmin,
+                                                 allow_cbin=False))
     kernel = occluded_clustered_b if variant(False)[1] else occluded_clustered
     return kernel(origins, dirs, tmax, tables.rows, tables.boxes,
                   tables.scale, tmin)

@@ -323,14 +323,24 @@ def _traverse(bvh: BVH, origins: torch.Tensor, dirs: torch.Tensor, tmin,
                 best_uv=best_uv)
 
 
-def with_bvh(scene: SceneArrays, build: str = "device") -> SceneArrays:
-    """The scene with its LBVH built on the scene's device and attached.
-    ``build`` is ``"device"`` or ``"auto"`` (the same here: the JAX
-    package's ``"native"`` host build is not ported)."""
-    if build not in ("auto", "device"):
+def with_bvh(scene: SceneArrays, builder: str = "auto",
+             host: dict | None = None) -> SceneArrays:
+    """The scene with its LBVH built and attached
+    (``tpu_pt.intersect.lbvh.with_bvh``). ``builder`` is ``"auto"`` or
+    ``"device"``: both build on the scene's device, since the JAX
+    package's ``"native"`` host build (its C++ extension) is not ported
+    and raises here (ROADMAP Queue 1 item 4). ``host``, the padded numpy
+    scene arrays that let the native build skip device readbacks, is
+    accepted and unused by the device build."""
+    del host
+    if builder == "native":
         raise NotImplementedError(
-            f"LBVH build {build!r} is not ported: the build runs on the "
-            "scene's device (build='device')")
+            "the native host LBVH build is not ported (ROADMAP Queue 1 "
+            "item 4): the build runs on the scene's device "
+            "(builder='auto' or 'device')")
+    if builder not in ("auto", "device"):
+        raise ValueError(f"unknown LBVH builder {builder!r} (auto, device "
+                         "or native)")
     return dataclasses.replace(scene, bvh=build_lbvh(scene))
 
 

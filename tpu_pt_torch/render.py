@@ -39,7 +39,8 @@ import torch
 from . import bsdf, film, rng
 from . import vec3 as v3
 from .config import RenderConfig
-from .intersect import get_fused_closest_nee, get_intersectors
+from .intersect import (SLAB_UNKNOWN, get_fused_closest_nee,
+                        get_intersectors)
 from .scene.arrays import BSDF_METALLIC, BSDF_REFRACTION, SceneArrays
 
 # DoneReason parity (``pathTracer.h:11-17``).
@@ -193,10 +194,14 @@ def _nee(scene: SceneArrays, occluded_fn, shade: dict, hit_mask, lz1, lz2):
 
 def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
             pixel_ids, sample_idx, frame_idx, origin, direction, atten,
-            depth, fused_fn=None) -> dict:
+            depth, fused_fn=None, pred=None) -> dict:
     """One trace + shade round for the whole wavefront. ``sample_idx`` and
     ``depth`` are ints (scan) or per-lane int64 tensors (pixelq, regen).
     ``shadow_count`` is the lane's number of shadow rays (0 or 1).
+
+    With ``pred`` (per-lane predicted landing slabs, the clustered lean
+    path) the closest hit is asked for its winner's slab too, returned as
+    ``hit_slab``: the next round's prediction.
 
     With ``fused_fn`` and direct lighting on, one fused call gives the
     closest hit and the occlusion of the shadow ray toward the light
@@ -208,11 +213,15 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
     z1, z2, z3, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sa)
     lz1, lz2, z_rr, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sb)
 
+    hit_slab = None
     if fused_fn is not None and cfg.use_direct_lighting:
         hit, occ_pre = fused_fn(origin, direction, lz1, lz2)
 
         def occluded_fn(o, d, tmax):
             return occ_pre
+    elif pred is not None:
+        hit, hit_slab = closest_fn(origin, direction, pred=pred,
+                                   want_slab=True)
     else:
         hit = closest_fn(origin, direction)
     hit_mask = hit.hit
@@ -259,7 +268,7 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
     atten_cont = v3.safe_divide(atten_new, p_rr)
     return dict(contrib=contrib, atten_new=atten_new, atten_cont=atten_cont,
                 new_origin=shade["new_origin"], new_dir=shade["new_dir"],
-                done=done, reason=reason,
+                done=done, reason=reason, hit_slab=hit_slab,
                 shadow_count=shadow_mask.to(torch.int64))
 
 
@@ -268,15 +277,16 @@ def _zero_count(device) -> torch.Tensor:
 
 
 def _render_scan(scene, cam, cfg, pixel_start, n, frame_idx, closest_fn,
-                 occluded_fn, fused_fn=None):
+                 occluded_fn, fused_fn=None, sample_offset: int = 0):
     """Reference-shaped scheduler: samples x bounces, every lane every
-    bounce (dead lanes masked)."""
+    bounce (dead lanes masked). The RNG's sample axis starts at
+    ``sample_offset``."""
     dev = scene.device
     pixel_ids = pixel_start + torch.arange(n, dtype=torch.int64, device=dev)
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     n_rays, n_shadow = _zero_count(dev), _zero_count(dev)
     hist = torch.zeros(NUM_DONE_REASONS, dtype=torch.int64, device=dev)
-    for sample in range(cfg.spp):
+    for sample in range(sample_offset, sample_offset + cfg.spp):
         jx, jy = rng.uniform2(pixel_ids, sample, frame_idx,
                               rng.STREAM_JITTER)
         origin, direction = camera_rays(cam, pixel_ids, cfg.width,
@@ -309,7 +319,8 @@ def _render_scan(scene, cam, cfg, pixel_start, n, frame_idx, closest_fn,
 
 
 def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
-                   items_per_lane: int):
+                   items_per_lane: int, sample_offset: int = 0,
+                   use_pred: bool = False):
     """Persistent wavefront over a pixel-granular work queue.
 
     Item g covers pixel slot g % n, samples (g // n) * chunk onward, with
@@ -322,7 +333,15 @@ def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
 
     ``bounce_fn(pix, sample, origin, direction, atten, depth)`` is the
     integrator's round (``_bounce``, or the Whitted step); its step dict
-    counts each lane's shadow rays in ``shadow_count``."""
+    counts each lane's shadow rays in ``shadow_count``. It is handed
+    ``sample + sample_offset``, the RNG's sample axis.
+
+    With ``use_pred`` each lane carries the predicted landing slab of its
+    current ray (``tpu_pt.render._render_pixelq``): a bounce ray inherits
+    its parent's landing slab, the next sample of the same pixel the
+    pixel's last camera-ray slab, a newly claimed pixel starts unknown.
+    ``bounce_fn`` then takes ``pred=`` and returns ``hit_slab``. The
+    prediction orders work only: frames are bitwise the same without it."""
     chunk = max(1, min(cfg.spp, cfg.samples_per_item))
     n_chunks = (cfg.spp + chunk - 1) // chunk
     total = n * n_chunks
@@ -333,7 +352,8 @@ def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
 
     def item_rays(j, sample):
         pix = pixel_start + j
-        jx, jy = rng.uniform2(pix, sample, frame_idx, rng.STREAM_JITTER)
+        jx, jy = rng.uniform2(pix, sample + sample_offset, frame_idx,
+                              rng.STREAM_JITTER)
         return camera_rays(cam, pix, cfg.width, cfg.height, jx, jy)
 
     g = torch.arange(n_lanes, dtype=torch.int64, device=dev)
@@ -348,11 +368,16 @@ def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
     n_rays, n_shadow = _zero_count(dev), _zero_count(dev)
     hist = torch.zeros(NUM_DONE_REASONS, dtype=torch.int64, device=dev)
     iters = 0
+    if use_pred:
+        pred = torch.full((n_lanes,), SLAB_UNKNOWN, dtype=torch.int32,
+                          device=dev)
+        cam_slab = pred.clone()
 
     while bool(active.any()):
         j, chunk0 = item_pixel(g)
-        step = bounce_fn(pixel_start + j, sample, origin, direction, atten,
-                         depth)
+        step = bounce_fn(pixel_start + j, sample + sample_offset, origin,
+                         direction, atten, depth,
+                         **(dict(pred=pred) if use_pred else {}))
         pending = pending + step["contrib"] * active.to(torch.float32)[:, None]
         path_done = active & step["done"]
         hist.index_add_(0, step["reason"], path_done.to(torch.int64))
@@ -389,6 +414,16 @@ def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
                                 torch.where(respawn3, d_new, PARK_DIR))
         atten = torch.where(cont3, step["atten_cont"],
                             torch.where(respawn3, 1.0, atten))
+        if use_pred:
+            hs = step["hit_slab"]
+            # The pixel's camera-ray landing slab, kept while the lane
+            # holds the pixel, predicts its next sample's camera ray.
+            cam_slab = torch.where(
+                active & (depth == 0) & (hs != SLAB_UNKNOWN), hs, cam_slab)
+            pred = torch.where(
+                cont, hs, torch.where(
+                    more_samples, cam_slab,
+                    torch.where(has_new, SLAB_UNKNOWN, pred)))
         depth = torch.where(cont, depth + 1, 0)
         pending = torch.where(pixel_done[:, None], 0.0, pending)
         active = cont | respawn
@@ -400,7 +435,8 @@ def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
     return result * (1.0 / cfg.spp), stats
 
 
-def _render_regen(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn):
+def _render_regen(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
+                  sample_offset: int = 0):
     """Persistent wavefront over a queue of ``n * spp`` single-path items
     (``tpu_pt.render._render_regen``): item g is pixel slot g % n, sample
     g // n. Each lane holds one item and claims the next unissued one the
@@ -409,14 +445,16 @@ def _render_regen(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn):
 
     A round runs ``cfg.bounces_per_round`` bounces; lanes whose path ends
     mid-round idle until it ends. The round's radiance goes into the frame
-    with one ``index_add_``. ``bounce_fn`` as in ``_render_pixelq``."""
+    with one ``index_add_``. ``bounce_fn`` and ``sample_offset`` as in
+    ``_render_pixelq``."""
     total = n * cfg.spp
     n_lanes = min(cfg.lanes, total)
     k_steps = max(1, int(cfg.bounces_per_round))
 
     def item_rays(g):
         pix = pixel_start + g % n
-        jx, jy = rng.uniform2(pix, g // n, frame_idx, rng.STREAM_JITTER)
+        jx, jy = rng.uniform2(pix, g // n + sample_offset, frame_idx,
+                              rng.STREAM_JITTER)
         return camera_rays(cam, pix, cfg.width, cfg.height, jx, jy)
 
     g = torch.arange(n_lanes, dtype=torch.int64, device=dev)
@@ -431,7 +469,7 @@ def _render_regen(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn):
     iters = 0
 
     while bool(active.any()):
-        j, sample = g % n, g // n
+        j, sample = g % n, g // n + sample_offset
         alive = active
         pending = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
         for _ in range(k_steps):
@@ -479,37 +517,43 @@ def _render_regen(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn):
 
 
 def _wavefront(scene, cam, cfg, pixel_start, n_pixels, frame_idx,
-               closest_fn, occluded_fn, fused_fn):
+               closest_fn, occluded_fn, fused_fn, sample_offset: int = 0):
     """``render_wavefront`` on given intersectors (``debug.validate_frame``
     hands in checked ones)."""
     if cfg.scheduler == "scan":
         return _render_scan(scene, cam, cfg, pixel_start, n_pixels,
-                            frame_idx, closest_fn, occluded_fn, fused_fn)
+                            frame_idx, closest_fn, occluded_fn, fused_fn,
+                            sample_offset)
     if cfg.scheduler not in ("pixelq", "regen"):
         raise ValueError(f"unknown scheduler {cfg.scheduler!r} (pixelq, "
                          "regen or scan)")
 
-    def bounce(pix, sample, origin, direction, atten, depth):
+    def bounce(pix, sample, origin, direction, atten, depth, pred=None):
         return _bounce(scene, cfg, closest_fn, occluded_fn, pix, sample,
-                       frame_idx, origin, direction, atten, depth, fused_fn)
+                       frame_idx, origin, direction, atten, depth, fused_fn,
+                       pred)
     if cfg.scheduler == "regen":
         return _render_regen(scene.device, cam, cfg, pixel_start, n_pixels,
-                             frame_idx, bounce)
+                             frame_idx, bounce, sample_offset)
     # 8 items per lane: tpu_pt.render._render_pixelq's path-trace default.
+    use_pred = (fused_fn is None
+                and getattr(closest_fn, "supports_pred", False))
     return _render_pixelq(scene.device, cam, cfg, pixel_start, n_pixels,
-                          frame_idx, bounce, items_per_lane=8)
+                          frame_idx, bounce, items_per_lane=8,
+                          sample_offset=sample_offset, use_pred=use_pred)
 
 
 def render_wavefront(scene: SceneArrays, cam: CameraArrays,
                      cfg: RenderConfig, pixel_start: int, n_pixels: int,
-                     frame_idx: int):
+                     frame_idx: int, sample_offset: int = 0):
     """Mean radiance over ``cfg.spp`` samples for ``n_pixels`` consecutive
-    pixels from flat index ``pixel_start``. Returns (radiance [n, 3] f32,
-    RenderStats)."""
+    pixels from flat index ``pixel_start``. ``sample_offset`` shifts the
+    counter RNG's sample axis, so that calls which split a pixel's samples
+    draw disjoint sets. Returns (radiance [n, 3] f32, RenderStats)."""
     closest_fn, occluded_fn = get_intersectors(scene, cfg, want_uv=False)
     return _wavefront(scene, cam, cfg, pixel_start, n_pixels, frame_idx,
                       closest_fn, occluded_fn,
-                      get_fused_closest_nee(scene, cfg))
+                      get_fused_closest_nee(scene, cfg), sample_offset)
 
 
 def render_frame(scene: SceneArrays, cam: CameraArrays, cfg: RenderConfig,

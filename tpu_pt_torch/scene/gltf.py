@@ -26,8 +26,7 @@ Geometry contracts (``instancing``):
   JAX package's defaults, so both packages pick the same contract.
 
 The flattened tables carry their LBVH (``intersect.lbvh``), as the JAX
-loader's do. Not ported yet: JPEG and PPM textures (ROADMAP.md Queue 1
-item 13).
+loader's do. Textures are PNG, JPEG or PPM images.
 """
 
 from __future__ import annotations
@@ -74,8 +73,6 @@ INST_AUTO_MIN = 32768
 # Most closest-hit steps of the fractional alpha-shadow march.
 ALPHA_MARCH_MAX = 8
 
-_ROADMAP_CODECS = ("ROADMAP.md Queue 1 item 13 (glTF/Whitted pipeline: "
-                   "JPEG and PPM codecs)")
 _PRIM_KINDS = {"sphere": 0, "parallelogram": 1, "sphere_shell": 2}
 
 
@@ -376,8 +373,24 @@ def _node_matrix(node: dict) -> np.ndarray:
     return m
 
 
+def _decode_image_bytes(blob: bytes) -> np.ndarray:
+    """Sniff and decode an image held in memory (PNG, JPEG or PPM) to
+    uint8 [h, w, 3 or 4]; a PNG keeps its alpha (base-color alpha drives
+    alpha masking and blending). JPEG is mandatory in glTF core; the
+    reference also textures from PPM files."""
+    from .. import jpeg
+    if blob[:8] == b"\x89PNG\r\n\x1a\n":
+        return film.png_rgba(blob)
+    if blob[:2] == b"\xff\xd8":
+        return jpeg.decode_jpeg(blob)
+    if blob[:2] in (b"P6", b"P3"):
+        return film.ppm_rgb(blob)
+    raise ValueError("unsupported image format (PNG, JPEG or PPM)")
+
+
 def _decode_image(g: _Gltf, img: dict) -> np.ndarray:
-    """Image -> float32 [h, w, 4] in [0, 1] (PNG; alpha kept)."""
+    """Image -> float32 [h, w, 4] in [0, 1]; alpha 1 where the file has
+    none."""
     if "uri" in img and not img["uri"].startswith("data:"):
         with open(os.path.join(g.base_dir, img["uri"]), "rb") as f:
             blob = f.read()
@@ -387,12 +400,10 @@ def _decode_image(g: _Gltf, img: dict) -> np.ndarray:
         bv = g.doc["bufferViews"][img["bufferView"]]
         off = bv.get("byteOffset", 0)
         blob = g.buffer(bv["buffer"])[off: off + bv["byteLength"]]
-    if blob[:2] == b"\xff\xd8" or blob[:2] in (b"P6", b"P3"):
-        raise NotImplementedError(
-            f"JPEG and PPM textures are not ported yet: {_ROADMAP_CODECS}")
-    if blob[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError("unsupported image format")
-    return film.png_rgba(blob).astype(np.float32) / 255.0
+    px = _decode_image_bytes(bytes(blob))
+    rgba = np.ones((*px.shape[:2], 4), np.float32)
+    rgba[..., :px.shape[2]] = px.astype(np.float32) / 255.0
+    return rgba
 
 
 def _instancing_eligible(doc, inst_records, mesh_tris):

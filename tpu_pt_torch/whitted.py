@@ -402,17 +402,17 @@ def _make_whitted_step(ws: WhittedScene, cfg: RenderConfig, closest_fn,
 
 
 def _render_wide(ws, cam, cfg, pixel_start, n, frame_idx, step_fn,
-                 depth_cap):
+                 depth_cap, sample_offset: int = 0):
     """Every pixel's samples in turn, each a depth loop over all lanes
     that ends once no lane continues (``tpu_pt.whitted``'s wide
-    ``while_loop``)."""
+    ``while_loop``). The RNG's sample axis starts at ``sample_offset``."""
     dev = ws.device
     pixel_ids = pixel_start + torch.arange(n, dtype=torch.int64, device=dev)
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     n_rays, n_shadow, iters = zero.clone(), zero.clone(), 0
     hist = torch.zeros(NUM_DONE_REASONS, dtype=torch.int64, device=dev)
-    for sample in range(cfg.spp):
+    for sample in range(sample_offset, sample_offset + cfg.spp):
         jx, jy = rng.uniform2(pixel_ids, sample, frame_idx,
                               rng.STREAM_JITTER)
         origin, direction = camera_rays(cam, pixel_ids, cfg.width,
@@ -441,14 +441,17 @@ def _render_wide(ws, cam, cfg, pixel_start, n, frame_idx, step_fn,
 def render_whitted_wavefront(ws: WhittedScene, cam: CameraArrays,
                              cfg: RenderConfig, pixel_start: int,
                              n_pixels: int, frame_idx: int,
-                             intersectors=_intersectors):
+                             intersectors=_intersectors,
+                             sample_offset: int = 0):
     """Direct-lighting estimate over ``cfg.spp`` jittered samples per
     pixel for ``n_pixels`` pixels from flat index ``pixel_start``.
     Returns (radiance [n, 3], RenderStats); the histogram's slots are
-    [miss, depth-capped, absorbed, 0, 0]. ``cfg.scheduler`` is ``pixelq``
-    (default) or ``scan`` (the wide depth loop). ``intersectors(geom,
-    table, cfg)`` gives each scene part's (closest_fn, occluded_fn)
-    (``debug.validate_whitted_frame`` hands in checked ones)."""
+    [miss, depth-capped, absorbed, 0, 0]. ``cfg.scheduler`` ``pixelq``
+    (default) takes the work queue, any other (``scan``, ``regen``) the
+    wide depth loop, as in the JAX package. ``sample_offset`` shifts the
+    RNG's sample axis. ``intersectors(geom, table, cfg)`` gives each scene
+    part's (closest_fn, occluded_fn) (``debug.validate_whitted_frame``
+    hands in checked ones)."""
     closest_fn, occluded_fn = intersectors(ws.geom, ws.inst, cfg)
     occ_att_fn = _make_occlusion(ws, cfg, occluded_fn, intersectors)
     depth_cap = min(cfg.max_depth, MAX_TRACE_DEPTH)
@@ -459,12 +462,10 @@ def render_whitted_wavefront(ws: WhittedScene, cam: CameraArrays,
         # lane, 4 on a scene above 8,192 triangles.
         per_lane = 4 if ws.geom.num_tris_padded > 8192 else 16
         return _render_pixelq(ws.device, cam, cfg, pixel_start, n_pixels,
-                              frame_idx, step_fn, items_per_lane=per_lane)
-    if cfg.scheduler != "scan":
-        raise NotImplementedError(f"scheduler {cfg.scheduler!r} is not "
-                                  "ported (use pixelq or scan)")
+                              frame_idx, step_fn, items_per_lane=per_lane,
+                              sample_offset=sample_offset)
     return _render_wide(ws, cam, cfg, pixel_start, n_pixels, frame_idx,
-                        step_fn, depth_cap)
+                        step_fn, depth_cap, sample_offset)
 
 
 def render_whitted_frame(ws: WhittedScene, cam: CameraArrays,
