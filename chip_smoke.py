@@ -132,13 +132,35 @@ K12 streamed, K13 cluster-binned: ``tpu_pt_torch/intersect/ablations.py``):
    never; the lean frame again under ``TPT_PRED=0``, bitwise equal; one
    call of each wrapper recorded from a warm-up frame, bitwise;
 22. incoherent rays: ``tools/bench_incoherent_torch.py``'s 262,144 random
-   rays on the big mesh through every scheduler (K6, K7, K11, K12, K13;
-   K8, K8b, K12, K13), all results equal, device times in interleaved
-   pairs against K6 / K8.
+   rays on the big mesh through every scheduler (K6, K7, K11, K12, K13,
+   K14, K15 serial and bundled; K8, K8b, K12, K13, K14, K15 both), all
+   results equal, device times in interleaved pairs against K6 / K8.
+
+The rest of pallas_ablations.py (K14 pair-binned, K15 8-lane groups:
+``tpu_pt_torch/csrc/ablations_binned.cu``) and the bf16 probe K16:
+
+23. kernels (in phase 4): ``closest_binned`` / ``occluded_binned`` (k = 12)
+   and ``closest_grp`` / ``occluded_grp`` (serial and bundled) on the big
+   mesh at 32,768 rays with every eighth lane parked, bitwise against
+   their plain versions, timed apart from their schedule builds
+   (``_pair_schedule``, the group lists) and at 262,144 rays; their whole
+   paths bitwise against K6 / K8 there and at 1,000 and 77 rays, K14 also
+   at k = 2, where the completion pass carries real lanes;
+24. big-mesh variants (in phase 16): the frame under ``TPT_BINNED=1``
+   (K14 and its completion passes K6 and K8 once per round), ``TPT_GRP=1``
+   and ``TPT_GRP=2`` (K15 once per round, K6 / K8 never), accumulators
+   bitwise equal to the lean frame's, one call of each wrapper recorded
+   from a warm-up frame and held bitwise;
+25. incoherent rays (in phase 22): K14 and K15 among the paths;
+26. bf16 probe: ``tools/microbench_bf16_torch.py``'s f32 chain bitwise
+   against its plain PyTorch chain on the card, the bf16 chain within one
+   bf16 ulp (the count of differing elements printed), then 200 chained
+   calls of each, timed: ms per call, Tops/s, the bound and the ratio.
 
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
-rate.
+rate (K16: its operations over the instruction rate of its type, from the
+card's SM count and maximum SM clock).
 
 The last three lines are the kernels' JSON record, the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.
@@ -189,6 +211,8 @@ _CLUSTERED = "tpu_pt_torch/csrc/clustered_intersect.cu"
 _INSTANCED = "tpu_pt_torch/csrc/instanced_intersect.cu"
 _BUILD = "tpu_pt_torch/csrc/clustered_build.cu"
 _ABLATIONS = "tpu_pt_torch/csrc/ablations_intersect.cu"
+_BINNED = "tpu_pt_torch/csrc/ablations_binned.cu"
+_BF16 = "tpu_pt_torch/csrc/microbench_bf16.cu"
 KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "closest_lean": (_DENSE, "tpu_pt/intersect/pallas_bf.py:976"),
     "occluded": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1299"),
@@ -214,7 +238,17 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "closest_cbin": (_ABLATIONS, "tpu_pt/intersect/pallas_ablations.py:905"),
     "occluded_cbin": (_ABLATIONS,
                       "tpu_pt/intersect/pallas_ablations.py:1014"),
+    "closest_binned": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1272"),
+    "occluded_binned": (_BINNED,
+                        "tpu_pt/intersect/pallas_ablations.py:1365"),
+    "closest_grp": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1760"),
+    "occluded_grp": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1791"),
+    "chain_f32": (_BF16, "tools/microbench_bf16.py:37"),
+    "chain_bf16": (_BF16, "tools/microbench_bf16.py:37"),
 }
+# The wrappers of tpu_pt_torch.intersect (K16's live in its tool).
+INTERSECT_WRAPPERS = tuple(k for k, (src, _) in KERNELS.items()
+                           if src != _BF16)
 # The bound: the larger of the operations over the card's f32 rate
 # without tensor cores and the bytes over its memory rate (H100 SXM data
 # sheet). Operations per ray-row pair (the plane + edge test, as counted
@@ -331,11 +365,26 @@ BIG_VARIANTS = [
     ("no prediction", dict(TPT_PRED="0"),
      ("closest_clustered", "occluded_clustered"),
      ("closest_rotated", "closest_streamed", "closest_cbin")),
+    # K14 finishes its overflow through K6 and K8, every round.
+    ("pair-binned", dict(TPT_BINNED="1"),
+     ("closest_binned", "occluded_binned", "closest_clustered",
+      "occluded_clustered"),
+     ("closest_rotated", "closest_streamed", "closest_cbin", "closest_grp",
+      "occluded_grp")),
+    ("8-lane groups, serial", dict(TPT_GRP="1"),
+     ("closest_grp", "occluded_grp"),
+     ("closest_clustered", "occluded_clustered", "closest_binned",
+      "occluded_binned", "closest_streamed")),
+    ("8-lane groups, bundled", dict(TPT_GRP="2"),
+     ("closest_grp", "occluded_grp"),
+     ("closest_clustered", "occluded_clustered", "closest_binned",
+      "occluded_binned", "closest_streamed")),
 ]
 NEW_WRAPPERS = ("closest_clustered_full", "closest_clustered_b",
                 "closest_clustered_full_b", "occluded_clustered_b",
                 "closest_rotated", "closest_streamed", "occluded_streamed",
-                "closest_cbin", "occluded_cbin")
+                "closest_cbin", "occluded_cbin", "closest_binned",
+                "occluded_binned", "closest_grp", "occluded_grp")
 N_RAGGED = (1000, 77)    # ray counts that leave a ragged last block
 INCOHERENT = dict(n=262144, reps=3)   # tools/bench_incoherent_torch.py
 WHITTED_TOL, WHITTED_SHARE = 1e-3, 0.02   # tests/test_torch_whitted.py
@@ -650,6 +699,22 @@ def _plain(name: str, args):
     if name in ("closest_cbin", "occluded_cbin"):
         return ablations._cbin_sweep_plain(*args,
                                            occluded=name == "occluded_cbin")
+    if name == "closest_binned":
+        return ablations._reduce_pairs(
+            *ablations._binned_sweep_plain(*args, occluded=False),
+            args[0].shape[0])
+    if name == "occluded_binned":
+        return ablations._reduce_pairs_occ(
+            *ablations._binned_sweep_plain(*args, occluded=True),
+            args[0].shape[0])
+    if name == "closest_grp":
+        rays, tris, boxes, scale, lists, tmin, tmax, _ = args
+        return ablations._grp_plain(rays, tris, boxes, scale, lists, tmin,
+                                    tmax, occluded=False)
+    if name == "occluded_grp":
+        rays, tris, boxes, scale, lists, tmin, _ = args
+        return ablations._grp_plain(rays, tris, boxes, scale, lists, tmin,
+                                    1e16, occluded=True)
     if name == "closest_lean":
         o, d, tris, tmin = args
         return dense._closest_plain(o, d, tris, tmin)
@@ -699,7 +764,10 @@ def _hold_recorded(records, picked, what: str, all_parked_ok=()):
         compare = (_compare_fused if name.startswith("closest_nee")
                    else _compare_exact)
         err, extra = compare(name, out_k, out_p)
-        tables = [tuple(a.shape) for a in args[2:]
+        # The tables follow the rays: (o, d, rows, ...), or (rays, rows,
+        # ...) for the wrappers that take packed [n, 8] rays.
+        first = 1 if args[0].shape[-1] == 8 else 2
+        tables = [tuple(a.shape) for a in args[first:]
                   if torch.is_tensor(a) and a.dim() == 2]
         records.setdefault(name, []).append(dict(
             rows=tables[0][0] if tables else args[1].shape[0],
@@ -809,12 +877,48 @@ def _cbin_work(pair_rays, rows, jtab, cluster: int, rt: int, occluded: bool):
         + used * cluster * 64 + j_cap * rt * (4 if occluded else 8)
 
 
+def _binned_work(rays, rows, schedule, cluster: int, occluded: bool):
+    """K14's own work, from the wrapper's inputs: every used pair slot of
+    a live tile against its tile's rows, all of them for the closest hit,
+    up to the first blocking one for the any-hit; no slab test (those ran
+    in the schedule build). Bytes: the rays, the slot and tile tables in,
+    each distinct cluster's rows once, one 8-byte key or one flag per ray
+    out."""
+    import torch
+    from tpu_pt_torch.intersect import ablations
+    pair_ray, tile_sid = schedule.pair_ray, schedule.tile_sid
+    ns = rows.shape[0] // cluster
+    live = ((tile_sid < ns)[:, None]
+            & (pair_ray.view(-1, ablations.PAIR_TILE) >= 0))
+    pairs = int(live.sum()) * cluster
+    if occluded:
+        pairs = 0
+        table = rows.view(ns, cluster, 16)
+        for j0 in range(0, tile_sid.shape[0], 64):
+            sid = tile_sid[j0:j0 + 64].long().clamp_max(ns - 1)
+            lv = live[j0:j0 + 64]
+            pr = rays[pair_ray.view(-1, ablations.PAIR_TILE)[j0:j0 + 64]
+                      .long().clamp_min(0)]
+            blk = table[sid]
+            t = ablations._pe_rows(pr[..., 0:3], pr[..., 3:6], blk, 0.01)
+            block = (t < pr[..., 6:7]) & (blk[:, None, :, 13] < 0.5)
+            first = block.to(torch.int32).argmax(2)
+            need = torch.where(block.any(2), first + 1, cluster)
+            pairs += int(need[lv].sum())
+    used = int(torch.unique(tile_sid[tile_sid < ns]).numel())
+    return pairs * PAIR_FLOPS, rays.numel() * 4 + pair_ray.numel() * 4 \
+        + tile_sid.numel() * 4 + used * cluster * 64 \
+        + rays.shape[0] * (1 if occluded else 8)
+
+
 def _check_kernel(records, name, kernel, plain, rows, compare, work,
-                  n=N_RAYS, reps=20, plain_reps=3, at_n_rays=None):
+                  n=N_RAYS, reps=20, plain_reps=3, at_n_rays=None,
+                  label=None):
     """Compare kernel() with plain() on the same n rays and time both;
     ``work(out)`` gives the (operations, bytes) these inputs need;
     ``at_n_rays``, when given, is the kernel on N_RAYS rays, timed too.
-    Appends the record to ``records[name]``."""
+    Appends the record to ``records[name]``; ``label`` names the record in
+    the log line (default ``name``)."""
     import torch
     out_k = kernel()
     out_p = plain()
@@ -829,7 +933,7 @@ def _check_kernel(records, name, kernel, plain, rows, compare, work,
         rec["ms_at_n_rays"] = gpu_ms(at_n_rays, reps)
         wide = f"; kernel at {N_RAYS} rays {rec['ms_at_n_rays']:.4f} ms"
     records.setdefault(name, []).append(rec)
-    say("kernels", f"{name} x {rows} rows: max|err| {err} on {n} rays"
+    say("kernels", f"{label or name} x {rows} rows: max|err| {err} on {n} rays"
         f" ({extra}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at "
         f"{n} rays{wide}; bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}: {rec['flops']:.4g} flops, "
@@ -870,18 +974,20 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     def k8_finish(o, d, tmax):
         return clustered.occluded_clustered(o, d, tmax, *table, 0.01)
 
-    def streamed_work(lists, whole):
-        """K12 on ``lists``: slab tests on its tiles' listed boxes only;
-        it reads the listed (box, key) entries, cnt and far besides."""
+    def streamed_work(lists, whole, lanes=rt):
+        """K12 (K15) on ``lists``: slab tests on its tiles' (groups')
+        listed boxes only; it reads the listed (box, key) entries, cnt and
+        far besides."""
         listed = int(lists[2].sum())
-        return lambda out: whole(out, box_tests=listed * rt,
-                                 list_bytes=listed * 8 + n // rt * 4 + n * 4)
+        return lambda out: whole(
+            out, box_tests=listed * lanes,
+            list_bytes=listed * 8 + n // lanes * 4 + n * 4)
 
     def run(name, kernel, plain, work, wide, build=None, path=None,
-            path_work=None):
+            path_work=None, label=None):
         _check_kernel(records, name, kernel, plain, rows.shape[0],
                       _compare_exact, work, n=n, reps=10, plain_reps=1,
-                      at_n_rays=wide)
+                      at_n_rays=wide, label=label)
         if build is None:
             return
         rec = records[name][-1]
@@ -891,7 +997,7 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
         whole = _bound(*path_work(None))
         rec["path_bound_ms"], rec["path_bound_by"] = (whole["bound_ms"],
                                                       whole["bound_by"])
-        say("kernels", f"{name}: its schedule build at {n} rays "
+        say("kernels", f"{label or name}: its schedule build at {n} rays "
             f"{rec['build_ms']:.4f} ms per call; the whole path "
             f"{rec['path_ms']:.4f} ms beside the function's bound "
             f"{rec['path_bound_ms']:.4f} ms ({rec['path_bound_by']})")
@@ -927,8 +1033,8 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     rW = ablations.pack_rays(oW, dW, 1e16, oW.shape[0])
     sW = ablations.pack_rays(*shadow_wide, oW.shape[0])
 
-    def lists_of(r, closest):
-        return ablations.stream_candidates(r, boxes, scale, rt, 0.01,
+    def lists_of(r, closest, lanes=rt):
+        return ablations.stream_candidates(r, boxes, scale, lanes, 0.01,
                                            1e16 if closest else r[:, 6])
     lc, lo, lcW, loW = (lists_of(r8, True), lists_of(s8, False),
                         lists_of(rW, True), lists_of(sW, False))
@@ -980,6 +1086,79 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
             build=lambda: ablations.cbin_pairs(r, boxes, scale, 0.01),
             path=path, path_work=work)
 
+    # K14: the pair schedule built once, the kernel (with its fused fold)
+    # timed alone; its bound from its live pairs, no slab test.
+    k14 = ablations.PAIR_K
+
+    def pairs_of(r, closest, k=k14):
+        return ablations._pair_schedule(r, boxes, scale, k, 0.01,
+                                        1e16 if closest else r[:, 6])
+    bc, bo, bcW, boW = (pairs_of(r8, True), pairs_of(s8, False),
+                        pairs_of(rW, True), pairs_of(sW, False))
+    ns = boxes.shape[0]
+    say("kernels", f"_pair_schedule (k {k14}): "
+        f"{int((bc.pair_ray >= 0).sum())} (closest) and "
+        f"{int((bo.pair_ray >= 0).sum())} (any-hit) pairs in "
+        f"{int((bc.tile_sid < ns).sum())} / {int((bo.tile_sid < ns).sum())} "
+        f"live tiles of {bc.tile_sid.shape[0]} at {n} rays; "
+        f"{float(bc.overflow.float().mean()):.4f} / "
+        f"{float(bo.overflow.float().mean()):.4f} of lanes overflow")
+    for name, sch, schW, r, rWide, any_hit, path, work in (
+            ("closest_binned", bc, bcW, r8, rW, False,
+             lambda: ablations.closest_binned_path(o, d, *table, 0.01),
+             closest_work),
+            ("occluded_binned", bo, boW, s8, sW, True,
+             lambda: ablations.occluded_binned_path(*shadow, *table, 0.01),
+             occluded_work)):
+        sweep = getattr(ablations, name)
+        args = (r, rows, sch.pair_ray, sch.tile_sid, cluster, 0.01)
+        run(name, lambda: sweep(*args), lambda: _plain(name, args),
+            lambda out: _binned_work(r, rows, sch, cluster, any_hit),
+            lambda: sweep(rWide, rows, schW.pair_ray, schW.tile_sid, cluster,
+                          0.01),
+            build=lambda: pairs_of(r, not any_hit), path=path,
+            path_work=work)
+
+    # K15: the group lists (stream_candidates at 8 lanes) built once; the
+    # serial and the bundled body each timed alone.
+    lanes = ablations.GRP_LANES
+    gc, go, gcW, goW = (lists_of(r8, True, lanes), lists_of(s8, False, lanes),
+                        lists_of(rW, True, lanes), lists_of(sW, False, lanes))
+    say("kernels", f"group lists: groups of {lanes} lanes list "
+        f"{float(gc[2].float().mean()):.1f} (closest) and "
+        f"{float(go[2].float().mean()):.1f} (any-hit) of {ns} boxes at {n} "
+        f"rays")
+
+    def grp_path(fn, mode, *args):
+        with _env(TPT_GRP=mode):
+            return fn(*args)
+    for bundled in (False, True):
+        mode = "2" if bundled else "1"
+        body = "bundled" if bundled else "serial"
+        run("closest_grp",
+            lambda: ablations.closest_grp(r8, *table, gc, 0.01,
+                                          bundled=bundled),
+            lambda: _plain("closest_grp", (r8, *table, gc, 0.01, 1e16,
+                                           bundled)),
+            streamed_work(gc, closest_work, lanes),
+            lambda: ablations.closest_grp(rW, *table, gcW, 0.01,
+                                          bundled=bundled),
+            build=lambda: lists_of(r8, True, lanes),
+            path=lambda: grp_path(ablations.closest_grp_path, mode, o, d,
+                                  *table, 0.01),
+            path_work=closest_work, label=f"closest_grp ({body})")
+        run("occluded_grp",
+            lambda: ablations.occluded_grp(s8, *table, go, 0.01,
+                                           bundled=bundled),
+            lambda: _plain("occluded_grp", (s8, *table, go, 0.01, bundled)),
+            streamed_work(go, occluded_work, lanes),
+            lambda: ablations.occluded_grp(sW, *table, goW, 0.01,
+                                           bundled=bundled),
+            build=lambda: lists_of(s8, False, lanes),
+            path=lambda: grp_path(ablations.occluded_grp_path, mode,
+                                  *shadow, *table, 0.01),
+            path_work=occluded_work, label=f"occluded_grp ({body})")
+
     # The whole paths against K6 / K8 under every knob, at n and at ragged
     # ray counts.
     def with_caps(caps, fn):
@@ -995,10 +1174,19 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                 setattr(ablations, k, v)
 
     starved = (1, 1, 2)
+    ids6 = torch.where(t6 < 1e15, rows[row6.long(), 15], 0.0).to(torch.int32)
     for m in (n,) + N_RAGGED:
         oo, dd = o[:m].contiguous(), d[:m].contiguous()
         sh = tuple(x[:m].contiguous() for x in shadow)
         want_c, want_o = (t6[:m], row6[:m]), (k8_out[:m],)
+        want_h = (t6[:m], ids6[:m])
+
+        def binned_c(k):
+            h = ablations.closest_binned_path(oo, dd, *table, 0.01, k=k)
+            return h.t, h.tri
+
+        def binned_o(k):
+            return (ablations.occluded_binned_path(*sh, *table, 0.01, k=k),)
 
         def stream_c():
             return ablations.closest_stream_path(oo, dd, *table, 0.01)
@@ -1027,6 +1215,20 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                 checks.append((f"K13 {what}, group / pair mult / k {caps}",
                                lambda fn=fn, caps=caps: with_caps(caps, fn),
                                want))
+        for k in (k14, 2):
+            checks += [(f"K14 closest, k {k}", lambda k=k: binned_c(k),
+                        want_h),
+                       (f"K14 any-hit, k {k}", lambda k=k: binned_o(k),
+                        want_o)]
+        for mode in ("1", "2"):
+            checks += [
+                (f"K15 closest, TPT_GRP={mode}",
+                 lambda mode=mode: grp_path(ablations.closest_grp_path, mode,
+                                            oo, dd, *table, 0.01), want_c),
+                (f"K15 any-hit, TPT_GRP={mode}",
+                 lambda mode=mode: (grp_path(ablations.occluded_grp_path,
+                                             mode, *sh, *table, 0.01),),
+                 want_o)]
         for what, fn, want in checks:
             got = fn()
             torch.cuda.synchronize()
@@ -1034,9 +1236,9 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                 raise AssertionError(f"{what} at {m} rays differs from "
                                      "K6 / K8")
         say("kernels", f"K11 ({len(preds)} predictions), K12 (guard on and "
-            f"off) and K13 (3 cap settings, one starved), closest and "
-            f"any-hit paths: {len(checks)} results bitwise equal to K6 / K8 "
-            f"on {m} rays")
+            f"off), K13 (3 cap settings, one starved), K14 (k {k14} and 2) "
+            f"and K15 (serial, bundled), closest and any-hit paths: "
+            f"{len(checks)} results bitwise equal to K6 / K8 on {m} rays")
     share = float(with_caps(starved, lambda: ablations.cbin_pairs(
         r8, boxes, scale, 0.01))[3].float().mean())
     say("kernels", f"K13 with starved caps (pair mult 1, k 2): "
@@ -1044,6 +1246,21 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     if share < 0.5:
         raise AssertionError("the starved caps must leave most lanes to the "
                              "completion pass")
+    # K14 at k = 2: the lanes its completion pass carries (overflow, the
+    # fold's hit not nearer than the next entry).
+    sch2 = pairs_of(r8, True, 2)
+    t2, _ = ablations.closest_binned(r8, rows, sch2.pair_ray, sch2.tile_sid,
+                                     cluster, 0.01)
+    carried = int((sch2.overflow & (t2 >= sch2.next_tn)).sum())
+    so2 = pairs_of(s8, False, 2)
+    occ2 = ablations.occluded_binned(s8, rows, so2.pair_ray, so2.tile_sid,
+                                     cluster, 0.01)
+    carried_o = int((so2.overflow & ~occ2).sum())
+    say("kernels", f"K14 at k 2: the completion pass carries {carried} "
+        f"(closest) and {carried_o} (any-hit) of {n} lanes")
+    if carried == 0 or carried_o == 0:
+        raise AssertionError("K14 at k = 2 must send live lanes through its "
+                             "completion passes")
 
 
 def phase_incoherent(device, smi, big):
@@ -1067,7 +1284,9 @@ def phase_incoherent(device, smi, big):
                      f"{p['kernel_ms']:.4f} ms; "
                      + ", ".join(f"{k} {p[k]}" for k in (
                          "listed_boxes_per_tile", "boxes", "jobs", "job_cap",
-                         "incomplete_share") if k in p) + ")")
+                         "incomplete_share", "pairs", "tiles", "tile_cap",
+                         "overflow_share", "listed_boxes_per_group")
+                         if k in p) + ")")
         say("incoherent", f"{p['metric']}: {p['ms']:.4f} ms "
             f"{[round(x, 4) for x in p['ms_runs']]}, the default path beside "
             f"it {[round(x, 4) for x in p['default_ms_runs']]} ms, "
@@ -1076,6 +1295,76 @@ def phase_incoherent(device, smi, big):
     for k in NEW_WRAPPERS[4:]:
         if counts[k] <= 0:
             raise AssertionError(f"incoherent: {k} never launched")
+    return counts
+
+
+def phase_bf16(device, smi, records):
+    """K16: tools/microbench_bf16_torch.py's chains on the card, each
+    against its plain PyTorch chain on the same [2,048, 1,024] inputs (f32
+    bit for bit; bf16 within one bf16 ulp, the differing elements
+    counted), kernel and plain timed; then the tool's bench (200 chained
+    calls of each) with the launch counters zeroed just before and read
+    just after. Returns the launches per kernel."""
+    import importlib.util
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "microbench_bf16_torch", REPO / "tools" / "microbench_bf16_torch.py")
+    mb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mb)
+    rates = mb.op_rates()
+    rows, cols = mb.shape()
+    for name, dtype in (("chain_f32", torch.float32),
+                        ("chain_bf16", torch.bfloat16)):
+        a, b = mb.make_inputs(dtype, device)
+        fn = getattr(mb, name)
+        out_k, out_p = fn(a, b), mb.plain_chain(a, b)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out_k.float()).all()):
+            raise AssertionError(f"{name}: non-finite results")
+        err = float((out_k.float() - out_p.float()).abs().max())
+        if dtype == torch.float32:
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(f"{name}: kernel and plain differ on "
+                                     f"{int((out_k != out_p).sum())} values")
+            note = "bitwise equal"
+        else:
+            same_sign = bool(((out_k.float() > 0) == (out_p.float() > 0)).all())
+            ulps = (out_k.view(torch.int16).int()
+                    - out_p.view(torch.int16).int()).abs()
+            if not same_sign or int(ulps.max()) > 1:
+                raise AssertionError(f"{name}: more than one bf16 ulp from "
+                                     f"the plain chain (max {int(ulps.max())})")
+            note = (f"{int((ulps > 0).sum())} of {ulps.numel()} elements one "
+                    f"bf16 ulp apart, the rest bitwise equal")
+        ms = gpu_ms(lambda: fn(a, b), 20)
+        plain_ms = gpu_ms(lambda: mb.plain_chain(a, b), 2)
+        key = "f32" if dtype == torch.float32 else "bf16"
+        bound_ms = mb.operations() / rates[key] * 1e3
+        records.setdefault(name, []).append(dict(
+            rows=rows, rays=rows * cols, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations",
+            flops=mb.operations(), bytes=3 * rows * cols * a.element_size()))
+        say("bf16", f"{name} [{rows}, {cols}] x {mb.STEPS} steps x "
+            f"{mb.OPS_PER_STEP} ops: {note}, max|err| {err}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({rates['sms']} SMs x {mb.F32_LANES} f32 lanes"
+            f"{' x 2 (packed)' if key == 'bf16' else ''} x "
+            f"{rates['max_sm_mhz']:.0f} MHz, the maximum SM clock)")
+    mb.LAUNCHES.update(dict.fromkeys(mb.LAUNCHES, 0))
+    out = mb.run(smi)
+    counts = dict(mb.LAUNCHES)
+    for p in out:
+        name = "chain_" + p["dtype"]
+        records[name][0]["bench_ms"] = p["ms_per_call"]
+        say("bf16", f"{p['metric']}: {p['ms_per_call']:.4f} ms per call over "
+            f"200 chained calls, {p['tops']:.3f} Tops/s against "
+            f"{p['bound_tops']:.3f} ({p['ms_per_call'] / p['bound_ms']:.3f}x "
+            f"the bound)"
+            + (f"; bf16 / f32 rate {p['bf16_over_f32']:.3f}"
+               if "bf16_over_f32" in p else "") + f"; {p['device']}")
+    for k, v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"bf16: {k} never launched")
     return counts
 
 
@@ -1976,7 +2265,7 @@ def phase_whitted_main(device, smi):
         if scene == FOREST and (ws.inst is None or ws.inst.count != 1001):
             raise AssertionError("auto must keep the forest's 1,001 "
                                  "instances")
-        tap = _Tap(KERNELS)
+        tap = _Tap(INTERSECT_WRAPPERS)
         _zero_counters()
         accum, _, per = _render_whitted(ws, device, WHITTED_VIEW, frames,
                                         tap=tap, **kw)
@@ -2490,6 +2779,7 @@ def main() -> int:
     phase_whitted_cross_check(device)
     h_launches = phase_huge_mesh(device, smi)
     i_launches = phase_incoherent(device, smi, big)
+    p_launches = phase_bf16(device, smi, records)
     phase_entry_points(device, smi)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -2499,18 +2789,21 @@ def main() -> int:
         first = records[kname][0]
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=sum(part[kname] for part in (
+            launches=sum(part.get(kname, 0) for part in (
                 launches, w_launches, f_launches, b_launches, h_launches,
-                i_launches)),
+                i_launches, p_launches)),
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-            # No PyTorch call computes a closest or any ray-triangle hit.
+            # No PyTorch call computes a closest or any ray-triangle hit,
+            # nor K16's chain.
             library_ms=None, rays=first["rays"],
-            # K12 / K13: the schedule build and the whole path (build,
-            # kernel, reduce, completion) beside the whole function's bound.
+            # K12-K15: the schedule build and the whole path (build,
+            # kernel, reduce, completion) beside the whole function's
+            # bound; K16: ms per call over its 200 chained calls.
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
-                                     "path_bound_by") if k in first}))
+                                     "path_bound_by", "bench_ms")
+               if k in first}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -423,5 +423,6 @@ def test_wrappers_take_cpu_or_cuda_only(mixed_scenes, monkeypatch):
                                   None, 64, 0.01)
     assert set(ablations.LAUNCHES) == {
         "closest_rotated", "closest_streamed", "occluded_streamed",
-        "closest_cbin", "occluded_cbin"}
+        "closest_cbin", "occluded_cbin", "closest_binned", "occluded_binned",
+        "closest_grp", "occluded_grp"}
     assert not any(ablations.LAUNCHES.values())

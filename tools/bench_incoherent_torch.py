@@ -10,14 +10,17 @@ the clustered closest hit and any-hit on it through the entry points
 ``clustered.closest_hit`` / ``occluded_hit``, each selected by its
 variable: K6 / K8 (default), K7 / K8b (``TPT_INKB=1``), K11
 (``TPT_SEED=1``, no prediction known), K12 (``TPT_STREAM=1``), K13
-(``TPT_CBIN=1``). The rays come from ``numpy.random.default_rng(0)``; the
+(``TPT_CBIN=1``), K14 (``TPT_BINNED=1``, the workload it was written for),
+K15 serial (``TPT_GRP=1``) and bundled (``TPT_GRP=2``, "K15b"). The rays
+come from ``numpy.random.default_rng(0)``; the
 JAX tool draws from ``jax.random.PRNGKey(0)``, which gives other numbers
 from the same distributions, so the two tools' rays differ ray by ray.
 
 Times are device times from CUDA events, not the host clock. Each path is
 timed in turn with the default one (default, path, path, default), since
-the host's speed drifts within a run; K12's and K13's schedule builds
-(``stream_candidates``, ``cbin_pairs``) and kernels are also timed apart.
+the host's speed drifts within a run; the schedule builds of K12-K15
+(``stream_candidates``, ``cbin_pairs``, ``_pair_schedule``, the group
+lists) and their kernels are also timed apart.
 Every path's result must equal the default path's, bit for bit.
 
 Knobs: INC_RAYS (262144), INC_SCENE (assets/big_mesh.obj, written by
@@ -39,13 +42,17 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+LATE = [("K14", {"TPT_BINNED": "1"}), ("K15", {"TPT_GRP": "1"}),
+        ("K15b", {"TPT_GRP": "2"})]
 CLOSEST_PATHS = [("K6", {}), ("K7", {"TPT_INKB": "1"}),
                  ("K11", {"TPT_SEED": "1"}), ("K12", {"TPT_STREAM": "1"}),
-                 ("K13", {"TPT_CBIN": "1"})]
+                 ("K13", {"TPT_CBIN": "1"})] + LATE
 OCCLUDED_PATHS = [("K8", {}), ("K8b", {"TPT_INKB": "1"}),
-                  ("K12", {"TPT_STREAM": "1"}), ("K13", {"TPT_CBIN": "1"})]
+                  ("K12", {"TPT_STREAM": "1"}), ("K13", {"TPT_CBIN": "1"})] \
+    + LATE
 DISPATCH = ("TPT_INKB", "TPT_SEED", "TPT_STREAM", "TPT_CBIN", "TPT_LEAN_BIG",
-            "TPT_LEAN_UV", "TPT_SORT_KEY", "TPT_CBIN_OCC")
+            "TPT_LEAN_UV", "TPT_SORT_KEY", "TPT_CBIN_OCC", "TPT_BINNED",
+            "TPT_GRP")
 
 
 @contextlib.contextmanager
@@ -102,9 +109,10 @@ def _ms(fn, reps: int) -> float:
 
 
 def _parts(tables, o, d, tmax, name: str, occluded: bool, reps: int) -> dict:
-    """K12's and K13's schedule build and kernel, timed apart: the two
+    """The schedule build and the kernel of K12-K15, timed apart: the two
     steps the paths themselves run (``ablations.stream_steps`` /
-    ``cbin_steps``)."""
+    ``cbin_steps`` / ``binned_steps`` / ``grp_steps``; K15's under the
+    variables of the path, which pick the body)."""
     from tpu_pt_torch.intersect import ablations
     table = (tables.rows, tables.boxes, tables.scale)
     bound = tmax if occluded else 1e16
@@ -121,6 +129,20 @@ def _parts(tables, o, d, tmax, name: str, occluded: bool, reps: int) -> dict:
         _, jtab, _, incomplete, _ = schedule
         extra = dict(jobs=int((jtab >= 0).sum()), job_cap=int(jtab.shape[0]),
                      incomplete_share=float(incomplete.float().mean()))
+    elif name == "K14":
+        _, build, kernel = ablations.binned_steps(o, d, bound, *table, 0.01,
+                                                  occluded)
+        schedule = build()
+        live = schedule.tile_sid < tables.boxes.shape[0]
+        extra = dict(pairs=int((schedule.pair_ray >= 0).sum()),
+                     tiles=int(live.sum()), tile_cap=int(live.shape[0]),
+                     overflow_share=float(schedule.overflow.float().mean()))
+    elif name in ("K15", "K15b"):
+        _, build, kernel = ablations.grp_steps(o, d, bound, *table, 0.01,
+                                               occluded)
+        lists = schedule = build()
+        extra = dict(listed_boxes_per_group=float(lists[2].float().mean()),
+                     boxes=int(tables.boxes.shape[0]))
     else:
         return {}
     kernel(schedule)

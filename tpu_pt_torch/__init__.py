@@ -19,7 +19,7 @@ frame validation) and ``profiling``.
 __version__ = "0.1.0"
 
 from .config import RenderConfig, Quirks  # noqa: F401
-from .camera import Camera, cornell_default_camera  # noqa: F401
+from .camera import Camera, Trackball, cornell_default_camera  # noqa: F401
 from .render import (CameraArrays, RenderStats, render_frame,  # noqa: F401
                      render_wavefront, init_accum, image_to_host)
 from .checkpoint import save_checkpoint, load_checkpoint  # noqa: F401

@@ -74,6 +74,18 @@ _SIGNATURES = {
         "tpt_closest_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
         "tpt_occluded_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
     },
+    "ablations_binned": {
+        "tpt_closest_binned": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
+        "tpt_occluded_binned": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
+        "tpt_closest_grp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _F, _F, _F, _F, _P, _P, _P),
+        "tpt_occluded_grp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _F, _F, _P, _P),
+    },
+    "microbench_bf16": {
+        "tpt_chain_f32": (_P, _P, _P, _I, _I, _P),
+        "tpt_chain_bf16": (_P, _P, _P, _I, _I, _P),
+    },
     "instanced_intersect": {
         "tpt_closest_inst": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                              _F, _P, _P, _P, _P),

@@ -84,15 +84,7 @@ using tpt::max_abs_origin;
 using tpt::pe_test;
 using tpt::Ray;
 using tpt::Slab;
-using tpt::slab_passes;
-
-__device__ __forceinline__ bool box_passes(const Ray& r, const Slab& s,
-                                           float m,
-                                           const float4* __restrict__ boxes,
-                                           int c, float tmin, float bound) {
-  return slab_passes(r, s, __ldg(boxes + 2 * (size_t)c),
-                     __ldg(boxes + 2 * (size_t)c + 1), m, tmin, bound);
-}
+using tpt::box_passes;
 
 // ---------------------------------------------------------------- rotated
 
@@ -304,15 +296,6 @@ occluded_streamed_kernel(const float* __restrict__ orig,
 
 // ----------------------------------------------------------------- binned
 
-// Pair lane p's ray: [P, 8] f32 rows (o xyz, d xyz, tmax, 0), two float4.
-__device__ __forceinline__ Ray load_pair(const float* __restrict__ pair_rays,
-                                         int p, float* tm) {
-  const float4* q = reinterpret_cast<const float4*>(pair_rays) + 2 * (size_t)p;
-  const float4 a = __ldg(q), b = __ldg(q + 1);
-  *tm = b.z;
-  return Ray{a.x, a.y, a.z, a.w, b.x, b.y};
-}
-
 // Job `blockIdx.x` is pair lanes [job * blockDim.x, ...) against cluster
 // jtab[job]; -1 marks an empty job.
 __global__ void __launch_bounds__(kMaxTile)
@@ -331,17 +314,9 @@ closest_cbin_kernel(const float* __restrict__ pair_rays,
   tpt::stage_rows(s_rows, tris, c * cluster, cluster);
   __syncthreads();
   float tm;
-  const Ray r = load_pair(pair_rays, p, &tm);
-  float best = kTFar;
-  int sub = 0;
-  for (int j = 0; j < cluster; ++j) {
-    const float t = pe_test(r, s_rows[4 * j], s_rows[4 * j + 1],
-                            s_rows[4 * j + 2], tmin);
-    if (t < best) {  // rows ascend: ties keep the lowest
-      best = t;
-      sub = j;
-    }
-  }
+  const Ray r = tpt::load_ray8(pair_rays, p, &tm);
+  int sub;
+  const float best = tpt::sweep_staged(r, s_rows, cluster, tmin, &sub);
   t_out[p] = best;
   row_out[p] = c * cluster + sub;
 }
@@ -361,14 +336,8 @@ occluded_cbin_kernel(const float* __restrict__ pair_rays,
   tpt::stage_rows(s_rows, tris, c * cluster, cluster);
   __syncthreads();
   float tm;
-  const Ray r = load_pair(pair_rays, p, &tm);
-  int blocked = 0;
-  for (int j = 0; j < cluster && !blocked; ++j) {
-    if (!(s_rows[4 * j + 3].y < 0.5f)) continue;  // refractive: light passes
-    blocked = pe_test(r, s_rows[4 * j], s_rows[4 * j + 1], s_rows[4 * j + 2],
-                      tmin) < tm;
-  }
-  occ_out[p] = blocked;
+  const Ray r = tpt::load_ray8(pair_rays, p, &tm);
+  occ_out[p] = tpt::blocked_staged(r, s_rows, cluster, tmin, tm) ? 1 : 0;
 }
 
 inline bool bad_tile(int rt, int cluster) {

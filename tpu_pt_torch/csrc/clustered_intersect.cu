@@ -72,17 +72,7 @@ using tpt::max_abs_origin;
 using tpt::pe_test;
 using tpt::Ray;
 using tpt::Slab;
-using tpt::slab_passes;
-
-// Cluster c of `boxes` ([C, 8] f32: min xyz, max xyz, two unused) grown by
-// m: does the ray's parameter interval through it meet (tmin, bound]?
-__device__ __forceinline__ bool box_passes(const Ray& r, const Slab& s,
-                                           float m,
-                                           const float4* __restrict__ boxes,
-                                           int c, float tmin, float bound) {
-  return slab_passes(r, s, __ldg(boxes + 2 * (size_t)c),
-                     __ldg(boxes + 2 * (size_t)c + 1), m, tmin, bound);
-}
+using tpt::box_passes;  // cluster c of boxes [C, 8] grown by m
 
 // kFull: row_out takes the winner's original triangle id (column 15) and
 // the attribute outputs are written; else row_out takes its packed row.

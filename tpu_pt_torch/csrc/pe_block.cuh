@@ -38,6 +38,16 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ orig,
   return Ray{o[0], o[1], o[2], d[0], d[1], d[2]};
 }
 
+// Ray i of packed rays [N, 8] f32 (o xyz, d xyz, tmax, 0: two float4 rows,
+// tpu_pt_torch.intersect.ablations.pack_rays); its tmax goes to *tm.
+__device__ __forceinline__ Ray load_ray8(const float* __restrict__ rays,
+                                         int i, float* tm) {
+  const float4* q = reinterpret_cast<const float4*>(rays) + 2 * (size_t)i;
+  const float4 a = __ldg(q), b = __ldg(q + 1);
+  *tm = b.z;
+  return Ray{a.x, a.y, a.z, a.w, b.x, b.y};
+}
+
 // Plane + edge test of one ray against one packed row; the operation order
 // is dense._pe_block's. Returns t on a hit, kTFar otherwise.
 __device__ __forceinline__ float pe_test(const Ray& r, float4 a, float4 b,
@@ -62,6 +72,40 @@ __device__ __forceinline__ void stage_rows(float4* s_rows,
                                            int base, int rows) {
   const float4* src = reinterpret_cast<const float4*>(tris + (size_t)base * kCols);
   for (int k = threadIdx.x; k < rows * 4; k += blockDim.x) s_rows[k] = src[k];
+}
+
+// One ray against `rows` packed rows staged in shared memory: the closest t
+// (kTFar on a miss) and, through *sub, the index of its row (0 on a miss).
+// Rows ascend, so a tie keeps the lowest.
+__device__ __forceinline__ float sweep_staged(const Ray& r,
+                                              const float4* s_rows, int rows,
+                                              float tmin, int* sub) {
+  float best = kTFar;
+  int at = 0;
+  for (int j = 0; j < rows; ++j) {
+    const float t = pe_test(r, s_rows[4 * j], s_rows[4 * j + 1],
+                            s_rows[4 * j + 2], tmin);
+    if (t < best) {
+      best = t;
+      at = j;
+    }
+  }
+  *sub = at;
+  return best;
+}
+
+// One ray against staged rows, any-hit: is a row whose refractive column
+// is < 0.5 hit with tmin < t < tm? Stops at the first such row.
+__device__ __forceinline__ bool blocked_staged(const Ray& r,
+                                               const float4* s_rows, int rows,
+                                               float tmin, float tm) {
+  for (int j = 0; j < rows; ++j) {
+    if (!(s_rows[4 * j + 3].y < 0.5f)) continue;  // refractive: light passes
+    if (pe_test(r, s_rows[4 * j], s_rows[4 * j + 1], s_rows[4 * j + 2],
+                tmin) < tm)
+      return true;
+  }
+  return false;
 }
 
 // The full carry of a closest hit: the winner's normal and material (and
@@ -147,6 +191,16 @@ __device__ __forceinline__ bool slab_passes(const Ray& r, const Slab& s,
   tn = fmaxf(tn, fminf(t0, t1));
   tf = fminf(tf, fmaxf(t0, t1));
   return tn <= tf && tf > tmin && tn <= bound;
+}
+
+// Cluster c of `boxes` ([C, 8] f32: min xyz, max xyz, two unused) grown by
+// m: does the ray's parameter interval through it meet (tmin, bound]?
+__device__ __forceinline__ bool box_passes(const Ray& r, const Slab& s,
+                                           float m,
+                                           const float4* __restrict__ boxes,
+                                           int c, float tmin, float bound) {
+  return slab_passes(r, s, __ldg(boxes + 2 * (size_t)c),
+                     __ldg(boxes + 2 * (size_t)c + 1), m, tmin, bound);
 }
 
 }  // namespace tpt

@@ -149,7 +149,7 @@ def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
     predicted landing slabs) and ``want_slab=True`` (returns (Hit, slab
     [N] i32)), and carries ``supports_pred``: true where the JAX package
     predicts (no u, v wanted, a scene above ``TRI_SLAB``, ``TPT_LEAN_BIG``
-    not 0, ``TPT_PRED`` not 0)."""
+    not 0, ``TPT_BINNED`` not on the closest side, ``TPT_PRED`` not 0)."""
     if _count(scene.curves):
         base = dataclasses.replace(scene, curves=None)
         return _with_curves(scene, cfg,
@@ -175,6 +175,8 @@ def get_intersectors(scene: SceneArrays, cfg: RenderConfig,
             env = os.environ.get
             closest.supports_pred = (not want_uv
                                      and env("TPT_LEAN_BIG", "1") == "1"
+                                     and env("TPT_BINNED", "0")
+                                     not in ("1", "closest")
                                      and env("TPT_PRED", "1") != "0")
         return closest, occluded
     if backend == "bvh":

@@ -1,6 +1,5 @@
-"""Three more schedulers of the clustered closest hit and any-hit: the
-port of the first three kernel families of
-``tpu_pt/intersect/pallas_ablations.py``.
+"""Five more schedulers of the clustered closest hit and any-hit: the
+port of the kernel families of ``tpu_pt/intersect/pallas_ablations.py``.
 
 Each computes what ``clustered.closest_clustered`` (K6) /
 ``clustered.occluded_clustered`` (K8) compute, (t, packed row) of the
@@ -31,9 +30,25 @@ the JAX package's variables, read at every call:
   is left to later work). Lanes whose group overflowed a static cap are
   ``incomplete`` and finished by the streamed pass with every other lane
   parked.
+- ``TPT_BINNED`` (``1``, or ``closest`` / ``occ`` for one side): the
+  PAIR-BINNED path, ``closest_binned`` / ``occluded_binned`` (K14), taken
+  before every other scheduler. Each ray's ``PAIR_K`` nearest pierced
+  clusters become (ray, cluster) pairs, laid out cluster-major in tiles of
+  ``PAIR_TILE`` pairs against one cluster (``_pair_schedule``, plain
+  PyTorch); the kernel folds each pair's hit into its ray with one 64-bit
+  ``atomicMin`` (``_reduce_pairs`` is the plain fold). Rays that pierce
+  more clusters, and whose hit lies beyond the next entry distance (or,
+  any-hit, that are not blocked yet), are finished by the ordinary path
+  with every other lane parked.
+- ``TPT_GRP=1`` / ``2``: the 8-LANE GROUPS, ``closest_grp`` /
+  ``occluded_grp`` (K15), serial or bundled. Eight consecutive lanes share
+  ``stream_candidates``' near-first list at a tile of ``GRP_LANES``; each
+  lane culls the listed clusters by its own grown-box test, and the group
+  stops at the first key no lane can still use.
 
-Every wrapper launches its kernel (``csrc/ablations_intersect.cu``) for
-CUDA tensors, runs its plain version for CPU tensors and raises otherwise.
+Every wrapper launches its kernel (``csrc/ablations_intersect.cu`` for
+K11-K13, ``csrc/ablations_binned.cu`` for K14 / K15) for CUDA tensors, runs
+its plain version for CPU tensors and raises otherwise.
 The plain versions follow the schedules step by step over the same lists,
 so the CPU tests hold the schedules, not only the answers, against the
 dense sweep. Results are bitwise those of ``dense._closest_plain`` /
@@ -45,11 +60,12 @@ margin ``clustered.BOX_MARGIN * (scale + max|o|)``.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
 from . import clustered, dense
-from .moller import T_FAR
+from .moller import T_FAR, Hit
 
 RAY_TILE_C = int(os.environ.get("TPT_RT_C", 256))   # lanes per tile / job
 STREAM_BUF = 4                                       # ring slots
@@ -69,7 +85,9 @@ _BIG_IDX = 2 ** 30
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
 LAUNCHES = {"closest_rotated": 0, "closest_streamed": 0,
-            "occluded_streamed": 0, "closest_cbin": 0, "occluded_cbin": 0}
+            "occluded_streamed": 0, "closest_cbin": 0, "occluded_cbin": 0,
+            "closest_binned": 0, "occluded_binned": 0, "closest_grp": 0,
+            "occluded_grp": 0}
 
 
 def _stream_guard() -> bool:
@@ -897,6 +915,12 @@ def closest_cbin_path(origins, dirs, tris, boxes, scale, tmin: float,
     return best_t[:n].contiguous(), best_row[:n].contiguous()
 
 
+def _parked(o, d, lanes):
+    """``o``, ``d`` with every lane outside ``lanes`` parked."""
+    return (torch.where(lanes[:, None], o, PARK_COORD).contiguous(),
+            torch.where(lanes[:, None], d, PARK_DIR).contiguous())
+
+
 def occluded_cbin_path(origins, dirs, tmax, tris, boxes, scale, tmin: float,
                        finish) -> torch.Tensor:
     """``TPT_CBIN=1``, any-hit (``pallas_bf.py:2609-2634``): the binned
@@ -911,7 +935,435 @@ def occluded_cbin_path(origins, dirs, tmax, tris, boxes, scale, tmin: float,
     occ = _cbin_reduce_occ(kernel(schedule), row_tgt, rays.shape[0], ng, g,
                            k)[:n]
     ovf = incomplete[:n] & ~occ
-    fb = finish(torch.where(ovf[:, None], origins, PARK_COORD).contiguous(),
-                torch.where(ovf[:, None], dirs, PARK_DIR).contiguous(),
+    fb = finish(*_parked(origins, dirs, ovf),
                 torch.where(ovf, tmax, 0.0).contiguous())
     return torch.where(ovf, fb, occ)
+
+
+# --------------------------------------------------------------------------
+# K14: the pair-binned path
+# --------------------------------------------------------------------------
+
+PAIR_TILE = 512                                      # pairs per tile
+PAIR_K = int(os.environ.get("TPT_PAIR_K", 12))       # clusters per ray
+_KEY_MISS = 0x7FFFFFFF                               # high word: not pierced
+
+
+def binned_sides() -> tuple[bool, bool]:
+    """(closest, any-hit): which calls ``TPT_BINNED`` sends to K14, read
+    now (``1`` both, ``closest`` or ``occ`` one; ``pallas_bf.py:2277``,
+    ``:2587``)."""
+    v = os.environ.get("TPT_BINNED", "0")
+    return v in ("1", "closest"), v in ("1", "occ")
+
+
+class PairSchedule(NamedTuple):
+    """The pair-binned work of ``_pair_schedule``. Slot p of ``pair_ray``
+    ([tiles * PAIR_TILE] i32) holds its pair's ray, -1 for an unused slot;
+    tile j's pairs all go against cluster ``tile_sid[j]`` (the number of
+    clusters for the dead tail). ``next_tn`` [n] is the entry distance of
+    each ray's (k+1)-th nearest pierced cluster (3e38: none); ``overflow``
+    [n] marks the rays that pierce more than k."""
+    pair_ray: torch.Tensor
+    tile_sid: torch.Tensor
+    next_tn: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _order_bits(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 with the same order (no NaN comes here)."""
+    b = t.view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _pair_schedule(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
+                   k: int, tmin: float, tmax) -> PairSchedule:
+    """The cluster-major pair layout of the binned kernels
+    (``pallas_ablations._pair_schedule``).
+
+    ``rays`` [n, 8] (``pack_rays``); ``tmax`` a float or [n]. Each ray's
+    k (at most C, the number of clusters) nearest clusters by the entry distance into its grown box (the exact
+    test of ``_ray_box_test``; equal distances to the lowest id) become
+    pairs, in chunks of 32,768 rays. Pairs are laid out by a counting
+    layout: per-cluster counts, each cluster's run padded to whole
+    ``PAIR_TILE`` tiles, a pair's slot = its cluster's first tile x
+    PAIR_TILE + its rank among the cluster's pairs in (ray, rank) order,
+    as the reference's sorts place it. The buffer holds ceil(n k /
+    PAIR_TILE) + C tiles, enough for any data; no host sync."""
+    n, ns, dev = rays.shape[0], boxes.shape[0], rays.device
+    k = min(k, ns)
+    kk = min(k + 1, ns)
+    tm = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
+    ids = torch.arange(ns, device=dev)
+    near, next_tn, count = [], [], []
+    for r0 in range(0, n or 1, 32768):
+        part = rays[r0:r0 + 32768]
+        tests = list(_ray_box_test(part, boxes, scale, tmin,
+                                   tm[r0:r0 + 32768], 1024))
+        ok = torch.cat([ok for _, ok, _ in tests], 1)
+        tn_all = torch.cat([tn for _, _, tn in tests], 1)
+        # (entry distance, id) as one int64 key: unique, so the k + 1
+        # smallest come out in the stable order.
+        hi = torch.where(ok, _order_bits(tn_all), _KEY_MISS).long()
+        key, _ = torch.topk((hi << 32) | ids, kk, dim=1, largest=False)
+        sid = (key & 0xFFFFFFFF).long()
+        pierced = (key >> 32) != _KEY_MISS
+        near.append(torch.where(pierced[:, :k], sid[:, :k], ns))
+        if k < ns:
+            next_tn.append(torch.where(pierced[:, k],
+                                       tn_all.gather(1, sid[:, k:k + 1])[:, 0],
+                                       _BIG))
+        else:
+            next_tn.append(part.new_full((part.shape[0],), _BIG))
+        count.append(ok.sum(1))
+    flat = torch.cat(near).view(-1)                     # [n k], ns = none
+    e = flat.shape[0]
+    per_c = torch.zeros(ns + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat, torch.ones_like(flat))[:ns]
+    tiles_c = (per_c + PAIR_TILE - 1) // PAIR_TILE
+    tile_end = torch.cumsum(tiles_c, 0)
+    n_tiles = -(-e // PAIR_TILE) + ns
+    # Rank among the cluster's pairs, in (ray, rank) order.
+    sid_s, order = torch.sort(flat, stable=True)
+    start = torch.cumsum(per_c, 0) - per_c
+    valid = sid_s < ns
+    c = sid_s.clamp_max(ns - 1)
+    slot = (tile_end[c] - tiles_c[c]) * PAIR_TILE \
+        + torch.arange(e, device=dev) - start[c]
+    cap = n_tiles * PAIR_TILE
+    pair_ray = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
+    pair_ray.scatter_(0, torch.where(valid, slot, cap),
+                      torch.where(valid, order // k, -1).to(torch.int32))
+    tile_sid = torch.searchsorted(
+        tile_end, torch.arange(n_tiles, device=dev), right=True)
+    return PairSchedule(pair_ray[:cap].contiguous(),
+                        tile_sid.to(torch.int32).contiguous(),
+                        torch.cat(next_tn), torch.cat(count) > k)
+
+
+def _binned_sweep_plain(rays, tris, pair_ray, tile_sid, cluster: int,
+                        tmin: float, occluded: bool):
+    """The binned kernels' per-pair work in plain PyTorch, 64 tiles at a
+    time: every used slot of a live tile against the tile's cluster.
+    Returns (ray [P] i64, -1 for no pair; and t [P], row [P] i32 of the
+    closest row of the cluster, or the blocked flags [P])."""
+    n_boxes = tris.shape[0] // cluster
+    table = tris.view(n_boxes, cluster, 16)
+    live = (tile_sid < n_boxes)[:, None] & (pair_ray.view(-1, PAIR_TILE) >= 0)
+    ray = torch.where(live, pair_ray.view(-1, PAIR_TILE).long(), -1)
+    out_t, out_row, out_occ = [], [], []
+    for j0 in range(0, tile_sid.shape[0], 64):
+        sid = tile_sid[j0:j0 + 64].long().clamp_max(n_boxes - 1)
+        pr = rays[ray[j0:j0 + 64].clamp_min(0)]             # [J, 512, 8]
+        rows = table[sid]
+        t = _pe_rows(pr[..., 0:3], pr[..., 3:6], rows, tmin)
+        if occluded:
+            out_occ.append(((t < pr[..., 6:7])
+                            & (rows[:, None, :, 13] < 0.5)).any(2))
+            continue
+        best = t.amin(2)
+        sub = torch.arange(cluster, device=rays.device)
+        at = torch.where(t == best[..., None], sub, cluster).amin(2)
+        out_t.append(best)
+        out_row.append((sid[:, None] * cluster
+                        + torch.where(best < T_FAR, at, 0)).to(torch.int32))
+    ray = ray.view(-1)
+    if occluded:
+        return ray, torch.cat(out_occ).view(-1)
+    return ray, torch.cat(out_t).view(-1), torch.cat(out_row).view(-1)
+
+
+_KEY_FAR = (_order_bits(torch.tensor([T_FAR])).long() << 32).item()
+
+
+def _reduce_pairs(ray, t, row, n: int):
+    """Per-ray (t, row)-lexicographic minimum of the per-pair results
+    (``pallas_ablations._reduce_pairs``): one ``scatter_reduce`` ``amin`` of
+    the int64 key (float bits of t) << 32 | row, which orders as (t, row)
+    because every hit has t > tmin > 0. Returns (t [n], row [n] i32), T_FAR
+    and row 0 on a miss."""
+    hit = (ray >= 0) & (t < T_FAR)
+    key = (t.view(torch.int32).long() << 32) | row.long()
+    out = torch.full((n + 1,), _KEY_FAR, dtype=torch.int64, device=t.device)
+    out.scatter_reduce_(0, torch.where(hit, ray, n), key, "amin")
+    return _unpack_keys(out[:n])
+
+
+def _unpack_keys(key: torch.Tensor):
+    """(t, row i32) of the per-ray keys the closest binned kernel folds."""
+    return ((key >> 32).to(torch.int32).view(torch.float32),
+            (key & 0xFFFFFFFF).to(torch.int32))
+
+
+def _reduce_pairs_occ(ray, blocked, n: int) -> torch.Tensor:
+    """Per-ray OR of the per-pair blocked flags. Returns bool [n]."""
+    out = torch.zeros(n + 1, dtype=torch.int32, device=blocked.device)
+    out.scatter_reduce_(0, torch.where(ray >= 0, ray, n),
+                        blocked.to(torch.int32), "amax")
+    return out[:n] > 0
+
+
+def _check_pairs(rays, tris, pair_ray, tile_sid, cluster: int) -> int:
+    dev, n = rays.device, rays.shape[0]
+    n_tiles = tile_sid.shape[0]
+    dense._check("rays", rays, torch.float32, (n, 8), dev)
+    dense._check("tris", tris, torch.float32, (tris.shape[0], 16), dev)
+    dense._check("pair_ray", pair_ray, torch.int32, (n_tiles * PAIR_TILE,),
+                 dev)
+    dense._check("tile_sid", tile_sid, torch.int32, (n_tiles,), dev)
+    if rays.data_ptr() % 16 or tris.data_ptr() % 16:
+        raise ValueError("rays and tris must be 16-byte aligned")
+    if tris.shape[0] % cluster:
+        raise ValueError(f"{tris.shape[0]} rows are no whole number of "
+                         f"clusters of {cluster}")
+    return n_tiles
+
+
+def closest_binned(rays: torch.Tensor, tris: torch.Tensor,
+                   pair_ray: torch.Tensor, tile_sid: torch.Tensor,
+                   cluster: int, tmin: float):
+    """K14 closest: for every ray of ``rays`` [n, 8] the closest (t,
+    packed row) over the clusters of its pairs in ``_pair_schedule``'s
+    layout, T_FAR and row 0 where it has none or misses them (no tmax: the
+    path clips). Returns (t [n], row [n] i32)."""
+    if dense._on_cpu(rays):
+        ray, t, row = _binned_sweep_plain(rays, tris, pair_ray, tile_sid,
+                                          cluster, tmin, occluded=False)
+        return _reduce_pairs(ray, t, row, rays.shape[0])
+    from .. import _kernels
+    n_tiles = _check_pairs(rays, tris, pair_ray, tile_sid, cluster)
+    key = torch.full((rays.shape[0],), _KEY_FAR, dtype=torch.int64,
+                     device=rays.device)
+    _kernels.launch("tpt_closest_binned", rays.data_ptr(), tris.data_ptr(),
+                    pair_ray.data_ptr(), tile_sid.data_ptr(), n_tiles,
+                    tris.shape[0] // cluster, cluster, float(tmin),
+                    key.data_ptr(), dense._stream(rays.device))
+    LAUNCHES["closest_binned"] += 1
+    return _unpack_keys(key)
+
+
+def occluded_binned(rays: torch.Tensor, tris: torch.Tensor,
+                    pair_ray: torch.Tensor, tile_sid: torch.Tensor,
+                    cluster: int, tmin: float) -> torch.Tensor:
+    """K14 any-hit: for every ray of ``rays`` [n, 8] (column 6: its tmax),
+    is a non-refractive row of one of its pairs' clusters hit with
+    tmin < t < tmax? Returns bool [n]."""
+    if dense._on_cpu(rays):
+        ray, blocked = _binned_sweep_plain(rays, tris, pair_ray, tile_sid,
+                                           cluster, tmin, occluded=True)
+        return _reduce_pairs_occ(ray, blocked, rays.shape[0])
+    from .. import _kernels
+    n_tiles = _check_pairs(rays, tris, pair_ray, tile_sid, cluster)
+    occ = torch.zeros(rays.shape[0], dtype=torch.bool, device=rays.device)
+    _kernels.launch("tpt_occluded_binned", rays.data_ptr(), tris.data_ptr(),
+                    pair_ray.data_ptr(), tile_sid.data_ptr(), n_tiles,
+                    tris.shape[0] // cluster, cluster, float(tmin),
+                    occ.data_ptr(), dense._stream(rays.device))
+    LAUNCHES["occluded_binned"] += 1
+    return occ
+
+
+def binned_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
+                 occluded: bool, k: int | None = None):
+    """The pair-binned sweep in its two steps, (rays, build, kernel):
+    ``build()`` is ``_pair_schedule`` on the packed ``rays`` for the
+    ray's ``k`` (``PAIR_K``) nearest clusters, ``kernel(schedule)`` the
+    per-ray result of K14 (the completion pass follows in the paths)."""
+    rays = pack_rays(origins, dirs, tmax, origins.shape[0])
+    cluster = tris.shape[0] // boxes.shape[0]
+    k = min(PAIR_K if k is None else k, boxes.shape[0])
+    sweep = occluded_binned if occluded else closest_binned
+
+    def build():
+        return _pair_schedule(rays, boxes, scale, k, tmin,
+                              rays[:, 6] if occluded else tmax)
+
+    def kernel(schedule):
+        return sweep(rays, tris, schedule.pair_ray, schedule.tile_sid,
+                     cluster, tmin)
+    return rays, build, kernel
+
+
+def closest_binned_path(origins, dirs, tris, boxes, scale, tmin: float,
+                        tmax: float = T_FAR, want_uv: bool = False,
+                        finish=None, k: int | None = None) -> Hit:
+    """``TPT_BINNED``: the pair schedule, K14 and the tmax clip, the hit
+    resolved from its packed row; then the rays that pierce more than k
+    clusters and whose hit is not nearer than their (k+1)-th entry
+    distance go through ``finish(o, d)`` (the ordinary path; default K6),
+    every other lane parked, on every call
+    (``pallas_ablations.intersect_closest_binned``). A hit no farther than
+    every unvisited cluster's grown-box entry cannot be beaten; one at
+    exactly that distance could tie a lower row there, so it is finished
+    too (the reference finishes only beyond it)."""
+    _, build, kernel = binned_steps(origins, dirs, tmax, tris, boxes, scale,
+                                    tmin, occluded=False, k=k)
+    schedule = build()
+    t, row = kernel(schedule)
+    if tmax < T_FAR:
+        # The pairs carry no tmax: clip after the fold.
+        t = torch.where(t < tmax, t, T_FAR)
+        row = torch.where(t < T_FAR, row, 0)
+    hit = clustered._lean_resolve_packed(tris, origins, dirs, t, row,
+                                         want_uv)
+    if finish is None:
+        def finish(o, d):
+            return clustered._lean_resolve_packed(
+                tris, o, d, *clustered.closest_clustered(
+                    o, d, tris, boxes, scale, tmin, tmax), want_uv)
+    ovf = schedule.overflow & (t >= schedule.next_tn)
+    fb = finish(*_parked(origins, dirs, ovf))
+
+    def pick(a, b):
+        return torch.where(ovf if a.dim() == 1 else ovf[:, None], a, b)
+    return Hit(t=pick(fb.t, hit.t), tri=pick(fb.tri, hit.tri),
+               hit=pick(fb.hit, hit.hit), normal=pick(fb.normal, hit.normal),
+               mat=pick(fb.mat, hit.mat), u=pick(fb.u, hit.u),
+               v=pick(fb.v, hit.v))
+
+
+def occluded_binned_path(origins, dirs, tmax, tris, boxes, scale,
+                         tmin: float, finish=None,
+                         k: int | None = None) -> torch.Tensor:
+    """``TPT_BINNED``, any-hit (``intersect_occluded_binned``): the pair
+    schedule under each ray's own tmax, K14, then the rays that pierce more
+    than k clusters and are not blocked yet through ``finish(o, d, tmax)``
+    (the ordinary path; default K8), every other lane parked with tmax 0.
+    Returns bool [N]."""
+    _, build, kernel = binned_steps(origins, dirs, tmax, tris, boxes, scale,
+                                    tmin, occluded=True, k=k)
+    schedule = build()
+    occ = kernel(schedule)
+    if finish is None:
+        def finish(o, d, tm):
+            return clustered.occluded_clustered(o, d, tm, tris, boxes, scale,
+                                                tmin)
+    ovf = schedule.overflow & ~occ
+    fb = finish(*_parked(origins, dirs, ovf),
+                torch.where(ovf, tmax, 0.0).contiguous())
+    return torch.where(ovf, fb, occ)
+
+
+# --------------------------------------------------------------------------
+# K15: the 8-lane groups
+# --------------------------------------------------------------------------
+
+GRP_LANES = 8                                        # lanes per list
+GRP_BUNDLE = 8                                       # groups per bundle
+GRP_RT = int(os.environ.get("TPT_GRP_RT", 256))      # lanes per serial block
+
+
+def _grp_bundled() -> bool:
+    """``TPT_GRP=2``: the bundled lockstep body, read at every call
+    (``pallas_ablations._grp_bundled``)."""
+    return os.environ.get("TPT_GRP", "0") == "2"
+
+
+def _grp_plain(rays, tris, boxes, scale, lists, tmin, tmax, occluded):
+    """Plain version of K15, serial or bundled: every group's list walked
+    step by step, all groups in step (the bundled lockstep over the whole
+    batch), each group stopped at the first key beyond every lane's bound
+    and a candidate skipped where no lane's grown box passes: the streamed
+    schedule at a tile of ``GRP_LANES`` lanes. A lane the kernel culls on
+    its own sweeps here too, and finds nothing nearer."""
+    return _streamed_plain(rays, tris, boxes, scale, lists, GRP_LANES, tmin,
+                           tmax, True, occluded)
+
+
+def _launch_grp(name, rays, tris, boxes, scale, lists, bundled, scalars,
+                outs):
+    """Launch ``tpt_<name>``: the checks, then (tables, lists, sizes,
+    ``scalars`` after the margin, ``outs``)."""
+    from .. import _kernels
+    dev, n_pad = rays.device, rays.shape[0]
+    dense._check("rays", rays, torch.float32, (n_pad, 8), dev)
+    if n_pad % GRP_LANES:
+        raise ValueError(f"{n_pad} rays do not split into groups of "
+                         f"{GRP_LANES}")
+    if rays.data_ptr() % 16 or tris.data_ptr() % 16:
+        raise ValueError("rays and tris must be 16-byte aligned")
+    dense._check("tris", tris, torch.float32, (tris.shape[0], 16), dev)
+    n_boxes, cluster = clustered._check_tables(tris, boxes, dev)
+    _check_lists(lists, n_pad, GRP_LANES, n_boxes, dev)
+    cand, keys, cnt, far = lists
+    if n_pad:
+        _kernels.launch("tpt_" + name, rays.data_ptr(), tris.data_ptr(),
+                        boxes.data_ptr(), cand.data_ptr(), keys.data_ptr(),
+                        cnt.data_ptr(), far.data_ptr(), n_pad, n_boxes,
+                        cluster, GRP_RT, int(bool(bundled)), float(scale),
+                        clustered.BOX_MARGIN, *(float(x) for x in scalars),
+                        *(x.data_ptr() for x in outs), dense._stream(dev))
+        LAUNCHES[name] += 1
+
+
+def closest_grp(rays: torch.Tensor, tris: torch.Tensor, boxes: torch.Tensor,
+                scale: float, lists, tmin: float, tmax: float = T_FAR,
+                bundled: bool = False):
+    """K15 closest: K6's (t, packed row) for ``rays`` [n_pad, 8]
+    (``pack_rays``; n_pad a multiple of ``GRP_LANES``) over the group lists
+    of ``stream_candidates(rays, boxes, scale, GRP_LANES, tmin, tmax)``;
+    ``bundled`` picks the lockstep body. Returns (t, row)."""
+    if dense._on_cpu(rays):
+        return _grp_plain(rays, tris, boxes, scale, lists, tmin, tmax,
+                          occluded=False)
+    t = torch.empty(rays.shape[0], dtype=torch.float32, device=rays.device)
+    row = torch.empty(rays.shape[0], dtype=torch.int32, device=rays.device)
+    _launch_grp("closest_grp", rays, tris, boxes, scale, lists, bundled,
+                (tmin, tmax), (t, row))
+    return t, row
+
+
+def occluded_grp(rays: torch.Tensor, tris: torch.Tensor, boxes: torch.Tensor,
+                 scale: float, lists, tmin: float,
+                 bundled: bool = False) -> torch.Tensor:
+    """K15 any-hit: K8's flag for ``rays`` [n_pad, 8] (column 6: the
+    ray's tmax) over the group lists of ``stream_candidates(rays, boxes,
+    scale, GRP_LANES, tmin, rays[:, 6])``. Returns bool [n_pad]."""
+    if dense._on_cpu(rays):
+        return _grp_plain(rays, tris, boxes, scale, lists, tmin, T_FAR,
+                          occluded=True)
+    out = torch.empty(rays.shape[0], dtype=torch.bool, device=rays.device)
+    _launch_grp("occluded_grp", rays, tris, boxes, scale, lists, bundled,
+                (tmin,), (out,))
+    return out
+
+
+def grp_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
+              occluded: bool):
+    """The group path in its two steps, (rays, build, kernel): the
+    caller's lanes as given, padded with parked rays to whole groups;
+    ``build()`` gives the group lists, ``kernel(lists)`` the padded result
+    of K15 under ``TPT_GRP`` (``2``: bundled)."""
+    n = origins.shape[0]
+    rays = pack_rays(origins, dirs, tmax, -(-n // GRP_LANES) * GRP_LANES)
+
+    def build():
+        return stream_candidates(rays, boxes, scale, GRP_LANES, tmin,
+                                 rays[:, 6] if occluded else tmax)
+
+    def kernel(lists):
+        if occluded:
+            return occluded_grp(rays, tris, boxes, scale, lists, tmin,
+                                _grp_bundled())
+        return closest_grp(rays, tris, boxes, scale, lists, tmin, tmax,
+                           _grp_bundled())
+    return rays, build, kernel
+
+
+def closest_grp_path(origins, dirs, tris, boxes, scale, tmin: float,
+                     tmax: float = T_FAR):
+    """``TPT_GRP=1`` / ``2``: group lists, then K15. Returns (t [N],
+    row [N])."""
+    n = origins.shape[0]
+    _, build, kernel = grp_steps(origins, dirs, tmax, tris, boxes, scale,
+                                 tmin, occluded=False)
+    t, row = kernel(build())
+    return t[:n], row[:n]
+
+
+def occluded_grp_path(origins, dirs, tmax, tris, boxes, scale,
+                      tmin: float) -> torch.Tensor:
+    """``TPT_GRP=1`` / ``2``, any-hit. Returns bool [N]."""
+    _, build, kernel = grp_steps(origins, dirs, tmax, tris, boxes, scale,
+                                 tmin, occluded=True)
+    return kernel(build())[:origins.shape[0]]

@@ -40,9 +40,10 @@ tensors it launches the kernel, and for anything else it raises.
 ``closest_hit`` / ``occluded_hit`` pick among them as the JAX package does
 (``variant``): ``TPT_LEAN_BIG=0``, or ``TPT_LEAN_UV=0`` on a call that wants
 u, v, takes the full carry; ``TPT_INKB=1`` the kernels that build their
-list. Ahead of those come the schedulers of ``ablations`` (K11-K13,
+list. Ahead of those come the schedulers of ``ablations`` (K11-K13, K15,
 ``closest_scheduler`` / ``occluded_scheduler``): ``TPT_CBIN=1``, then
-``TPT_STREAM=1``, then ``TPT_SEED=1``. The variables are read at every
+``TPT_STREAM=1``, then ``TPT_SEED=1``, then ``TPT_GRP=1`` / ``2``; and
+ahead of everything, ``TPT_BINNED`` (K14). The variables are read at every
 call.
 """
 
@@ -406,12 +407,14 @@ def variant(want_uv: bool) -> tuple[bool, bool]:
 
 def closest_scheduler(want_uv: bool, has_pred: bool, n_rows: int) -> str:
     """Which scheduler a clustered closest-hit call takes
-    (``pallas_bf.py:2354-2375``, ``:2442-2474``), the variables read now:
+    (``pallas_bf.py:2354-2375``, ``:2442-2480``), the variables read now:
     ``"cbin"`` (``TPT_CBIN=1``) before ``"stream"`` (``TPT_STREAM=1``)
-    before ``"rot"`` (``TPT_SEED=1``), else ``"chain"``: K6 / K7 or their
-    full-carry twins by ``variant``. All three need the lean carry;
-    ``rot`` also needs a prediction, ``TPT_SORT_KEY`` unset or ``dir12``,
-    and a table of more than one slab."""
+    before ``"rot"`` (``TPT_SEED=1``) before ``"grp"`` (``TPT_GRP=1`` or
+    ``2``), else ``"chain"``: K6 / K7 or their full-carry twins by
+    ``variant``. All four need the lean carry; ``rot`` also needs a
+    prediction, ``TPT_SORT_KEY`` unset or ``dir12``, and a table of more
+    than one slab. ``TPT_BINNED`` comes before all of them, in
+    ``closest_hit``."""
     env = os.environ.get
     if variant(want_uv)[0]:
         return "chain"
@@ -423,37 +426,56 @@ def closest_scheduler(want_uv: bool, has_pred: bool, n_rows: int) -> str:
             and env("TPT_SORT_KEY", "dir12") == "dir12"
             and n_rows > _clustered_slab_rows(n_rows)):
         return "rot"
+    if env("TPT_GRP", "0") in ("1", "2"):
+        return "grp"
     return "chain"
 
 
 def occluded_scheduler(allow_cbin: bool = True) -> str:
     """Which scheduler a clustered any-hit call takes
-    (``pallas_bf.py:2609-2647``): ``"cbin"`` (``TPT_CBIN=1`` unless
-    ``TPT_CBIN_OCC=0``) before ``"stream"`` before ``"chain"`` (K8 / K8b)."""
+    (``pallas_bf.py:2609-2672``): ``"cbin"`` (``TPT_CBIN=1`` unless
+    ``TPT_CBIN_OCC=0``) before ``"stream"`` before ``"grp"`` (``TPT_GRP=1``
+    or ``2``, any carry) before ``"chain"`` (K8 / K8b)."""
     env = os.environ.get
     if (allow_cbin and env("TPT_CBIN", "0") == "1"
             and env("TPT_CBIN_OCC", "1") == "1"):
         return "cbin"
     if env("TPT_STREAM", "0") == "1":
         return "stream"
+    if env("TPT_GRP", "0") in ("1", "2"):
+        return "grp"
     return "chain"
 
 
 def closest_hit(tables: ClusteredTables, origins: torch.Tensor,
                 dirs: torch.Tensor, tmin: float = 0.01,
                 tmax: float = T_FAR, want_uv: bool = True, pred=None,
-                want_slab: bool = False):
-    """Closest hit (``pallas_bf._intersect_closest_tiled``, clustered
-    branches): K6 (or K7 lean) and a gather of the winning rows, or with
-    the full carry K6f (or K7 full) and no gather; ``variant`` chooses.
-    ``closest_scheduler`` puts K13, K12 or K11 in K6's place. ``pred``
+                want_slab: bool = False, allow_binned: bool = True):
+    """Closest hit (``pallas_bf.intersect_closest`` /
+    ``_intersect_closest_tiled``, clustered branches): K6 (or K7 lean) and
+    a gather of the winning rows, or with the full carry K6f (or K7 full)
+    and no gather; ``variant`` chooses. ``closest_scheduler`` puts K13,
+    K12, K11 or K15 in K6's place. ``TPT_BINNED`` in (``1``, ``closest``)
+    takes K14 before all of them, whatever the carry, and finishes its
+    overflow through this function with ``allow_binned=False``. ``pred``
     [N] i32 is each ray's predicted landing slab (it orders K11's slab
     visits and nothing else). With ``want_slab`` returns (Hit, slab [N]
     i32): the slab of the winning row on the lean carry, ``SLAB_UNKNOWN``
-    on a miss and on the full carry."""
-    full, build = variant(want_uv)
+    on a miss, on the full carry and under K14."""
     args = (origins, dirs, tables.rows, tables.boxes, tables.scale, tmin,
             tmax)
+    if allow_binned:
+        from . import ablations
+        if ablations.binned_sides()[0]:
+            hit = ablations.closest_binned_path(
+                *args, want_uv=want_uv,
+                finish=lambda o, d: closest_hit(tables, o, d, tmin, tmax,
+                                                want_uv, allow_binned=False))
+            if not want_slab:
+                return hit
+            return hit, torch.full((origins.shape[0],), SLAB_UNKNOWN,
+                                   dtype=torch.int32, device=origins.device)
+    full, build = variant(want_uv)
     if full:
         kernel = closest_clustered_full_b if build else closest_clustered_full
         t, tri, normal, mat, u, v = kernel(*args, want_uv)
@@ -475,6 +497,8 @@ def closest_hit(tables: ClusteredTables, origins: torch.Tensor,
             origins, dirs, tables.rows, tables.boxes, tables.scale,
             pred.to(torch.int32).contiguous(), _clustered_slab_rows(n_rows),
             tmin, tmax)
+    elif how == "grp":
+        t, row = ablations.closest_grp_path(*args)
     else:
         t, row = (closest_clustered_b if build else closest_clustered)(*args)
     hit = _lean_resolve_packed(tables.rows, origins, dirs, t, row, want_uv)
@@ -488,13 +512,14 @@ def closest_hit(tables: ClusteredTables, origins: torch.Tensor,
 
 def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
                  dirs: torch.Tensor, tmax: torch.Tensor, tmin: float = 0.01,
-                 quirk_first_hit: bool = False,
-                 allow_cbin: bool = True) -> torch.Tensor:
+                 quirk_first_hit: bool = False, allow_cbin: bool = True,
+                 allow_binned: bool = True) -> torch.Tensor:
     """Any-hit occlusion with per-ray tmax (``pallas_bf.intersect_occluded``):
-    K2 over a small occluder subset, else over the clustered table K13,
-    K12 (``occluded_scheduler``) or K8 (K8b with ``TPT_INKB=1``);
-    refractive surfaces pass light. K13 finishes its overflow through this
-    function with ``allow_cbin=False``."""
+    K2 over a small occluder subset, else over the clustered table K14
+    (``TPT_BINNED`` in ``1``, ``occ``), K13, K12, K15
+    (``occluded_scheduler``) or K8 (K8b with ``TPT_INKB=1``); refractive
+    surfaces pass light. K14 finishes its overflow through this function
+    with ``allow_binned=False``, K13 with ``allow_cbin=False``."""
     if quirk_first_hit:
         h = closest_hit(tables, origins, dirs, tmin=tmin, want_uv=False)
         in_range = h.hit & (h.t < tmax)
@@ -502,15 +527,24 @@ def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
     if tables.occ_rows is not None:
         return dense.occluded(origins, dirs, tmax, tables.occ_rows, tmin)
     how = occluded_scheduler(allow_cbin)
+    from . import ablations
+    table = (tables.rows, tables.boxes, tables.scale, tmin)
+    if allow_binned and ablations.binned_sides()[1]:
+        return ablations.occluded_binned_path(
+            origins, dirs, tmax, *table,
+            finish=lambda o, d, tm: occluded_hit(
+                tables, o, d, tm, tmin, allow_cbin=allow_cbin,
+                allow_binned=False))
     if how != "chain":
-        from . import ablations
-        table = (tables.rows, tables.boxes, tables.scale, tmin)
         if how == "stream":
             return ablations.occluded_stream_path(origins, dirs, tmax, *table)
+        if how == "grp":
+            return ablations.occluded_grp_path(origins, dirs, tmax, *table)
         return ablations.occluded_cbin_path(
             origins, dirs, tmax, *table,
             finish=lambda o, d, tm: occluded_hit(tables, o, d, tm, tmin,
-                                                 allow_cbin=False))
+                                                 allow_cbin=False,
+                                                 allow_binned=False))
     kernel = occluded_clustered_b if variant(False)[1] else occluded_clustered
     return kernel(origins, dirs, tmax, tables.rows, tables.boxes,
                   tables.scale, tmin)
