@@ -157,6 +157,28 @@ The rest of pallas_ablations.py (K14 pair-binned, K15 8-lane groups:
    bf16 ulp (the count of differing elements printed), then 200 chained
    calls of each, timed: ms per call, Tops/s, the bound and the ratio.
 
+The tree walk of K6, K6f and K8 (``csrc/clustered_intersect.cu``: a
+group of 16 or 8 lanes, ``clustered.walk_group`` of the call's ray count,
+walks the kd tree over the clusters near first) and the flat scans it
+replaced (``*_flat``, on no path):
+
+27. kernels (in phase 4): the walk's K6, K6f and K8 and the flat scans,
+   each bitwise against its plain version at 32,768 rays with every eighth
+   lane parked and timed there and at 262,144 rays; the walk against the
+   flat scan bit for bit and timed in interleaved pairs at both widths and
+   on the recorded bench_big calls; node tests and clusters swept per
+   live ray of a walk at the final bound (``_tree_leaves_plain``), which
+   sets the walk's bound; the time of ``cluster_tree``;
+28. big-mesh variants (in phase 16): the frame with the flat scans in the
+   walk's place (``_flat_scans``), accumulator bitwise equal to the
+   lean frame's; every other frame of every path
+   launches no flat scan;
+29. huge mesh (in phase 17): one K6 and one K8 call at 32,768 rays (one
+   lane in eight parked) bitwise against the flat scans, both timed in
+   interleaved pairs;
+30. incoherent rays (in phase 22): the flat scans beside the default path.
+``--profile big`` profiles the flat frame between two lean ones too.
+
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
 rate (K16: its operations over the instruction rate of its type, from the
@@ -169,6 +191,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import pathlib
 import subprocess
@@ -245,7 +268,24 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "occluded_grp": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1791"),
     "chain_f32": (_BF16, "tools/microbench_bf16.py:37"),
     "chain_bf16": (_BF16, "tools/microbench_bf16.py:37"),
+    # K6, K6f and K8 before the tree walk (a thread a ray, every box
+    # tested): on no path, the walk's yardstick.
+    "closest_clustered_flat": (_CLUSTERED,
+                               "tpu_pt/intersect/pallas_bf.py:1042"),
+    "closest_clustered_full_flat": (_CLUSTERED,
+                                    "tpu_pt/intersect/pallas_bf.py:993"),
+    "occluded_clustered_flat": (_CLUSTERED,
+                                "tpu_pt/intersect/pallas_bf.py:1204"),
 }
+FLAT = {"closest_clustered": "closest_clustered_flat",
+        "closest_clustered_full": "closest_clustered_full_flat",
+        "occluded_clustered": "occluded_clustered_flat"}
+CLOSEST_K6 = ("closest_clustered", "closest_clustered_b",
+              "closest_clustered_flat")
+CLOSEST_K6F = ("closest_clustered_full", "closest_clustered_full_b",
+               "closest_clustered_full_flat")
+OCCLUDED_K8 = ("occluded_clustered", "occluded_clustered_b",
+               "occluded_clustered_flat")
 # The wrappers of tpu_pt_torch.intersect (K16's live in its tool).
 INTERSECT_WRAPPERS = tuple(k for k, (src, _) in KERNELS.items()
                            if src != _BF16)
@@ -334,7 +374,8 @@ MAIN_RUNS = [
 ]
 # The big-mesh frame through the other clustered kernels: (what, the JAX
 # package's variables that select them, kernels the run must launch,
-# kernels it must not).
+# kernels it must not). The flat scans launch only in FLAT_FRAME frames.
+FLAT_FRAME = "flat K6 + K8"
 BIG_VARIANTS = [
     ("full carry", dict(TPT_LEAN_BIG="0"),
      ("closest_clustered_full", "occluded_clustered"),
@@ -379,12 +420,23 @@ BIG_VARIANTS = [
      ("closest_grp", "occluded_grp"),
      ("closest_clustered", "occluded_clustered", "closest_binned",
       "occluded_binned", "closest_streamed")),
+    # The flat scans in the walk's place (``_flat_scans``: the module
+    # attributes closest_hit / occluded_hit call), lean and full carry.
+    (FLAT_FRAME, {},
+     ("closest_clustered_flat", "occluded_clustered_flat"),
+     ("closest_clustered", "occluded_clustered")),
 ]
 NEW_WRAPPERS = ("closest_clustered_full", "closest_clustered_b",
                 "closest_clustered_full_b", "occluded_clustered_b",
                 "closest_rotated", "closest_streamed", "occluded_streamed",
                 "closest_cbin", "occluded_cbin", "closest_binned",
-                "occluded_binned", "closest_grp", "occluded_grp")
+                "occluded_binned", "closest_grp", "occluded_grp",
+                "closest_clustered_flat", "closest_clustered_full_flat",
+                "occluded_clustered_flat")
+# The wrappers the incoherent phase must launch (its lean closest path
+# takes no full carry).
+INCOHERENT_WRAPPERS = NEW_WRAPPERS[4:13] + ("closest_clustered_flat",
+                                            "occluded_clustered_flat")
 N_RAGGED = (1000, 77)    # ray counts that leave a ragged last block
 INCOHERENT = dict(n=262144, reps=3)   # tools/bench_incoherent_torch.py
 WHITTED_TOL, WHITTED_SHARE = 1e-3, 0.02   # tests/test_torch_whitted.py
@@ -729,15 +781,17 @@ def _plain(name: str, args):
         o, d, lz1, lz2, tris, light, tmin, tmax = args
         return dense._closest_nee_plain(o, d, lz1, lz2, tris, tris, light,
                                         tmin, tmax, full=True)
-    if name in ("closest_clustered", "closest_clustered_b"):
-        o, d, rows, _, _, tmin, *tmax = args
-        return clustered._closest_clustered_plain(o, d, rows, tmin, *tmax)
-    if name in ("closest_clustered_full", "closest_clustered_full_b"):
+    # K6, K6f and K8 (and their flat scans) take the node table last.
+    if name in CLOSEST_K6:
+        o, d, rows, _, _, tmin, *rest = args
+        return clustered._closest_clustered_plain(o, d, rows, tmin,
+                                                  *rest[:1])
+    if name in CLOSEST_K6F:
         o, d, rows, _, _, tmin, *rest = args
         return clustered._closest_clustered_full_plain(o, d, rows, tmin,
-                                                       *rest)
-    if name in ("occluded_clustered", "occluded_clustered_b"):
-        o, d, tmax, rows, _, _, tmin = args
+                                                       *rest[:2])
+    if name in OCCLUDED_K8:
+        o, d, tmax, rows, _, _, tmin = args[:7]
         return clustered._occluded_clustered_plain(o, d, tmax, rows, tmin)
     if name == "closest_inst":
         o, d, tris, _, _, inst_rows, _, tmin, *tmax = args
@@ -911,6 +965,62 @@ def _binned_work(rays, rows, schedule, cluster: int, occluded: bool):
         + rays.shape[0] * (1 if occluded else 8)
 
 
+def _walk_counts(o, d, bound, tb, occluded=None):
+    """(node tests, clusters swept, live rays) of the tree walk at each
+    ray's final ``bound`` (``clustered._tree_leaves_plain``): the walk's
+    own work for these rays. Parked rays test the root only (an any-hit
+    ray with an empty interval, none); an occluded shadow ray needs one
+    path to one blocking cluster (2 * depth + 1 tests)."""
+    import torch
+    from tpu_pt_torch.intersect import clustered
+    from tpu_pt_torch.render import PARK_COORD
+    tests = leaves = 0
+    depth = clustered.tree_depth(tb.boxes.shape[0])
+    for a in range(0, o.shape[0], 4096):
+        sl = slice(a, a + 4096)
+        reached, n_tests = clustered._tree_leaves_plain(
+            o[sl], d[sl], tb.nodes, tb.boxes, tb.scale, 0.01, bound[sl])
+        swept = reached.sum(1)
+        if occluded is not None:
+            n_tests = torch.where(occluded[sl], 2 * depth + 1, n_tests)
+            n_tests = torch.where(bound[sl] > 0.01, n_tests, 0)
+            swept = torch.where(occluded[sl], swept.clamp_max(1), swept)
+        tests += int(n_tests.sum())
+        leaves += int(swept.sum())
+    live = int((o[:, 0] != PARK_COORD).sum())
+    return tests, leaves, max(live, 1)
+
+
+def _nodes_kw(fn, nodes) -> dict:
+    """``nodes=`` for a walking wrapper (K6, K6f, K8); the flat scans and
+    K7 / K8b take no node table."""
+    return {} if fn.__name__.endswith(("_flat", "_b")) else dict(nodes=nodes)
+
+
+def _walk_against_flat(records, name, label, walk, flat, width: str):
+    """The tree walk (``walk()``) against the flat scan (``flat()``) on the
+    same inputs, bit for bit, and both timed in interleaved pairs (walk,
+    flat, flat, walk); each time goes on its kernel's first record under
+    ``pair_ms_<width>``."""
+    import torch
+    a, b = walk(), flat()
+    torch.cuda.synchronize()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: the walk differs from the flat scan")
+    w0, f0, f1, w1 = (gpu_ms(fn, 10) for fn in (walk, flat, flat, walk))
+    pair = ((w0 + w1) / 2, (f0 + f1) / 2)
+    records[name][0][f"pair_ms_{width}"] = pair[0]
+    records[FLAT[name]][0][f"pair_ms_{width}"] = pair[1]
+    from tpu_pt_torch.intersect import clustered
+    n = a[0].shape[0]
+    say("kernels", f"{label}, {width} ({n} rays, {clustered.walk_group(n)} "
+        f"lanes a ray): the walk bitwise equal to the flat scan; "
+        f"interleaved, walk {pair[0]:.4f} "
+        f"ms ({w0:.4f}, {w1:.4f}), flat {pair[1]:.4f} ms ({f0:.4f}, "
+        f"{f1:.4f}), {pair[1] / pair[0]:.2f}x")
+
+
 def _check_kernel(records, name, kernel, plain, rows, compare, work,
                   n=N_RAYS, reps=20, plain_reps=3, at_n_rays=None,
                   label=None):
@@ -972,7 +1082,8 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                                occluded=k8_out, **kw)
 
     def k8_finish(o, d, tmax):
-        return clustered.occluded_clustered(o, d, tmax, *table, 0.01)
+        return clustered.occluded_clustered(o, d, tmax, *table, 0.01,
+                                            tb.nodes)
 
     def streamed_work(lists, whole, lanes=rt):
         """K12 (K15) on ``lists``: slab tests on its tiles' (groups')
@@ -1105,10 +1216,12 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
         f"{float(bo.overflow.float().mean()):.4f} of lanes overflow")
     for name, sch, schW, r, rWide, any_hit, path, work in (
             ("closest_binned", bc, bcW, r8, rW, False,
-             lambda: ablations.closest_binned_path(o, d, *table, 0.01),
+             lambda: ablations.closest_binned_path(o, d, *table, 0.01,
+                                                   nodes=tb.nodes),
              closest_work),
             ("occluded_binned", bo, boW, s8, sW, True,
-             lambda: ablations.occluded_binned_path(*shadow, *table, 0.01),
+             lambda: ablations.occluded_binned_path(*shadow, *table, 0.01,
+                                                    nodes=tb.nodes),
              occluded_work)):
         sweep = getattr(ablations, name)
         args = (r, rows, sch.pair_ray, sch.tile_sid, cluster, 0.01)
@@ -1182,11 +1295,13 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
         want_h = (t6[:m], ids6[:m])
 
         def binned_c(k):
-            h = ablations.closest_binned_path(oo, dd, *table, 0.01, k=k)
+            h = ablations.closest_binned_path(oo, dd, *table, 0.01, k=k,
+                                              nodes=tb.nodes)
             return h.t, h.tri
 
         def binned_o(k):
-            return (ablations.occluded_binned_path(*sh, *table, 0.01, k=k),)
+            return (ablations.occluded_binned_path(*sh, *table, 0.01, k=k,
+                                                   nodes=tb.nodes),)
 
         def stream_c():
             return ablations.closest_stream_path(oo, dd, *table, 0.01)
@@ -1263,19 +1378,25 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                              "completion passes")
 
 
-def phase_incoherent(device, smi, big):
-    """tools/bench_incoherent_torch.py's rays on the big mesh through
-    every scheduler's entry point: results equal to the default path's
-    (the tool raises otherwise), device times in interleaved pairs.
-    Returns the launches per kernel."""
+@functools.cache
+def _incoherent_tool():
+    """tools/bench_incoherent_torch.py, loaded by its path."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "bench_incoherent_torch", REPO / "tools" / "bench_incoherent_torch.py")
     inc = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(inc)
+    return inc
+
+
+def phase_incoherent(device, smi, big):
+    """tools/bench_incoherent_torch.py's rays on the big mesh through
+    every scheduler's entry point: results equal to the default path's
+    (the tool raises otherwise), device times in interleaved pairs.
+    Returns the launches per kernel."""
     _zero_counters()
-    out = inc.run(big, INCOHERENT["n"], INCOHERENT["reps"], True, device,
-                  smi=smi)
+    out = _incoherent_tool().run(big, INCOHERENT["n"], INCOHERENT["reps"],
+                                 True, device, smi=smi)
     counts = _read_counters()
     for p in out:
         parts = ""
@@ -1292,7 +1413,7 @@ def phase_incoherent(device, smi, big):
             f"it {[round(x, 4) for x in p['default_ms_runs']]} ms, "
             f"{p['value']:.3f} Mrays/s{parts}; equal to the default path; "
             f"{p['device']}")
-    for k in NEW_WRAPPERS[4:]:
+    for k in INCOHERENT_WRAPPERS:
         if counts[k] <= 0:
             raise AssertionError(f"incoherent: {k} never launched")
     return counts
@@ -1421,40 +1542,78 @@ def phase_kernels(device, big):
     # PARK_EVERY parked: K6 / K8 bitwise against their plain versions
     # (bounce origins from the plain version's hits), both timed there,
     # and the kernels timed at N_RAYS (bounce origins from K6's own hits).
+    # The bound counts the node tests of a walk at each ray's final bound;
+    # the flat scans' bound, every box for every ray.
     if kernel_module(big) is not clustered:
         raise AssertionError("the big mesh must take the clustered kernels")
     tb = clustered.prepare(big)
     if tb.occ_rows is not None:
         raise AssertionError("the big mesh's shadow rays must take K8")
-    rows, boxes, scale = tb.rows, tb.boxes, tb.scale
+    rows, boxes, scale, nodes = tb.rows, tb.boxes, tb.scale, tb.nodes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clustered.cluster_tree(boxes)
+    torch.cuda.synchronize()
+    say("kernels", f"cluster_tree over {boxes.shape[0]} boxes: "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock, boxes to "
+        f"the host and the nodes back), {nodes.shape[0]} nodes, depth "
+        f"{clustered.tree_depth(boxes.shape[0])}")
 
-    def k6(o, d):
-        return clustered.closest_clustered(o, d, rows, boxes, scale, 0.01)
+    def k6(o, d, fn=clustered.closest_clustered):
+        return fn(o, d, rows, boxes, scale, 0.01, **_nodes_kw(fn, nodes))
 
     def k6_plain(o, d):
         return clustered._closest_clustered_plain(o, d, rows, 0.01)
 
-    def k8(o, d, tmax):
-        return clustered.occluded_clustered(o, d, tmax, rows, boxes, scale,
-                                            0.01)
+    def k8(o, d, tmax, fn=clustered.occluded_clustered):
+        return fn(o, d, tmax, rows, boxes, scale, 0.01, **_nodes_kw(fn, nodes))
 
     def k8_plain(o, d, tmax):
         return clustered._occluded_clustered_plain(o, d, tmax, rows, 0.01)
 
+    def walk_work(o, d, bound, nbytes, occluded=None):
+        tests = _walk_counts(o, d, bound, tb, occluded)[0]
+        return _clustered_work(o, d, bound, rows, boxes, scale, nbytes,
+                               occluded=occluded, box_tests=tests,
+                               list_bytes=nodes.shape[0] * 32)
+
+    flat6, flat8 = (clustered.closest_clustered_flat,
+                    clustered.occluded_clustered_flat)
     rays = _phase3_rays(big, device, 3, rows, k6_plain, N_PLAIN_BIG)
     (ob, db), shadow = _park(rays[:2], rays[2], PARK_EVERY)
     oB, dB, shadow_B = _phase3_rays(big, device, 3, rows, k6, N_RAYS)
     torch.cuda.synchronize()
-    run("closest_clustered", lambda: k6(ob, db), lambda: k6_plain(ob, db),
-        rows.shape[0], _compare_exact,
-        lambda out: _clustered_work(ob, db, out[0], rows, boxes, scale, 8),
-        n=N_PLAIN_BIG, reps=10, plain_reps=2, at_n_rays=lambda: k6(oB, dB))
-    run("occluded_clustered", lambda: k8(*shadow), lambda: k8_plain(*shadow),
-        rows.shape[0], _compare_exact,
-        lambda out: _clustered_work(shadow[0], shadow[1], shadow[2], rows,
-                                    boxes, scale, 1, occluded=out),
-        n=N_PLAIN_BIG, reps=10, plain_reps=2,
-        at_n_rays=lambda: k8(*shadow_B))
+    for name, fn in (("closest_clustered", None), (FLAT["closest_clustered"],
+                                                    flat6)):
+        run(name, lambda fn=fn: k6(ob, db, fn or clustered.closest_clustered),
+            lambda: k6_plain(ob, db), rows.shape[0], _compare_exact,
+            (lambda out: walk_work(ob, db, out[0], 8)) if fn is None else
+            (lambda out: _clustered_work(ob, db, out[0], rows, boxes, scale,
+                                         8)),
+            n=N_PLAIN_BIG, reps=10, plain_reps=2 if fn is None else 1,
+            at_n_rays=lambda fn=fn: k6(oB, dB,
+                                       fn or clustered.closest_clustered))
+    for name, fn in (("occluded_clustered", None),
+                     (FLAT["occluded_clustered"], flat8)):
+        run(name,
+            lambda fn=fn: k8(*shadow, fn or clustered.occluded_clustered),
+            lambda: k8_plain(*shadow), rows.shape[0], _compare_exact,
+            (lambda out: walk_work(*shadow, 1, occluded=out)) if fn is None
+            else (lambda out: _clustered_work(*shadow, rows, boxes, scale, 1,
+                                              occluded=out)),
+            n=N_PLAIN_BIG, reps=10, plain_reps=2 if fn is None else 1,
+            at_n_rays=lambda fn=fn: k8(*shadow_B,
+                                       fn or clustered.occluded_clustered))
+    t6n, _ = k6(ob, db)
+    o8n = k8(*shadow)
+    for what, counts in (
+            ("K6", _walk_counts(ob, db, t6n, tb)),
+            ("K8", _walk_counts(*shadow, tb, occluded=o8n))):
+        tests, leaves, live = counts
+        say("kernels", f"{what}'s walk at the final bound, {N_PLAIN_BIG} rays "
+            f"({live} live): {tests / live:.2f} node tests and "
+            f"{leaves / live:.2f} clusters swept per live ray (the flat "
+            f"scan: {boxes.shape[0]} box tests per ray)")
 
     # The rest of the clustered kernels on the same rays: K6f (the full
     # carry, with u and v), K7 lean and full and K8b (the block's shared
@@ -1463,7 +1622,8 @@ def phase_kernels(device, big):
     # K6's work (K8's) per ray, whatever list a block shares; the full
     # carry writes 32 bytes per ray.
     def full(kernel, o, d):
-        return kernel(o, d, rows, boxes, scale, 0.01, 1e16, True)
+        return kernel(o, d, rows, boxes, scale, 0.01, 1e16, True,
+                      **_nodes_kw(kernel, nodes))
 
     def full_plain(o, d):
         return clustered._closest_clustered_full_plain(o, d, rows, 0.01,
@@ -1481,6 +1641,10 @@ def phase_kernels(device, big):
              lambda: full(clustered.closest_clustered_full, ob, db),
              lambda: full_plain(ob, db), 32,
              lambda: full(clustered.closest_clustered_full, oB, dB)),
+            ("closest_clustered_full_flat",
+             lambda: full(clustered.closest_clustered_full_flat, ob, db),
+             lambda: full_plain(ob, db), 32,
+             lambda: full(clustered.closest_clustered_full_flat, oB, dB)),
             ("closest_clustered_b", lambda: k7(ob, db),
              lambda: k6_plain(ob, db), 8, lambda: k7(oB, dB)),
             ("closest_clustered_full_b",
@@ -1488,8 +1652,10 @@ def phase_kernels(device, big):
              lambda: full_plain(ob, db), 32,
              lambda: full(clustered.closest_clustered_full_b, oB, dB))):
         run(name, kernel, plain, rows.shape[0], _compare_exact,
-            lambda out, nbytes=nbytes: _clustered_work(
-                ob, db, out[0], rows, boxes, scale, nbytes),
+            (lambda out, nbytes=nbytes: walk_work(ob, db, out[0], nbytes))
+            if name == "closest_clustered_full" else
+            (lambda out, nbytes=nbytes: _clustered_work(
+                ob, db, out[0], rows, boxes, scale, nbytes)),
             n=N_PLAIN_BIG, reps=10, plain_reps=1, at_n_rays=wide)
     run("occluded_clustered_b", lambda: k8b(*shadow),
         lambda: k8_plain(*shadow), rows.shape[0], _compare_exact,
@@ -1512,13 +1678,36 @@ def phase_kernels(device, big):
         say("kernels", f"{what}: bitwise equal on {N_PLAIN_BIG} rays")
     if not bool(f6[4].any()) or not bool(f6[5].any()):
         raise AssertionError("K6f returned no u, v")
+    # The walk against the flat scan on the same rays, bit for bit, timed
+    # in interleaved pairs (walk, flat, flat, walk).
+    for label, walk, flat in (
+            ("K6", lambda o, d: k6(o, d), lambda o, d: k6(o, d, flat6)),
+            ("K6f", lambda o, d: full(clustered.closest_clustered_full, o, d),
+             lambda o, d: full(clustered.closest_clustered_full_flat, o, d)),
+            ("K8", lambda *s: (k8(*s),), lambda *s: (k8(*s, flat8),))):
+        name = {"K6": "closest_clustered", "K6f": "closest_clustered_full",
+                "K8": "occluded_clustered"}[label]
+        for width, args in (("narrow", (ob, db) if label != "K8" else shadow),
+                            ("wide", (oB, dB) if label != "K8"
+                             else shadow_B)):
+            _walk_against_flat(records, name, label, lambda: walk(*args),
+                               lambda: flat(*args), width)
 
     _check_ablations(records, tb, (ob, db), shadow, (oB, dB), shadow_B,
                      (t6, row6), k8(*shadow))
 
     # The exact inputs of one K6 and one K8 call of a bench_big frame,
-    # through each wrapper and its plain version.
-    _hold_recorded(records, _record_big_calls(big, device), "bench_big")
+    # through each wrapper and its plain version, and the walk against the
+    # flat scan.
+    recorded = _record_big_calls(big, device)
+    _hold_recorded(records, recorded, "bench_big")
+    for (name, _), (args, _) in recorded.items():
+        # The recorded walk's arguments, the node table among them.
+        flat = _incoherent_tool().flat_in_place(name, getattr(clustered, name))
+        _walk_against_flat(
+            records, name, f"{name} (a bench_big call)",
+            lambda: getattr(clustered, name)(*args), lambda: flat(*args),
+            "recorded")
     return records
 
 
@@ -1636,6 +1825,7 @@ def phase_main_path(device, smi, big):
                                 use_importance_sampling=True, **kw)
         counts = _read_counters()
         _check_frame(tag, accum, per)
+        _no_flat(tag, counts)
         sec = sum(p[0] for p in per[-timed:])
         rays = sum(p[1] for p in per[-timed:])
         iters = [int(p[2].wavefront_iterations) for p in per[-timed:]]
@@ -1694,6 +1884,41 @@ def _env(**variables):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def _flat_scans(on: bool = True):
+    """With ``on``, the module attributes of K6, K6f and K8 that
+    ``closest_hit`` / ``occluded_hit`` call point at the flat scans (the
+    FLAT_FRAME frames; ``flat_in_place`` of
+    tools/bench_incoherent_torch.py), for the block."""
+    from tpu_pt_torch.intersect import clustered
+    saved = {k: getattr(clustered, k) for k in FLAT}
+    if on:
+        for k in FLAT:
+            setattr(clustered, k, _incoherent_tool().flat_in_place(k,
+                                                                   saved[k]))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(clustered, k, fn)
+
+
+def _variant(what: str, variables: dict):
+    """The context of a BIG_VARIANTS frame: its variables, and the flat
+    scans for the FLAT_FRAME ones."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(_env(**variables))
+    stack.enter_context(_flat_scans(what.startswith(FLAT_FRAME)))
+    return stack
+
+
+def _no_flat(tag: str, counts: dict) -> None:
+    """The flat scans are on no path: only FLAT_FRAME frames launch them."""
+    for k in FLAT.values():
+        if counts[k]:
+            raise AssertionError(f"{tag}: {k} launched {counts[k]} times")
+
+
 def _image_bound(tag, a, b, tol, share_max):
     """Two accumulators within (mean |diff| < tol, share of pixels beyond
     tol <= share_max); returns the line to print."""
@@ -1722,13 +1947,15 @@ def phase_big_variants(device, smi, big, lean, records):
     (_, _, frames, timed, kw, _), lean_accum, lean_s, lean_mr = lean
     for what, variables, expect, banned in BIG_VARIANTS:
         tap = _Tap(NEW_WRAPPERS)
-        with _env(**variables):
+        with _variant(what, variables):
             _zero_counters()
             accum, _, per = _render(big, device, frames, tap=tap,
                                     use_direct_lighting=True,
                                     use_importance_sampling=True, **kw)
             counts = _read_counters()
         tag = f"{BIG_TAG}, {what} {variables}"
+        if not what.startswith(FLAT_FRAME):
+            _no_flat(tag, counts)
         _check_frame(tag, accum, per)
         sec = sum(p[0] for p in per[-timed:])
         rays = sum(p[1] for p in per[-timed:])
@@ -1771,6 +1998,7 @@ def phase_big_variants(device, smi, big, lean, records):
                                             tap=tap, **WHITTED_BENCH)
             counts = _read_counters()
         _check_frame(f"pbr_big {what}", accum, per)
+        _no_flat(f"pbr_big {what}", counts)
         out[what] = (accum.clone(), counts, per[1][0])
         for k, n in counts.items():
             launches[k] += n
@@ -1789,9 +2017,11 @@ def phase_big_variants(device, smi, big, lean, records):
     return launches
 
 
-def phase_huge_mesh(device, smi):
+def phase_huge_mesh(device, smi, records):
     """The 1M-triangle mesh: written, loaded (with the seconds each step
-    took), and bench_big's frame through K6 + K8 and through K7 + K8b."""
+    took); one K6 and one K8 call at N_PLAIN_BIG rays (one lane in
+    PARK_EVERY parked) bitwise against the flat scans, both timed; and
+    bench_big's frame through K6 + K8 and through K7 + K8b."""
     import torch
     import tpu_pt_torch as tp
     from tpu_pt_torch.intersect import clustered, kernel_module, lbvh
@@ -1836,7 +2066,35 @@ def phase_huge_mesh(device, smi):
         f"(parsing {spent['load_obj']:.1f} s, ordering "
         f"{spent['median_split_order']:.1f} s, occluder analysis "
         f"{spent['nee_occluder_index']:.1f} s, LBVH build on the card "
-        f"{spent['build_lbvh']:.1f} s); packing {packed * 1e3:.1f} ms")
+        f"{spent['build_lbvh']:.1f} s); packing {packed * 1e3:.1f} ms "
+        f"(the cluster tree included)")
+    table = (tables.rows, tables.boxes, tables.scale, 0.01)
+
+    def k6(o, d, fn=clustered.closest_clustered):
+        return fn(o, d, *table, **_nodes_kw(fn, tables.nodes))
+
+    def k8(o, d, tmax, fn=clustered.occluded_clustered):
+        return fn(o, d, tmax, *table[:3], 0.01,
+                  **_nodes_kw(fn, tables.nodes))
+
+    rays = _phase3_rays(scene, device, 3, tables.rows, k6, N_PLAIN_BIG)
+    (oh, dh), sh = _park(rays[:2], rays[2], PARK_EVERY)
+    _walk_against_flat(records, "closest_clustered", "K6 on the huge mesh",
+                       lambda: k6(oh, dh),
+                       lambda: k6(oh, dh, clustered.closest_clustered_flat),
+                       "huge")
+    _walk_against_flat(records, "occluded_clustered", "K8 on the huge mesh",
+                       lambda: (k8(*sh),),
+                       lambda: (k8(*sh, clustered.occluded_clustered_flat),),
+                       "huge")
+    for what, counts in (
+            ("K6", _walk_counts(oh, dh, k6(oh, dh)[0], tables)),
+            ("K8", _walk_counts(*sh, tables, occluded=k8(*sh)))):
+        tests, leaves, live = counts
+        say("huge", f"{what}'s walk at the final bound, {N_PLAIN_BIG} rays "
+            f"({live} live): {tests / live:.2f} node tests and "
+            f"{leaves / live:.2f} clusters swept per live ray (the flat "
+            f"scan: {tables.boxes.shape[0]} box tests per ray)")
     del tables
     launches = dict.fromkeys(KERNELS, 0)
     frames = {}
@@ -1851,6 +2109,7 @@ def phase_huge_mesh(device, smi):
                                     use_importance_sampling=True, **BENCH_BIG)
             counts = _read_counters()
         _check_frame(f"huge mesh {what}", accum, per)
+        _no_flat(f"huge mesh {what}", counts)
         for k in expect:
             if counts[k] <= 0:
                 raise AssertionError(f"huge mesh {what}: {k} never launched")
@@ -1910,7 +2169,7 @@ def phase_lbvh(device, smi, big):
     rays = _phase3_rays(big, device, 3, tables.rows,
                         lambda o, d: clustered.closest_clustered(
                             o, d, tables.rows, tables.boxes, tables.scale,
-                            0.01), N_PLAIN_BIG)
+                            0.01, nodes=tables.nodes), N_PLAIN_BIG)
     (ob, db), _ = _park(rays[:2], rays[2], PARK_EVERY)
     lbvh.intersect_closest(big, ob, db)
     torch.cuda.synchronize()
@@ -1919,7 +2178,8 @@ def phase_lbvh(device, smi, big):
     torch.cuda.synchronize()
     walk_s = time.perf_counter() - t0
     k6_ms = gpu_ms(lambda: clustered.closest_clustered(
-        ob, db, tables.rows, tables.boxes, tables.scale, 0.01), 5)
+        ob, db, tables.rows, tables.boxes, tables.scale, 0.01,
+        nodes=tables.nodes), 5)
     say("lbvh", f"one closest call at {N_PLAIN_BIG} rays (one in "
         f"{PARK_EVERY} parked): LBVH walk {walk_s * 1e3:.1f} ms (host "
         f"clock; the end of the walk is read every {lbvh.CUDA_CHECK_EVERY} "
@@ -2272,6 +2532,7 @@ def phase_whitted_main(device, smi):
         counts = _read_counters()
         recorded[tag] = tap.picked
         _check_frame(tag, accum, per)
+        _no_flat(tag, counts)
         sec = sum(p[0] for p in per[-timed:])
         rays = sum(p[1] for p in per[-timed:])
         iters = [int(p[2].wavefront_iterations) for p in per[-timed:]]
@@ -2697,7 +2958,7 @@ def _profile_big(device, smi):
     for what, variables, _, _ in BIG_VARIANTS:
         order += [(what, variables), ("lean (K6 + K8)", {})]
     for what, variables in order:
-        with _env(**variables):
+        with _variant(what, variables):
             _, _, per = _render(big, device, [0, 1], **kw)
             accum = init_accum(cfg, device=device)
             _profile_frame(f"big mesh, {what} {variables or ''}".strip(),
@@ -2777,7 +3038,7 @@ def main() -> int:
     phase_cross_check(big)
     phase_lbvh(device, smi, big)
     phase_whitted_cross_check(device)
-    h_launches = phase_huge_mesh(device, smi)
+    h_launches = phase_huge_mesh(device, smi, records)
     i_launches = phase_incoherent(device, smi, big)
     p_launches = phase_bf16(device, smi, records)
     phase_entry_points(device, smi)
@@ -2801,8 +3062,14 @@ def main() -> int:
             # K12-K15: the schedule build and the whole path (build,
             # kernel, reduce, completion) beside the whole function's
             # bound; K16: ms per call over its 200 chained calls.
+            # K6, K6f, K8 and their flat scans: interleaved pairs of the
+            # two (32,768 parked and 262,144 rays, a recorded bench_big
+            # call, the huge mesh).
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
-                                     "path_bound_by", "bench_ms")
+                                     "path_bound_by", "bench_ms",
+                                     "ms_at_n_rays", "pair_ms_narrow",
+                                     "pair_ms_wide", "pair_ms_recorded",
+                                     "pair_ms_huge")
                if k in first}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

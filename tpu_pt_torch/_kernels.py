@@ -48,12 +48,20 @@ _SIGNATURES = {
                                  _P, _P, _P, _P, _P),
     },
     "clustered_intersect": {
-        "tpt_closest_clustered": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-                                  _P, _P, _P),
-        "tpt_occluded_clustered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                                   _P, _P),
-        "tpt_closest_clustered_full": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                                       _F, _I, _P, _P, _P, _P, _P, _P, _P),
+        "tpt_closest_clustered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                  _F, _P, _P, _I, _P),
+        "tpt_occluded_clustered": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                   _F, _P, _I, _P),
+        "tpt_closest_clustered_full": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                       _F, _F, _I, _P, _P, _P, _P, _P, _P,
+                                       _I, _P),
+        "tpt_closest_clustered_flat": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                                       _F, _P, _P, _P),
+        "tpt_occluded_clustered_flat": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                        _F, _F, _P, _P),
+        "tpt_closest_clustered_full_flat": (_P, _P, _P, _P, _I, _I, _I, _F,
+                                            _F, _F, _F, _I, _P, _P, _P, _P,
+                                            _P, _P, _P),
     },
     "clustered_build": {
         "tpt_closest_clustered_b": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,

@@ -177,9 +177,11 @@ __device__ __forceinline__ float max_abs_origin(const Ray& r) {
 // every side. True when the ray's parameter interval through the box
 // meets (tmin, bound]. Every quantity formed is finite or +-inf, never
 // NaN, so a box collapsed to a far point fails for every ray.
-__device__ __forceinline__ bool slab_passes(const Ray& r, const Slab& s,
-                                            float4 a, float4 b, float m,
-                                            float tmin, float bound) {
+// slab_enter is the same test without the bound: true when the interval
+// meets (tmin, inf), with its entry distance in *tn.
+__device__ __forceinline__ bool slab_enter(const Ray& r, const Slab& s,
+                                           float4 a, float4 b, float m,
+                                           float tmin, float* tn_out) {
   float t0 = (a.x - m - r.ox) * s.ix, t1 = (a.w + m - r.ox) * s.ix;
   float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
   t0 = (a.y - m - r.oy) * s.iy;
@@ -190,7 +192,15 @@ __device__ __forceinline__ bool slab_passes(const Ray& r, const Slab& s,
   t1 = (b.y + m - r.oz) * s.iz;
   tn = fmaxf(tn, fminf(t0, t1));
   tf = fminf(tf, fmaxf(t0, t1));
-  return tn <= tf && tf > tmin && tn <= bound;
+  *tn_out = tn;
+  return tn <= tf && tf > tmin;
+}
+
+__device__ __forceinline__ bool slab_passes(const Ray& r, const Slab& s,
+                                            float4 a, float4 b, float m,
+                                            float tmin, float bound) {
+  float tn;
+  return slab_enter(r, s, a, b, m, tmin, &tn) && tn <= bound;
 }
 
 // Cluster c of `boxes` ([C, 8] f32: min xyz, max xyz, two unused) grown by

@@ -1186,7 +1186,8 @@ def binned_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
 
 def closest_binned_path(origins, dirs, tris, boxes, scale, tmin: float,
                         tmax: float = T_FAR, want_uv: bool = False,
-                        finish=None, k: int | None = None) -> Hit:
+                        finish=None, k: int | None = None,
+                        nodes=None) -> Hit:
     """``TPT_BINNED``: the pair schedule, K14 and the tmax clip, the hit
     resolved from its packed row; then the rays that pierce more than k
     clusters and whose hit is not nearer than their (k+1)-th entry
@@ -1195,7 +1196,8 @@ def closest_binned_path(origins, dirs, tris, boxes, scale, tmin: float,
     (``pallas_ablations.intersect_closest_binned``). A hit no farther than
     every unvisited cluster's grown-box entry cannot be beaten; one at
     exactly that distance could tie a lower row there, so it is finished
-    too (the reference finishes only beyond it)."""
+    too (the reference finishes only beyond it). ``nodes`` is the boxes'
+    ``clustered.cluster_tree``, for the default finish."""
     _, build, kernel = binned_steps(origins, dirs, tmax, tris, boxes, scale,
                                     tmin, occluded=False, k=k)
     schedule = build()
@@ -1210,7 +1212,7 @@ def closest_binned_path(origins, dirs, tris, boxes, scale, tmin: float,
         def finish(o, d):
             return clustered._lean_resolve_packed(
                 tris, o, d, *clustered.closest_clustered(
-                    o, d, tris, boxes, scale, tmin, tmax), want_uv)
+                    o, d, tris, boxes, scale, tmin, tmax, nodes), want_uv)
     ovf = schedule.overflow & (t >= schedule.next_tn)
     fb = finish(*_parked(origins, dirs, ovf))
 
@@ -1223,13 +1225,13 @@ def closest_binned_path(origins, dirs, tris, boxes, scale, tmin: float,
 
 
 def occluded_binned_path(origins, dirs, tmax, tris, boxes, scale,
-                         tmin: float, finish=None,
-                         k: int | None = None) -> torch.Tensor:
+                         tmin: float, finish=None, k: int | None = None,
+                         nodes=None) -> torch.Tensor:
     """``TPT_BINNED``, any-hit (``intersect_occluded_binned``): the pair
     schedule under each ray's own tmax, K14, then the rays that pierce more
     than k clusters and are not blocked yet through ``finish(o, d, tmax)``
-    (the ordinary path; default K8), every other lane parked with tmax 0.
-    Returns bool [N]."""
+    (the ordinary path; default K8 over ``nodes``, the boxes' cluster
+    tree), every other lane parked with tmax 0. Returns bool [N]."""
     _, build, kernel = binned_steps(origins, dirs, tmax, tris, boxes, scale,
                                     tmin, occluded=True, k=k)
     schedule = build()
@@ -1237,7 +1239,7 @@ def occluded_binned_path(origins, dirs, tmax, tris, boxes, scale,
     if finish is None:
         def finish(o, d, tm):
             return clustered.occluded_clustered(o, d, tm, tris, boxes, scale,
-                                                tmin)
+                                                tmin, nodes)
     ovf = schedule.overflow & ~occ
     fb = finish(*_parked(origins, dirs, ovf),
                 torch.where(ovf, tmax, 0.0).contiguous())

@@ -4,10 +4,11 @@ packed rows: the port of the big-scene part of
 
 The packed rows are put in the scene's balanced-kd order
 (``scene.cluster_order``, ``median_split_order``) and cut into clusters of
-``CLUSTER`` rows, each with an axis-aligned box. Six kernels, each with a
-wrapper, a plain PyTorch version and a launch counter (wrapper: the kernel
-bodies of ``tpu_pt/intersect/pallas_bf.py`` it replaces, via their call
-site; plain version):
+``CLUSTER`` rows, each with an axis-aligned box; ``cluster_tree`` stores
+the kd tree over the clusters that this order is. Six kernels, each with
+a wrapper, a plain PyTorch version and a launch counter (wrapper: the
+kernel bodies of ``tpu_pt/intersect/pallas_bf.py`` it replaces, via their
+call site; plain version):
 
 - ``closest_clustered`` (K6): ``_closest_kernel_clustered_lean`` /
   ``_closest_kernel_chained_lean`` via ``_closest_call_clustered``;
@@ -25,17 +26,21 @@ site; plain version):
 - ``occluded_clustered_b`` (K8b): ``_occluded_kernel_clustered_b`` via
   ``_occluded_call_clustered(build=True)``; K8's plain version.
 
-Two designs. In ``csrc/clustered_intersect.cu`` (K6, K6f, K8) each thread
-traverses for its own ray, culling clusters by their boxes. In
+Two designs. In ``csrc/clustered_intersect.cu`` (K6, K6f, K8) a group of
+16 or 8 lanes (``walk_group``) walks the cluster tree for one ray, near
+first, and sweeps the clusters it reaches together. In
 ``csrc/clustered_build.cu`` (K7, K8b) a thread block of 128 consecutive
 lanes builds one shared work list, the boxes any of its rays pierces
 within its bound, and sweeps the listed clusters in lockstep from shared
-memory, as the TPU kernels with the in-kernel candidate build do. Either
-way one launch covers the table: the TPU path's chained slabs and ray sort
-exist only because its table had to fit in VMEM. The results are those of
-a dense sweep over every row, which is what the plain versions compute. A
-wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel, and for anything else it raises.
+memory, as the TPU kernels with the in-kernel candidate build do. Either way one launch covers the table:
+the TPU path's chained slabs and ray sort exist only because its table
+had to fit in VMEM. The results are those of a dense sweep over every
+row, which is what the plain versions compute. A wrapper runs the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernel, and for anything else it raises. The flat scans that K6, K6f and
+K8 were until the tree walk (``*_flat``: each thread slab-tests every
+box) stay as wrappers on no path, the yardstick ``chip_smoke.py`` holds
+the walk against.
 
 ``closest_hit`` / ``occluded_hit`` pick among them as the JAX package does
 (``variant``): ``TPT_LEAN_BIG=0``, or ``TPT_LEAN_UV=0`` on a call that wants
@@ -50,6 +55,7 @@ call.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -73,13 +79,28 @@ EMPTY_BOX = 3e37       # all-padding clusters collapse to this far point
 # |box - o|, is smaller still. A margin of 1e-4 is over ten times both, so
 # the cull drops no hit that the dense sweep keeps, however far the ray
 # starts from the scene.
+#
+# The cluster tree (``cluster_tree``) culls with the same test and drops
+# nothing more. A node's box is the exact min / max of its children's, and
+# each rounded step of the slab test, (lo - m - o) * inv, is monotone in
+# the box coordinate, so a node's interval at margin m contains each
+# descendant's: a node passes whenever a cluster under it passes, and the
+# clusters a walk reaches at a bound are exactly those the flat test of
+# every box passes at that bound.
 BOX_MARGIN = 1e-4
 
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
 LAUNCHES = {"closest_clustered": 0, "occluded_clustered": 0,
             "closest_clustered_full": 0, "closest_clustered_b": 0,
-            "closest_clustered_full_b": 0, "occluded_clustered_b": 0}
+            "closest_clustered_full_b": 0, "occluded_clustered_b": 0,
+            "closest_clustered_flat": 0, "closest_clustered_full_flat": 0,
+            "occluded_clustered_flat": 0}
+# Ray counts up to which the walk runs 16 lanes a ray, not 8 (walk_group).
+WALK_NARROW_RAYS = 65536
+# Stack entries of the tree walk (csrc/clustered_intersect.cu, kStack): a
+# tree deeper than this is refused.
+TREE_MAX_DEPTH = 32
 # Rows per cluster the list-building kernels' shared row buffers hold.
 BUILD_MAX_CLUSTER = 128
 # Landing-slab sentinel of the prediction-ordered scheduler: "no
@@ -155,6 +176,107 @@ def box_scale(boxes: torch.Tensor) -> float:
     return float(torch.where(real, boxes[:, 0:6].abs(), 0.0).max())
 
 
+@functools.lru_cache(maxsize=16)
+def _tree_links(n_clusters: int) -> tuple[np.ndarray, tuple[int, ...]]:
+    """The kd tree over C clusters: children references [C - 1, 2] i32 of
+    the internal nodes, breadth first (node 0 the root), and the index at
+    which each level of nodes starts (a level's nodes are consecutive).
+    The range arithmetic of ``median_split_order`` in cluster units: a
+    run of k clusters splits into its first max(1, k // 2) and the rest.
+    A reference is 2 * index + 1 for a cluster, 2 * index for a node."""
+    links = np.zeros((max(n_clusters - 1, 0), 2), np.int32)
+    spans = [(0, n_clusters, 0)] if n_clusters > 1 else []
+    starts = [0]
+    for node, (a, b, depth) in enumerate(spans):
+        if depth == len(starts):
+            starts.append(node)
+        half = a + max(1, (b - a) // 2)
+        for side, (lo, hi) in enumerate(((a, half), (half, b))):
+            if hi - lo == 1:
+                links[node, side] = 2 * lo + 1
+            else:
+                links[node, side] = 2 * len(spans)
+                spans.append((lo, hi, depth + 1))
+    links.flags.writeable = False          # shared by every caller
+    return links, tuple(starts)
+
+
+def cluster_tree(boxes: torch.Tensor) -> torch.Tensor:
+    """The internal nodes [C - 1, 8] f32 of the kd tree over the clusters
+    of ``boxes`` [C, 8] (``_tree_links``), on the boxes' device, laid out
+    like a box: (min xyz, max xyz, the two children's references as int32
+    bits). A node's box is the union of its children's, EMPTY_BOX children
+    left out; a node with no real cluster under it is EMPTY_BOX itself.
+    Host numpy over the C boxes, level by level, once per ``prepare``."""
+    n_c = boxes.shape[0]
+    links, starts = _tree_links(n_c)
+    n_n = links.shape[0]
+    host = boxes[:, 0:6].cpu().numpy()
+    # Nodes then clusters in one table; an empty cluster is (+inf, -inf),
+    # which min / max pass over.
+    table = np.empty((n_n + n_c, 6), np.float32)
+    empty = host[:, 0:1] > 1e30
+    table[n_n:, 0:3] = np.where(empty, np.inf, host[:, 0:3])
+    table[n_n:, 3:6] = np.where(empty, -np.inf, host[:, 3:6])
+    row = np.where(links & 1, n_n + (links >> 1), links >> 1)
+    # Deepest level first: a node's children are on the level below.
+    for a, b in reversed(list(zip(starts, starts[1:] + (n_n,)))):
+        k0, k1 = table[row[a:b, 0]], table[row[a:b, 1]]
+        table[a:b, 0:3] = np.minimum(k0[:, 0:3], k1[:, 0:3])
+        table[a:b, 3:6] = np.maximum(k0[:, 3:6], k1[:, 3:6])
+    node = table[:n_n]
+    node = np.where(node[:, 0:1] > node[:, 3:4], np.float32(EMPTY_BOX), node)
+    out = np.concatenate([node, links.view(np.float32)], 1)
+    return torch.as_tensor(out).to(boxes.device).contiguous()
+
+
+def tree_depth(n_clusters: int) -> int:
+    """Levels of internal nodes above the deepest cluster of
+    ``_tree_links``: ceil(log2 C)."""
+    return max(n_clusters - 1, 0).bit_length()
+
+
+def _tree_leaves_plain(origins, dirs, nodes, boxes, scale: float,
+                       tmin: float, bound):
+    """Plain level-by-level walk of the cluster tree at a fixed bound
+    ([N] or a float): (reached [N, C] bool, node tests [N] i64). A cluster
+    is reached when its grown box and every ancestor's pass the kernels'
+    slab test within (tmin, bound]; each opened node tests both children,
+    and the root is tested once (``walk_tree`` of
+    ``csrc/clustered_intersect.cu``, at its final bound)."""
+    from . import ablations
+    n, n_c = origins.shape[0], boxes.shape[0]
+    bound = torch.as_tensor(bound, dtype=torch.float32,
+                            device=origins.device).expand(n)[:, None]
+    inv = ablations._ray_inv(dirs)
+    m = ablations._margin(origins, scale)
+
+    def passes(table):
+        tn, tf = ablations._near_far(origins, inv, m, table)
+        return (tn <= tf) & (tf > tmin) & (tn <= bound)
+
+    box_ok = passes(boxes)
+    tests = torch.ones(n, dtype=torch.int64, device=origins.device)
+    if n_c == 1:
+        return box_ok, tests
+    node_ok = passes(nodes)
+    links = nodes[:, 6:8].contiguous().view(torch.int32).long()
+    reached = torch.zeros_like(box_ok)
+    level = links.new_zeros(1)               # the nodes of this level
+    opened = node_ok[:, 0:1]                 # and which each ray opens
+    while level.numel():
+        tests += 2 * opened.sum(1)
+        kids = links[level].reshape(-1)
+        parent = torch.arange(level.numel(),
+                              device=kids.device).repeat_interleave(2)
+        leaf = (kids & 1) == 1
+        lf, nd = kids[leaf] >> 1, kids[~leaf] >> 1
+        reached[:, lf] = opened[:, parent[leaf]] & box_ok[:, lf]
+        opened = opened[:, parent[~leaf]] & node_ok[:, nd]
+        level = nd
+    return reached, tests
+
+
 # --------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the kernels' reference): a dense
 # exact sweep over every clustered row.
@@ -203,35 +325,77 @@ def _check_build(cluster: int) -> None:
                          f"most {BUILD_MAX_CLUSTER} rows, not {cluster}")
 
 
-def _launch_lean(name: str, origins, dirs, tris, boxes, scale, tmin, tmax):
-    """Launch a closest (t, packed row) kernel: K6 or K7 lean."""
+def _check_nodes(nodes: torch.Tensor, n_boxes: int,
+                 device: torch.device) -> None:
+    """A node table of ``cluster_tree`` for ``n_boxes`` clusters, whose
+    depth (``tree_depth``) the walk's stack holds."""
+    dense._check("nodes", nodes, torch.float32, (n_boxes - 1, 8), device)
+    if nodes.data_ptr() % 16:
+        raise ValueError("nodes must be 16-byte aligned (float4 loads)")
+    if tree_depth(n_boxes) > TREE_MAX_DEPTH:
+        raise ValueError(f"a tree over {n_boxes} clusters is deeper than the "
+                         f"walk's {TREE_MAX_DEPTH}-entry stack")
+
+
+def walk_group(n_rays: int) -> int:
+    """Lanes a ray of the tree walk (K6, K6f, K8) for a call of ``n_rays``
+    rays: the width tools/clustered_group_trial.py measured fastest on the
+    big mesh (PERF.md), 16 up to WALK_NARROW_RAYS (the big-mesh frame's
+    32,768 lanes, pbr_big's 65,536), where fewer rays must fill the card,
+    and 8 above (131,072 and 262,144)."""
+    return 16 if n_rays <= WALK_NARROW_RAYS else 8
+
+
+def _tables(name: str, tris, boxes, nodes, group, n: int, dev):
+    """(the tables, n_boxes, cluster, the walk's group) of a clustered
+    launch: the rows and boxes; for the walking kernels (K6, K6f, K8) the
+    node table (built from the boxes when the caller has none) and the
+    lanes a ray (``walk_group`` when None), else an empty tuple. The
+    caller holds the tables until the launch is queued."""
+    n_boxes, cluster = _check_tables(tris, boxes, dev)
+    tables, walk = (tris, boxes), ()
+    if name.endswith("_b"):
+        _check_build(cluster)
+    elif not name.endswith("_flat"):
+        if nodes is None:
+            nodes = cluster_tree(boxes)
+        _check_nodes(nodes, n_boxes, dev)
+        tables += (nodes,)
+        walk = (walk_group(n) if group is None else int(group),)
+    return tables, n_boxes, cluster, walk
+
+
+def _launch_lean(name: str, origins, dirs, tris, boxes, scale, tmin, tmax,
+                 nodes=None, group=None):
+    """Launch a closest (t, packed row) kernel: K6, its flat scan or K7
+    lean."""
     from .. import _kernels
     n, _ = dense._check_inputs(origins, dirs, tris)
     dev = origins.device
-    n_boxes, cluster = _check_tables(tris, boxes, dev)
-    if name.endswith("_b"):
-        _check_build(cluster)
+    tables, n_boxes, cluster, walk = _tables(name, tris, boxes, nodes, group,
+                                             n, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         _kernels.launch("tpt_" + name, origins.data_ptr(),
-                        dirs.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
+                        dirs.data_ptr(), *(x.data_ptr() for x in tables),
                         n, n_boxes, cluster, float(scale), BOX_MARGIN,
-                        float(tmin), float(tmax), t.data_ptr(),
-                        row.data_ptr(), dense._stream(dev))
+                        float(tmin), float(tmax),
+                        t.data_ptr(), row.data_ptr(), *walk,
+                        dense._stream(dev))
         LAUNCHES[name] += 1
     return t, row
 
 
 def _launch_full(name: str, origins, dirs, tris, boxes, scale, tmin, tmax,
-                 want_uv):
-    """Launch a full-carry closest-hit kernel: K6f or K7 full."""
+                 want_uv, nodes=None, group=None):
+    """Launch a full-carry closest-hit kernel: K6f, its flat scan or K7
+    full."""
     from .. import _kernels
     n, _ = dense._check_inputs(origins, dirs, tris)
     dev = origins.device
-    n_boxes, cluster = _check_tables(tris, boxes, dev)
-    if name.endswith("_b"):
-        _check_build(cluster)
+    tables, n_boxes, cluster, walk = _tables(name, tris, boxes, nodes, group,
+                                             n, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -240,47 +404,59 @@ def _launch_full(name: str, origins, dirs, tris, boxes, scale, tmin, tmax,
     v = torch.empty(n, dtype=torch.float32, device=dev)
     if n:
         _kernels.launch("tpt_" + name, origins.data_ptr(),
-                        dirs.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
+                        dirs.data_ptr(), *(x.data_ptr() for x in tables),
                         n, n_boxes, cluster, float(scale), BOX_MARGIN,
-                        float(tmin), float(tmax), int(bool(want_uv)),
-                        t.data_ptr(), tri.data_ptr(), normal.data_ptr(),
-                        mat.data_ptr(), u.data_ptr(), v.data_ptr(),
-                        dense._stream(dev))
+                        float(tmin), float(tmax),
+                        int(bool(want_uv)), t.data_ptr(), tri.data_ptr(),
+                        normal.data_ptr(), mat.data_ptr(), u.data_ptr(),
+                        v.data_ptr(), *walk, dense._stream(dev))
         LAUNCHES[name] += 1
     return t, tri, normal, mat, u, v
 
 
 def _launch_occluded(name: str, origins, dirs, tmax, tris, boxes, scale,
-                     tmin):
-    """Launch a clustered any-hit kernel: K8 or K8b."""
+                     tmin, nodes=None, group=None):
+    """Launch a clustered any-hit kernel: K8, its flat scan or K8b."""
     from .. import _kernels
     n, _ = dense._check_inputs(origins, dirs, tris)
     dev = origins.device
     dense._check("tmax", tmax, torch.float32, (n,), dev)
-    n_boxes, cluster = _check_tables(tris, boxes, dev)
-    if name.endswith("_b"):
-        _check_build(cluster)
+    tables, n_boxes, cluster, walk = _tables(name, tris, boxes, nodes, group,
+                                             n, dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         _kernels.launch("tpt_" + name, origins.data_ptr(),
-                        dirs.data_ptr(), tmax.data_ptr(), tris.data_ptr(),
-                        boxes.data_ptr(), n, n_boxes, cluster, float(scale),
-                        BOX_MARGIN, float(tmin), out.data_ptr(),
-                        dense._stream(dev))
+                        dirs.data_ptr(), tmax.data_ptr(),
+                        *(x.data_ptr() for x in tables), n, n_boxes,
+                        cluster, float(scale), BOX_MARGIN, float(tmin),
+                        out.data_ptr(), *walk, dense._stream(dev))
         LAUNCHES[name] += 1
     return out
 
 
 def closest_clustered(origins: torch.Tensor, dirs: torch.Tensor,
                       tris: torch.Tensor, boxes: torch.Tensor, scale: float,
-                      tmin: float, tmax: float = T_FAR):
+                      tmin: float, tmax: float = T_FAR,
+                      nodes: torch.Tensor | None = None):
     """K6: per ray, (t, packed row) of the closest hit with t < tmax over
     all clustered ``tris`` rows (t = T_FAR and row 0 on a miss). Rays
-    [N, 3] f32, rows [C * cluster, 16] f32, cluster boxes [C, 8] f32 and
-    their ``box_scale`` (the culling margin, BOX_MARGIN)."""
+    [N, 3] f32, rows [C * cluster, 16] f32, cluster boxes [C, 8] f32,
+    their ``box_scale`` (the culling margin, BOX_MARGIN) and their
+    ``cluster_tree`` (built here when None)."""
     if dense._on_cpu(origins):
         return _closest_clustered_plain(origins, dirs, tris, tmin, tmax)
     return _launch_lean("closest_clustered", origins, dirs, tris, boxes,
+                        scale, tmin, tmax, nodes)
+
+
+def closest_clustered_flat(origins: torch.Tensor, dirs: torch.Tensor,
+                           tris: torch.Tensor, boxes: torch.Tensor,
+                           scale: float, tmin: float, tmax: float = T_FAR):
+    """K6's function through the flat scan (each thread slab-tests every
+    box): on no path, the yardstick of the walk."""
+    if dense._on_cpu(origins):
+        return _closest_clustered_plain(origins, dirs, tris, tmin, tmax)
+    return _launch_lean("closest_clustered_flat", origins, dirs, tris, boxes,
                         scale, tmin, tmax)
 
 
@@ -298,7 +474,8 @@ def closest_clustered_b(origins: torch.Tensor, dirs: torch.Tensor,
 def closest_clustered_full(origins: torch.Tensor, dirs: torch.Tensor,
                            tris: torch.Tensor, boxes: torch.Tensor,
                            scale: float, tmin: float, tmax: float = T_FAR,
-                           want_uv: bool = True):
+                           want_uv: bool = True,
+                           nodes: torch.Tensor | None = None):
     """K6f: K6 with the full carry. Per ray (t, original triangle id,
     normal [N, 3], material id, u, v) of the closest hit with t < tmax,
     zeros on a miss; u, v are the winning row's edge functions at the hit
@@ -307,7 +484,19 @@ def closest_clustered_full(origins: torch.Tensor, dirs: torch.Tensor,
         return _closest_clustered_full_plain(origins, dirs, tris, tmin, tmax,
                                              want_uv)
     return _launch_full("closest_clustered_full", origins, dirs, tris, boxes,
-                        scale, tmin, tmax, want_uv)
+                        scale, tmin, tmax, want_uv, nodes)
+
+
+def closest_clustered_full_flat(origins: torch.Tensor, dirs: torch.Tensor,
+                                tris: torch.Tensor, boxes: torch.Tensor,
+                                scale: float, tmin: float,
+                                tmax: float = T_FAR, want_uv: bool = True):
+    """K6f's function through the flat scan: on no path."""
+    if dense._on_cpu(origins):
+        return _closest_clustered_full_plain(origins, dirs, tris, tmin, tmax,
+                                             want_uv)
+    return _launch_full("closest_clustered_full_flat", origins, dirs, tris,
+                        boxes, scale, tmin, tmax, want_uv)
 
 
 def closest_clustered_full_b(origins: torch.Tensor, dirs: torch.Tensor,
@@ -324,14 +513,25 @@ def closest_clustered_full_b(origins: torch.Tensor, dirs: torch.Tensor,
 
 def occluded_clustered(origins: torch.Tensor, dirs: torch.Tensor,
                        tmax: torch.Tensor, tris: torch.Tensor,
-                       boxes: torch.Tensor, scale: float,
-                       tmin: float) -> torch.Tensor:
+                       boxes: torch.Tensor, scale: float, tmin: float,
+                       nodes: torch.Tensor | None = None) -> torch.Tensor:
     """K8: per ray, is any non-refractive clustered row hit with
     tmin < t < tmax[i] (tmax[i] <= T_FAR)? Returns bool [N]."""
     if dense._on_cpu(origins):
         return _occluded_clustered_plain(origins, dirs, tmax, tris, tmin)
     return _launch_occluded("occluded_clustered", origins, dirs, tmax, tris,
-                            boxes, scale, tmin)
+                            boxes, scale, tmin, nodes)
+
+
+def occluded_clustered_flat(origins: torch.Tensor, dirs: torch.Tensor,
+                            tmax: torch.Tensor, tris: torch.Tensor,
+                            boxes: torch.Tensor, scale: float,
+                            tmin: float) -> torch.Tensor:
+    """K8's function through the flat scan: on no path."""
+    if dense._on_cpu(origins):
+        return _occluded_clustered_plain(origins, dirs, tmax, tris, tmin)
+    return _launch_occluded("occluded_clustered_flat", origins, dirs, tmax,
+                            tris, boxes, scale, tmin)
 
 
 def occluded_clustered_b(origins: torch.Tensor, dirs: torch.Tensor,
@@ -355,22 +555,25 @@ class ClusteredTables:
     """A big scene's tables, built once per render."""
     rows: torch.Tensor            # K6 / K8 table, cluster order
     boxes: torch.Tensor           # [C, 8] cluster boxes
+    nodes: torch.Tensor           # [C - 1, 8] their tree (cluster_tree)
     scale: float                  # their box_scale
     occ_rows: torch.Tensor | None  # K2 table (small occluder subset) or None
     mat_bsdf: torch.Tensor        # [M] i32, for the first-hit occlusion quirk
 
 
 def prepare(scene: SceneArrays) -> ClusteredTables:
-    """Clustered tables of ``scene``. Shadow rays sweep the NEE occluder
-    subset with K2 when it has at most TRI_SLAB rows, and the whole
-    clustered table with K8 otherwise (``pallas_bf.intersect_occluded``)."""
+    """Clustered tables of ``scene``, the cluster tree included (one host
+    sync). Shadow rays sweep the NEE occluder subset with K2 when it has at
+    most TRI_SLAB rows, and the whole clustered table with K8 otherwise
+    (``pallas_bf.intersect_occluded``)."""
     rows, boxes = pack_tris_clustered(scene)
     sub = dense._occ_subset(scene)
     occ_rows = None
     if sub is not None and sub[0].shape[0] <= dense.TRI_SLAB:
         occ_rows = dense._trim_rows(sub[1], sub[0]).contiguous()
-    return ClusteredTables(rows=rows, boxes=boxes, scale=box_scale(boxes),
-                           occ_rows=occ_rows, mat_bsdf=scene.mat_bsdf)
+    return ClusteredTables(rows=rows, boxes=boxes, nodes=cluster_tree(boxes),
+                           scale=box_scale(boxes), occ_rows=occ_rows,
+                           mat_bsdf=scene.mat_bsdf)
 
 
 def _lean_resolve_packed(tris: torch.Tensor, origins, dirs, t, row,
@@ -470,15 +673,20 @@ def closest_hit(tables: ClusteredTables, origins: torch.Tensor,
             hit = ablations.closest_binned_path(
                 *args, want_uv=want_uv,
                 finish=lambda o, d: closest_hit(tables, o, d, tmin, tmax,
-                                                want_uv, allow_binned=False))
+                                                want_uv, allow_binned=False),
+                nodes=tables.nodes)
             if not want_slab:
                 return hit
             return hit, torch.full((origins.shape[0],), SLAB_UNKNOWN,
                                    dtype=torch.int32, device=origins.device)
     full, build = variant(want_uv)
     if full:
-        kernel = closest_clustered_full_b if build else closest_clustered_full
-        t, tri, normal, mat, u, v = kernel(*args, want_uv)
+        if build:
+            t, tri, normal, mat, u, v = closest_clustered_full_b(*args,
+                                                                 want_uv)
+        else:
+            t, tri, normal, mat, u, v = closest_clustered_full(
+                *args, want_uv, tables.nodes)
         hit = Hit(t=t, tri=tri, hit=t < T_FAR, normal=normal, mat=mat, u=u,
                   v=v)
         if not want_slab:
@@ -499,8 +707,10 @@ def closest_hit(tables: ClusteredTables, origins: torch.Tensor,
             tmin, tmax)
     elif how == "grp":
         t, row = ablations.closest_grp_path(*args)
+    elif build:
+        t, row = closest_clustered_b(*args)
     else:
-        t, row = (closest_clustered_b if build else closest_clustered)(*args)
+        t, row = closest_clustered(*args, tables.nodes)
     hit = _lean_resolve_packed(tables.rows, origins, dirs, t, row, want_uv)
     if not want_slab:
         return hit
@@ -534,7 +744,7 @@ def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
             origins, dirs, tmax, *table,
             finish=lambda o, d, tm: occluded_hit(
                 tables, o, d, tm, tmin, allow_cbin=allow_cbin,
-                allow_binned=False))
+                allow_binned=False), nodes=tables.nodes)
     if how != "chain":
         if how == "stream":
             return ablations.occluded_stream_path(origins, dirs, tmax, *table)
@@ -545,6 +755,8 @@ def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
             finish=lambda o, d, tm: occluded_hit(tables, o, d, tm, tmin,
                                                  allow_cbin=False,
                                                  allow_binned=False))
-    kernel = occluded_clustered_b if variant(False)[1] else occluded_clustered
-    return kernel(origins, dirs, tmax, tables.rows, tables.boxes,
-                  tables.scale, tmin)
+    if variant(False)[1]:
+        return occluded_clustered_b(origins, dirs, tmax, tables.rows,
+                                    tables.boxes, tables.scale, tmin)
+    return occluded_clustered(origins, dirs, tmax, tables.rows, tables.boxes,
+                              tables.scale, tmin, tables.nodes)
