@@ -7,9 +7,12 @@ bench.py's frame (unfused, fused_nee and regen), of the sphere box
 (unfused and fused), of the big-mesh frame through each pair of clustered
 kernels (interleaved with the lean one) and of each Whitted main-path run
 (device busy and idle share, time by kernel) and prints no result line.
-It runs as two halves, each inside 1,200 s: ``--profile rest`` (the bench
-frame, the sphere box, the Whitted runs) and ``--profile big`` (the
-big-mesh frames); ``--profile`` alone runs both, one after the other.
+It runs in three parts, each inside 1,200 s: ``--profile pt`` (the bench
+frame, the sphere box), ``--profile whitted`` (the Whitted runs) and
+``--profile big`` (the big-mesh frames); ``--profile rest`` is the first
+two (1,192.9 s on an NVIDIA H100 80GB HBM3: too close to 1,200 s for one
+call), and
+``--profile`` alone runs all three, one after the other.
 It needs one CUDA device, ``nvcc`` (the kernels are built from
 ``tpu_pt_torch/csrc/`` on first use) and nothing of JAX. Phases, one line
 each; any failure raises and exits non-zero before the last line:
@@ -179,6 +182,36 @@ replaced (``*_flat``, on no path):
 30. incoherent rays (in phase 22): the flat scans beside the default path.
 ``--profile big`` profiles the flat frame between two lean ones too.
 
+The walks of K5 and K9 (``csrc/walk.cuh``, shared with K6 / K8): K5
+sweeps the rows of the triangles that span the scene and walks a kd copy
+of the rest (``dense.kd_tables``), K9 walks a tree over the instances
+(``instanced.instance_tree``); their bodies before the walks stay on no
+path as yardsticks (``closest_nee_full_dense``, ``closest_inst_flat``):
+
+31. fused kernels (in phase 12): K5's walk and its dense body each
+   bitwise against the dense plain version at 262,144 rays with one lane
+   in eight parked, then against each other, timed in interleaved pairs;
+   the walk's bound from its own node tests and reached clusters
+   (``_fused_walk_work``) beside the dense count; 65,536 rays aimed at
+   shared edges (rows tie on t, the lowest dense row wins) against the
+   plain version and the dense body;
+32. fused main path (in phase 13): the recorded K5 call of the sphere-box
+   frame against the dense body on the dense table, timed in pairs;
+33. instanced kernels (in phase 10): K9's walk and its flat loop each
+   bitwise against the plain version on the forest at 16,384 parked rays
+   and (the walk) at 262,144, on foliage at 16,384 parked rays and on the
+   fixture, the walk against the flat loop timed in pairs at each; the
+   walk's bound from its instance-node tests (``_inst_work(tree=True)``)
+   beside the flat count; the recorded K9 calls of phase 9 (foliage's
+   alpha-subset table too) against the flat loop, timed in pairs;
+34. yardstick frames: the sphere-box ``fused_nee`` frame, the forest and
+   foliage again through the yardsticks (``_yardsticks``), each
+   accumulator bitwise equal to the walk's; no other frame launches a
+   yardstick.
+``--profile pt`` and ``--profile whitted`` profile the sphere-box
+``fused_nee`` frame and each instanced Whitted frame through the
+yardstick too, between two walk frames.
+
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
 rate (K16: its operations over the instruction rate of its type, from the
@@ -276,7 +309,15 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
                                     "tpu_pt/intersect/pallas_bf.py:993"),
     "occluded_clustered_flat": (_CLUSTERED,
                                 "tpu_pt/intersect/pallas_bf.py:1204"),
+    # K5 and K9 before their walks (K5: both sweeps over every dense row;
+    # K9: a thread a ray, every instance box tested): on no path, the
+    # walks' yardsticks.
+    "closest_nee_full_dense": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1222"),
+    "closest_inst_flat": (_INSTANCED, "tpu_pt/intersect/pallas_inst.py:236"),
 }
+# The yardstick of each walk of K5 and K9 (its body before the walk).
+YARDSTICK = {"closest_nee_full": "closest_nee_full_dense",
+             "closest_inst": "closest_inst_flat"}
 FLAT = {"closest_clustered": "closest_clustered_flat",
         "closest_clustered_full": "closest_clustered_full_flat",
         "occluded_clustered": "occluded_clustered_flat"}
@@ -778,6 +819,10 @@ def _plain(name: str, args):
     if name == "closest_nee_lean":
         return dense._closest_nee_plain(*args)
     if name == "closest_nee_full":
+        o, d, lz1, lz2, rows, _, _, _, _, light, tmin, tmax = args[:12]
+        return dense._closest_nee_kd_plain(o, d, lz1, lz2, rows, light, tmin,
+                                           tmax)
+    if name == "closest_nee_full_dense":
         o, d, lz1, lz2, tris, light, tmin, tmax = args
         return dense._closest_nee_plain(o, d, lz1, lz2, tris, tris, light,
                                         tmin, tmax, full=True)
@@ -793,10 +838,11 @@ def _plain(name: str, args):
     if name in OCCLUDED_K8:
         o, d, tmax, rows, _, _, tmin = args[:7]
         return clustered._occluded_clustered_plain(o, d, tmax, rows, tmin)
-    if name == "closest_inst":
+    if name in ("closest_inst", "closest_inst_flat"):
+        # K9 takes the instance tree after tmax; its flat loop none.
         o, d, tris, _, _, inst_rows, _, tmin, *tmax = args
         return instanced._closest_inst_plain(o, d, tris, clustered.CLUSTER,
-                                             inst_rows, tmin, *tmax)
+                                             inst_rows, tmin, *tmax[:1])
     o, d, tmax, tris, _, _, inst_rows, _, tmin = args      # occluded_inst
     return instanced._occluded_inst_plain(o, d, tmax, tris, clustered.CLUSTER,
                                           inst_rows, tmin)
@@ -1913,10 +1959,55 @@ def _variant(what: str, variables: dict):
 
 
 def _no_flat(tag: str, counts: dict) -> None:
-    """The flat scans are on no path: only FLAT_FRAME frames launch them."""
-    for k in FLAT.values():
+    """The flat scans and the yardsticks of K5 and K9 are on no path: only
+    FLAT_FRAME frames launch the first, only _yardstick_frames the
+    others."""
+    for k in (*FLAT.values(), *YARDSTICK.values()):
         if counts[k]:
             raise AssertionError(f"{tag}: {k} launched {counts[k]} times")
+
+
+def _dense_of(kd_rows):
+    """The dense table a kd copy of K5 permutes: each real kd row back at
+    its dense index (column 15); the dense table's trailing padding rows,
+    which no ray hits, are left out."""
+    import torch
+    ids = kd_rows[:, 15].long()
+    real = kd_rows[:, 0:12].any(1)
+    out = torch.zeros((int(ids[real].max()) + 1, 16), dtype=kd_rows.dtype,
+                      device=kd_rows.device)
+    out[ids[real]] = kd_rows[real]
+    return out.contiguous()
+
+
+@contextlib.contextmanager
+def _yardsticks():
+    """K5's dense body and K9's flat loop in the walks' place, for the
+    block: the module attributes ``dense.closest_nee_hit`` and
+    ``instanced.closest_hit`` call are pointed at shims that drop the
+    walks' tables (K5's dense table is rebuilt from its kd copy, once per
+    table)."""
+    from tpu_pt_torch.intersect import dense, instanced
+    saved = (dense.closest_nee_full, instanced.closest_inst)
+    tables = {}
+
+    def k5(o, d, lz1, lz2, rows, top, boxes, nodes, scale, light, tmin, tmax,
+           group=None):
+        key = rows.data_ptr()
+        if key not in tables:
+            tables[key] = _dense_of(rows)
+        return dense.closest_nee_full_dense(o, d, lz1, lz2, tables[key],
+                                            light, tmin, tmax)
+
+    def k9(o, d, tris, cboxes, scale, inst_rows, inst_boxes, tmin,
+           tmax=1e16, tree=None, group=None):
+        return instanced.closest_inst_flat(o, d, tris, cboxes, scale,
+                                           inst_rows, inst_boxes, tmin, tmax)
+    dense.closest_nee_full, instanced.closest_inst = k5, k9
+    try:
+        yield
+    finally:
+        dense.closest_nee_full, instanced.closest_inst = saved
 
 
 def _image_bound(tag, a, b, tol, share_max):
@@ -2214,14 +2305,106 @@ def _fused_work(o, d, lz1, lz2, light, rows, occ_rows, out, out_bytes: int):
             + n * out_bytes)
 
 
+def _fused_walk_work(o, d, lz1, lz2, light, kd, out, out_bytes: int):
+    """K5's walk at each ray's final bound: every ray sweeps the kd copy's
+    top rows, then tests the tree's nodes (``_walk_counts``) and sweeps
+    the clusters reached at its closest hit; its shadow ray sweeps the top
+    rows up to the first blocking one and, when none blocks, walks the
+    tree with bound tm (one path to one cluster when a cluster row
+    blocks). Bytes: rays and light samples in, the kd copy's rows, boxes
+    and nodes once, ``out_bytes`` per ray out. Returns (operations,
+    bytes, node tests, clusters swept, live rays)."""
+    import torch
+    from tpu_pt_torch.intersect import dense
+    n, top = o.shape[0], kd.top
+    cluster = (kd.rows.shape[0] - top) // kd.boxes.shape[0]
+    tests, leaves, live = _walk_counts(o, d, out[0], kd)
+    so, sd, st = dense._shadow_rays(o, d, out[0], lz1, lz2, light)
+    top_pairs, walked = 0, torch.ones(n, dtype=torch.bool, device=o.device)
+    if top:
+        for a in range(0, n, 16384):
+            t, _, _ = dense._pe_block(so[a:a + 16384], sd[a:a + 16384],
+                                      kd.rows[:top], 0.01)
+            block = ((t < st[a:a + 16384, None])
+                     & (kd.rows[None, :top, 13] < 0.5))
+            first = block.to(torch.int32).argmax(1)
+            top_pairs += int(torch.where(block.any(1), first + 1, top).sum())
+            walked[a:a + 16384] = ~block.any(1)
+    live_shadow = walked & (st > 0.01)
+    s_tests, s_leaves, _ = _walk_counts(
+        so[live_shadow], sd[live_shadow], st[live_shadow], kd,
+        occluded=out[-1][live_shadow])
+    pairs = n * top + leaves * cluster + top_pairs + s_leaves * cluster
+    flops = pairs * PAIR_FLOPS + (tests + s_tests) * BOX_FLOPS
+    nbytes = (n * 32 + kd.rows.shape[0] * 64 + kd.boxes.shape[0] * 32
+              + kd.nodes.shape[0] * 32 + 36 + n * out_bytes)
+    return flops, nbytes, tests + s_tests, leaves + s_leaves, live
+
+
+def _edge_rays(scene, n: int, seed: int, device):
+    """n rays aimed at points of edges that two triangles share, half from
+    the Cornell camera's eye, half from random points in the box: rays
+    whose closest hit two rows share at equal t."""
+    import numpy as np
+    import torch
+    v0 = scene.tri_v0[:scene.num_tris].cpu().numpy()
+    corners = [v0, v0 + scene.tri_e1[:scene.num_tris].cpu().numpy(),
+               v0 + scene.tri_e2[:scene.num_tris].cpu().numpy()]
+    owners = {}
+    for i in range(scene.num_tris):
+        pts = [tuple(c[i]) for c in corners]
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            owners.setdefault(tuple(sorted((pts[a], pts[b]))), []).append(i)
+    shared = np.array([k for k, v in owners.items() if len(v) == 2],
+                      np.float32)
+    r = np.random.default_rng(seed)
+    pick = shared[r.integers(0, len(shared), n)]
+    w = r.uniform(0.05, 0.95, (n, 1)).astype(np.float32)
+    target = pick[:, 0] + (pick[:, 1] - pick[:, 0]) * w
+    o = np.broadcast_to(np.array([278.0, 273.0, -800.0], np.float32),
+                        (n, 3)).copy()
+    o[n // 2:] = r.uniform([0, 0, 0], [556, 548, 559], (n - n // 2, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=device)
+    return t(o), t(d)
+
+
+def _walk_against_yardstick(records, name, label, walk, yard, width: str):
+    """A walk of K5 or K9 (``walk()``) against its yardstick (``yard()``)
+    on the same inputs, bit for bit, and both timed in interleaved pairs
+    (walk, yardstick, yardstick, walk); each time goes on its kernel's
+    first record under ``pair_ms_<width>``."""
+    import torch
+    a, b = walk(), yard()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: the walk differs from its yardstick")
+    w0, y0, y1, w1 = (gpu_ms(fn, 10) for fn in (walk, yard, yard, walk))
+    pair = ((w0 + w1) / 2, (y0 + y1) / 2)
+    records[name][0][f"pair_ms_{width}"] = pair[0]
+    records[YARDSTICK[name]][0][f"pair_ms_{width}"] = pair[1]
+    say("kernels", f"{label}, {width} ({a[0].shape[0]} rays): the walk "
+        f"bitwise equal to {YARDSTICK[name]}; interleaved, walk "
+        f"{pair[0]:.4f} ms ({w0:.4f}, {w1:.4f}), yardstick {pair[1]:.4f} "
+        f"ms ({y0:.4f}, {y1:.4f}), {pair[1] / pair[0]:.2f}x")
+
+
 def phase_fused_kernels(device, records):
     """K4 on the mixed box and K5 on the sphere box at N_RAYS rays (camera
     rays and bounce rays, one lane in PARK_EVERY parked, light samples from
     the counter RNG) against their plain versions, timed; bound from
-    _dense_work / _dense_occluded_work."""
+    _dense_work / _dense_occluded_work (K5: its walk's own work,
+    _fused_walk_work, the dense count beside it). K5's walk and its dense
+    body (the yardstick) each against the dense plain version, then
+    against each other on the same rays and on rays aimed at shared
+    edges, where rows tie, timed in interleaved pairs."""
     import torch
     import tpu_pt_torch as tp
-    from tpu_pt_torch.intersect import dense
+    from tpu_pt_torch.intersect import clustered, dense
     for name, scene_file, seed, full in (
             ("closest_nee_lean", "cornell_box_mixed.obj", 11, False),
             ("closest_nee_full", "cornell_box_sphere.obj", 12, True)):
@@ -2237,27 +2420,88 @@ def phase_fused_kernels(device, records):
             lambda o, d: dense._closest_plain(o, d, rows, 0.01), N_RAYS)
         (o, d), _ = _park((o, d), shadow, PARK_EVERY)
         lz1, lz2 = _light_samples(N_RAYS, seed, device)
-        if full:
-            def kernel():
-                return dense.closest_nee_full(o, d, lz1, lz2, rows, light,
-                                              0.01, 1e16)
 
-            def plain():
-                return _plain(name, (o, d, lz1, lz2, rows, light, 0.01, 1e16))
-        else:
-            def kernel():
-                return dense.closest_nee_lean(o, d, lz1, lz2, rows, occ,
-                                              light, 0.01)
+        def plain(o=o, d=d, lz1=lz1, lz2=lz2):
+            return dense._closest_nee_plain(o, d, lz1, lz2, rows, occ, light,
+                                            0.01, *((1e16, True) if full
+                                                    else ()))
+        if not full:
+            _check_kernel(records, name, lambda: dense.closest_nee_lean(
+                o, d, lz1, lz2, rows, occ, light, 0.01), plain,
+                rows.shape[0], _compare_fused,
+                lambda out: _fused_work(o, d, lz1, lz2, light, rows, occ,
+                                        out, 9),
+                reps=10, plain_reps=2)
+            records[name][-1]["occ_rows"] = occ.shape[0]
+            continue
+        kd = tables.kd
 
-            def plain():
-                return _plain(name, (o, d, lz1, lz2, rows, occ, light, 0.01))
+        def walk(o=o, d=d, lz1=lz1, lz2=lz2):
+            return dense.closest_nee_full(o, d, lz1, lz2, kd.rows, kd.top,
+                                          kd.boxes, kd.nodes, kd.scale,
+                                          light, 0.01, 1e16)
+
+        def yard(o=o, d=d, lz1=lz1, lz2=lz2):
+            return dense.closest_nee_full_dense(o, d, lz1, lz2, rows, light,
+                                                0.01, 1e16)
+        counts = {}
+
+        def walk_work(out):
+            *work, tests, leaves, live = _fused_walk_work(
+                o, d, lz1, lz2, light, kd, out, 25)
+            counts.update(tests=tests / live, leaves=leaves / live)
+            return work
         torch.cuda.synchronize()
-        _check_kernel(records, name, kernel, plain, rows.shape[0],
+        _check_kernel(records, name, walk, plain, kd.rows.shape[0],
+                      _compare_fused, walk_work, reps=10, plain_reps=2)
+        _check_kernel(records, YARDSTICK[name], yard, plain, rows.shape[0],
                       _compare_fused,
                       lambda out: _fused_work(o, d, lz1, lz2, light, rows,
-                                              occ, out, 25 if full else 9),
-                      reps=10, plain_reps=2)
-        records[name][-1]["occ_rows"] = occ.shape[0]
+                                              occ, out, 25),
+                      reps=10, plain_reps=1)
+        dense_bound = records[YARDSTICK[name]][-1]["bound_ms"]
+        rec = records[name][-1]
+        rec.update(occ_rows=kd.rows.shape[0], dense_bound_ms=dense_bound,
+                   top_rows=kd.top, clusters=kd.boxes.shape[0],
+                   node_tests_per_ray=counts["tests"],
+                   clusters_per_ray=counts["leaves"])
+        records[YARDSTICK[name]][-1]["occ_rows"] = rows.shape[0]
+        say("kernels", f"{name}: the kd copy, {kd.top} top rows and "
+            f"{kd.boxes.shape[0]} clusters of "
+            f"{(kd.rows.shape[0] - kd.top) // kd.boxes.shape[0]} rows "
+            f"({clustered.tree_depth(kd.boxes.shape[0])} levels); a live ray "
+            f"of the walk at its final bounds: {counts['tests']:.2f} node "
+            f"tests, {counts['leaves']:.2f} clusters swept (closest and "
+            f"shadow); bound {rec['bound_ms']:.4f} ms against the dense "
+            f"count's {dense_bound:.4f}")
+        _walk_against_yardstick(records, name, "K5", walk, yard, "wide")
+        # Rays aimed at shared edges: ties that the lowest dense row wins.
+        eo, ed = _edge_rays(scene, N_RAYS // 4, 13, device)
+        elz1, elz2 = _light_samples(N_RAYS // 4, 13, device)
+        t_all, _, _ = dense._pe_block(eo[:16384], ed[:16384], rows, 0.01)
+        best = t_all.min(1).values
+        ties = int((((t_all == best[:, None]).sum(1) > 1)
+                    & (best < 1e15)).sum())
+        if ties < best.shape[0] // 200:
+            raise AssertionError(f"K5 edge rays: only {ties} of "
+                                 f"{best.shape[0]} tie")
+        out_w = walk(eo, ed, elz1, elz2)
+        # K6's compare (ties to the lowest kd row) would answer another
+        # dense row than the plain version on some of these rays.
+        tk, rk = dense._closest_plain(eo, ed, kd.rows, 0.01)
+        by_kd_row = torch.where(tk < 1e15, kd.rows[rk.long(), 15], 0.0)
+        out_p = plain(eo, ed, elz1, elz2)
+        wrong = int((by_kd_row.to(torch.int32) != out_p[1]).sum())
+        for what, other in (("plain", out_p),
+                            ("dense body", yard(eo, ed, elz1, elz2))):
+            torch.cuda.synchronize()
+            err, extra = _compare_exact(name, out_w, other)
+            say("kernels", f"{name}: {N_RAYS // 4} rays aimed at shared "
+                f"edges ({ties} of the first {best.shape[0]} tie on t; a "
+                f"fold on the kd row would answer another row on {wrong}), "
+                f"walk against the {what}: max|err| {err} ({extra})")
+        records[name].append(dict(rows=kd.rows.shape[0], rays=N_RAYS // 4,
+                                  max_abs_err=0.0))
 
 
 def phase_fused_goldens(device):
@@ -2303,7 +2547,9 @@ def phase_fused_main(device, smi, twins, records):
     kernel, then held bitwise against its plain version. Returns the
     launches summed per kernel."""
     import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import dense
     launches = dict.fromkeys(KERNELS, 0)
+    accums = {}
     tap = _Tap(("closest_nee_lean", "closest_nee_full"))
     runs = [(tag, dict(fused_nee=True), fused, banned)
             for tag, fused, banned in FUSED_TWINS]
@@ -2344,11 +2590,26 @@ def phase_fused_main(device, smi, twins, records):
             raise AssertionError(f"{tag} {what}: RMSE {err} >= {TWIN_RMSE}")
         for k, n in counts.items():
             launches[k] += n
+        if once in YARDSTICK:
+            accums[tag] = (scenes[scene_file], frames, kw, accum)
     _hold_recorded(records, tap.picked, "fused main-path")
     for name in ("closest_nee_lean", "closest_nee_full"):
         if not any(k[0] == name for k in tap.picked):
             raise AssertionError(f"no {name} call was recorded")
-    return launches
+    # K5's recorded call against the dense body on the sphere box's dense
+    # table, bit for bit, both timed in interleaved pairs.
+    sphere = scenes["cornell_box_sphere.obj"]
+    rows, light = dense.prepare(sphere).rows, dense.light_vector(sphere)
+    for (name, _), (args, _) in tap.picked.items():
+        if name != "closest_nee_full":
+            continue
+        o, d, lz1, lz2, *_, tmin, tmax = args
+        _walk_against_yardstick(
+            records, name, "K5 (a sphere-box fused_nee call)",
+            lambda: dense.closest_nee_full(*args),
+            lambda: dense.closest_nee_full_dense(o, d, lz1, lz2, rows, light,
+                                                 tmin, tmax), "recorded")
+    return launches, accums
 
 
 def _run(cmd, what: str, env=None, timeout=600):
@@ -2513,10 +2774,11 @@ def phase_whitted_main(device, smi):
     for every kernel it launches, one call's arguments on each table (a
     call with parked lanes where there is one: on the forest at the bench
     view every path ends at its first hit and no lane is parked). Returns
-    (launches summed per kernel, {run tag: recorded calls})."""
+    (launches summed per kernel, {run tag: recorded calls}, {run tag:
+    (scene, frames, config, accumulator)} of the instanced runs)."""
     import tpu_pt_torch as tp
     launches = dict.fromkeys(KERNELS, 0)
-    recorded = {}
+    recorded, accums = {}, {}
     for tag, scene, inst_mode, frames, timed, kw, expect in WHITTED_RUNS:
         t0 = time.perf_counter()
         ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
@@ -2561,17 +2823,23 @@ def phase_whitted_main(device, smi):
                 raise AssertionError(f"{tag}: no {k} call was recorded")
         for k, n in counts.items():
             launches[k] += n
+        if ws.inst is not None:
+            accums[tag] = (ws, frames, kw, accum)
     say("whitted", f"kernel launches on the Whitted main path: "
         f"{ {k: n for k, n in launches.items() if n} }")
-    return launches, recorded
+    return launches, recorded, accums
 
 
-def _inst_work(o, d, bound, tables, out_bytes: int, occluded=None):
-    """A two-level traversal needs one slab test per (ray, instance); for
-    each instance box a ray pierces up to ``bound`` (its closest hit or
-    shadow tmax), the transform and a slab test per cluster of its mesh;
-    and the rows of every cluster it pierces up to ``bound``. An occluded
-    shadow ray needs one cluster's rows per pierced instance at most."""
+def _inst_work(o, d, bound, tables, out_bytes: int, occluded=None,
+               tree: bool = False):
+    """A two-level traversal needs one slab test per (ray, instance) (with
+    ``tree``, the instance-node tests of K9's walk at each ray's final
+    bound instead, ``_inst_tree_leaves_plain``, and the node table read);
+    for each instance box a ray pierces up to ``bound`` (its closest hit
+    or shadow tmax), the transform and a slab test per cluster of its
+    mesh; and the rows of every cluster it pierces up to ``bound``. An
+    occluded shadow ray needs one cluster's rows per pierced instance at
+    most."""
     import torch
     from tpu_pt_torch.intersect import clustered, instanced
     table = tables.table
@@ -2579,6 +2847,15 @@ def _inst_work(o, d, bound, tables, out_bytes: int, occluded=None):
     cluster = clustered.CLUSTER
     omax = o.abs().amax(1)
     flops = n * n_inst * BOX_FLOPS
+    node_bytes = 0
+    if tree:
+        tests = 0
+        for a in range(0, n, 4096):
+            tests += int(instanced._inst_tree_leaves_plain(
+                o[a:a + 4096], d[a:a + 4096], tables.tree, table.boxes, 0.01,
+                bound[a:a + 4096])[1].sum())
+        flops = tests * BOX_FLOPS
+        node_bytes = tables.tree.nodes.shape[0] * 48
     wb = table.boxes
     meta = table.rows[:, 12:14].round().long().tolist()
     for i, (clo, ncl) in enumerate(meta):
@@ -2600,7 +2877,7 @@ def _inst_work(o, d, bound, tables, out_bytes: int, occluded=None):
             + int(cnt.sum()) * cluster * PAIR_FLOPS
     nbytes = (n * (24 + (4 if occluded is not None else 0))
               + tables.tris.shape[0] * 64 + tables.boxes.shape[0] * 32
-              + n_inst * 96 + n * out_bytes)
+              + n_inst * 96 + node_bytes + n * out_bytes)
     return flops, nbytes
 
 
@@ -2710,7 +2987,11 @@ def phase_inst_kernels(device, records):
     timed there and at N_RAYS, and K10 again on shadow rays from the
     surfaces seen from above the forest's edge, of which some reach the
     light; (c) on the port's build of the mirrored / non-uniform fixture.
-    (a), the recorded calls of the Whitted runs, follows in
+    K9's walk and its flat loop (the yardstick) each against the plain
+    version, and against each other, timed in interleaved pairs: on the
+    forest at 16,384 parked rays and at N_RAYS (there against the plain
+    version too), on foliage at 16,384 parked rays, on the fixture. (a),
+    the recorded calls of the Whitted runs, follows in
     phase_whitted_calls."""
     import torch
     import tpu_pt_torch as tp
@@ -2718,9 +2999,10 @@ def phase_inst_kernels(device, records):
     ws = tp.load_gltf(str(ASSETS / FOREST), device=device)
     tables = instanced.prepare(ws.geom, ws.inst)
 
-    def k9(o, d, tb=tables):
-        return instanced.closest_inst(o, d, tb.tris, tb.boxes, tb.scale,
-                                      tb.table.rows, tb.table.boxes, 0.01)
+    def k9(o, d, tb=tables, fn=instanced.closest_inst):
+        extra = (1e16, tb.tree) if fn is instanced.closest_inst else ()
+        return fn(o, d, tb.tris, tb.boxes, tb.scale, tb.table.rows,
+                  tb.table.boxes, 0.01, *extra)
 
     def k9_plain(o, d, tb=tables):
         return instanced._closest_inst_plain(o, d, tb.tris, clustered.CLUSTER,
@@ -2736,6 +3018,7 @@ def phase_inst_kernels(device, records):
                                               clustered.CLUSTER,
                                               tb.table.rows, 0.01)
 
+    flat = instanced.closest_inst_flat
     rows = tables.tris.shape[0]
     o, d, shadow = _inst_rays(ws, tables, device, 5, N_INST_RAYS)
     (ob, db), shadow_b = _park((o, d), shadow, PARK_EVERY)
@@ -2743,9 +3026,42 @@ def phase_inst_kernels(device, records):
     torch.cuda.synchronize()
     _check_kernel(records, "closest_inst", lambda: k9(ob, db),
                   lambda: k9_plain(ob, db), rows, _compare_exact,
-                  lambda out: _inst_work(ob, db, out[0], tables, 12),
+                  lambda out: _inst_work(ob, db, out[0], tables, 12,
+                                         tree=True),
                   n=N_INST_RAYS, reps=10, plain_reps=1,
                   at_n_rays=lambda: k9(oW, dW))
+    _check_kernel(records, "closest_inst_flat", lambda: k9(ob, db, fn=flat),
+                  lambda: k9_plain(ob, db), rows, _compare_exact,
+                  lambda out: _inst_work(ob, db, out[0], tables, 12),
+                  n=N_INST_RAYS, reps=10, plain_reps=1,
+                  at_n_rays=lambda: k9(oW, dW, fn=flat))
+    rec = records["closest_inst"][-1]
+    rec["flat_bound_ms"] = records["closest_inst_flat"][-1]["bound_ms"]
+    final, tests = k9(ob, db)[0], 0
+    for a in range(0, N_INST_RAYS, 4096):
+        tests += int(instanced._inst_tree_leaves_plain(
+            ob[a:a + 4096], db[a:a + 4096], tables.tree, tables.table.boxes,
+            0.01, final[a:a + 4096])[1].sum())
+    from tpu_pt_torch.render import PARK_COORD
+    live = int((ob[:, 0] != PARK_COORD).sum())
+    rec["node_tests_per_ray"] = tests / live
+    say("kernels", f"closest_inst: the instance tree, "
+        f"{tables.tree.nodes.shape[0]} nodes over {tables.table.count} "
+        f"instances; a walk at the final bound tests {tests / live:.2f} "
+        f"instance boxes and nodes a live ray (the flat loop: "
+        f"{tables.table.rows.shape[0]}); bound {rec['bound_ms']:.4f} ms "
+        f"against the flat count's {rec['flat_bound_ms']:.4f}")
+    _walk_against_yardstick(records, "closest_inst", "K9 (forest)",
+                            lambda: k9(ob, db), lambda: k9(ob, db, fn=flat),
+                            "narrow")
+    _walk_against_yardstick(records, "closest_inst", "K9 (forest)",
+                            lambda: k9(oW, dW), lambda: k9(oW, dW, fn=flat),
+                            "wide")
+    err, extra = _compare_exact("closest_inst", k9(oW, dW), k9_plain(oW, dW))
+    records["closest_inst"].append(dict(rows=rows, rays=N_RAYS,
+                                        max_abs_err=err))
+    say("kernels", f"closest_inst: forest, {N_RAYS} rays against the plain "
+        f"version: max|err| {err} ({extra})")
     _check_kernel(records, "occluded_inst", lambda: k10(*shadow_b),
                   lambda: k10_plain(*shadow_b), rows, _compare_exact,
                   lambda out: _inst_work(shadow_b[0], shadow_b[1],
@@ -2774,10 +3090,29 @@ def phase_inst_kernels(device, records):
         raise AssertionError("the forest shadow rays from above the edge "
                              f"must be blocked only in part ({share})")
 
+    # Foliage (601 instances, kept instanced) at the frame's width.
+    fol = tp.load_gltf(str(ASSETS / "foliage.gltf"), instancing="instanced",
+                       device=device)
+    ft = instanced.prepare(fol.geom, fol.inst)
+    fo, fd, fshadow = _inst_rays(fol, ft, device, 9, N_INST_RAYS)
+    (fo, fd), _ = _park((fo, fd), fshadow, PARK_EVERY)
+    for name, out_k in (("closest_inst", k9(fo, fd, ft)),
+                        ("closest_inst_flat", k9(fo, fd, ft, fn=flat))):
+        err, extra = _compare_exact(name, out_k, k9_plain(fo, fd, ft))
+        records[name].append(dict(rows=ft.tris.shape[0], rays=N_INST_RAYS,
+                                  max_abs_err=err))
+        say("kernels", f"{name}: foliage, {N_INST_RAYS} rays, one in "
+            f"{PARK_EVERY} parked: max|err| {err} ({extra})")
+    _walk_against_yardstick(records, "closest_inst", "K9 (foliage)",
+                            lambda: k9(fo, fd, ft),
+                            lambda: k9(fo, fd, ft, fn=flat), "foliage")
+
     fx, instances = _fixture(device)
     fo, fd, ftmax = _aimed_rays(instances, 4096, 7, device)
     for name, out_k, out_p in (
             ("closest_inst", k9(fo, fd, fx), k9_plain(fo, fd, fx)),
+            ("closest_inst_flat", k9(fo, fd, fx, fn=flat),
+             k9_plain(fo, fd, fx)),
             ("occluded_inst", k10(fo, fd, ftmax, fx),
              k10_plain(fo, fd, ftmax, fx))):
         torch.cuda.synchronize()
@@ -2788,13 +3123,65 @@ def phase_inst_kernels(device, records):
             f"aimed rays: max|err| {err} ({extra})")
 
 
+def phase_yardstick_frames(device, smi, fused, instanced_frames):
+    """The sphere-box ``fused_nee`` frame (``fused``, from
+    phase_fused_main) and the forest and foliage frames
+    (``instanced_frames``, from phase_whitted_main) again with K5's dense
+    body and K9's flat loop in the walks' place (``_yardsticks``),
+    counters zeroed before each run and read after: each accumulator
+    bitwise equal to the walk's, the yardstick launched and the walk not.
+    Returns the launches summed per kernel."""
+    import torch
+    launches = dict.fromkeys(KERNELS, 0)
+    runs = [(tag, "closest_nee_full", lambda s=scene, f=frames, kw=kw:
+             _render(s, device, f, use_direct_lighting=True,
+                     use_importance_sampling=True, fused_nee=True, **kw),
+             accum) for tag, (scene, frames, kw, accum) in fused.items()]
+    runs += [(tag, "closest_inst", lambda ws=ws, f=frames, kw=kw:
+              _render_whitted(ws, device, WHITTED_VIEW, f, **kw), accum)
+             for tag, (ws, frames, kw, accum) in instanced_frames.items()]
+    if len(runs) != 3:
+        raise AssertionError(f"{len(runs)} yardstick frames, expected 3")
+    for tag, walk, render, accum in runs:
+        _zero_counters()
+        with _yardsticks():
+            other, _, per = render()
+        counts = _read_counters()
+        _check_frame(f"{tag}, {YARDSTICK[walk]}", other, per)
+        if counts[walk] or not counts[YARDSTICK[walk]]:
+            raise AssertionError(f"{tag} through the yardstick: launches "
+                                 f"{counts}")
+        if not torch.equal(other, accum):
+            raise AssertionError(f"{tag}: the yardstick frame differs from "
+                                 "the walk's")
+        say("yardstick", f"{tag} through {YARDSTICK[walk]} "
+            f"({counts[YARDSTICK[walk]]} launches, "
+            f"{sum(p[0] for p in per) / len(per) * 1e3:.1f} ms/frame): "
+            f"accumulator bitwise equal to the walk's; {smi}")
+        for k, n in counts.items():
+            launches[k] += n
+    return launches
+
+
 def phase_whitted_calls(recorded, records):
     """(a) Every kernel call recorded from a Whitted run's warm-up frame
     (the forest's K9 / K10, pbr_big's K6 / K8 on its 100,354 rows at the
     run's width, foliage's K9 on the main and the alpha-subset tables and
     its K10) against its plain version on the same arguments, bitwise."""
+    from tpu_pt_torch.intersect import instanced
     for tag, picked in recorded.items():
         _hold_recorded(records, picked, tag.split(" ")[0])
+        # K9's recorded calls (foliage: its main and alpha-subset tables)
+        # against the flat loop, bit for bit, timed in interleaved pairs.
+        for (name, _), (args, _) in picked.items():
+            if name != "closest_inst":
+                continue
+            _walk_against_yardstick(
+                records, name, f"K9 (a {tag.split(' ')[0]} call on "
+                f"{tuple(args[2].shape)} rows)",
+                lambda args=args: instanced.closest_inst(*args),
+                lambda args=args: instanced.closest_inst_flat(*args[:9]),
+                "recorded")
 
 
 def _write_city(path):
@@ -2893,18 +3280,24 @@ def phase_whitted_cross_check(device):
 # Path-trace runs of ``--profile``: bench.py's frame unfused, under
 # fused_nee and on regen, then fused and unfused again (the host's speed
 # drifts during a call, so each variant is read before and after the
-# others), and the sphere box unfused and fused.
+# others), and the sphere box unfused and fused, then fused through K5's
+# dense body (``_yardsticks``: the last element) and K5's walk again.
 PROFILE_PT = [
-    ("bench frame, pixelq", "cornell_box_mixed.obj", {}),
+    ("bench frame, pixelq", "cornell_box_mixed.obj", {}, False),
     ("bench frame, pixelq, fused_nee", "cornell_box_mixed.obj",
-     dict(fused_nee=True)),
-    ("bench frame, regen", "cornell_box_mixed.obj", dict(scheduler="regen")),
+     dict(fused_nee=True), False),
+    ("bench frame, regen", "cornell_box_mixed.obj", dict(scheduler="regen"),
+     False),
     ("bench frame, pixelq, fused_nee", "cornell_box_mixed.obj",
-     dict(fused_nee=True)),
-    ("bench frame, pixelq", "cornell_box_mixed.obj", {}),
-    ("sphere box, pixelq", "cornell_box_sphere.obj", {}),
+     dict(fused_nee=True), False),
+    ("bench frame, pixelq", "cornell_box_mixed.obj", {}, False),
+    ("sphere box, pixelq", "cornell_box_sphere.obj", {}, False),
     ("sphere box, pixelq, fused_nee", "cornell_box_sphere.obj",
-     dict(fused_nee=True)),
+     dict(fused_nee=True), False),
+    ("sphere box, pixelq, fused_nee, K5's dense body",
+     "cornell_box_sphere.obj", dict(fused_nee=True), True),
+    ("sphere box, pixelq, fused_nee", "cornell_box_sphere.obj",
+     dict(fused_nee=True), False),
 ]
 
 
@@ -2967,17 +3360,16 @@ def _profile_big(device, smi):
                            int(per[1][2].wavefront_iterations), smi)
 
 
-def _profile_rest(device, smi):
-    """One profiled frame of each run of PROFILE_PT and of each Whitted
-    main-path run (``--profile rest``): frame 0 warms up, frame 1 is timed
-    unprofiled, frame 2 runs under torch.profiler. Device busy is the
-    summed device time of frame 2's kernels; idle is 1 - busy / frame 1's
-    wall time."""
+def _profile_pt(device, smi):
+    """One profiled frame of each run of PROFILE_PT (``--profile pt``):
+    frame 0 warms up, frame 1 is timed unprofiled, frame 2 runs under
+    torch.profiler. Device busy is the summed device time of frame 2's
+    kernels; idle is 1 - busy / frame 1's wall time."""
     import tpu_pt_torch as tp
     from tpu_pt_torch.render import CameraArrays, init_accum, render_frame
     scenes = {}
     bench_kw = next(r[4] for r in MAIN_RUNS if r[0] == REGEN_OF)
-    for tag, scene_file, extra in PROFILE_PT:
+    for tag, scene_file, extra, yard in PROFILE_PT:
         if scene_file not in scenes:
             scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
                                                device=device)
@@ -2985,27 +3377,40 @@ def _profile_rest(device, smi):
                   next(r[4] for r in MAIN_RUNS if r[1] == scene_file),
                   use_direct_lighting=True, use_importance_sampling=True,
                   **extra)
-        _, _, per = _render(scenes[scene_file], device, [0, 1], **kw)
-        cfg = tp.RenderConfig(**kw)
-        cam = CameraArrays.from_camera(tp.cornell_default_camera(),
-                                       device=device)
-        accum = init_accum(cfg, device=device)
-        _profile_frame(f"{tag} ({kw['width']}^2 x {kw['spp']} spp)",
-                       lambda: render_frame(scenes[scene_file], cam, cfg, 2,
-                                            accum),
-                       per[1][0] * 1e3, int(per[1][2].wavefront_iterations),
-                       smi)
+        with _yardsticks() if yard else contextlib.nullcontext():
+            _, _, per = _render(scenes[scene_file], device, [0, 1], **kw)
+            cfg = tp.RenderConfig(**kw)
+            cam = CameraArrays.from_camera(tp.cornell_default_camera(),
+                                           device=device)
+            accum = init_accum(cfg, device=device)
+            _profile_frame(f"{tag} ({kw['width']}^2 x {kw['spp']} spp)",
+                           lambda: render_frame(scenes[scene_file], cam, cfg,
+                                                2, accum),
+                           per[1][0] * 1e3,
+                           int(per[1][2].wavefront_iterations), smi)
+
+
+def _profile_whitted(device, smi):
+    """One profiled frame of each Whitted main-path run (``--profile
+    whitted``), as _profile_pt profiles; an instanced run also through
+    K9's flat loop, then through the walk again."""
+    import tpu_pt_torch as tp
     for tag, scene, inst_mode, _, _, kw, _ in WHITTED_RUNS:
         ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
                           device=device)
-        _, _, per = _render_whitted(ws, device, WHITTED_VIEW, [0, 1], **kw)
-        cfg = tp.RenderConfig(**kw)
-        cam = _whitted_camera(WHITTED_VIEW, device)
-        accum = tp.init_accum(cfg, device=device)
-        _profile_frame(tag, lambda: tp.render_whitted_frame(ws, cam, cfg, 2,
-                                                            accum),
-                       per[1][0] * 1e3, int(per[1][2].wavefront_iterations),
-                       smi)
+        order = [(tag, False)]
+        if ws.inst is not None:
+            order += [(f"{tag}, K9's flat loop", True), (tag, False)]
+        for what, yard in order:
+            with _yardsticks() if yard else contextlib.nullcontext():
+                _, _, per = _render_whitted(ws, device, WHITTED_VIEW, [0, 1],
+                                            **kw)
+                cfg = tp.RenderConfig(**kw)
+                cam = _whitted_camera(WHITTED_VIEW, device)
+                accum = tp.init_accum(cfg, device=device)
+                _profile_frame(what, lambda: tp.render_whitted_frame(
+                    ws, cam, cfg, 2, accum), per[1][0] * 1e3,
+                    int(per[1][2].wavefront_iterations), smi)
 
 
 def main() -> int:
@@ -3014,10 +3419,14 @@ def main() -> int:
     device, smi = phase_device()
     phase_build()
     if sys.argv[1:2] == ["--profile"]:
-        # The two halves each fit one 1,200 s run; both together do not.
-        halves = {"rest": _profile_rest, "big": _profile_big}
-        for half in sys.argv[2:] or list(halves):
-            halves[half](device, smi)
+        # Each part fits one 1,200 s run; pt and whitted together took
+        # 1,192.9 s on an H100 ("rest"), too close to the limit to share
+        # a run.
+        parts = {"pt": _profile_pt, "whitted": _profile_whitted,
+                 "big": _profile_big}
+        named = sys.argv[2:] or list(parts)
+        for part in ("pt", "whitted") if named == ["rest"] else named:
+            parts[part](device, smi)
         say("done", f"profiled in {time.perf_counter() - t0:.1f} s")
         return 0
     big = phase_assets(device)
@@ -3029,12 +3438,14 @@ def main() -> int:
     launches, twins = phase_main_path(device, smi, big)
     b_launches = phase_big_variants(device, smi, big, twins[BIG_TAG],
                                     records)
-    f_launches = phase_fused_main(device, smi, twins, records)
+    f_launches, fused = phase_fused_main(device, smi, twins, records)
     del twins
-    w_launches, recorded = phase_whitted_main(device, smi)
+    w_launches, recorded, instanced_frames = phase_whitted_main(device, smi)
     phase_inst_kernels(device, records)
     phase_whitted_calls(recorded, records)
     del recorded
+    y_launches = phase_yardstick_frames(device, smi, fused, instanced_frames)
+    del fused, instanced_frames
     phase_cross_check(big)
     phase_lbvh(device, smi, big)
     phase_whitted_cross_check(device)
@@ -3052,7 +3463,7 @@ def main() -> int:
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=sum(part.get(kname, 0) for part in (
                 launches, w_launches, f_launches, b_launches, h_launches,
-                i_launches, p_launches)),
+                i_launches, p_launches, y_launches)),
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -3065,11 +3476,15 @@ def main() -> int:
             # K6, K6f, K8 and their flat scans: interleaved pairs of the
             # two (32,768 parked and 262,144 rays, a recorded bench_big
             # call, the huge mesh).
+            # K5 and K9: the yardstick's count of their work beside the
+            # walk's (bound_ms), and the walk against its yardstick in
+            # interleaved pairs.
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
                                      "path_bound_by", "bench_ms",
                                      "ms_at_n_rays", "pair_ms_narrow",
                                      "pair_ms_wide", "pair_ms_recorded",
-                                     "pair_ms_huge")
+                                     "pair_ms_huge", "dense_bound_ms",
+                                     "flat_bound_ms", "pair_ms_foliage")
                if k in first}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -44,8 +44,11 @@ _SIGNATURES = {
         "tpt_occluded": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
         "tpt_closest_nee_lean": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _F,
                                  _P, _P, _P, _P),
-        "tpt_closest_nee_full": (_P, _P, _P, _P, _P, _I, _P, _I, _F, _F, _P,
-                                 _P, _P, _P, _P, _P),
+        "tpt_closest_nee_full": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F,
+                                 _F, _P, _I, _F, _F, _P, _P, _P, _P, _P, _I,
+                                 _P),
+        "tpt_closest_nee_full_dense": (_P, _P, _P, _P, _P, _I, _P, _I, _F, _F,
+                                       _P, _P, _P, _P, _P, _P),
     },
     "clustered_intersect": {
         "tpt_closest_clustered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
@@ -95,8 +98,10 @@ _SIGNATURES = {
         "tpt_chain_bf16": (_P, _P, _P, _I, _I, _P),
     },
     "instanced_intersect": {
-        "tpt_closest_inst": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                             _F, _P, _P, _P, _P),
+        "tpt_closest_inst": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                             _F, _F, _P, _P, _P, _I, _P),
+        "tpt_closest_inst_flat": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                  _F, _F, _P, _P, _P, _P),
         "tpt_occluded_inst": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                               _F, _P, _P),
     },

@@ -38,7 +38,8 @@
 // for cluster `index`, 2 * index for node `index`). A node's box is the
 // exact min / max union of its children's boxes, empty clusters left
 // out. One ray goes to a group of G lanes (a part of a warp), and the
-// group walks the tree together, depth first and near first: it tests
+// group walks the tree together (walk_tree of walk.cuh, shared with the
+// fused K5 and the instanced K9), depth first and near first: it tests
 // both children of a node it opens against the current bound
 // min(best, tmax) (the any-hit's: the ray's own tmax), goes on with the
 // nearer one that passes and pushes the farther on a short stack in
@@ -100,113 +101,27 @@
 //   every ray.
 // - Parked lanes (origin 3e7, tmax 0) find the root behind them and miss.
 
-#include <type_traits>
-
-#include "pe_block.cuh"
+#include "walk.cuh"
 
 namespace {
 
+using tpt::ClusterTree;
+using tpt::Group;
 using tpt::kTFar;
+using tpt::kWalkThreads;
 using tpt::load_ray;
 using tpt::max_abs_origin;
 using tpt::pe_test;
 using tpt::Ray;
 using tpt::Slab;
 using tpt::box_passes;  // cluster c of boxes [C, 8] grown by m
+using tpt::walk_grid;
+using tpt::walk_tree;
+using tpt::with_group;
 
 // ---------------------------------------------------------------------------
-// The walk: one ray to a group of G lanes
+// The walk (csrc/walk.cuh): one ray to a group of G lanes
 // ---------------------------------------------------------------------------
-
-constexpr int kWalkThreads = 256;
-constexpr int kStack = 32;  // entries; clustered.TREE_MAX_DEPTH
-
-struct Group {
-  int lane;       // lane within the group
-  unsigned mask;  // the group's lanes within the warp
-  int slot;       // the group's index within the block
-};
-
-template <int G>
-__device__ __forceinline__ Group group_of_thread() {
-  static_assert(G == 4 || G == 8 || G == 16 || G == 32,
-                "a group is a power-of-two part of a warp");
-  const int lane = threadIdx.x & 31;
-  const int lg = lane & (G - 1);
-  const unsigned mask =
-      G == 32 ? 0xffffffffu : ((1u << (G & 31)) - 1u) << (lane - lg);
-  return Group{lg, mask, (int)threadIdx.x / G};
-}
-
-// The box of reference `ref`: cluster ref >> 1 of `bx` when ref is odd,
-// else node ref >> 1 of `nd` (both [*, 8] f32: two float4 loads).
-__device__ __forceinline__ bool ref_enter(const Ray& r, const Slab& s,
-                                          float m, float tmin,
-                                          const float4* __restrict__ bx,
-                                          const float4* __restrict__ nd,
-                                          int ref, float* tn) {
-  const float4* p = (ref & 1 ? bx : nd) + 2 * (size_t)(ref >> 1);
-  return tpt::slab_enter(r, s, __ldg(p), __ldg(p + 1), m, tmin, tn);
-}
-
-// Walk the tree for one ray, near first, calling leaf(c, &bound) on each
-// cluster c whose grown box the ray enters within (tmin, bound]; leaf may
-// lower the bound and returns true to stop the walk. Every lane of the
-// group runs it with the same values, so its branches are group-uniform.
-template <class Leaf>
-__device__ __forceinline__ void walk_tree(const Ray& r, const Slab& s,
-                                          float m, float tmin, float bound,
-                                          const float4* __restrict__ bx,
-                                          const float4* __restrict__ nd,
-                                          int n_boxes, const Group& g,
-                                          int* s_ref, float* s_tn,
-                                          Leaf leaf) {
-  int cur = n_boxes > 1 ? 0 : 1;  // node 0, or the only cluster
-  float tn;
-  if (!(ref_enter(r, s, m, tmin, bx, nd, cur, &tn) && tn <= bound)) return;
-  int sp = 0;
-  for (;;) {
-    if (cur & 1) {
-      if (leaf(cur >> 1, &bound)) return;
-    } else {
-      const float4 links = __ldg(nd + 2 * (size_t)(cur >> 1) + 1);
-      const int kid0 = __float_as_int(links.z);
-      const int kid1 = __float_as_int(links.w);
-      float tn0, tn1;
-      const bool p0 =
-          ref_enter(r, s, m, tmin, bx, nd, kid0, &tn0) && tn0 <= bound;
-      const bool p1 =
-          ref_enter(r, s, m, tmin, bx, nd, kid1, &tn1) && tn1 <= bound;
-      if (p0 && p1) {
-        const bool first = tn0 <= tn1;  // the nearer; the lower on a tie
-        // The group shares the stack: every lane has read the entry below
-        // before lane 0 overwrites it, and sees the new one after.
-        __syncwarp(g.mask);
-        if (g.lane == 0) {
-          s_ref[sp] = first ? kid1 : kid0;
-          s_tn[sp] = first ? tn1 : tn0;
-        }
-        __syncwarp(g.mask);
-        ++sp;
-        cur = first ? kid0 : kid1;
-        continue;
-      }
-      if (p0 || p1) {
-        cur = p0 ? kid0 : kid1;
-        continue;
-      }
-    }
-    // Pop the most recent entry that still enters within the bound.
-    for (;;) {
-      if (sp == 0) return;
-      --sp;
-      if (s_tn[sp] <= bound) {
-        cur = s_ref[sp];
-        break;
-      }
-    }
-  }
-}
 
 // kFull: row_out takes the winner's original triangle id (column 15) and
 // the attribute outputs are written; else row_out takes its packed row.
@@ -222,23 +137,23 @@ closest_tree_kernel(const float* __restrict__ orig,
                     float* __restrict__ t_out, int* __restrict__ row_out,
                     float* __restrict__ nrm_out, int* __restrict__ mat_out,
                     float* __restrict__ u_out, float* __restrict__ v_out) {
-  __shared__ int s_ref[kWalkThreads / G][kStack];
-  __shared__ float s_tn[kWalkThreads / G][kStack];
-  const Group g = group_of_thread<G>();
-  const int i = (int)((blockIdx.x * (size_t)kWalkThreads + threadIdx.x) / G);
+  __shared__ int s_ref[kWalkThreads / G][tpt::kStack];
+  __shared__ float s_tn[kWalkThreads / G][tpt::kStack];
+  const Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
   if (i >= n_rays) return;  // whole groups leave together
   const Ray r = load_ray(orig, dir, i);
   const Slab s = tpt::make_slab(r);
   // Culling margin: margin * (scale + max_k |o_k|) (clustered.BOX_MARGIN).
-  const float m = margin * (scale + max_abs_origin(r));
+  const ClusterTree tree{reinterpret_cast<const float4*>(boxes),
+                         reinterpret_cast<const float4*>(nodes), n_boxes,
+                         margin * (scale + max_abs_origin(r))};
   const float4* rows = reinterpret_cast<const float4*>(tris);
 
   float best = kTFar;
   int best_row = 0;
-  walk_tree(r, s, m, tmin, fminf(best, tmax),
-            reinterpret_cast<const float4*>(boxes),
-            reinterpret_cast<const float4*>(nodes), n_boxes, g,
-            s_ref[g.slot], s_tn[g.slot], [&](int c, float* bound) {
+  walk_tree(r, s, tmin, fminf(best, tmax), tree, g, s_ref[g.slot],
+            s_tn[g.slot], [&](int c, float* bound) {
               const int base = c * cluster;
               float tl = best;
               int rl = best_row;
@@ -286,10 +201,10 @@ occluded_tree_kernel(const float* __restrict__ orig,
                      const float* __restrict__ nodes, int n_rays,
                      int n_boxes, int cluster, float scale, float margin,
                      float tmin, uint8_t* __restrict__ occ_out) {
-  __shared__ int s_ref[kWalkThreads / G][kStack];
-  __shared__ float s_tn[kWalkThreads / G][kStack];
-  const Group g = group_of_thread<G>();
-  const int i = (int)((blockIdx.x * (size_t)kWalkThreads + threadIdx.x) / G);
+  __shared__ int s_ref[kWalkThreads / G][tpt::kStack];
+  __shared__ float s_tn[kWalkThreads / G][tpt::kStack];
+  const Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
   if (i >= n_rays) return;
   const float tm = tmax[i];
   bool blocked = false;
@@ -298,46 +213,20 @@ occluded_tree_kernel(const float* __restrict__ orig,
   if (tm > tmin) {
     const Ray r = load_ray(orig, dir, i);
     const Slab s = tpt::make_slab(r);
-    const float m = margin * (scale + max_abs_origin(r));
+    const ClusterTree tree{reinterpret_cast<const float4*>(boxes),
+                           reinterpret_cast<const float4*>(nodes), n_boxes,
+                           margin * (scale + max_abs_origin(r))};
     const float4* rows = reinterpret_cast<const float4*>(tris);
     // A box entered at tn >= tm holds no blocking hit (t > tn): the bound
     // is the ray's own tmax throughout.
-    walk_tree(r, s, m, tmin, tm, reinterpret_cast<const float4*>(boxes),
-              reinterpret_cast<const float4*>(nodes), n_boxes, g,
-              s_ref[g.slot], s_tn[g.slot], [&](int c, float*) {
-                const int base = c * cluster;
-                bool hit = false;
-                for (int j = g.lane; j < cluster && !hit; j += G) {
-                  const float4* p = rows + 4 * (size_t)(base + j);
-                  if (!(__ldg(p + 3).y < 0.5f)) continue;  // refractive
-                  hit = pe_test(r, __ldg(p), __ldg(p + 1), __ldg(p + 2),
-                                tmin) < tm;
-                }
-                // Other groups of the warp may reach the same ballot: keep
-                // this group's bits only.
-                blocked = (__ballot_sync(g.mask, hit) & g.mask) != 0;
+    walk_tree(r, s, tmin, tm, tree, g, s_ref[g.slot], s_tn[g.slot],
+              [&](int c, float*) {
+                blocked = tpt::cluster_blocked(r, rows, c * cluster, cluster,
+                                               G, g, tmin, tm);
                 return blocked;
               });
   }
   if (g.lane == 0) occ_out[i] = blocked ? 1 : 0;
-}
-
-inline unsigned walk_grid(int n_rays, int group) {
-  const size_t threads = (size_t)n_rays * group;
-  return (unsigned)((threads + kWalkThreads - 1) / kWalkThreads);
-}
-
-// Calls launch(std::integral_constant<int, G>) for G = group, one of the
-// widths built here (4, 8, 16, 32 lanes a ray); false for any other.
-template <class Launch>
-bool with_group(int group, Launch launch) {
-  switch (group) {
-    case 4: launch(std::integral_constant<int, 4>()); return true;
-    case 8: launch(std::integral_constant<int, 8>()); return true;
-    case 16: launch(std::integral_constant<int, 16>()); return true;
-    case 32: launch(std::integral_constant<int, 32>()); return true;
-    default: return false;
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -140,10 +140,10 @@ def _margin(rays: torch.Tensor, scale: float) -> torch.Tensor:
 def _near_far(rays: torch.Tensor, inv: torch.Tensor, m: torch.Tensor,
               boxes: torch.Tensor):
     """Entry and exit distances [R, B] of rays [R, 8] through boxes
-    [B, >= 6] grown by m [R], in the kernels' operation order
-    (``slab_passes`` of ``csrc/pe_block.cuh``)."""
+    [B, >= 6] grown by m [R] (or [R, B]: a margin per box), in the
+    kernels' operation order (``slab_passes`` of ``csrc/pe_block.cuh``)."""
     tn = tf = None
-    mm = m[:, None]
+    mm = m[:, None] if m.dim() == 1 else m
     for a in range(3):
         o = rays[:, a:a + 1]
         t0 = (boxes[None, :, a] - mm - o) * inv[:, a:a + 1]

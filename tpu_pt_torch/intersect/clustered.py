@@ -256,11 +256,22 @@ def _tree_leaves_plain(origins, dirs, nodes, boxes, scale: float,
         return (tn <= tf) & (tf > tmin) & (tn <= bound)
 
     box_ok = passes(boxes)
-    tests = torch.ones(n, dtype=torch.int64, device=origins.device)
     if n_c == 1:
-        return box_ok, tests
-    node_ok = passes(nodes)
-    links = nodes[:, 6:8].contiguous().view(torch.int32).long()
+        return box_ok, torch.ones(n, dtype=torch.int64, device=origins.device)
+    return _walk_levels(box_ok, passes(nodes),
+                        nodes[:, 6:8].contiguous().view(torch.int32).long())
+
+
+def _walk_levels(box_ok, node_ok, links):
+    """The plain walk of a tree with nodes, level by level: (reached
+    [N, L] bool, node tests [N] i64) from each ray's pass of every leaf
+    (``box_ok`` [N, L]) and node (``node_ok`` [N, nodes]) and the
+    children's references ``links`` [nodes, 2] (2 * leaf + 1 or
+    2 * node). A leaf is reached when it and every ancestor pass; each
+    opened node tests both children, and the root (node 0) is tested
+    once."""
+    tests = torch.ones(box_ok.shape[0], dtype=torch.int64,
+                       device=box_ok.device)
     reached = torch.zeros_like(box_ok)
     level = links.new_zeros(1)               # the nodes of this level
     opened = node_ok[:, 0:1]                 # and which each ray opens

@@ -15,10 +15,17 @@ version):
 - ``closest_nee_lean`` (K4): ``_closest_nee_kernel_lean`` via
   ``_closest_nee_call_lean``; ``_closest_nee_plain``;
 - ``closest_nee_full`` (K5): ``_closest_nee_kernel`` via
-  ``_closest_nee_call``; ``_closest_nee_plain(full=True)``.
+  ``_closest_nee_call``; ``_closest_nee_kd_plain`` (the function of
+  ``_closest_nee_plain(full=True)`` on the kd copy of the table).
 
 K4 and K5 are the fused closest hit + NEE shadow ray of
-``RenderConfig.fused_nee`` (``intersect_closest_nee``).
+``RenderConfig.fused_nee`` (``intersect_closest_nee``). K5 walks a kd copy
+of its table (``KdTables``: the rows of ``clustered.pack_tris_clustered``,
+128-row clusters with boxes, and their ``cluster_tree``), which ``prepare``
+builds for a table above ``LEAN_MAX_TRIS`` rows; ties go to the lowest
+dense row (column 15), as in the dense sweep. Its dense body stays as
+``closest_nee_full_dense``, on no path, the yardstick ``chip_smoke.py``
+holds the walk against.
 
 The CUDA kernels are in ``csrc/dense_intersect.cu`` (bound by
 ``tpu_pt_torch._kernels``). A wrapper runs the plain version only for
@@ -37,22 +44,28 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from .. import vec3 as v3
-from ..scene.arrays import BSDF_REFRACTION, SceneArrays
+from ..scene.arrays import BSDF_REFRACTION, SceneArrays, median_split_order
 from .moller import T_FAR, Hit
 
 TRI_BLOCK = 512        # packed tables pad to a multiple of this
 TRI_SLAB = 8192        # largest packed table the single-slab kernels take
 LEAN_MAX_TRIS = 2048   # above this (or with a finite tmax) K3 runs, not K1
+TOP_SPAN = 8           # K5 sweeps a triangle wider than 1/8 of the scene
+# Lanes a ray of K5's walk: 16 was fastest at both ray counts
+# tools/clustered_group_trial.py times (65,536 and 262,144; PERF.md).
+NEE_WALK_GROUP = 16
 _PLAIN_PAIRS = 1 << 21  # ray x row pairs per block of the plain versions
 _PLAIN_ROWS = 4096      # rows per block (temporaries stay cache-sized)
 
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
 LAUNCHES = {"closest_lean": 0, "occluded": 0, "closest_full": 0,
-            "closest_nee_lean": 0, "closest_nee_full": 0}
+            "closest_nee_lean": 0, "closest_nee_full": 0,
+            "closest_nee_full_dense": 0}
 NEE_EPS = 0.01         # shadow-ray range shrink (cu:1017 "Ldist - 0.01")
 
 
@@ -227,6 +240,40 @@ def _shadow_rays(origins, dirs, t, lz1, lz2, light):
     return p, tl * inv[:, None], dist2 * inv - NEE_EPS
 
 
+def _closest_by_id_plain(origins, dirs, rows, tmin: float,
+                         tmax: float = T_FAR):
+    """The closest hit with t < tmax over ``rows`` whose column 15 is an
+    id, ties to the lowest id whatever the rows' order: (t, id, row of the
+    winner in ``rows``), T_FAR / 0 / 0 on a miss. Over a kd copy of a
+    dense table this is the dense sweep's answer (``_closest_plain``),
+    with the dense row as the id."""
+    n, dev = origins.shape[0], origins.device
+    t_out = torch.full((n,), T_FAR, dtype=torch.float32, device=dev)
+    id_out = torch.zeros(n, dtype=torch.int32, device=dev)
+    row_out = torch.zeros(n, dtype=torch.int32, device=dev)
+    ids = rows[:, 15].to(torch.int32)
+    iota = torch.arange(rows.shape[0], dtype=torch.int32, device=dev)
+    big = torch.iinfo(torch.int32).max
+    ray_ranges, row_ranges = _blocks(n, rows.shape[0])
+    for a, b in ray_ranges:
+        for s, e in row_ranges:
+            t, _, _ = _pe_block(origins[a:b], dirs[a:b], rows[s:e], tmin)
+            if tmax < T_FAR:
+                t = torch.where(t < tmax, t, T_FAR)
+            best = t.min(dim=1).values
+            at_best = t == best[:, None]
+            low = torch.where(at_best, ids[s:e], big).min(dim=1).values
+            sub = torch.where(at_best & (ids[s:e] == low[:, None]),
+                              iota[s:e], big).min(dim=1).values
+            better = (best < t_out[a:b]) | ((best == t_out[a:b])
+                                            & (best < T_FAR)
+                                            & (low < id_out[a:b]))
+            t_out[a:b] = torch.where(better, best, t_out[a:b])
+            id_out[a:b] = torch.where(better, low, id_out[a:b])
+            row_out[a:b] = torch.where(better, sub, row_out[a:b])
+    return t_out, id_out, row_out
+
+
 def _closest_nee_plain(origins, dirs, lz1, lz2, tris, occ_tris, light,
                        tmin: float, tmax: float = T_FAR, full: bool = False):
     """Plain version of K4 (``full=False``: K1's sweep, then the shadow
@@ -242,6 +289,23 @@ def _closest_nee_plain(origins, dirs, lz1, lz2, tris, occ_tris, light,
     so, sd, stmax = _shadow_rays(origins, dirs, t, lz1, lz2, light)
     occ = _occluded_plain(so, sd, stmax, occ_tris, tmin)
     return (t, row, normal, mat, occ) if full else (t, row, occ)
+
+
+def _closest_nee_kd_plain(origins, dirs, lz1, lz2, kd_rows, light,
+                          tmin: float, tmax: float = T_FAR):
+    """Plain version of K5 on the kd copy of its table: the closest hit
+    clipped at ``tmax``, ties to the lowest dense row (column 15), its
+    normal and material from the winning kd row; then the shadow ray
+    any-hit over every kd row. Returns (t, dense row, normal, mat, occ),
+    bit for bit ``_closest_nee_plain(full=True)`` on the dense table."""
+    t, ids, krow = _closest_by_id_plain(origins, dirs, kd_rows, tmin, tmax)
+    hit = t < T_FAR
+    won = kd_rows[krow.long()]
+    normal = torch.where(hit[:, None], won[:, 0:3], 0.0)
+    mat = torch.where(hit, won[:, 14], 0.0).to(torch.int32)
+    so, sd, stmax = _shadow_rays(origins, dirs, t, lz1, lz2, light)
+    occ = _occluded_plain(so, sd, stmax, kd_rows, tmin)
+    return t, ids, normal, mat, occ
 
 
 # --------------------------------------------------------------------------
@@ -391,11 +455,56 @@ def closest_nee_lean(origins: torch.Tensor, dirs: torch.Tensor,
 
 
 def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
-                     lz1: torch.Tensor, lz2: torch.Tensor, tris: torch.Tensor,
-                     light: torch.Tensor, tmin: float, tmax: float):
-    """K5: K3 over ``tris`` clipped at ``tmax`` (no u/v), then the NEE
-    shadow ray any-hit over the same rows. Returns (t, row, normal [N, 3],
-    mat, occluded bool [N])."""
+                     lz1: torch.Tensor, lz2: torch.Tensor, rows: torch.Tensor,
+                     top: int, boxes: torch.Tensor, nodes: torch.Tensor,
+                     scale: float, light: torch.Tensor, tmin: float,
+                     tmax: float, group: int | None = None):
+    """K5: the closest hit clipped at ``tmax`` (no u/v), then the NEE
+    shadow ray any-hit over every row, on the kd copy of the table
+    (``KdTables``: ``rows`` [top + C * cluster, 16] whose column 15 is the
+    dense row, the ``top`` rows every ray sweeps first, cluster ``boxes``
+    [C, 8], ``nodes`` [C - 1, 8], ``scale``), walked by ``group`` lanes a
+    ray (NEE_WALK_GROUP when None). Returns (t, dense row, normal [N, 3],
+    mat, occluded bool [N]): the dense sweep's answer, ties to the lowest
+    dense row."""
+    if _on_cpu(origins):
+        return _closest_nee_kd_plain(origins, dirs, lz1, lz2, rows, light,
+                                     tmin, tmax)
+    from .. import _kernels
+    from . import clustered
+    n, _ = _check_inputs(origins, dirs, rows)
+    _check_nee(origins, lz1, lz2, light)
+    dev = origins.device
+    if not 0 <= top <= rows.shape[0]:
+        raise ValueError(f"{top} top rows of a {rows.shape[0]}-row table")
+    n_boxes, cluster = clustered._check_tables(rows[top:], boxes, dev)
+    clustered._check_nodes(nodes, n_boxes, dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    mat = torch.empty(n, dtype=torch.int32, device=dev)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_nee_full", origins.data_ptr(),
+                        dirs.data_ptr(), lz1.data_ptr(), lz2.data_ptr(),
+                        rows.data_ptr(), int(top), boxes.data_ptr(),
+                        nodes.data_ptr(), n_boxes, cluster, float(scale),
+                        clustered.BOX_MARGIN, light.data_ptr(), n,
+                        float(tmin), float(tmax),
+                        t.data_ptr(), row.data_ptr(), normal.data_ptr(),
+                        mat.data_ptr(), occ.data_ptr(),
+                        NEE_WALK_GROUP if group is None else int(group),
+                        _stream(dev))
+        LAUNCHES["closest_nee_full"] += 1
+    return t, row, normal, mat, occ
+
+
+def closest_nee_full_dense(origins: torch.Tensor, dirs: torch.Tensor,
+                           lz1: torch.Tensor, lz2: torch.Tensor,
+                           tris: torch.Tensor, light: torch.Tensor,
+                           tmin: float, tmax: float):
+    """K5's function through its dense body (both sweeps over every row of
+    the dense table ``tris``): on no path, the yardstick of the walk."""
     if _on_cpu(origins):
         return _closest_nee_plain(origins, dirs, lz1, lz2, tris, tris, light,
                                   tmin, tmax, full=True)
@@ -409,13 +518,13 @@ def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
     mat = torch.empty(n, dtype=torch.int32, device=dev)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        _kernels.launch("tpt_closest_nee_full", origins.data_ptr(),
+        _kernels.launch("tpt_closest_nee_full_dense", origins.data_ptr(),
                         dirs.data_ptr(), lz1.data_ptr(), lz2.data_ptr(),
                         tris.data_ptr(), rows, light.data_ptr(), n,
                         float(tmin), float(tmax), t.data_ptr(),
                         row.data_ptr(), normal.data_ptr(), mat.data_ptr(),
                         occ.data_ptr(), _stream(dev))
-        LAUNCHES["closest_nee_full"] += 1
+        LAUNCHES["closest_nee_full_dense"] += 1
     return t, row, normal, mat, occ
 
 
@@ -424,20 +533,82 @@ def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass
+class KdTables:
+    """K5's kd copy of a dense table (``kd_tables``): the packed rows of
+    the scene's real triangles, bit for bit the dense table's (column 15
+    is the dense row), the ``top`` rows of the triangles that span the
+    scene first, then the rest in balanced-kd order cut into clusters of
+    ``clustered.CLUSTER`` rows (zero rows pad the last); the clusters'
+    boxes, their ``cluster_tree`` and ``box_scale``."""
+    rows: torch.Tensor        # [top + C * CLUSTER, 16]
+    top: int
+    boxes: torch.Tensor       # [C, 8]
+    nodes: torch.Tensor       # [C - 1, 8]
+    scale: float
+
+
+@dataclasses.dataclass
 class DenseTables:
     """A scene's packed rows, trimmed once per render."""
     rows: torch.Tensor        # K1 / K3 table
     occ_rows: torch.Tensor    # K2 table: the NEE occluder subset, or all rows
     mat_bsdf: torch.Tensor    # [M] i32, for the first-hit occlusion quirk
+    kd: KdTables | None = None  # K5's walk, above LEAN_MAX_TRIS rows
+
+
+def kd_tables(scene: SceneArrays) -> KdTables:
+    """The kd copy of ``scene``'s packed rows that K5 walks. A triangle
+    whose box spans more than 1 / TOP_SPAN of the scene's largest extent
+    (a Cornell box's walls, floor, ceiling and blocks) would stretch any
+    cluster box over the room, so such triangles, at most CLUSTER of them
+    (the widest), lead the copy as rows every ray sweeps; the others are
+    ordered by ``median_split_order`` and cut into clusters whose boxes
+    span their rows' vertices. Host numpy, once per ``prepare``."""
+    from . import clustered
+    cluster = clustered.CLUSTER
+    packed = pack_tris(scene)
+    host = [np.asarray(x.cpu()) for x in (scene.tri_v0, scene.tri_e1,
+                                            scene.tri_e2, scene.tri_valid)]
+    v0, e1, e2, valid = host
+    corners = np.stack([v0, v0 + e1, v0 + e2])          # f32, as the rows
+    lo, hi = corners.min(0), corners.max(0)
+    real = np.nonzero(valid)[0]
+    ext = (hi - lo).max(1)
+    span = float((hi[real].max(0) - lo[real].min(0)).max()) if real.size \
+        else 0.0
+    wide = real[ext[real] > span / TOP_SPAN]
+    wide = wide[np.argsort(-ext[wide], kind="stable")[:cluster]]
+    rest = np.setdiff1d(real, wide)
+    rest = rest[median_split_order(v0[rest], e1[rest], e2[rest],
+                                   np.ones(rest.size, bool), leaf=cluster)]
+    n_c = max(1, -(-rest.size // cluster))
+    order = np.full(wide.size + n_c * cluster, -1, np.int64)
+    order[:wide.size] = wide
+    order[wide.size:wide.size + rest.size] = rest
+    idx = torch.as_tensor(order, device=packed.device)
+    rows = torch.where((idx >= 0)[:, None], packed[idx.clamp_min(0)], 0.0)
+    boxes = np.full((n_c, 8), clustered.EMPTY_BOX, np.float32)
+    boxes[:, 6:8] = 0.0
+    for c in range(n_c):
+        members = rest[c * cluster:(c + 1) * cluster]
+        if members.size:
+            boxes[c, 0:3] = lo[members].min(0)
+            boxes[c, 3:6] = hi[members].max(0)
+    boxes = torch.as_tensor(boxes, device=packed.device)
+    return KdTables(rows=rows.contiguous(), top=int(wide.size), boxes=boxes,
+                    nodes=clustered.cluster_tree(boxes),
+                    scale=clustered.box_scale(boxes))
 
 
 def prepare(scene: SceneArrays) -> DenseTables:
-    """The scene's single-slab kernel tables (one table of every row)."""
+    """The scene's single-slab kernel tables (one table of every row), and
+    for a table above LEAN_MAX_TRIS rows (the K3 / K5 side) K5's kd copy."""
     rows = _trim_rows(scene.num_tris, pack_tris(scene))
     sub = _occ_subset(scene)
     occ_rows = rows if sub is None else _trim_rows(sub[1], sub[0])
+    kd = kd_tables(scene) if rows.shape[0] > LEAN_MAX_TRIS else None
     return DenseTables(rows=rows.contiguous(), occ_rows=occ_rows.contiguous(),
-                       mat_bsdf=scene.mat_bsdf)
+                       mat_bsdf=scene.mat_bsdf, kd=kd)
 
 
 def _lean_resolve(tris: torch.Tensor, origins, dirs, t, row,
@@ -500,14 +671,16 @@ def closest_nee_hit(tables: DenseTables, light: torch.Tensor,
     """Closest hit plus the NEE shadow ray's occlusion in one kernel
     (``pallas_bf.intersect_closest_nee``): K4 when the table has at most
     LEAN_MAX_TRIS rows, whatever tmax is (its shadow sweep takes the
-    occluder subset), else K5. Returns (Hit without u/v, occluded [N]
-    bool); the flag is meaningful only on hit lanes."""
+    occluder subset), else K5 on the kd copy. Returns (Hit without u/v,
+    occluded [N] bool); the flag is meaningful only on hit lanes."""
     if tables.rows.shape[0] <= LEAN_MAX_TRIS:
         t, row, occ = closest_nee_lean(origins, dirs, lz1, lz2, tables.rows,
                                        tables.occ_rows, light, tmin)
         return _lean_resolve(tables.rows, origins, dirs, t, row, False), occ
-    t, row, normal, mat, occ = closest_nee_full(origins, dirs, lz1, lz2,
-                                                tables.rows, light, tmin, tmax)
+    kd = tables.kd
+    t, row, normal, mat, occ = closest_nee_full(
+        origins, dirs, lz1, lz2, kd.rows, kd.top, kd.boxes, kd.nodes,
+        kd.scale, light, tmin, tmax)
     zero = torch.zeros_like(t)
     return Hit(t=t, tri=row, hit=t < T_FAR, normal=normal, mat=mat, u=zero,
                v=zero), occ

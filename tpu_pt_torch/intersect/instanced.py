@@ -17,13 +17,19 @@ wrapper                     replaces (``tpu_pt/intersect/...``)     plain versio
                             via ``_occluded_call_inst``
 ==========================  ======================================  ===========================
 
-The CUDA kernels are in ``csrc/instanced_intersect.cu``: each thread
-traverses for its own ray (instances by world box, then the clusters of
-each pierced instance's mesh by mesh-space box) in one launch per call.
-The TPU path's ray sort, per-tile candidate lists and one-hot row
-selects exist only for the TPU; here the winning instance's rows are
-gathers. A wrapper runs the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel, and for anything else it raises.
+The CUDA kernels are in ``csrc/instanced_intersect.cu``, one launch per
+call. K9 gives a ray to a group of lanes (``walk_group``), which walks
+a tree over the instances near first (``instance_tree``, built once per
+``prepare``), then culls each reached instance's clusters by their
+mesh-space boxes and sweeps the rest together. K10 traverses for its ray
+in each thread (every instance by world box, then the clusters of each
+pierced instance's mesh). K9's flat loop of that kind stays as
+``closest_inst_flat``, on no path, the yardstick ``chip_smoke.py`` holds
+the walk against. The TPU path's ray sort, per-tile candidate lists and
+one-hot row selects exist only for the TPU; here the winning instance's
+rows are gathers. A wrapper runs the plain version only for tensors on
+the CPU; for CUDA tensors it launches the kernel, and for anything else
+it raises.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import vec3 as v3
-from ..scene.arrays import SceneArrays
+from ..scene.arrays import SceneArrays, median_split_order
 from . import clustered, dense
 from .moller import T_FAR, Hit
 
@@ -54,7 +60,10 @@ TABLE_CLUSTERS = 8
 
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
-LAUNCHES = {"closest_inst": 0, "occluded_inst": 0}
+LAUNCHES = {"closest_inst": 0, "occluded_inst": 0, "closest_inst_flat": 0}
+# Ray counts up to which K9's walk runs 16 lanes a ray, not 8
+# (walk_group).
+WALK_NARROW_RAYS = 65536
 
 
 @dataclasses.dataclass
@@ -162,6 +171,91 @@ def culling_margins(rows: np.ndarray, fwd: np.ndarray, boxes: np.ndarray,
     out[:count, 7] = a * scale_w + clustered.BOX_MARGIN * norm_m * np.abs(
         inv[:, :, 3]).max(axis=1)
     return out
+
+
+@dataclasses.dataclass
+class InstanceTree:
+    """The tree K9 walks over the real instances of an instance table
+    (``instance_tree``): ``nodes`` [n - 1, 12] f32 (min xyz, max xyz, the
+    margin coefficients a, b, the two children's references as int32
+    bits, 0, 0), and ``root``, the reference the walk starts from: node 0
+    (reference 0), or with one real instance its leaf (2 * index + 1). A
+    reference is 2 * index + 1 for instance ``index`` of the table,
+    2 * index for node ``index``."""
+    nodes: torch.Tensor
+    root: int
+
+
+def instance_tree(boxes: torch.Tensor) -> InstanceTree:
+    """The tree over the instances of ``boxes`` [I, 8] (world box, then
+    the margin coefficients a, b), on the boxes' device. The real
+    instances (a box below 1e30: padding instances and empty subset
+    meshes carry the far point 3e37 and stay out) are ordered by a
+    median split of their box centres (``median_split_order`` at one
+    instance a leaf), and ``clustered._tree_links`` splits that order: a
+    node's box is the exact min / max union of its children's, and its
+    (a, b) their element-wise max, so that the walk's cull is exact
+    (``csrc/walk.cuh``). Leaves keep the instances' table indices. Host
+    numpy, once per ``prepare``."""
+    host = boxes.cpu().numpy().astype(np.float32)
+    real = np.nonzero(np.abs(host[:, 0:6]).max(axis=1) < 1e30)[0]
+    n = real.shape[0]
+    empty = torch.zeros((0, 12), dtype=torch.float32, device=boxes.device)
+    if n <= 1:
+        # One leaf (or none: instance 0's far box fails every ray).
+        return InstanceTree(nodes=empty, root=2 * int(real[0]) + 1 if n
+                            else 1)
+    centre = ((host[real, 0:3].astype(np.float64)
+               + host[real, 3:6].astype(np.float64)) / 2.0)
+    zero = np.zeros_like(centre)
+    order = real[median_split_order(centre, zero, zero,
+                                    np.ones(n, bool), leaf=1)]
+    links, starts = clustered._tree_links(n)
+    n_n = links.shape[0]
+    # Nodes then leaves (in the split order) in one table.
+    table = np.empty((n_n + n, 8), np.float32)
+    table[n_n:] = host[order]
+    row = np.where(links & 1, n_n + (links >> 1), links >> 1)
+    # Deepest level first: a node's children are on the level below.
+    for a, b in reversed(list(zip(starts, starts[1:] + (n_n,)))):
+        k0, k1 = table[row[a:b, 0]], table[row[a:b, 1]]
+        table[a:b, 0:3] = np.minimum(k0[:, 0:3], k1[:, 0:3])
+        table[a:b, 3:8] = np.maximum(k0[:, 3:8], k1[:, 3:8])
+    # Leaf references by table index.
+    refs = np.where(links & 1, 2 * order[links >> 1] + 1, links)
+    out = np.concatenate([table[:n_n], refs.astype(np.int32).view(np.float32),
+                          np.zeros((n_n, 2), np.float32)], 1)
+    return InstanceTree(nodes=torch.as_tensor(out).to(boxes.device)
+                        .contiguous(), root=0)
+
+
+def _inst_passes(origins, dirs, table, tmin: float, bound):
+    """The kernels' slab test of rays [N] against world boxes ``table``
+    [B, >= 8] (min, max, a, b), each grown by a * max|o| + b: [N, B]."""
+    from . import ablations
+    omax = origins.abs().amax(1)[:, None]
+    m = table[None, :, 6] * omax + table[None, :, 7]
+    tn, tf = ablations._near_far(origins, ablations._ray_inv(dirs), m, table)
+    return (tn <= tf) & (tf > tmin) & (tn <= bound)
+
+
+def _inst_tree_leaves_plain(origins, dirs, tree: InstanceTree, boxes,
+                            tmin: float, bound):
+    """Plain level-by-level walk of the instance tree at a fixed bound
+    ([N] or a float): (reached [N, I] bool, by table index; node tests
+    [N] i64), as ``clustered._tree_leaves_plain`` walks a cluster tree."""
+    n = origins.shape[0]
+    bound = torch.as_tensor(bound, dtype=torch.float32,
+                            device=origins.device).expand(n)[:, None]
+    box_ok = _inst_passes(origins, dirs, boxes, tmin, bound)
+    if tree.nodes.shape[0] == 0:
+        reached = torch.zeros_like(box_ok)
+        reached[:, tree.root >> 1] = box_ok[:, tree.root >> 1]
+        return reached, torch.ones(n, dtype=torch.int64,
+                                   device=origins.device)
+    return clustered._walk_levels(
+        box_ok, _inst_passes(origins, dirs, tree.nodes, tmin, bound),
+        tree.nodes[:, 8:10].contiguous().view(torch.int32).long())
 
 
 def table_rows(mesh_tris) -> int:
@@ -299,16 +393,78 @@ def _check_inst(tris, cboxes, inst_rows, inst_boxes, device):
     return n_c, cluster, n_i
 
 
+def walk_group(n_rays: int) -> int:
+    """Lanes a ray of K9's walk for a call of ``n_rays`` rays: 16 up to
+    WALK_NARROW_RAYS (the forest's and foliage's 16,384 lanes), where few
+    rays must fill the card, and 8 above."""
+    return 16 if n_rays <= WALK_NARROW_RAYS else 8
+
+
+def _check_tree(tree: InstanceTree, n_inst: int, device) -> None:
+    """An ``instance_tree`` of a table of ``n_inst`` instances: a root
+    leaf when it has no nodes, else node 0 and fewer nodes than
+    instances."""
+    n_n = tree.nodes.shape[0]
+    dense._check("inst_nodes", tree.nodes, torch.float32, (n_n, 12), device)
+    if tree.nodes.data_ptr() % 16:
+        raise ValueError("inst_nodes must be 16-byte aligned (float4 loads)")
+    fits = (tree.root == 0 and 0 < n_n < n_inst) if n_n else \
+        (tree.root & 1 == 1 and tree.root >> 1 < n_inst)
+    if not fits:
+        raise ValueError(f"an instance tree of {n_n} nodes and root "
+                         f"{tree.root} does not fit {n_inst} instances")
+    if clustered.tree_depth(n_n + 1) > clustered.TREE_MAX_DEPTH:
+        raise ValueError("the instance tree is deeper than the walk's stack")
+
+
 def closest_inst(origins: torch.Tensor, dirs: torch.Tensor,
                  tris: torch.Tensor, cboxes: torch.Tensor, scale: float,
                  inst_rows: torch.Tensor, inst_boxes: torch.Tensor,
-                 tmin: float, tmax: float = T_FAR):
+                 tmin: float, tmax: float = T_FAR,
+                 tree: InstanceTree | None = None, group: int | None = None):
     """K9: per ray, (t, packed row, instance) of the closest hit with
     t < tmax (T_FAR / 0 / 0 on a miss). World rays [N, 3] f32; the mesh
     table ``tris`` [C * cluster, 16] with its cluster boxes ``cboxes``
     [C, 8] and their ``box_scale``; the instance table's rows and boxes
-    [I, 16] / [I, 8]. Every instance's cluster range must lie in the mesh
-    table (``prepare`` checks it)."""
+    [I, 16] / [I, 8] and its ``instance_tree`` (built here when None, a
+    host sync: pass the prepared one), walked by ``group`` lanes a ray
+    (``walk_group`` when None). Every instance's cluster range must lie in
+    the mesh table (``prepare`` checks it)."""
+    if dense._on_cpu(origins):
+        cluster = tris.shape[0] // cboxes.shape[0]
+        return _closest_inst_plain(origins, dirs, tris, cluster, inst_rows,
+                                   tmin, tmax)
+    from .. import _kernels
+    n, _ = dense._check_inputs(origins, dirs, tris)
+    dev = origins.device
+    _, cluster, n_i = _check_inst(tris, cboxes, inst_rows, inst_boxes, dev)
+    if tree is None:
+        tree = instance_tree(inst_boxes)
+    _check_tree(tree, n_i, dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    inst = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_inst", origins.data_ptr(),
+                        dirs.data_ptr(), tris.data_ptr(), cboxes.data_ptr(),
+                        inst_rows.data_ptr(), inst_boxes.data_ptr(),
+                        tree.nodes.data_ptr(), int(tree.root), n, cluster,
+                        float(scale), clustered.BOX_MARGIN, float(tmin),
+                        float(tmax), t.data_ptr(), row.data_ptr(),
+                        inst.data_ptr(),
+                        walk_group(n) if group is None else int(group),
+                        dense._stream(dev))
+        LAUNCHES["closest_inst"] += 1
+    return t, row, inst
+
+
+def closest_inst_flat(origins: torch.Tensor, dirs: torch.Tensor,
+                      tris: torch.Tensor, cboxes: torch.Tensor, scale: float,
+                      inst_rows: torch.Tensor, inst_boxes: torch.Tensor,
+                      tmin: float, tmax: float = T_FAR):
+    """K9's function through its flat loop (a thread a ray, every
+    instance box tested in table order): on no path, the yardstick of the
+    walk."""
     if dense._on_cpu(origins):
         cluster = tris.shape[0] // cboxes.shape[0]
         return _closest_inst_plain(origins, dirs, tris, cluster, inst_rows,
@@ -321,13 +477,13 @@ def closest_inst(origins: torch.Tensor, dirs: torch.Tensor,
     row = torch.empty(n, dtype=torch.int32, device=dev)
     inst = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        _kernels.launch("tpt_closest_inst", origins.data_ptr(),
+        _kernels.launch("tpt_closest_inst_flat", origins.data_ptr(),
                         dirs.data_ptr(), tris.data_ptr(), cboxes.data_ptr(),
                         inst_rows.data_ptr(), inst_boxes.data_ptr(), n, n_i,
                         cluster, float(scale), clustered.BOX_MARGIN,
                         float(tmin), float(tmax), t.data_ptr(),
                         row.data_ptr(), inst.data_ptr(), dense._stream(dev))
-        LAUNCHES["closest_inst"] += 1
+        LAUNCHES["closest_inst_flat"] += 1
     return t, row, inst
 
 
@@ -370,18 +526,20 @@ class InstTables:
     boxes: torch.Tensor       # [C, 8] mesh-space cluster boxes
     scale: float              # their box_scale
     table: InstanceTable      # on the scene's device
+    tree: InstanceTree        # K9's tree over the instances
 
 
 def prepare(geom: SceneArrays, table: InstanceTable) -> InstTables:
-    """Pack the unique meshes once and move the instance table to the
-    scene's device."""
+    """Pack the unique meshes once, move the instance table to the
+    scene's device and build its ``instance_tree``."""
     tris, boxes = pack_tris_instanced(geom, table.mesh_ranges)
     end = table.rows[:, 12] + table.rows[:, 13]
     if float(end.max()) > boxes.shape[0]:
         raise ValueError("an instance addresses clusters past the mesh table")
+    on_device = table.to(geom.device)
     return InstTables(tris=tris, boxes=boxes,
-                      scale=clustered.box_scale(boxes),
-                      table=table.to(geom.device))
+                      scale=clustered.box_scale(boxes), table=on_device,
+                      tree=instance_tree(on_device.boxes))
 
 
 def _mesh_space_rays(table: InstanceTable, origins, dirs, inst):
@@ -424,7 +582,7 @@ def closest_hit(tables: InstTables, origins: torch.Tensor,
     and ``inst`` the winning instance."""
     t, row, inst = closest_inst(origins, dirs, tables.tris, tables.boxes,
                                 tables.scale, tables.table.rows,
-                                tables.table.boxes, tmin, tmax)
+                                tables.table.boxes, tmin, tmax, tables.tree)
     o, d = (_mesh_space_rays(tables.table, origins, dirs, inst) if want_uv
             else (origins, dirs))
     hit = clustered._lean_resolve_packed(tables.tris, o, d, t, row, want_uv)
