@@ -36,7 +36,8 @@ each; any failure raises and exits non-zero before the last line:
 6. main path: the reference app's launch (512^2, 128 spp, depth 4, IS+NEE,
    mixed Cornell box, 2 progressive frames), bench.py's canonical frame
    (1024^2, 16 spp, depth 8, IS+NEE, frame 0 warm-up, frames 1-4 timed),
-   a sphere-box frame (2,264 triangles: the full-carry kernel), and
+   a sphere-box frame (2,264 triangles: K3 and K2; frame 0 warm-up,
+   frame 1 timed), and
    tools/bench_big.py's big-mesh frame (512^2, 4 spp, depth 8, IS+NEE,
    frame 0 warm-up, frames 1-2 timed: the clustered kernels), each with
    the kernel launch counters zeroed before and read after;
@@ -212,6 +213,27 @@ path as yardsticks (``closest_nee_full_dense``, ``closest_inst_flat``):
 ``fused_nee`` frame and each instanced Whitted frame through the
 yardstick too, between two walk frames.
 
+The walks of K3 and K2 (``dense.closest_full_tree`` over the kd copy K5
+walks, ``dense.occluded_tree`` over a kd copy of the NEE occluder subset,
+``DenseTables.occ_kd``; the two halves of K5's walk, each its own kernel)
+on the sphere box, their dense bodies (``closest_full``, ``occluded``)
+on the small tables' path and as their yardsticks:
+
+35. kernels (in phase 4): K3's and K2's walks on the sphere box at the
+   frame's 65,536 lanes with one in eight parked and at 262,144 rays,
+   each bitwise against its plain version and against its dense body,
+   the two timed in interleaved pairs; each walk's bound from its own
+   node tests and reached clusters beside the dense count; K3 also on
+   65,536 rays aimed at shared edges;
+36. main path (in phase 6): the sphere-box frame launches K3's and K2's
+   walks once per round each and their dense bodies never; no other run
+   launches a walk; the two calls recorded from its warm-up frame, bitwise
+   against their plain versions and their dense bodies, timed in pairs;
+37. yardstick frames (in phase 34): the sphere-box frame again through
+   the dense bodies, its accumulator bitwise equal to the walks'.
+``--profile pt`` profiles that frame through the dense bodies too,
+between two walk frames.
+
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
 rate (K16: its operations over the instruction rate of its type, from the
@@ -314,10 +336,20 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     # walks' yardsticks.
     "closest_nee_full_dense": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1222"),
     "closest_inst_flat": (_INSTANCED, "tpu_pt/intersect/pallas_inst.py:236"),
+    # K3 and K2 as walks of kd copies (the sphere box's table and occluder
+    # subset); their dense bodies above stay on the path for the tables
+    # without a copy.
+    "closest_full_tree": (_DENSE, "tpu_pt/intersect/pallas_bf.py:938"),
+    "occluded_tree": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1299"),
 }
 # The yardstick of each walk of K5 and K9 (its body before the walk).
 YARDSTICK = {"closest_nee_full": "closest_nee_full_dense",
              "closest_inst": "closest_inst_flat"}
+# The dense body of each walk of K3 and K2: on the path for the small
+# tables, and the walk's yardstick on the sphere box.
+DENSE_BODY = {"closest_full_tree": "closest_full", "occluded_tree": "occluded"}
+SPHERE_TAG = "sphere box 512^2 x 16 spp, depth 4"
+N_SPHERE_RAYS = 65536    # the sphere-box frame's pixelq width
 FLAT = {"closest_clustered": "closest_clustered_flat",
         "closest_clustered_full": "closest_clustered_full_flat",
         "occluded_clustered": "occluded_clustered_flat"}
@@ -392,11 +424,13 @@ BENCH_BIG = dict(width=512, height=512, spp=4, max_depth=8)
 # Main-path workloads: (tag, scene, frames rendered, last frames timed,
 # config, kernels the run must launch). The reference app's per-launch
 # workload (PathTracerMain.cpp:42-59), bench.py's canonical frame
-# (bench.py:49-57), the sphere box, whose 2,264 triangles take the
-# full-carry kernel, and tools/bench_big.py's frame (bench_big.py:38-41)
-# on the 99,968-row big mesh, which takes the clustered kernels (its NEE
+# (bench.py:49-57), the sphere box, whose 2,264 triangles take the walks
+# of K3 and K2 (frame 0 warms up and records their calls, frame 1 is
+# timed), and tools/bench_big.py's frame (bench_big.py:38-41) on the
+# 99,968-row big mesh, which takes the clustered kernels (its NEE
 # occluder subset keeps 99,908 rows, so shadow rays take K8). All with
-# IS + NEE.
+# IS + NEE. Only the sphere box launches the walks of K3 and K2, once per
+# round each, and never their dense bodies (WALK_RUNS).
 MAIN_RUNS = [
     ("reference launch 512^2 x 128 spp, depth 4, mixed",
      "cornell_box_mixed.obj", [0, 1], 2,
@@ -406,10 +440,9 @@ MAIN_RUNS = [
      "cornell_box_mixed.obj", [0, 1, 2, 3, 4], 4,
      dict(width=1024, height=1024, spp=16, max_depth=8),
      ("closest_lean", "occluded")),
-    ("sphere box 512^2 x 16 spp, depth 4",
-     "cornell_box_sphere.obj", [0], 1,
+    (SPHERE_TAG, "cornell_box_sphere.obj", [0, 1], 1,
      dict(width=512, height=512, spp=16, max_depth=4),
-     ("closest_full", "occluded")),
+     ("closest_full_tree", "occluded_tree")),
     (BIG_TAG, BIG_MESH, [0, 1, 2], 2, BENCH_BIG,
      ("closest_clustered", "occluded_clustered")),
 ]
@@ -490,9 +523,14 @@ LBVH_CHECK = dict(width=64, height=64, spp=2, max_depth=8)
 FUSED_TWINS = [
     ("bench.py 1024^2 x 16 spp, depth 8, mixed", "closest_nee_lean",
      ("closest_lean", "occluded", "closest_full")),
-    ("sphere box 512^2 x 16 spp, depth 4", "closest_nee_full",
-     ("closest_full", "occluded", "closest_lean")),
+    (SPHERE_TAG, "closest_nee_full",
+     ("closest_full", "occluded", "closest_lean", "closest_full_tree",
+      "occluded_tree")),
 ]
+# Runs of MAIN_RUNS that launch each of their kernels once per round, and
+# the kernels they must never launch.
+WALK_RUNS = {SPHERE_TAG: (("closest_full_tree", "occluded_tree"),
+                          ("closest_full", "occluded", "closest_lean"))}
 REGEN_OF = "bench.py 1024^2 x 16 spp, depth 8, mixed"
 TWIN_RMSE = 0.01         # fused / regen frame against its twin (sRGB)
 # The entry points on the card: the CLI render and its resume, a Whitted
@@ -816,6 +854,12 @@ def _plain(name: str, args):
         return dense._closest_plain(o, d, tris, tmin, tmax, True, want_uv)
     if name == "occluded":
         return dense._occluded_plain(*args)
+    if name == "closest_full_tree":
+        o, d, rows, _, _, _, _, tmin, tmax, want_uv = args[:10]
+        return dense._closest_full_kd_plain(o, d, rows, tmin, tmax, want_uv)
+    if name == "occluded_tree":
+        o, d, tmax, rows, _, _, _, _, tmin = args[:9]
+        return dense._occluded_kd_plain(o, d, tmax, rows, tmin)
     if name == "closest_nee_lean":
         return dense._closest_nee_plain(*args)
     if name == "closest_nee_full":
@@ -1094,6 +1138,115 @@ def _check_kernel(records, name, kernel, plain, rows, compare, work,
         f"{n} rays{wide}; bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}: {rec['flops']:.4g} flops, "
         f"{rec['bytes']:.4g} bytes)")
+
+
+def _check_dense_walks(records, device, sphere, tables):
+    """K3's and K2's walks on the sphere box (``closest_full_tree`` over
+    its kd copy, ``occluded_tree`` over its occluder subset's), at the
+    frame's N_SPHERE_RAYS lanes with one in PARK_EVERY parked and at
+    N_RAYS unparked: camera and bounce rays (K3, u and v asked for) and
+    shadow rays from their points to the light (K2), each walk bitwise
+    against its plain version and against its dense body on the same
+    inputs, the two timed in interleaved pairs; the walk's bound from its
+    own node tests and reached clusters beside the dense count. Then K3 on
+    rays aimed at shared edges, where rows tie on t."""
+    import torch
+    from tpu_pt_torch.intersect import dense
+    kd, occ_kd, rows, occ = (tables.kd, tables.occ_kd, tables.rows,
+                             tables.occ_rows)
+    if kd is None or occ_kd is None:
+        raise AssertionError("the sphere box must have both kd copies")
+
+    def plain_dense(o, d):
+        return dense._closest_plain(o, d, rows, 0.01)
+    for width, n, park in (("narrow", N_SPHERE_RAYS, True),
+                           ("wide", N_RAYS, False)):
+        o, d, shadow = _phase3_rays(sphere, device, 14, rows, plain_dense, n)
+        if park:
+            (o, d), shadow = _park((o, d), shadow, PARK_EVERY)
+        so, sd, st = shadow
+
+        def k3(o=o, d=d):
+            return dense.closest_full_tree(o, d, kd.rows, kd.top, kd.boxes,
+                                           kd.nodes, kd.scale, 0.01, 1e16,
+                                           True)
+
+        def k3_dense(o=o, d=d):
+            return dense.closest_full(o, d, rows, 0.01, 1e16, True)
+
+        def k2(so=so, sd=sd, st=st):
+            return dense.occluded_tree(so, sd, st, occ_kd.rows, occ_kd.top,
+                                       occ_kd.boxes, occ_kd.nodes,
+                                       occ_kd.scale, 0.01)
+
+        def k2_dense(so=so, sd=sd, st=st):
+            return dense.occluded(so, sd, st, occ, 0.01)
+        per_ray = {}
+
+        def k3_work(out, o=o, d=d):
+            pairs, tests, leaves, live = _closest_walk_work(o, d, out[0], kd)
+            per_ray["K3"] = (tests / live, leaves / live, live)
+            return (pairs * PAIR_FLOPS + tests * BOX_FLOPS,
+                    o.shape[0] * (24 + 32) + _kd_bytes(kd))
+
+        def k2_work(out, so=so, sd=sd, st=st):
+            pairs, tests, leaves = _shadow_walk_work(so, sd, st, occ_kd, out)
+            live = max(int((st > 0.01).sum()), 1)
+            per_ray["K2"] = (tests / live, leaves / live, live)
+            return (pairs * PAIR_FLOPS + tests * BOX_FLOPS,
+                    so.shape[0] * (28 + 1) + _kd_bytes(occ_kd))
+        for name, walk, plain, table, work, dense_work, yard in (
+                ("closest_full_tree", k3,
+                 lambda o=o, d=d: dense._closest_full_kd_plain(
+                     o, d, kd.rows, 0.01, 1e16, True), kd,
+                 k3_work, lambda o=o: _dense_work(o, rows, 32), k3_dense),
+                ("occluded_tree", k2,
+                 lambda so=so, sd=sd, st=st: dense._occluded_kd_plain(
+                     so, sd, st, occ_kd.rows, 0.01), occ_kd,
+                 k2_work, lambda so=so, sd=sd, st=st: _dense_occluded_work(
+                     so, sd, st, occ), k2_dense)):
+            torch.cuda.synchronize()
+            what = "K3" if name == "closest_full_tree" else "K2"
+            _check_kernel(records, name, walk, plain, table.rows.shape[0],
+                          _compare_exact, work, n=n, reps=10, plain_reps=2,
+                          label=f"{name} (sphere box, {width})")
+            rec = records[name][-1]
+            rec.update(dense_bound_ms=_bound(*dense_work())["bound_ms"],
+                       dense_rows=(rows if what == "K3" else occ).shape[0],
+                       top_rows=table.top, clusters=table.boxes.shape[0],
+                       node_tests_per_ray=per_ray[what][0],
+                       clusters_per_ray=per_ray[what][1])
+            say("kernels", f"{name} ({what}'s walk), {width}: {table.top} top "
+                f"rows and {table.boxes.shape[0]} clusters; a live ray "
+                f"({per_ray[what][2]} of {n}) at its final bound tests "
+                f"{per_ray[what][0]:.2f} nodes and sweeps "
+                f"{per_ray[what][1]:.2f} clusters; bound "
+                f"{rec['bound_ms']:.4f} ms against the dense count's "
+                f"{rec['dense_bound_ms']:.4f}")
+            _walk_against_yardstick(records, name, f"{what} (sphere box)",
+                                    walk, yard, width)
+    # Rays aimed at shared edges: ties that the lowest dense row wins.
+    eo, ed = _edge_rays(sphere, N_RAYS // 4, 15, device)
+    t_all, _, _ = dense._pe_block(eo[:16384], ed[:16384], rows, 0.01)
+    best = t_all.min(1).values
+    ties = int((((t_all == best[:, None]).sum(1) > 1) & (best < 1e15)).sum())
+    if ties < best.shape[0] // 200:
+        raise AssertionError(f"K3 edge rays: only {ties} of {best.shape[0]} "
+                             "tie")
+    out_w = dense.closest_full_tree(eo, ed, kd.rows, kd.top, kd.boxes,
+                                    kd.nodes, kd.scale, 0.01, 1e16, True)
+    for what, other in (
+            ("plain", dense._closest_full_kd_plain(eo, ed, kd.rows, 0.01,
+                                                   1e16, True)),
+            ("dense body", dense.closest_full(eo, ed, rows, 0.01, 1e16,
+                                              True))):
+        torch.cuda.synchronize()
+        err, extra = _compare_exact("closest_full_tree", out_w, other)
+        say("kernels", f"closest_full_tree: {N_RAYS // 4} rays aimed at "
+            f"shared edges ({ties} of the first {best.shape[0]} tie on t), "
+            f"walk against the {what}: max|err| {err} ({extra})")
+    records["closest_full_tree"].append(dict(
+        rows=kd.rows.shape[0], rays=N_RAYS // 4, max_abs_err=0.0))
 
 
 def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
@@ -1583,6 +1736,7 @@ def phase_kernels(device, big):
         lambda: dense._closest_plain(o, d, full_m, 0.01, 600.0, True, True),
         full_m.shape[0], _compare_closest,
         lambda out: _dense_work(o, full_m, 32))
+    _check_dense_walks(records, device, sphere, ts)
 
     # The big mesh at the big path's width, N_PLAIN_BIG lanes with one in
     # PARK_EVERY parked: K6 / K8 bitwise against their plain versions
@@ -1851,22 +2005,30 @@ def _read_counters() -> dict:
     return {k: n for c in _launch_counters() for k, n in c.items()}
 
 
-def phase_main_path(device, smi, big):
+def phase_main_path(device, smi, big, records):
     """Each main-path run with the launch counters zeroed just before it
-    and read just after; returns the launches summed per kernel, and for
-    each run of FUSED_TWINS and for the big-mesh run (tag -> (run, accum,
-    s/frame, Mrays/s))."""
+    and read just after; returns the launches summed per kernel, for each
+    run of FUSED_TWINS and for the big-mesh run (tag -> (run, accum,
+    s/frame, Mrays/s)), and for each run of WALK_RUNS (tag -> (scene,
+    frames, config, accum)). A run of WALK_RUNS launches each of its
+    kernels once per round and the dense bodies never; its warm-up frame
+    records one call of each walk, held bitwise against its plain version
+    and against its dense body, timed in interleaved pairs."""
     import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import dense
     scenes = {BIG_MESH: big}
     launches = dict.fromkeys(KERNELS, 0)
-    twins = {}
+    twins, walk_frames = {}, {}
     for run in MAIN_RUNS:
         tag, scene_file, frames, timed, kw, expect = run
         if scene_file not in scenes:
             scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
                                                device=device)
+        # Other runs never launch the walks of K3 and K2.
+        once, banned = WALK_RUNS.get(tag, ((), tuple(DENSE_BODY)))
+        tap = _Tap(once) if once else None
         _zero_counters()
-        accum, _, per = _render(scenes[scene_file], device, frames,
+        accum, _, per = _render(scenes[scene_file], device, frames, tap=tap,
                                 use_direct_lighting=True,
                                 use_importance_sampling=True, **kw)
         counts = _read_counters()
@@ -1882,12 +2044,42 @@ def phase_main_path(device, smi, big):
         for k in expect:
             if counts[k] <= 0:
                 raise AssertionError(f"{tag}: {k} never launched")
+        rounds = sum(int(p[2].wavefront_iterations) for p in per)
+        for k in once:
+            if counts[k] != rounds:
+                raise AssertionError(f"{tag}: {k} launched {counts[k]} "
+                                     f"times in {rounds} rounds")
+        for k in banned:
+            if counts[k]:
+                raise AssertionError(f"{tag}: {k} launched {counts[k]} "
+                                     "times")
         for k, n in counts.items():
             launches[k] += n
         if tag == BIG_TAG or any(tag == t[0] for t in FUSED_TWINS):
             twins[tag] = (run, accum, sec / timed, rays / sec / 1e6)
+        if not once:
+            continue
+        walk_frames[tag] = (scenes[scene_file], frames, kw, accum)
+        _hold_recorded(records, tap.picked, f"{tag} warm-up")
+        tables = dense.prepare(scenes[scene_file])
+        for (name, _), (args, _) in tap.picked.items():
+            if name == "closest_full_tree":
+                o, d, *_, tmin, tmax, want_uv = args
+
+                def yard(o=o, d=d, tmin=tmin, tmax=tmax, want_uv=want_uv):
+                    return dense.closest_full(o, d, tables.rows, tmin, tmax,
+                                              want_uv)
+            else:
+                o, d, tm, *_, tmin = args
+
+                def yard(o=o, d=d, tm=tm, tmin=tmin):
+                    return dense.occluded(o, d, tm, tables.occ_rows, tmin)
+            _walk_against_yardstick(
+                records, name, f"{name} (a {tag} call)",
+                lambda name=name, args=args: getattr(dense, name)(*args),
+                yard, "recorded")
     say("main", f"kernel launches on the main path: {launches}")
-    return launches, twins
+    return launches, twins, walk_frames
 
 
 def phase_cross_check(big):
@@ -1982,13 +2174,17 @@ def _dense_of(kd_rows):
 
 @contextlib.contextmanager
 def _yardsticks():
-    """K5's dense body and K9's flat loop in the walks' place, for the
-    block: the module attributes ``dense.closest_nee_hit`` and
-    ``instanced.closest_hit`` call are pointed at shims that drop the
-    walks' tables (K5's dense table is rebuilt from its kd copy, once per
-    table)."""
+    """K5's dense body, K9's flat loop and K3's and K2's dense bodies in
+    the walks' place, for the block: the module attributes
+    ``dense.closest_nee_hit`` and ``instanced.closest_hit`` call are
+    pointed at shims that drop the walks' tables (K5's dense table is
+    rebuilt from its kd copy, once per table), and ``dense.closest_hit`` /
+    ``occluded_hit`` at shims that hand on the tables without their kd
+    copies."""
+    import dataclasses
     from tpu_pt_torch.intersect import dense, instanced
-    saved = (dense.closest_nee_full, instanced.closest_inst)
+    saved = (dense.closest_nee_full, instanced.closest_inst,
+             dense.closest_hit, dense.occluded_hit)
     tables = {}
 
     def k5(o, d, lz1, lz2, rows, top, boxes, nodes, scale, light, tmin, tmax,
@@ -2003,11 +2199,18 @@ def _yardsticks():
            tmax=1e16, tree=None, group=None):
         return instanced.closest_inst_flat(o, d, tris, cboxes, scale,
                                            inst_rows, inst_boxes, tmin, tmax)
-    dense.closest_nee_full, instanced.closest_inst = k5, k9
+    def drop(hit_fn):
+        def call(tb, *args, **kw):
+            return hit_fn(dataclasses.replace(tb, kd=None, occ_kd=None),
+                          *args, **kw)
+        return call
+    (dense.closest_nee_full, instanced.closest_inst, dense.closest_hit,
+     dense.occluded_hit) = (k5, k9, drop(saved[2]), drop(saved[3]))
     try:
         yield
     finally:
-        dense.closest_nee_full, instanced.closest_inst = saved
+        (dense.closest_nee_full, instanced.closest_inst, dense.closest_hit,
+         dense.occluded_hit) = saved
 
 
 def _image_bound(tag, a, b, tol, share_max):
@@ -2305,39 +2508,61 @@ def _fused_work(o, d, lz1, lz2, light, rows, occ_rows, out, out_bytes: int):
             + n * out_bytes)
 
 
-def _fused_walk_work(o, d, lz1, lz2, light, kd, out, out_bytes: int):
-    """K5's walk at each ray's final bound: every ray sweeps the kd copy's
-    top rows, then tests the tree's nodes (``_walk_counts``) and sweeps
-    the clusters reached at its closest hit; its shadow ray sweeps the top
-    rows up to the first blocking one and, when none blocks, walks the
-    tree with bound tm (one path to one cluster when a cluster row
-    blocks). Bytes: rays and light samples in, the kd copy's rows, boxes
-    and nodes once, ``out_bytes`` per ray out. Returns (operations,
-    bytes, node tests, clusters swept, live rays)."""
+def _closest_walk_work(o, d, bound, kd):
+    """The closest half of a walk of a kd copy (K3, K5) at each ray's
+    final ``bound``: every ray sweeps the copy's top rows, then tests the
+    tree's nodes and sweeps the clusters reached there (``_walk_counts``).
+    Returns (ray-row pairs, node tests, clusters swept, live rays)."""
+    cluster = (kd.rows.shape[0] - kd.top) // kd.boxes.shape[0]
+    tests, leaves, live = _walk_counts(o, d, bound, kd)
+    return o.shape[0] * kd.top + leaves * cluster, tests, leaves, live
+
+
+def _shadow_walk_work(so, sd, st, kd, occ):
+    """The any-hit walk of a kd copy (K2, K5's shadow ray) with bound
+    ``st``: nothing when (tmin, st) is empty; else the top rows up to the
+    first blocking one and, when none blocks, the tree's nodes and the
+    clusters reached (one path to one cluster when a cluster row blocks:
+    ``occ``, the walk's flags). Returns (ray-row pairs, node tests,
+    clusters swept)."""
     import torch
     from tpu_pt_torch.intersect import dense
-    n, top = o.shape[0], kd.top
+    n, top = so.shape[0], kd.top
     cluster = (kd.rows.shape[0] - top) // kd.boxes.shape[0]
-    tests, leaves, live = _walk_counts(o, d, out[0], kd)
-    so, sd, st = dense._shadow_rays(o, d, out[0], lz1, lz2, light)
-    top_pairs, walked = 0, torch.ones(n, dtype=torch.bool, device=o.device)
+    open_ = st > 0.01
+    top_pairs, walked = 0, open_.clone()
     if top:
         for a in range(0, n, 16384):
-            t, _, _ = dense._pe_block(so[a:a + 16384], sd[a:a + 16384],
-                                      kd.rows[:top], 0.01)
-            block = ((t < st[a:a + 16384, None])
-                     & (kd.rows[None, :top, 13] < 0.5))
+            sl = slice(a, a + 16384)
+            t, _, _ = dense._pe_block(so[sl], sd[sl], kd.rows[:top], 0.01)
+            block = (t < st[sl, None]) & (kd.rows[None, :top, 13] < 0.5)
             first = block.to(torch.int32).argmax(1)
-            top_pairs += int(torch.where(block.any(1), first + 1, top).sum())
-            walked[a:a + 16384] = ~block.any(1)
-    live_shadow = walked & (st > 0.01)
-    s_tests, s_leaves, _ = _walk_counts(
-        so[live_shadow], sd[live_shadow], st[live_shadow], kd,
-        occluded=out[-1][live_shadow])
-    pairs = n * top + leaves * cluster + top_pairs + s_leaves * cluster
-    flops = pairs * PAIR_FLOPS + (tests + s_tests) * BOX_FLOPS
-    nbytes = (n * 32 + kd.rows.shape[0] * 64 + kd.boxes.shape[0] * 32
-              + kd.nodes.shape[0] * 32 + 36 + n * out_bytes)
+            need = torch.where(block.any(1), first + 1, top)
+            top_pairs += int(torch.where(open_[sl], need, 0).sum())
+            walked[sl] &= ~block.any(1)
+    tests, leaves, _ = _walk_counts(so[walked], sd[walked], st[walked], kd,
+                                    occluded=occ[walked])
+    return top_pairs + leaves * cluster, tests, leaves
+
+
+def _kd_bytes(kd) -> int:
+    """The bytes of a kd copy a walk reads once: rows, boxes, nodes."""
+    return (kd.rows.shape[0] * 64 + kd.boxes.shape[0] * 32
+            + kd.nodes.shape[0] * 32)
+
+
+def _fused_walk_work(o, d, lz1, lz2, light, kd, out, out_bytes: int):
+    """K5's walk at each ray's final bound: its closest half
+    (``_closest_walk_work``), then its shadow ray's any-hit walk
+    (``_shadow_walk_work``), from the kernel's hits. Bytes: rays and light
+    samples in, the kd copy once, ``out_bytes`` per ray out. Returns
+    (operations, bytes, node tests, clusters swept, live rays)."""
+    from tpu_pt_torch.intersect import dense
+    pairs, tests, leaves, live = _closest_walk_work(o, d, out[0], kd)
+    so, sd, st = dense._shadow_rays(o, d, out[0], lz1, lz2, light)
+    s_pairs, s_tests, s_leaves = _shadow_walk_work(so, sd, st, kd, out[-1])
+    flops = (pairs + s_pairs) * PAIR_FLOPS + (tests + s_tests) * BOX_FLOPS
+    nbytes = o.shape[0] * (32 + out_bytes) + _kd_bytes(kd) + 36
     return flops, nbytes, tests + s_tests, leaves + s_leaves, live
 
 
@@ -2374,21 +2599,28 @@ def _edge_rays(scene, n: int, seed: int, device):
 
 
 def _walk_against_yardstick(records, name, label, walk, yard, width: str):
-    """A walk of K5 or K9 (``walk()``) against its yardstick (``yard()``)
-    on the same inputs, bit for bit, and both timed in interleaved pairs
-    (walk, yardstick, yardstick, walk); each time goes on its kernel's
-    first record under ``pair_ms_<width>``."""
+    """A walk of K5 or K9 (``walk()``) against its yardstick (``yard()``),
+    or of K3 or K2 against its dense body, on the same inputs, bit for
+    bit, and both timed in interleaved pairs (walk, yardstick, yardstick,
+    walk); the walk's time goes on its first record under
+    ``pair_ms_<width>``, the yardstick's on the yardstick's first record
+    (K3 and K2: on the walk's, under ``dense_pair_ms_<width>``)."""
     import torch
     a, b = walk(), yard()
     torch.cuda.synchronize()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    yard_name = YARDSTICK.get(name) or DENSE_BODY[name]
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
-        raise AssertionError(f"{label}: the walk differs from its yardstick")
+        raise AssertionError(f"{label}: the walk differs from {yard_name}")
     w0, y0, y1, w1 = (gpu_ms(fn, 10) for fn in (walk, yard, yard, walk))
     pair = ((w0 + w1) / 2, (y0 + y1) / 2)
     records[name][0][f"pair_ms_{width}"] = pair[0]
-    records[YARDSTICK[name]][0][f"pair_ms_{width}"] = pair[1]
+    if name in YARDSTICK:
+        records[YARDSTICK[name]][0][f"pair_ms_{width}"] = pair[1]
+    else:
+        records[name][0][f"dense_pair_ms_{width}"] = pair[1]
     say("kernels", f"{label}, {width} ({a[0].shape[0]} rays): the walk "
-        f"bitwise equal to {YARDSTICK[name]}; interleaved, walk "
+        f"bitwise equal to {yard_name}; interleaved, walk "
         f"{pair[0]:.4f} ms ({w0:.4f}, {w1:.4f}), yardstick {pair[1]:.4f} "
         f"ms ({y0:.4f}, {y1:.4f}), {pair[1] / pair[0]:.2f}x")
 
@@ -3123,39 +3355,47 @@ def phase_inst_kernels(device, records):
             f"aimed rays: max|err| {err} ({extra})")
 
 
-def phase_yardstick_frames(device, smi, fused, instanced_frames):
+def phase_yardstick_frames(device, smi, fused, instanced_frames,
+                           walk_frames):
     """The sphere-box ``fused_nee`` frame (``fused``, from
-    phase_fused_main) and the forest and foliage frames
-    (``instanced_frames``, from phase_whitted_main) again with K5's dense
-    body and K9's flat loop in the walks' place (``_yardsticks``),
-    counters zeroed before each run and read after: each accumulator
-    bitwise equal to the walk's, the yardstick launched and the walk not.
-    Returns the launches summed per kernel."""
+    phase_fused_main), the forest and foliage frames (``instanced_frames``,
+    from phase_whitted_main) and the sphere-box unfused frame
+    (``walk_frames``, from phase_main_path) again with K5's dense body,
+    K9's flat loop and K3's and K2's dense bodies in the walks' place
+    (``_yardsticks``), counters zeroed before each run and read after:
+    each accumulator bitwise equal to the walk's, the yardsticks launched
+    and the walks not. Returns the launches summed per kernel."""
     import torch
     launches = dict.fromkeys(KERNELS, 0)
-    runs = [(tag, "closest_nee_full", lambda s=scene, f=frames, kw=kw:
+    k5, k9 = ("closest_nee_full",), ("closest_inst",)
+    runs = [(tag, k5, (YARDSTICK[k5[0]],), lambda s=scene, f=frames, kw=kw:
              _render(s, device, f, use_direct_lighting=True,
                      use_importance_sampling=True, fused_nee=True, **kw),
              accum) for tag, (scene, frames, kw, accum) in fused.items()]
-    runs += [(tag, "closest_inst", lambda ws=ws, f=frames, kw=kw:
+    runs += [(tag, k9, (YARDSTICK[k9[0]],), lambda ws=ws, f=frames, kw=kw:
               _render_whitted(ws, device, WHITTED_VIEW, f, **kw), accum)
              for tag, (ws, frames, kw, accum) in instanced_frames.items()]
-    if len(runs) != 3:
-        raise AssertionError(f"{len(runs)} yardstick frames, expected 3")
-    for tag, walk, render, accum in runs:
+    runs += [(f"{tag}, unfused", tuple(DENSE_BODY),
+              tuple(DENSE_BODY.values()), lambda s=scene, f=frames, kw=kw:
+              _render(s, device, f, use_direct_lighting=True,
+                      use_importance_sampling=True, **kw), accum)
+             for tag, (scene, frames, kw, accum) in walk_frames.items()]
+    if len(runs) != 4:
+        raise AssertionError(f"{len(runs)} yardstick frames, expected 4")
+    for tag, walks, yards, render, accum in runs:
         _zero_counters()
         with _yardsticks():
             other, _, per = render()
         counts = _read_counters()
-        _check_frame(f"{tag}, {YARDSTICK[walk]}", other, per)
-        if counts[walk] or not counts[YARDSTICK[walk]]:
+        _check_frame(f"{tag}, {' + '.join(yards)}", other, per)
+        if any(counts[k] for k in walks) or not all(counts[k] for k in yards):
             raise AssertionError(f"{tag} through the yardstick: launches "
                                  f"{counts}")
         if not torch.equal(other, accum):
             raise AssertionError(f"{tag}: the yardstick frame differs from "
                                  "the walk's")
-        say("yardstick", f"{tag} through {YARDSTICK[walk]} "
-            f"({counts[YARDSTICK[walk]]} launches, "
+        say("yardstick", f"{tag} through {' + '.join(yards)} "
+            f"({', '.join(str(counts[k]) for k in yards)} launches, "
             f"{sum(p[0] for p in per) / len(per) * 1e3:.1f} ms/frame): "
             f"accumulator bitwise equal to the walk's; {smi}")
         for k, n in counts.items():
@@ -3280,8 +3520,9 @@ def phase_whitted_cross_check(device):
 # Path-trace runs of ``--profile``: bench.py's frame unfused, under
 # fused_nee and on regen, then fused and unfused again (the host's speed
 # drifts during a call, so each variant is read before and after the
-# others), and the sphere box unfused and fused, then fused through K5's
-# dense body (``_yardsticks``: the last element) and K5's walk again.
+# others), and the sphere box unfused, through K3's and K2's dense bodies
+# (``_yardsticks``: the last element) and unfused again, then fused,
+# fused through K5's dense body and fused again.
 PROFILE_PT = [
     ("bench frame, pixelq", "cornell_box_mixed.obj", {}, False),
     ("bench frame, pixelq, fused_nee", "cornell_box_mixed.obj",
@@ -3291,6 +3532,9 @@ PROFILE_PT = [
     ("bench frame, pixelq, fused_nee", "cornell_box_mixed.obj",
      dict(fused_nee=True), False),
     ("bench frame, pixelq", "cornell_box_mixed.obj", {}, False),
+    ("sphere box, pixelq", "cornell_box_sphere.obj", {}, False),
+    ("sphere box, pixelq, K3 and K2's dense bodies",
+     "cornell_box_sphere.obj", {}, True),
     ("sphere box, pixelq", "cornell_box_sphere.obj", {}, False),
     ("sphere box, pixelq, fused_nee", "cornell_box_sphere.obj",
      dict(fused_nee=True), False),
@@ -3435,7 +3679,8 @@ def main() -> int:
     phase_goldens(device)
     phase_fused_goldens(device)
     phase_whitted_goldens(device)
-    launches, twins = phase_main_path(device, smi, big)
+    launches, twins, walk_frames = phase_main_path(device, smi, big,
+                                                   records)
     b_launches = phase_big_variants(device, smi, big, twins[BIG_TAG],
                                     records)
     f_launches, fused = phase_fused_main(device, smi, twins, records)
@@ -3444,8 +3689,9 @@ def main() -> int:
     phase_inst_kernels(device, records)
     phase_whitted_calls(recorded, records)
     del recorded
-    y_launches = phase_yardstick_frames(device, smi, fused, instanced_frames)
-    del fused, instanced_frames
+    y_launches = phase_yardstick_frames(device, smi, fused, instanced_frames,
+                                        walk_frames)
+    del fused, instanced_frames, walk_frames
     phase_cross_check(big)
     phase_lbvh(device, smi, big)
     phase_whitted_cross_check(device)
@@ -3478,13 +3724,17 @@ def main() -> int:
             # call, the huge mesh).
             # K5 and K9: the yardstick's count of their work beside the
             # walk's (bound_ms), and the walk against its yardstick in
-            # interleaved pairs.
+            # interleaved pairs. K3's and K2's walks: the same, their
+            # dense bodies' times on the walk's record (dense_pair_ms_*).
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
                                      "path_bound_by", "bench_ms",
                                      "ms_at_n_rays", "pair_ms_narrow",
                                      "pair_ms_wide", "pair_ms_recorded",
                                      "pair_ms_huge", "dense_bound_ms",
-                                     "flat_bound_ms", "pair_ms_foliage")
+                                     "flat_bound_ms", "pair_ms_foliage",
+                                     "dense_pair_ms_narrow",
+                                     "dense_pair_ms_wide",
+                                     "dense_pair_ms_recorded")
                if k in first}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

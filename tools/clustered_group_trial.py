@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Lanes a ray of the tree walks (``tpu_pt_torch/csrc/walk.cuh``): the
 trial that sets ``clustered.walk_group`` (K6, K6f, K8),
-``dense.NEE_WALK_GROUP`` (the fused K5) and ``instanced.walk_group``
-(K9).
+``dense.NEE_WALK_GROUP`` (the fused K5), ``dense.full_walk_group`` (K3),
+``dense.occ_walk_group`` (K2) and ``instanced.walk_group`` (K9).
 
 Each walk is built at every group width G of GROUPS (a template
-parameter; its entry points take G as ``group``). Three parts, each
+parameter; its entry points take G as ``group``). Five parts, each
 timing every width beside its yardstick, the kernel body the walk
 replaced, with every result held bitwise against it:
 
@@ -26,7 +26,13 @@ replaced, with every result held bitwise against it:
 - ``inst``: K9 on the forest and on foliage (kept instanced) at
   INST_WIDTHS (16,384 parked, both frames' lanes; 262,144 unparked),
   against the flat loop ``closest_inst_flat`` and, at 16,384, the plain
-  version.
+  version;
+- ``closest_full`` and ``occluded``: K3 (``closest_full_tree``, u and v
+  asked for) and K2 (``occluded_tree``, shadow rays from the same points
+  to the light) on the sphere box at DENSE_WIDTHS (65,536 parked, the
+  sphere-box frame's lanes; 262,144 unparked), against their dense
+  bodies ``closest_full`` / ``occluded`` and, at 65,536, the plain
+  versions.
 
 Every width, the shipped choice and the yardstick are timed in turns
 (CUDA events), twice over. Prints one JSON line per (kernel, scene, ray
@@ -34,8 +40,9 @@ count): the ms of each, the width the package picks there, and the
 card's name and power limit.
 
 Run on a machine with a CUDA card, from the repository root:
-``python3 tools/clustered_group_trial.py [big] [fused] [inst]`` (all
-three when none is named; ~2 minutes with the build).
+``python3 tools/clustered_group_trial.py [big] [fused] [inst]
+[closest_full] [occluded]`` (all five when none is named; ~2 minutes
+with the build).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ WIDTHS = (("32768 parked", 32768, True), ("65536 parked", 65536, True),
 FUSED_WIDTHS = (("65536 parked", 65536, True),
                 ("262144 parked", 262144, True))
 INST_WIDTHS = (("16384 parked", 16384, True), ("262144", 262144, False))
+DENSE_WIDTHS = (("65536 parked", 65536, True), ("262144", 262144, False))
 
 
 def _time(call, smi, what: dict, picked: int, yardstick: str, extra=()):
@@ -157,19 +165,67 @@ def inst_part(device, smi) -> None:
                   instanced.walk_group(n), "flat")
 
 
+def dense_walk_part(device, smi, which: str) -> None:
+    """K3 (``which`` = "closest_full") or K2 ("occluded") on the sphere box
+    at every width of GROUPS against its dense body."""
+    import chip_smoke as cs
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import dense
+    scene = tp.load_scene(str(cs.ASSETS / "cornell_box_sphere.obj"),
+                          device=device)
+    tables = dense.prepare(scene)
+    rows, occ = tables.rows, tables.occ_rows
+    closest = which == "closest_full"
+    kd = tables.kd if closest else tables.occ_kd
+    walk_args = (kd.rows, kd.top, kd.boxes, kd.nodes, kd.scale, 0.01)
+    for label, n, park in DENSE_WIDTHS:
+        o, d, shadow = cs._phase3_rays(
+            scene, device, 14, rows,
+            lambda o, d: dense._closest_plain(o, d, rows, 0.01), n)
+        if park:
+            (o, d), shadow = cs._park((o, d), shadow, cs.PARK_EVERY)
+
+        def call(g, o=o, d=d, shadow=shadow):
+            if closest:
+                if g is None:
+                    return dense.closest_full(o, d, rows, 0.01, 1e16, True)
+                return dense.closest_full_tree(o, d, *walk_args, 1e16, True,
+                                               g)
+            if g is None:
+                return (dense.occluded(*shadow, occ, 0.01),)
+            return (dense.occluded_tree(*shadow, *walk_args, g),)
+        ref = call(None)
+        if n == DENSE_WIDTHS[0][1]:
+            plain = (dense._closest_plain(o, d, rows, 0.01, 1e16, True, True)
+                     if closest else
+                     (dense._occluded_plain(*shadow, occ, 0.01),))
+            _same(ref, plain, f"{which} dense body against the plain "
+                  "version")
+        for g in GROUPS:
+            _same(call(g), ref, f"{which} walk G{g} at {label}")
+        _time(call, smi, {"kernel": "K3" if closest else "K2",
+                          "scene": "sphere box", "rays": label},
+              (dense.full_walk_group if closest else dense.occ_walk_group)(n),
+              "dense")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this trial times the card's kernels")
     import chip_smoke as cs
     from tpu_pt_torch import _kernels
-    parts = sys.argv[1:] or ["big", "fused", "inst"]
+    parts = sys.argv[1:] or ["big", "fused", "inst", "closest_full",
+                             "occluded"]
     device, smi = cs.phase_device()
     _kernels.build()
     if "fused" in parts:
         fused_part(device, smi)
     if "inst" in parts:
         inst_part(device, smi)
+    for which in ("closest_full", "occluded"):
+        if which in parts:
+            dense_walk_part(device, smi, which)
     if "big" in parts:
         big_part(device, smi)
     return 0

@@ -42,6 +42,10 @@ _SIGNATURES = {
         "tpt_closest_full": (_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P,
                              _P, _P, _P),
         "tpt_occluded": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
+        "tpt_closest_full_tree": (_P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _I,
+                                  _F, _F, _I, _P, _P, _P, _P, _P, _P, _I, _P),
+        "tpt_occluded_tree": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _I,
+                              _F, _P, _I, _P),
         "tpt_closest_nee_lean": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _F,
                                  _P, _P, _P, _P),
         "tpt_closest_nee_full": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F,

@@ -9,9 +9,16 @@
 //   tpt_closest_full  <- _closest_kernel (body _closest_sweep), launched by
 //                        _closest_call: the same, clipped at a finite tmax,
 //                        plus the winner's normal, material and u/v.
+//   tpt_closest_full_tree
+//                     <- the same: tpt_closest_full's function as a walk of
+//                        a kd copy of the table (below), for a table that
+//                        has one (above 2,048 rows).
 //   tpt_occluded      <- _occluded_kernel (body _occlusion_sweep), launched by
 //                        _occluded_call: is any non-refractive row hit with
 //                        tmin < t < tmax_ray?
+//   tpt_occluded_tree <- the same: tpt_occluded's function as a walk of a kd
+//                        copy of the NEE occluder subset, for a subset of
+//                        more than 2,048 rows.
 //   tpt_closest_nee_lean
 //                     <- _closest_nee_kernel_lean, launched by
 //                        _closest_nee_call_lean: tpt_closest_lean's sweep,
@@ -61,19 +68,29 @@
 // registers as before, sweeps the top rows and walks the same tree
 // any-hit with bound tm, stopping at its first blocking row. What bounds
 // the walk: the top rows, the node tests and the clusters a ray reaches
-// (a few of 17 on the sphere box), and the latency of each dependent
+// (a few of 18 on the sphere box), and the latency of each dependent
 // node load, not the pair arithmetic.
+//
+// K3 and K2 on the same table are the two halves of K5's walk, each its
+// own kernel (closest_walk, any_hit_walk): the sphere box's unfused frame
+// swept all 2,280 rows for every closest hit and all 2,256 occluder rows
+// for every shadow ray that nothing blocked. K3 walks K5's kd copy. K2's
+// function is any-hit over the occluder subset, not over every row (the
+// two differ on shadow rays that run within eps of a wall's plane,
+// scene/arrays.nee_occluder_index), so it walks a kd copy of its own,
+// built from the subset's triangles by the same rule. A shadow ray reads
+// its own tmax and culls with its own origin's margin.
 //
 // Correctness notes:
 // - Ties: rows are visited in ascending order and the best is replaced
 //   only on a strict t < best, which is the TPU kernels' "lowest row among
-//   equal t" rule (pallas_bf.py:706-721). The walk of K5 visits the kd
-//   rows in another order, so its compare and its fold are on (t, id):
+//   equal t" rule (pallas_bf.py:706-721). The walks of K3 and K5 visit
+//   the kd rows in another order, so their compare and fold are on (t, id):
 //   column 15 of a kd row is the row's index in the dense table, and the
 //   lowest id among equal t wins, whatever the visit order (rays through
-//   a shared edge tie often). Its row output is that id; the normal and
-//   material come from the winning kd row, which is the dense row bit for
-//   bit.
+//   a shared edge tie often). The row output is that id; the normal,
+//   material and u/v come from the winning kd row, which is the dense row
+//   bit for bit.
 // - NaN in u/v: on the TPU the full-carry kernel reduced u/v with masked
 //   sums, and one degenerate row's NaN once poisoned them (the round-2/3
 //   whitted shading bug, ARCHITECTURE.md:435-448, invisible to CPU tests).
@@ -257,41 +274,43 @@ inline unsigned grid_for(int n_rays) {
   return (unsigned)((n_rays + kThreads - 1) / kThreads);
 }
 
-// K5 as a walk: one ray to a group of G lanes over the kd copy of the
-// table (dense.kd_tables): `tris` holds first the n_top rows of the
-// triangles that span the scene (walls, floor, blocks), swept by every
-// ray, then the clusters of the rest (n_boxes x cluster rows in kd
-// order), with boxes [n_boxes, 8] and their tree nodes [n_boxes - 1, 8]
-// (clustered.cluster_tree). The closest hit folds (t, id), carrying the
-// kd row for the attributes; the shadow ray sweeps the same top rows and
-// walks the same tree any-hit.
-template <int G>
-__global__ void __launch_bounds__(tpt::kWalkThreads)
-closest_nee_tree_kernel(const float* __restrict__ orig,
-                        const float* __restrict__ dir,
-                        const float* __restrict__ lz1,
-                        const float* __restrict__ lz2,
-                        const float* __restrict__ tris, int n_top,
-                        const float* __restrict__ boxes,
-                        const float* __restrict__ nodes, int n_boxes,
-                        int cluster, float scale, float margin,
-                        const float* __restrict__ light, int n_rays,
-                        float tmin, float tmax, float* __restrict__ t_out,
-                        int* __restrict__ row_out, float* __restrict__ nrm_out,
-                        int* __restrict__ mat_out,
-                        uint8_t* __restrict__ occ_out) {
-  __shared__ int s_ref[tpt::kWalkThreads / G][tpt::kStack];
-  __shared__ float s_tn[tpt::kWalkThreads / G][tpt::kStack];
-  const tpt::Group g = tpt::group_of_thread<G>();
-  const int i = tpt::walk_ray<G>();
-  if (i >= n_rays) return;  // whole groups leave together
-  const float4* bx = reinterpret_cast<const float4*>(boxes);
-  const float4* nd = reinterpret_cast<const float4*>(nodes);
-  const float4* rows = reinterpret_cast<const float4*>(tris);
-  const Ray r = load_ray(orig, dir, i);
+// The walks over a kd copy of a table (dense.kd_tables): `rows` holds
+// first the n_top rows of the triangles that span the scene (walls,
+// floor, blocks), swept by every ray, then the clusters of the rest
+// (n_boxes x cluster rows in kd order), with boxes [n_boxes, 8] and their
+// tree nodes [n_boxes - 1, 8] (clustered.cluster_tree); `margin` is the
+// relative culling margin (clustered.BOX_MARGIN) and `scale` the boxes'.
+struct KdCopy {
+  const float4* __restrict__ rows;
+  int n_top;
+  const float4* __restrict__ bx;
+  const float4* __restrict__ nd;
+  int n_boxes;
+  int cluster;
+  float scale;
+  float margin;
 
-  float best = kTFar;
-  int best_id = 0, best_row = 0;
+  // The tree as ray r culls it: margin * (scale + max_k |o_k|).
+  __device__ __forceinline__ tpt::ClusterTree tree(const Ray& r) const {
+    return tpt::ClusterTree{bx, nd, n_boxes,
+                            margin * (scale + tpt::max_abs_origin(r))};
+  }
+};
+
+// The closest hit of ray r with tmin < t < tmax over a kd copy, walked by
+// the G lanes of group g (K3, K5): the top rows, then the tree near first
+// with bound min(best, tmax), each reached cluster's rows split over the
+// lanes and folded with xor shuffles on (t, id), the kd row carried. Every
+// lane ends with the group's (best, best_id, best_row).
+template <int G>
+__device__ __forceinline__ void closest_walk(const Ray& r, const tpt::Group& g,
+                                             const KdCopy& kd, float tmin,
+                                             float tmax, int* s_ref,
+                                             float* s_tn, float& best,
+                                             int& best_id, int& best_row) {
+  best = kTFar;
+  best_id = 0;
+  best_row = 0;
   // Kd rows [first, first + count), every G-th a lane, then the group's
   // fold: the lowest (t, id), the kd row carried.
   auto sweep = [&](int first, int count) {
@@ -299,7 +318,7 @@ closest_nee_tree_kernel(const float* __restrict__ orig,
     int il = best_id, rl = best_row;
     for (int j = g.lane; j < count; j += G) {
       const int row = first + j;
-      const float4* p = rows + 4 * (size_t)row;
+      const float4* p = kd.rows + 4 * (size_t)row;
       float t = pe_test(r, __ldg(p), __ldg(p + 1), __ldg(p + 2), tmin);
       if (!(t < tmax)) t = kTFar;
       // A miss never replaces: the running best starts at (kTFar, 0).
@@ -327,16 +346,115 @@ closest_nee_tree_kernel(const float* __restrict__ orig,
     best_id = il;
     best_row = rl;
   };
-  if (n_top > 0) sweep(0, n_top);
-  // Culling margin: margin * (scale + max_k |o_k|) (clustered.BOX_MARGIN).
-  const tpt::ClusterTree tree{bx, nd, n_boxes,
-                              margin * (scale + tpt::max_abs_origin(r))};
-  tpt::walk_tree(r, tpt::make_slab(r), tmin, fminf(best, tmax), tree, g,
-                 s_ref[g.slot], s_tn[g.slot], [&](int c, float* bound) {
-                   sweep(n_top + c * cluster, cluster);
+  if (kd.n_top > 0) sweep(0, kd.n_top);
+  tpt::walk_tree(r, tpt::make_slab(r), tmin, fminf(best, tmax), kd.tree(r), g,
+                 s_ref, s_tn, [&](int c, float* bound) {
+                   sweep(kd.n_top + c * kd.cluster, kd.cluster);
                    *bound = fminf(best, tmax);
                    return false;
                  });
+}
+
+// Is a non-refractive row of a kd copy hit by ray r with tmin < t < tm?
+// Walked by the G lanes of group g (K2, K5's shadow ray): the top rows
+// (one masked ballot), then the tree any-hit with bound tm, stopping at
+// the first blocking row. Nothing can block when (tmin, tm) is empty; a
+// box entered at tn >= tm holds no blocking hit, so the bound is tm
+// throughout.
+template <int G>
+__device__ __forceinline__ bool any_hit_walk(const Ray& r, const tpt::Group& g,
+                                             const KdCopy& kd, float tmin,
+                                             float tm, int* s_ref,
+                                             float* s_tn) {
+  if (!(tm > tmin)) return false;
+  if (kd.n_top > 0 &&
+      tpt::cluster_blocked(r, kd.rows, 0, kd.n_top, G, g, tmin, tm))
+    return true;
+  bool blocked = false;
+  tpt::walk_tree(r, tpt::make_slab(r), tmin, tm, kd.tree(r), g, s_ref, s_tn,
+                 [&](int c, float*) {
+                   blocked = tpt::cluster_blocked(
+                       r, kd.rows, kd.n_top + c * kd.cluster, kd.cluster, G,
+                       g, tmin, tm);
+                   return blocked;
+                 });
+  return blocked;
+}
+
+// K3 as a walk: one ray to a group of G lanes, closest_walk over the kd
+// copy, then the full carry (normal, material, u/v with want_uv) from the
+// winning kd row, which is the dense row bit for bit; the row output is
+// its dense index (column 15).
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
+closest_full_tree_kernel(const float* __restrict__ orig,
+                         const float* __restrict__ dir, KdCopy kd, int n_rays,
+                         float tmin, float tmax, int want_uv,
+                         float* __restrict__ t_out, int* __restrict__ row_out,
+                         float* __restrict__ nrm_out,
+                         int* __restrict__ mat_out, float* __restrict__ u_out,
+                         float* __restrict__ v_out) {
+  __shared__ int s_ref[tpt::kWalkThreads / G][tpt::kStack];
+  __shared__ float s_tn[tpt::kWalkThreads / G][tpt::kStack];
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;  // whole groups leave together
+  const Ray r = load_ray(orig, dir, i);
+  float best;
+  int best_id, best_row;
+  closest_walk<G>(r, g, kd, tmin, tmax, s_ref[g.slot], s_tn[g.slot], best,
+                  best_id, best_row);
+  if (g.lane != 0) return;
+  t_out[i] = best;
+  row_out[i] = best < kTFar ? best_id : 0;
+  write_attrs(reinterpret_cast<const float*>(kd.rows), r, i, best, best_row,
+              want_uv, nrm_out, mat_out, u_out, v_out);
+}
+
+// K2 as a walk: one ray to a group of G lanes, any_hit_walk over the kd
+// copy of the NEE occluder subset with the ray's own tmax.
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
+occluded_tree_kernel(const float* __restrict__ orig,
+                     const float* __restrict__ dir,
+                     const float* __restrict__ tmax, KdCopy kd, int n_rays,
+                     float tmin, uint8_t* __restrict__ occ_out) {
+  __shared__ int s_ref[tpt::kWalkThreads / G][tpt::kStack];
+  __shared__ float s_tn[tpt::kWalkThreads / G][tpt::kStack];
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;
+  const Ray r = load_ray(orig, dir, i);
+  const bool blocked = any_hit_walk<G>(r, g, kd, tmin, tmax[i], s_ref[g.slot],
+                                       s_tn[g.slot]);
+  if (g.lane == 0) occ_out[i] = blocked ? 1 : 0;
+}
+
+// K5 as a walk: closest_walk over the kd copy of the whole table (the
+// closest hit clipped at tmax; normal and material, no u/v), then the
+// shadow ray, formed in registers as closest_nee_kernel forms it,
+// any_hit_walk over the same copy.
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
+closest_nee_tree_kernel(const float* __restrict__ orig,
+                        const float* __restrict__ dir,
+                        const float* __restrict__ lz1,
+                        const float* __restrict__ lz2, KdCopy kd,
+                        const float* __restrict__ light, int n_rays,
+                        float tmin, float tmax, float* __restrict__ t_out,
+                        int* __restrict__ row_out, float* __restrict__ nrm_out,
+                        int* __restrict__ mat_out,
+                        uint8_t* __restrict__ occ_out) {
+  __shared__ int s_ref[tpt::kWalkThreads / G][tpt::kStack];
+  __shared__ float s_tn[tpt::kWalkThreads / G][tpt::kStack];
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;  // whole groups leave together
+  const Ray r = load_ray(orig, dir, i);
+  float best;
+  int best_id, best_row;
+  closest_walk<G>(r, g, kd, tmin, tmax, s_ref[g.slot], s_tn[g.slot], best,
+                  best_id, best_row);
 
   // The shadow ray, in registers, as closest_nee_kernel forms it.
   Ray s;
@@ -353,30 +471,23 @@ closest_nee_tree_kernel(const float* __restrict__ orig,
   s.dy = tly * inv;
   s.dz = tlz * inv;
   const float tm = dist2 * inv - kNeeEps;
-  bool blocked = false;
-  // Nothing can block when (tmin, tm) is empty; a box entered at
-  // tn >= tm holds no blocking hit, so the bound is tm throughout.
-  if (tm > tmin) {
-    if (n_top > 0)
-      blocked = tpt::cluster_blocked(s, rows, 0, n_top, G, g, tmin, tm);
-    if (!blocked) {
-      const tpt::ClusterTree shadow{
-          bx, nd, n_boxes, margin * (scale + tpt::max_abs_origin(s))};
-      tpt::walk_tree(s, tpt::make_slab(s), tmin, tm, shadow, g,
-                     s_ref[g.slot], s_tn[g.slot], [&](int c, float*) {
-                       blocked = tpt::cluster_blocked(
-                           s, rows, n_top + c * cluster, cluster, G, g, tmin,
-                           tm);
-                       return blocked;
-                     });
-    }
-  }
+  const bool blocked =
+      any_hit_walk<G>(s, g, kd, tmin, tm, s_ref[g.slot], s_tn[g.slot]);
   if (g.lane != 0) return;
   t_out[i] = best;
   row_out[i] = best < kTFar ? best_id : 0;
   occ_out[i] = blocked ? 1 : 0;
-  write_attrs(tris, r, i, best, best_row, false, nrm_out, mat_out, nullptr,
-              nullptr);
+  write_attrs(reinterpret_cast<const float*>(kd.rows), r, i, best, best_row,
+              false, nrm_out, mat_out, nullptr, nullptr);
+}
+
+inline KdCopy kd_copy(const float* tris, int n_top, const float* boxes,
+                      const float* nodes, int n_boxes, int cluster,
+                      float scale, float margin) {
+  return KdCopy{reinterpret_cast<const float4*>(tris), n_top,
+                reinterpret_cast<const float4*>(boxes),
+                reinterpret_cast<const float4*>(nodes), n_boxes, cluster,
+                scale, margin};
 }
 
 }  // namespace
@@ -385,7 +496,8 @@ extern "C" {
 
 // Each entry point launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() as an int (0 = success).
-// tpt_closest_nee_full takes the kd copy: `tris` [n_top + n_boxes *
+// The walks (tpt_closest_full_tree, tpt_occluded_tree,
+// tpt_closest_nee_full) take a kd copy: `tris` [n_top + n_boxes *
 // cluster, 16], `boxes` [n_boxes, 8] and `nodes` [n_boxes - 1, 8] f32,
 // 16-byte aligned, the boxes' scale and the relative culling margin
 // (clustered.py, BOX_MARGIN), and the walk's lanes a ray (4, 8, 16 or
@@ -438,14 +550,52 @@ int tpt_closest_nee_full(const float* orig, const float* dir, const float* lz1,
                          float tmax, float* t_out, int* row_out,
                          float* nrm_out, int* mat_out, uint8_t* occ_out,
                          int group, void* stream) {
+  const KdCopy kd =
+      kd_copy(tris, n_top, boxes, nodes, n_boxes, cluster, scale, margin);
   const bool ok = tpt::with_group(group, [&](auto gc) {
     constexpr int G = decltype(gc)::value;
     closest_nee_tree_kernel<G>
         <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
-           (cudaStream_t)stream>>>(orig, dir, lz1, lz2, tris, n_top, boxes,
-                                   nodes, n_boxes, cluster, scale, margin,
-                                   light, n_rays, tmin, tmax, t_out, row_out,
-                                   nrm_out, mat_out, occ_out);
+           (cudaStream_t)stream>>>(orig, dir, lz1, lz2, kd, light, n_rays,
+                                   tmin, tmax, t_out, row_out, nrm_out,
+                                   mat_out, occ_out);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+int tpt_closest_full_tree(const float* orig, const float* dir,
+                          const float* tris, int n_top, const float* boxes,
+                          const float* nodes, int n_boxes, int cluster,
+                          float scale, float margin, int n_rays, float tmin,
+                          float tmax, int want_uv, float* t_out, int* row_out,
+                          float* nrm_out, int* mat_out, float* u_out,
+                          float* v_out, int group, void* stream) {
+  const KdCopy kd =
+      kd_copy(tris, n_top, boxes, nodes, n_boxes, cluster, scale, margin);
+  const bool ok = tpt::with_group(group, [&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+    closest_full_tree_kernel<G>
+        <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
+           (cudaStream_t)stream>>>(orig, dir, kd, n_rays, tmin, tmax, want_uv,
+                                   t_out, row_out, nrm_out, mat_out, u_out,
+                                   v_out);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+int tpt_occluded_tree(const float* orig, const float* dir, const float* tmax,
+                      const float* tris, int n_top, const float* boxes,
+                      const float* nodes, int n_boxes, int cluster,
+                      float scale, float margin, int n_rays, float tmin,
+                      uint8_t* occ_out, int group, void* stream) {
+  const KdCopy kd =
+      kd_copy(tris, n_top, boxes, nodes, n_boxes, cluster, scale, margin);
+  const bool ok = tpt::with_group(group, [&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+    occluded_tree_kernel<G>
+        <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
+           (cudaStream_t)stream>>>(orig, dir, tmax, kd, n_rays, tmin,
+                                   occ_out);
   });
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }

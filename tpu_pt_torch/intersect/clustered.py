@@ -570,21 +570,24 @@ class ClusteredTables:
     scale: float                  # their box_scale
     occ_rows: torch.Tensor | None  # K2 table (small occluder subset) or None
     mat_bsdf: torch.Tensor        # [M] i32, for the first-hit occlusion quirk
+    occ_kd: dense.KdTables | None = None  # K2's walk, above LEAN_MAX_TRIS
 
 
 def prepare(scene: SceneArrays) -> ClusteredTables:
     """Clustered tables of ``scene``, the cluster tree included (one host
-    sync). Shadow rays sweep the NEE occluder subset with K2 when it has at
-    most TRI_SLAB rows, and the whole clustered table with K8 otherwise
-    (``pallas_bf.intersect_occluded``)."""
+    sync). Shadow rays take K2 over the NEE occluder subset when it has at
+    most TRI_SLAB rows (its walk of the subset's kd copy above
+    LEAN_MAX_TRIS rows, ``dense.occ_kd_tables``), and K8 over the whole
+    clustered table otherwise (``pallas_bf.intersect_occluded``)."""
     rows, boxes = pack_tris_clustered(scene)
     sub = dense._occ_subset(scene)
-    occ_rows = None
+    occ_rows = occ_kd = None
     if sub is not None and sub[0].shape[0] <= dense.TRI_SLAB:
         occ_rows = dense._trim_rows(sub[1], sub[0]).contiguous()
+        occ_kd = dense.occ_kd_tables(scene, occ_rows)
     return ClusteredTables(rows=rows, boxes=boxes, nodes=cluster_tree(boxes),
                            scale=box_scale(boxes), occ_rows=occ_rows,
-                           mat_bsdf=scene.mat_bsdf)
+                           mat_bsdf=scene.mat_bsdf, occ_kd=occ_kd)
 
 
 def _lean_resolve_packed(tris: torch.Tensor, origins, dirs, t, row,
@@ -736,7 +739,8 @@ def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
                  quirk_first_hit: bool = False, allow_cbin: bool = True,
                  allow_binned: bool = True) -> torch.Tensor:
     """Any-hit occlusion with per-ray tmax (``pallas_bf.intersect_occluded``):
-    K2 over a small occluder subset, else over the clustered table K14
+    K2 over a small occluder subset (``dense.occluded_subset``: its walk
+    when the subset has a kd copy), else over the clustered table K14
     (``TPT_BINNED`` in ``1``, ``occ``), K13, K12, K15
     (``occluded_scheduler``) or K8 (K8b with ``TPT_INKB=1``); refractive
     surfaces pass light. K14 finishes its overflow through this function
@@ -746,7 +750,8 @@ def occluded_hit(tables: ClusteredTables, origins: torch.Tensor,
         in_range = h.hit & (h.t < tmax)
         return in_range & (tables.mat_bsdf[h.mat.long()] != BSDF_REFRACTION)
     if tables.occ_rows is not None:
-        return dense.occluded(origins, dirs, tmax, tables.occ_rows, tmin)
+        return dense.occluded_subset(tables.occ_rows, tables.occ_kd, origins,
+                                     dirs, tmax, tmin)
     how = occluded_scheduler(allow_cbin)
     from . import ablations
     table = (tables.rows, tables.boxes, tables.scale, tmin)

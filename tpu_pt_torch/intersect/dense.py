@@ -9,9 +9,11 @@ version):
 - ``closest_lean`` (K1): ``_closest_kernel_lean`` via
   ``_closest_call_lean``; ``_closest_plain``;
 - ``occluded`` (K2): ``_occluded_kernel`` via ``_occluded_call``;
-  ``_occluded_plain``;
+  ``_occluded_plain``; as a walk of a kd copy of the occluder subset,
+  ``occluded_tree``; ``_occluded_kd_plain``;
 - ``closest_full`` (K3): ``_closest_kernel`` via ``_closest_call``;
-  ``_closest_plain(full=True)``;
+  ``_closest_plain(full=True)``; as a walk of the table's kd copy,
+  ``closest_full_tree``; ``_closest_full_kd_plain``;
 - ``closest_nee_lean`` (K4): ``_closest_nee_kernel_lean`` via
   ``_closest_nee_call_lean``; ``_closest_nee_plain``;
 - ``closest_nee_full`` (K5): ``_closest_nee_kernel`` via
@@ -20,12 +22,16 @@ version):
 
 K4 and K5 are the fused closest hit + NEE shadow ray of
 ``RenderConfig.fused_nee`` (``intersect_closest_nee``). K5 walks a kd copy
-of its table (``KdTables``: the rows of ``clustered.pack_tris_clustered``,
-128-row clusters with boxes, and their ``cluster_tree``), which ``prepare``
-builds for a table above ``LEAN_MAX_TRIS`` rows; ties go to the lowest
-dense row (column 15), as in the dense sweep. Its dense body stays as
-``closest_nee_full_dense``, on no path, the yardstick ``chip_smoke.py``
-holds the walk against.
+of its table (``KdTables``: the rows of the triangles that span the scene
+first, then the rest in 128-row clusters with boxes and their
+``cluster_tree``), which ``prepare`` builds for a table above
+``LEAN_MAX_TRIS`` rows; ties go to the lowest dense row (column 15), as in
+the dense sweep. Its dense body stays as ``closest_nee_full_dense``, on no
+path, the yardstick ``chip_smoke.py`` holds the walk against. K3 walks the
+same copy (``closest_full_tree``); K2 walks a kd copy of the occluder
+subset (``DenseTables.occ_kd``), which ``prepare`` builds for a subset of
+more than ``LEAN_MAX_TRIS`` rows. ``closest_full`` and ``occluded`` stay
+on the path for the tables without a copy.
 
 The CUDA kernels are in ``csrc/dense_intersect.cu`` (bound by
 ``tpu_pt_torch._kernels``). A wrapper runs the plain version only for
@@ -64,6 +70,7 @@ _PLAIN_ROWS = 4096      # rows per block (temporaries stay cache-sized)
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
 LAUNCHES = {"closest_lean": 0, "occluded": 0, "closest_full": 0,
+            "closest_full_tree": 0, "occluded_tree": 0,
             "closest_nee_lean": 0, "closest_nee_full": 0,
             "closest_nee_full_dense": 0}
 NEE_EPS = 0.01         # shadow-ray range shrink (cu:1017 "Ldist - 0.01")
@@ -274,6 +281,36 @@ def _closest_by_id_plain(origins, dirs, rows, tmin: float,
     return t_out, id_out, row_out
 
 
+def _closest_full_kd_plain(origins, dirs, kd_rows, tmin: float,
+                           tmax: float = T_FAR, want_uv: bool = False):
+    """Plain version of K3 on the kd copy of its table: the closest hit
+    clipped at ``tmax``, ties to the lowest dense row (column 15); the
+    winning kd row's normal, material and (``want_uv``) u, v at the hit
+    point, in ``_pe_block``'s operation order. Returns (t, dense row,
+    normal, mat, u, v), bit for bit ``_closest_plain(full=True)`` on the
+    dense table."""
+    t, ids, krow = _closest_by_id_plain(origins, dirs, kd_rows, tmin, tmax)
+    hit = t < T_FAR
+    won = kd_rows[krow.long()]
+    normal = torch.where(hit[:, None], won[:, 0:3], 0.0)
+    mat = torch.where(hit, won[:, 14], 0.0).to(torch.int32)
+    u = v = torch.zeros_like(t)
+    if want_uv:
+        p = [origins[:, k] + t * dirs[:, k] for k in range(3)]
+        u = torch.where(hit, won[:, 4] * p[0] + won[:, 5] * p[1]
+                        + won[:, 6] * p[2] + won[:, 7], 0.0)
+        v = torch.where(hit, won[:, 8] * p[0] + won[:, 9] * p[1]
+                        + won[:, 10] * p[2] + won[:, 11], 0.0)
+    return t, ids, normal, mat, u, v
+
+
+def _occluded_kd_plain(origins, dirs, tmax, kd_rows,
+                       tmin: float) -> torch.Tensor:
+    """Plain version of K2 on a kd copy of its table: any-hit needs no
+    order, so the copy's rows through ``_occluded_plain``."""
+    return _occluded_plain(origins, dirs, tmax, kd_rows, tmin)
+
+
 def _closest_nee_plain(origins, dirs, lz1, lz2, tris, occ_tris, light,
                        tmin: float, tmax: float = T_FAR, full: bool = False):
     """Plain version of K4 (``full=False``: K1's sweep, then the shadow
@@ -311,6 +348,24 @@ def _closest_nee_kd_plain(origins, dirs, lz1, lz2, kd_rows, light,
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
+
+def full_walk_group(n_rays: int) -> int:
+    """Lanes a ray of K3's walk for a call of ``n_rays`` rays, from
+    tools/clustered_group_trial.py on the sphere box (PERF.md): 16 up to
+    ``clustered.WALK_NARROW_RAYS`` (the frame's 65,536 lanes; 4 lanes lose
+    29% there) and 8 above (262,144: within 1.4% of 4), the widths of
+    ``clustered.walk_group``."""
+    from . import clustered
+    return clustered.walk_group(n_rays)
+
+
+def occ_walk_group(n_rays: int) -> int:
+    """Lanes a ray of K2's walk for a call of ``n_rays`` rays, from the same
+    trial: 32 up to ``clustered.WALK_NARROW_RAYS`` (the frame's 65,536
+    lanes, 13% under 16) and 16 above (262,144, 9% under 32)."""
+    from . import clustered
+    return 32 if n_rays <= clustered.WALK_NARROW_RAYS else 16
+
 
 def _on_cpu(origins: torch.Tensor) -> bool:
     """True for CPU tensors (plain version); False for CUDA tensors
@@ -419,6 +474,86 @@ def occluded(origins: torch.Tensor, dirs: torch.Tensor, tmax: torch.Tensor,
     return out
 
 
+def _check_kd(rows, top: int, boxes, nodes, device) -> tuple[int, int]:
+    """(clusters, rows a cluster) of a kd copy handed to a walk: ``rows``
+    [top + C * cluster, 16], ``boxes`` [C, 8], ``nodes`` [C - 1, 8]."""
+    from . import clustered
+    if not 0 <= top <= rows.shape[0]:
+        raise ValueError(f"{top} top rows of a {rows.shape[0]}-row table")
+    n_boxes, cluster = clustered._check_tables(rows[top:], boxes, device)
+    clustered._check_nodes(nodes, n_boxes, device)
+    return n_boxes, cluster
+
+
+def closest_full_tree(origins: torch.Tensor, dirs: torch.Tensor,
+                      rows: torch.Tensor, top: int, boxes: torch.Tensor,
+                      nodes: torch.Tensor, scale: float, tmin: float,
+                      tmax: float, want_uv: bool, group: int | None = None):
+    """K3 as a walk of the kd copy of its table (``KdTables``: ``rows``
+    [top + C * cluster, 16] whose column 15 is the dense row, the ``top``
+    rows every ray sweeps first, cluster ``boxes`` [C, 8], ``nodes``
+    [C - 1, 8], ``scale``), ``group`` lanes a ray (``full_walk_group``
+    of the ray count when None). Returns ``closest_full``'s (t, dense
+    row, normal, mat, u, v) on the dense table, ties to the lowest dense
+    row."""
+    if _on_cpu(origins):
+        return _closest_full_kd_plain(origins, dirs, rows, tmin, tmax,
+                                      want_uv)
+    from .. import _kernels
+    from . import clustered
+    n, _ = _check_inputs(origins, dirs, rows)
+    dev = origins.device
+    n_boxes, cluster = _check_kd(rows, top, boxes, nodes, dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    mat = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_full_tree", origins.data_ptr(),
+                        dirs.data_ptr(), rows.data_ptr(), int(top),
+                        boxes.data_ptr(), nodes.data_ptr(), n_boxes, cluster,
+                        float(scale), clustered.BOX_MARGIN, n, float(tmin),
+                        float(tmax), int(bool(want_uv)), t.data_ptr(),
+                        row.data_ptr(), normal.data_ptr(), mat.data_ptr(),
+                        u.data_ptr(), v.data_ptr(),
+                        full_walk_group(n) if group is None else int(group),
+                        _stream(dev))
+        LAUNCHES["closest_full_tree"] += 1
+    return t, row, normal, mat, u, v
+
+
+def occluded_tree(origins: torch.Tensor, dirs: torch.Tensor,
+                  tmax: torch.Tensor, rows: torch.Tensor, top: int,
+                  boxes: torch.Tensor, nodes: torch.Tensor, scale: float,
+                  tmin: float, group: int | None = None) -> torch.Tensor:
+    """K2 as a walk of a kd copy of its table (the occluder subset's,
+    ``DenseTables.occ_kd``; laid out as ``closest_full_tree`` takes it),
+    ``group`` lanes a ray (``occ_walk_group`` of the ray count when
+    None): per ray, is any
+    non-refractive row hit with tmin < t < tmax[i]? Returns bool [N]."""
+    if _on_cpu(origins):
+        return _occluded_kd_plain(origins, dirs, tmax, rows, tmin)
+    from .. import _kernels
+    from . import clustered
+    n, _ = _check_inputs(origins, dirs, rows)
+    dev = origins.device
+    _check("tmax", tmax, torch.float32, (n,), dev)
+    n_boxes, cluster = _check_kd(rows, top, boxes, nodes, dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _kernels.launch("tpt_occluded_tree", origins.data_ptr(),
+                        dirs.data_ptr(), tmax.data_ptr(), rows.data_ptr(),
+                        int(top), boxes.data_ptr(), nodes.data_ptr(), n_boxes,
+                        cluster, float(scale), clustered.BOX_MARGIN, n,
+                        float(tmin), out.data_ptr(),
+                        occ_walk_group(n) if group is None else int(group),
+                        _stream(dev))
+        LAUNCHES["occluded_tree"] += 1
+    return out
+
+
 def _check_nee(origins, lz1, lz2, light) -> None:
     n, dev = origins.shape[0], origins.device
     _check("lz1", lz1, torch.float32, (n,), dev)
@@ -475,10 +610,7 @@ def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
     n, _ = _check_inputs(origins, dirs, rows)
     _check_nee(origins, lz1, lz2, light)
     dev = origins.device
-    if not 0 <= top <= rows.shape[0]:
-        raise ValueError(f"{top} top rows of a {rows.shape[0]}-row table")
-    n_boxes, cluster = clustered._check_tables(rows[top:], boxes, dev)
-    clustered._check_nodes(nodes, n_boxes, dev)
+    n_boxes, cluster = _check_kd(rows, top, boxes, nodes, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -534,12 +666,13 @@ def closest_nee_full_dense(origins: torch.Tensor, dirs: torch.Tensor,
 
 @dataclasses.dataclass
 class KdTables:
-    """K5's kd copy of a dense table (``kd_tables``): the packed rows of
-    the scene's real triangles, bit for bit the dense table's (column 15
-    is the dense row), the ``top`` rows of the triangles that span the
-    scene first, then the rest in balanced-kd order cut into clusters of
-    ``clustered.CLUSTER`` rows (zero rows pad the last); the clusters'
-    boxes, their ``cluster_tree`` and ``box_scale``."""
+    """A kd copy of a dense table (``kd_tables``), which K5, K3 and K2
+    walk: the packed rows of the triangles it copies, bit for bit the
+    dense table's (column 15 is the dense row), the ``top`` rows of the
+    triangles that span the scene first, then the rest in balanced-kd
+    order cut into clusters of ``clustered.CLUSTER`` rows (zero rows pad
+    the last); the clusters' boxes, their ``cluster_tree`` and
+    ``box_scale``."""
     rows: torch.Tensor        # [top + C * CLUSTER, 16]
     top: int
     boxes: torch.Tensor       # [C, 8]
@@ -553,17 +686,20 @@ class DenseTables:
     rows: torch.Tensor        # K1 / K3 table
     occ_rows: torch.Tensor    # K2 table: the NEE occluder subset, or all rows
     mat_bsdf: torch.Tensor    # [M] i32, for the first-hit occlusion quirk
-    kd: KdTables | None = None  # K5's walk, above LEAN_MAX_TRIS rows
+    kd: KdTables | None = None  # K5's and K3's walk, above LEAN_MAX_TRIS rows
+    occ_kd: KdTables | None = None  # K2's walk, above LEAN_MAX_TRIS rows
 
 
-def kd_tables(scene: SceneArrays) -> KdTables:
-    """The kd copy of ``scene``'s packed rows that K5 walks. A triangle
-    whose box spans more than 1 / TOP_SPAN of the scene's largest extent
-    (a Cornell box's walls, floor, ceiling and blocks) would stretch any
-    cluster box over the room, so such triangles, at most CLUSTER of them
-    (the widest), lead the copy as rows every ray sweeps; the others are
-    ordered by ``median_split_order`` and cut into clusters whose boxes
-    span their rows' vertices. Host numpy, once per ``prepare``."""
+def kd_tables(scene: SceneArrays, tris=None) -> KdTables:
+    """A kd copy of the packed rows of ``scene``'s triangles ``tris``
+    (indices; every real triangle when None, the table K5 and K3 walk; the
+    NEE occluder subset for K2). A triangle whose box spans more than
+    1 / TOP_SPAN of the copied triangles' largest extent (a Cornell box's
+    walls, floor, ceiling and blocks) would stretch any cluster box over
+    the room, so such triangles, at most CLUSTER of them (the widest),
+    lead the copy as rows every ray sweeps; the others are ordered by
+    ``median_split_order`` and cut into clusters whose boxes span their
+    rows' vertices. Host numpy, once per ``prepare``."""
     from . import clustered
     cluster = clustered.CLUSTER
     packed = pack_tris(scene)
@@ -573,6 +709,8 @@ def kd_tables(scene: SceneArrays) -> KdTables:
     corners = np.stack([v0, v0 + e1, v0 + e2])          # f32, as the rows
     lo, hi = corners.min(0), corners.max(0)
     real = np.nonzero(valid)[0]
+    if tris is not None:
+        real = np.intersect1d(real, np.asarray(tris))
     ext = (hi - lo).max(1)
     span = float((hi[real].max(0) - lo[real].min(0)).max()) if real.size \
         else 0.0
@@ -600,15 +738,26 @@ def kd_tables(scene: SceneArrays) -> KdTables:
                     scale=clustered.box_scale(boxes))
 
 
+def occ_kd_tables(scene: SceneArrays, occ_rows: torch.Tensor):
+    """K2's kd copy of the NEE occluder subset whose table is ``occ_rows``,
+    when that table has more than LEAN_MAX_TRIS rows, else None."""
+    if occ_rows.shape[0] <= LEAN_MAX_TRIS:
+        return None
+    return kd_tables(scene, scene.occ_index[:scene.num_occluders].cpu())
+
+
 def prepare(scene: SceneArrays) -> DenseTables:
     """The scene's single-slab kernel tables (one table of every row), and
-    for a table above LEAN_MAX_TRIS rows (the K3 / K5 side) K5's kd copy."""
+    for a table above LEAN_MAX_TRIS rows (the K3 / K5 side) its kd copy,
+    for an occluder subset above LEAN_MAX_TRIS rows its own (K2's; with no
+    subset K2 sweeps every row, and walks the table's copy)."""
     rows = _trim_rows(scene.num_tris, pack_tris(scene))
     sub = _occ_subset(scene)
     occ_rows = rows if sub is None else _trim_rows(sub[1], sub[0])
     kd = kd_tables(scene) if rows.shape[0] > LEAN_MAX_TRIS else None
+    occ_kd = kd if sub is None else occ_kd_tables(scene, occ_rows)
     return DenseTables(rows=rows.contiguous(), occ_rows=occ_rows.contiguous(),
-                       mat_bsdf=scene.mat_bsdf, kd=kd)
+                       mat_bsdf=scene.mat_bsdf, kd=kd, occ_kd=occ_kd)
 
 
 def _lean_resolve(tris: torch.Tensor, origins, dirs, t, row,
@@ -632,28 +781,48 @@ def closest_hit(tables: DenseTables, origins: torch.Tensor,
                 dirs: torch.Tensor, tmin: float = 0.01,
                 tmax: float = T_FAR, want_uv: bool = True) -> Hit:
     """Closest hit: K1 + gather for small tables at tmax = T_FAR, else K3
-    (``pallas_bf._intersect_closest_tiled``, single-slab branches).
+    (``pallas_bf._intersect_closest_tiled``, single-slab branches): its
+    walk of the kd copy where the table has one, else its dense sweep.
     ``TPT_LEAN_UV=0``, read at every call, sends a call that wants u, v to
     K3 whatever the table's size (``pallas_bf.py:2324-2339``)."""
     lean_ok = not want_uv or os.environ.get("TPT_LEAN_UV", "1") == "1"
     if lean_ok and tmax >= T_FAR and tables.rows.shape[0] <= LEAN_MAX_TRIS:
         t, row = closest_lean(origins, dirs, tables.rows, tmin)
         return _lean_resolve(tables.rows, origins, dirs, t, row, want_uv)
-    t, row, normal, mat, u, v = closest_full(origins, dirs, tables.rows,
-                                             tmin, tmax, want_uv)
+    kd = tables.kd
+    if kd is not None:
+        t, row, normal, mat, u, v = closest_full_tree(
+            origins, dirs, kd.rows, kd.top, kd.boxes, kd.nodes, kd.scale,
+            tmin, tmax, want_uv)
+    else:
+        t, row, normal, mat, u, v = closest_full(origins, dirs, tables.rows,
+                                                 tmin, tmax, want_uv)
     return Hit(t=t, tri=row, hit=t < T_FAR, normal=normal, mat=mat, u=u, v=v)
+
+
+def occluded_subset(occ_rows: torch.Tensor, occ_kd: KdTables | None,
+                    origins: torch.Tensor, dirs: torch.Tensor,
+                    tmax: torch.Tensor, tmin: float) -> torch.Tensor:
+    """K2 over an occluder subset: the walk of its kd copy ``occ_kd`` when
+    there is one, else the dense sweep of its table ``occ_rows``."""
+    if occ_kd is not None:
+        return occluded_tree(origins, dirs, tmax, occ_kd.rows, occ_kd.top,
+                             occ_kd.boxes, occ_kd.nodes, occ_kd.scale, tmin)
+    return occluded(origins, dirs, tmax, occ_rows, tmin)
 
 
 def occluded_hit(tables: DenseTables, origins: torch.Tensor,
                  dirs: torch.Tensor, tmax: torch.Tensor, tmin: float = 0.01,
                  quirk_first_hit: bool = False) -> torch.Tensor:
     """Any-hit occlusion with per-ray tmax over the NEE occluder subset
-    (``pallas_bf.intersect_occluded``); refractive surfaces pass light."""
+    (``pallas_bf.intersect_occluded``; K2, ``occluded_subset``);
+    refractive surfaces pass light."""
     if quirk_first_hit:
         h = closest_hit(tables, origins, dirs, tmin=tmin, want_uv=False)
         in_range = h.hit & (h.t < tmax)
         return in_range & (tables.mat_bsdf[h.mat.long()] != BSDF_REFRACTION)
-    return occluded(origins, dirs, tmax, tables.occ_rows, tmin)
+    return occluded_subset(tables.occ_rows, tables.occ_kd, origins, dirs,
+                           tmax, tmin)
 
 
 def light_vector(scene: SceneArrays) -> torch.Tensor:
