@@ -513,18 +513,20 @@ def test_variables_are_read_at_call_time(mixed_scenes, monkeypatch):
 
 def test_lean_uv0_single_slab_takes_full_kernel(mixed_scenes, monkeypatch):
     """On a single-slab scene ``TPT_LEAN_UV=0`` sends a call that wants
-    u, v to K3 instead of K1 and its gather, as the JAX package does;
-    u and v agree with the JAX full-carry kernel to UV_ATOL."""
+    u, v to K3 instead of K1 and its gather, as the JAX package does (on
+    the mixed box, whose table has a kd copy, their walks); u and v agree
+    with the JAX full-carry kernel to UV_ATOL."""
     jscene, tscene = mixed_scenes
-    calls = _spy(monkeypatch, dense, ("closest_lean", "closest_full"))
+    calls = _spy(monkeypatch, dense, ("closest_lean_tree",
+                                      "closest_full_tree"))
     tables = dense.prepare(tscene)
     o, d, _, _, _ = _rays(jscene, 512, seed=19)
     lean = dense.closest_hit(tables, _t(o), _t(d), want_uv=True)
     monkeypatch.setenv("TPT_LEAN_UV", "0")
     dense.closest_hit(tables, _t(o), _t(d), want_uv=False)
-    assert calls == {"closest_lean": 2, "closest_full": 0}
+    assert calls == {"closest_lean_tree": 2, "closest_full_tree": 0}
     full = dense.closest_hit(tables, _t(o), _t(d), want_uv=True)
-    assert calls == {"closest_lean": 2, "closest_full": 1}
+    assert calls == {"closest_lean_tree": 2, "closest_full_tree": 1}
     j = pallas_bf.intersect_closest(jscene, jnp.asarray(o), jnp.asarray(d),
                                     want_uv=True)
     for k in ("t", "tri", "hit", "normal", "mat"):

@@ -123,11 +123,14 @@ def _walk_closest_nee(o, d, lz1, lz2, kd, light, tmax=T_FAR, final=None):
 
 def test_prepare_builds_the_kd_copy_above_lean_max(scenes):
     """The kd copy exists for a table above LEAN_MAX_TRIS rows (the K3 /
-    K5 side: the sphere box's 2,280) and not below (the mixed box's 432,
-    which K4 sweeps). On the sphere box the 32 triangles that span the room
-    (walls, floor, ceiling, light, blocks) lead it, and the sphere's 2,232
-    fill 18 clusters of 128 rows whose boxes stay near the sphere."""
-    assert dense.prepare(scenes["mixed"][1]).kd is None
+    K5 side: the sphere box's 2,280), and below it for a table that leaves
+    a cluster of rows outside its top rows (the mixed box's 432: 32 top
+    rows and the sphere's 396 in 4 clusters, which K1's and K4's walks
+    take). On the sphere box the 32 triangles that span the room (walls,
+    floor, ceiling, light, blocks) lead it, and the sphere's 2,232 fill
+    18 clusters of 128 rows whose boxes stay near the sphere."""
+    mixed = dense.prepare(scenes["mixed"][1]).kd
+    assert (mixed.top, mixed.boxes.shape[0]) == (32, 4)
     scene = scenes["sphere"][1]
     kd = dense.prepare(scene).kd
     assert kd is not None and scene.num_tris == 2264

@@ -16,9 +16,11 @@ a kd copy of the subset, built by the same rule. The tests hold:
 - a plain walk of each tree (the top rows, then the clusters
   ``clustered._tree_leaves_plain`` reaches at the walk's bound) to the
   same answers;
-- the routing: the sphere box to the walks, the mixed and monkey boxes to
-  the dense bodies, and a clustered scene whose occluder subset has more
-  than ``LEAN_MAX_TRIS`` rows (foliage, flattened) to K2's walk;
+- the routing: the sphere and monkey boxes to the walks, the mixed box's
+  closest hits to the walks and its shadow rays (24 occluders, no copy)
+  to K2's dense body, ``cornell_box.obj`` (no copy) to the dense bodies,
+  and a clustered scene whose occluder subset has more than
+  ``LEAN_MAX_TRIS`` rows (foliage, flattened) to K2's walk;
 - the port's ``closest_hit`` / ``occluded_hit`` on the sphere box against
   ``pallas_bf.intersect_closest`` / ``intersect_occluded`` (interpret
   mode) within ``tests/test_torch_intersect.py``'s tolerances: hit,
@@ -47,8 +49,11 @@ from test_torch_dense_tree import _edge_rays, _ties  # noqa: E402
 from test_torch_intersect import _rays, assert_same_hit  # noqa: E402
 
 TMIN = 0.01
-WRAPPERS = ("closest_lean", "closest_full", "closest_full_tree", "occluded",
-            "occluded_tree")
+WRAPPERS = ("closest_lean", "closest_lean_tree", "closest_full",
+            "closest_full_tree", "occluded", "occluded_tree")
+# K1 and K3 by their dense bodies' names, and their walks
+WALK_OF = {"closest_lean": "closest_lean_tree",
+           "closest_full": "closest_full_tree"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,10 +67,11 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def boxes(assets_dir):
-    """name -> (JAX scene, port scene, port tables) of the three boxes."""
+    """name -> (JAX scene, port scene, port tables) of the four boxes."""
     out = {}
-    for name in ("sphere", "mixed", "monkey"):
-        path = str(assets_dir / f"cornell_box_{name}.obj")
+    for name in ("sphere", "mixed", "monkey", "cornell"):
+        path = str(assets_dir / ("cornell_box.obj" if name == "cornell"
+                                 else f"cornell_box_{name}.obj"))
         scene = tp.load_scene(path, device="cpu")
         out[name] = (tpu_pt.load_scene(path), scene, dense.prepare(scene))
     return out
@@ -103,8 +109,10 @@ def test_prepare_builds_the_subset_copy_above_lean_max(boxes):
     """The sphere box's occluder subset (2,256 of its 2,264 triangles: the
     floor, ceiling, back and left walls bound every shadow segment, so
     they are not in it) has more than LEAN_MAX_TRIS rows, so it gets a
-    kd copy of its own beside the table's; the mixed box (24 occluders)
-    and the monkey box (1,232) get neither."""
+    kd copy of its own beside the table's. Below LEAN_MAX_TRIS a copy
+    needs a cluster of rows outside the top rows: the mixed box's table
+    gets one and its 24 occluders (all top rows) none, the monkey box's
+    table and its 1,232 occluders one each."""
     _, scene, tables = boxes["sphere"]
     assert scene.num_occluders == 2256 and tables.occ_rows.shape[0] == 2256
     occ_kd = tables.occ_kd
@@ -114,9 +122,10 @@ def test_prepare_builds_the_subset_copy_above_lean_max(boxes):
     assert occ_kd.rows.shape == (24 + 18 * clustered.CLUSTER, 16)
     assert torch.equal(occ_kd.nodes, clustered.cluster_tree(occ_kd.boxes))
     assert occ_kd.scale == clustered.box_scale(occ_kd.boxes)
-    for name in ("mixed", "monkey"):
+    for name, has_occ_kd in (("mixed", False), ("monkey", True)):
         _, scene, tables = boxes[name]
-        assert tables.kd is None and tables.occ_kd is None
+        assert tables.kd is not None
+        assert (tables.occ_kd is not None) == has_occ_kd
         assert tables.occ_rows.shape[0] == scene.num_occluders
 
 
@@ -274,13 +283,17 @@ class _Spy:
     ("mixed", T_FAR, "1", "closest_lean"),
     ("mixed", 600.0, "1", "closest_full"),
     ("mixed", T_FAR, "0", "closest_full"),
-    ("monkey", T_FAR, "1", "closest_lean")])
+    ("monkey", T_FAR, "1", "closest_lean"),
+    ("cornell", T_FAR, "1", "closest_lean")])
 def test_routing(boxes, sphere_rays, monkeypatch, name, tmax, lean_uv,
                  closest):
-    """``closest_hit`` / ``occluded_hit`` send the sphere box to the walks
-    (with the prepared kd copies) and the mixed and monkey boxes to the
-    dense bodies: K1 at tmax = T_FAR, K3's dense sweep at a finite tmax or
-    under TPT_LEAN_UV=0, K2's dense sweep over the subset."""
+    """``closest_hit`` / ``occluded_hit`` take K1 at tmax = T_FAR, else K3
+    (a finite tmax, or TPT_LEAN_UV=0), as ``closest`` names it (by its
+    dense body or its walk), and K2 over the subset; each as the walk of
+    its table's prepared kd copy where there is one (the sphere, mixed
+    and monkey boxes' tables; the sphere and monkey boxes' subsets), else
+    as its dense body (``cornell_box.obj``; the mixed box's 24
+    occluders)."""
     monkeypatch.setenv("TPT_LEAN_UV", lean_uv)
     spy = _Spy(monkeypatch)
     _, _, tables = boxes[name]
@@ -288,20 +301,23 @@ def test_routing(boxes, sphere_rays, monkeypatch, name, tmax, lean_uv,
     dense.closest_hit(tables, o, d, tmax=tmax, want_uv=True)
     dense.occluded_hit(tables, _t(sphere_rays[2][:256]),
                        _t(sphere_rays[3][:256]), _t(sphere_rays[4][:256]))
-    walks = name == "sphere"
-    occluded = "occluded_tree" if walks else "occluded"
+    kd, occ_kd = tables.kd, tables.occ_kd
+    assert (kd is None) == (name == "cornell")
+    if kd is not None:
+        closest = WALK_OF.get(closest, closest)
+    occluded = "occluded" if occ_kd is None else "occluded_tree"
     assert spy.counts() == {closest: 1, occluded: 1}
-    if walks:
-        kd, occ_kd = tables.kd, tables.occ_kd
+    if kd is not None:
         args = spy.calls[closest][0]
         assert args[2] is kd.rows and args[4] is kd.boxes
         assert args[5] is kd.nodes and (args[3], args[6]) == (kd.top,
                                                               kd.scale)
+    if occ_kd is not None:
         args = spy.calls[occluded][0]
         assert args[3] is occ_kd.rows and args[5] is occ_kd.boxes
         assert args[6] is occ_kd.nodes and (args[4], args[7]) == (
             occ_kd.top, occ_kd.scale)
-    elif occluded == "occluded":
+    else:
         assert spy.calls[occluded][0][3] is tables.occ_rows
 
 

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Lanes a ray of the tree walks (``tpu_pt_torch/csrc/walk.cuh``): the
 trial that sets ``clustered.walk_group`` (K6, K6f, K8),
-``dense.NEE_WALK_GROUP`` (the fused K5), ``dense.full_walk_group`` (K3),
-``dense.occ_walk_group`` (K2) and ``instanced.walk_group`` (K9).
+``dense.NEE_WALK_GROUP`` (the fused K5), ``dense.full_walk_group`` (K3,
+K1 and K4), ``dense.occ_walk_group`` (K2) and ``instanced.walk_group``
+(K9).
 
 Each walk is built at every group width G of GROUPS (a template
-parameter; its entry points take G as ``group``). Five parts, each
+parameter; its entry points take G as ``group``). Seven parts, each
 timing every width beside its yardstick, the kernel body the walk
 replaced, with every result held bitwise against it:
 
@@ -32,17 +33,26 @@ replaced, with every result held bitwise against it:
   to the light) on the sphere box at DENSE_WIDTHS (65,536 parked, the
   sphere-box frame's lanes; 262,144 unparked), against their dense
   bodies ``closest_full`` / ``occluded`` and, at 65,536, the plain
-  versions.
+  versions;
+- ``lean`` and ``lean_nee``: K1 (``closest_lean_tree``) and K4
+  (``closest_nee_lean_tree``, light samples from the counter RNG) on the
+  mixed box at LEAN_WIDTHS (65,536 parked; 262,144 parked, the bench
+  frame's lanes as chip_smoke.py's kernels phase feeds them; 262,144
+  unparked), against their dense bodies ``closest_lean`` /
+  ``closest_nee_lean`` and, at 65,536, the plain versions; then every
+  call of one bench frame (frame 0 of chip_smoke.py's bench.py frame,
+  unfused for K1, ``fused_nee`` for K4), recorded and replayed at each
+  width and through the dense body: the frame's summed device time.
 
 Every width, the shipped choice and the yardstick are timed in turns
 (CUDA events), twice over. Prints one JSON line per (kernel, scene, ray
-count): the ms of each, the width the package picks there, and the
-card's name and power limit.
+count; or the bench frame's replayed calls): the ms of each, the width
+the package picks there, and the card's name and power limit.
 
 Run on a machine with a CUDA card, from the repository root:
 ``python3 tools/clustered_group_trial.py [big] [fused] [inst]
-[closest_full] [occluded]`` (all five when none is named; ~2 minutes
-with the build).
+[closest_full] [occluded] [lean] [lean_nee]`` (all seven when none is
+named; ~2 minutes with the build).
 """
 
 from __future__ import annotations
@@ -61,6 +71,8 @@ FUSED_WIDTHS = (("65536 parked", 65536, True),
                 ("262144 parked", 262144, True))
 INST_WIDTHS = (("16384 parked", 16384, True), ("262144", 262144, False))
 DENSE_WIDTHS = (("65536 parked", 65536, True), ("262144", 262144, False))
+LEAN_WIDTHS = (("65536 parked", 65536, True), ("262144 parked", 262144, True),
+               ("262144", 262144, False))
 
 
 def _time(call, smi, what: dict, picked: int, yardstick: str, extra=()):
@@ -209,6 +221,90 @@ def dense_walk_part(device, smi, which: str) -> None:
               "dense")
 
 
+def lean_walk_part(device, smi, which: str) -> None:
+    """K1 (``which`` = "lean") or K4 ("lean_nee") on the mixed box at every
+    width of GROUPS against its dense body."""
+    import chip_smoke as cs
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import dense
+    scene = tp.load_scene(str(cs.ASSETS / "cornell_box_mixed.obj"),
+                          device=device)
+    tables, light = dense.prepare(scene), dense.light_vector(scene)
+    rows, occ, kd = tables.rows, tables.occ_rows, tables.kd
+    walk_args = (kd.rows, kd.top, kd.boxes, kd.nodes, kd.scale)
+    subset = (occ, occ.shape[0], None, None, 0.0)
+    nee = which == "lean_nee"
+    for label, n, park in LEAN_WIDTHS:
+        o, d, shadow = cs._phase3_rays(
+            scene, device, 16, rows,
+            lambda o, d: dense._closest_plain(o, d, rows, 0.01), n)
+        if park:
+            (o, d), _ = cs._park((o, d), shadow, cs.PARK_EVERY)
+        lz1, lz2 = cs._light_samples(n, 16, device)
+
+        def call(g, o=o, d=d, lz1=lz1, lz2=lz2):
+            if nee:
+                if g is None:
+                    return dense.closest_nee_lean(o, d, lz1, lz2, rows, occ,
+                                                  light, 0.01)
+                return dense.closest_nee_lean_tree(o, d, lz1, lz2, *walk_args,
+                                                   *subset, light, 0.01, g)
+            if g is None:
+                return dense.closest_lean(o, d, rows, 0.01)
+            return dense.closest_lean_tree(o, d, *walk_args, 0.01, g)
+        ref = call(None)
+        if n == LEAN_WIDTHS[0][1]:
+            plain = (dense._closest_nee_plain(o, d, lz1, lz2, rows, occ,
+                                              light, 0.01) if nee
+                     else dense._closest_plain(o, d, rows, 0.01))
+            _same(ref, plain, f"{which} dense body against the plain "
+                  "version")
+        for g in GROUPS:
+            _same(call(g), ref, f"{which} walk G{g} at {label}")
+        _time(call, smi, {"kernel": "K4" if nee else "K1",
+                          "scene": "mixed box", "rays": label},
+              dense.full_walk_group(n), "dense")
+    # Every call of one bench frame, replayed: the frame's device time.
+    name = "closest_nee_lean_tree" if nee else "closest_lean_tree"
+    calls = _record_calls(scene, device, name, dict(
+        next(r[4] for r in cs.MAIN_RUNS if r[0] == cs.BENCH_TAG),
+        use_direct_lighting=True, use_importance_sampling=True,
+        fused_nee=nee))
+    walk = getattr(dense, name)
+
+    def frame(g):
+        return [cs._dense_body_of(name, args, tables) if g is None
+                else walk(*args, group=g) for args in calls]
+    refs = frame(None)
+    for g in GROUPS:
+        for out, ref in zip(frame(g), refs):
+            _same(out, ref, f"{which} walk G{g} on a bench-frame call")
+    _time(frame, smi, {"kernel": "K4" if nee else "K1",
+                       "scene": "mixed box",
+                       "rays": f"bench frame, {len(calls)} calls"},
+          dense.full_walk_group(calls[0][0].shape[0]), "dense")
+
+
+def _record_calls(scene, device, name: str, cfg: dict) -> list:
+    """The arguments of every call of dense wrapper ``name`` in frame 0 of
+    a render of ``scene`` at ``cfg``, cloned."""
+    import torch
+    import chip_smoke as cs
+    from tpu_pt_torch.intersect import dense
+    real, calls = getattr(dense, name), []
+
+    def tap(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return real(*args)
+    setattr(dense, name, tap)
+    try:
+        cs._render(scene, device, [0], **cfg)
+    finally:
+        setattr(dense, name, real)
+    return calls
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -216,7 +312,7 @@ def main() -> int:
     import chip_smoke as cs
     from tpu_pt_torch import _kernels
     parts = sys.argv[1:] or ["big", "fused", "inst", "closest_full",
-                             "occluded"]
+                             "occluded", "lean", "lean_nee"]
     device, smi = cs.phase_device()
     _kernels.build()
     if "fused" in parts:
@@ -226,6 +322,9 @@ def main() -> int:
     for which in ("closest_full", "occluded"):
         if which in parts:
             dense_walk_part(device, smi, which)
+    for which in ("lean", "lean_nee"):
+        if which in parts:
+            lean_walk_part(device, smi, which)
     if "big" in parts:
         big_part(device, smi)
     return 0

@@ -39,6 +39,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dense_intersect": {
         "tpt_closest_lean": (_P, _P, _P, _I, _I, _F, _P, _P, _P),
+        "tpt_closest_lean_tree": (_P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _I,
+                                  _F, _P, _P, _I, _P),
         "tpt_closest_full": (_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P,
                              _P, _P, _P),
         "tpt_occluded": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
@@ -48,6 +50,9 @@ _SIGNATURES = {
                               _F, _P, _I, _P),
         "tpt_closest_nee_lean": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _F,
                                  _P, _P, _P, _P),
+        "tpt_closest_nee_lean_tree": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                                      _F, _P, _I, _P, _P, _I, _I, _F, _F, _P,
+                                      _I, _F, _P, _P, _P, _I, _P),
         "tpt_closest_nee_full": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F,
                                  _F, _P, _I, _F, _F, _P, _P, _P, _P, _P, _I,
                                  _P),

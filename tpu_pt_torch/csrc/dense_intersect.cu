@@ -6,6 +6,10 @@
 //   tpt_closest_lean  <- _closest_kernel_lean (body _lean_sweep), launched by
 //                        _closest_call_lean: per ray, the minimum t over all
 //                        packed rows and the lowest row among equal t.
+//   tpt_closest_lean_tree
+//                     <- the same: tpt_closest_lean's function as a walk of a
+//                        kd copy of the table (below), for a table of at
+//                        most 2,048 rows whose copy has clusters.
 //   tpt_closest_full  <- _closest_kernel (body _closest_sweep), launched by
 //                        _closest_call: the same, clipped at a finite tmax,
 //                        plus the winner's normal, material and u/v.
@@ -25,6 +29,11 @@
 //                        then the NEE shadow ray from the hit point to the
 //                        light point (lz1, lz2), swept any-hit over the
 //                        occluder subset rows.
+//   tpt_closest_nee_lean_tree
+//                     <- the same: tpt_closest_nee_lean's function as a walk
+//                        of the table's kd copy, the shadow ray over the
+//                        occluder subset's copy, or over the subset's rows
+//                        when it has none.
 //   tpt_closest_nee_full
 //                     <- _closest_nee_kernel, launched by _closest_nee_call:
 //                        tpt_closest_full's function (no u/v), then the
@@ -80,6 +89,25 @@
 // scene/arrays.nee_occluder_index), so it walks a kd copy of its own,
 // built from the subset's triangles by the same rule. A shadow ray reads
 // its own tmax and culls with its own origin's margin.
+//
+// K1 and K4 on the mixed box (432 rows) are the same story at a smaller
+// size: with --fmad=false the dense sweep executes every multiply and add
+// as an instruction of its own, ~45 a pair, so by an estimate from the
+// code it already runs near the floor the instruction rate sets for a
+// bitwise sweep (~0.15 ms at 262,144 rays), and only less work can
+// help. 32
+// of its rows span the room; the other 396 are the glass sphere, a small
+// ball that most rays never come near. So a table of at most 2,048 rows
+// whose kd copy has at least one cluster of rows outside the top rows
+// (dense.prepare) is walked as K3 and K5 walk theirs: K1's walk is
+// closest_walk with no tmax (t and the dense row out; the caller gathers
+// the winner's row as after the dense body), K4's the same closest walk,
+// then the shadow ray any-hit over the occluder subset: any_hit_walk over
+// the subset's own kd copy when it has one, else the group's lanes split
+// the subset's rows (a copy of top rows only: the mixed box's 24
+// occluders all span the room). They take K3's widths: 4 lanes a ray win
+// on a frame's first rounds (camera rays), 8 and 16 on some later ones,
+// and 8 over a whole bench frame's calls.
 //
 // Correctness notes:
 // - Ties: rows are visited in ascending order and the best is replaced
@@ -216,6 +244,29 @@ occluded_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   if (live) occ_out[i] = blocked ? 1 : 0;
 }
 
+// The NEE shadow ray of ray r's hit at t, in registers: from
+// p = o + t d toward the light point corner + v1 a + v2 b; tm is
+// |to_light| - eps (cu:1017).
+__device__ __forceinline__ Ray shadow_ray(const Ray& r, float t, float a,
+                                          float b,
+                                          const float* __restrict__ light,
+                                          float& tm) {
+  Ray s;
+  s.ox = r.ox + t * r.dx;
+  s.oy = r.oy + t * r.dy;
+  s.oz = r.oz + t * r.dz;
+  const float tlx = light[0] + light[3] * a + light[6] * b - s.ox;
+  const float tly = light[1] + light[4] * a + light[7] * b - s.oy;
+  const float tlz = light[2] + light[5] * a + light[8] * b - s.oz;
+  const float dist2 = tlx * tlx + tly * tly + tlz * tlz;
+  const float inv = 1.0f / sqrtf(fmaxf(dist2, 1e-12f));
+  s.dx = tlx * inv;
+  s.dy = tly * inv;
+  s.dz = tlz * inv;
+  tm = dist2 * inv - kNeeEps;
+  return s;
+}
+
 // Fused closest hit + NEE shadow ray. kFull: the full-carry closest hit
 // (clipped at tmax; normal and material out, no u/v) as _closest_nee_kernel,
 // else the lean (t, row) sweep with no clipping, as
@@ -241,24 +292,9 @@ closest_nee_kernel(const float* __restrict__ orig,
   closest_sweep<kFull>(s_rows, r, live, tris, n_rows, tmin, tmax, best,
                        best_row);
 
-  // The shadow ray, in registers: from p = o + t d toward the light point.
   Ray s{0, 0, 0, 0, 0, 0};
   float tm = 0.0f;
-  if (live) {
-    const float a = lz1[i], b = lz2[i];
-    s.ox = r.ox + best * r.dx;
-    s.oy = r.oy + best * r.dy;
-    s.oz = r.oz + best * r.dz;
-    const float tlx = light[0] + light[3] * a + light[6] * b - s.ox;
-    const float tly = light[1] + light[4] * a + light[7] * b - s.oy;
-    const float tlz = light[2] + light[5] * a + light[8] * b - s.oz;
-    const float dist2 = tlx * tlx + tly * tly + tlz * tlz;
-    const float inv = 1.0f / sqrtf(fmaxf(dist2, 1e-12f));
-    s.dx = tlx * inv;
-    s.dy = tly * inv;
-    s.dz = tlz * inv;
-    tm = dist2 * inv - kNeeEps;  // |to_light| - eps (cu:1017)
-  }
+  if (live) s = shadow_ray(r, best, lz1[i], lz2[i], light, tm);
   const bool blocked = occluded_sweep(s_rows, s, live, tm, occ_tris, n_occ,
                                       tmin);
   if (!live) return;
@@ -298,10 +334,11 @@ struct KdCopy {
 };
 
 // The closest hit of ray r with tmin < t < tmax over a kd copy, walked by
-// the G lanes of group g (K3, K5): the top rows, then the tree near first
+// the G lanes of group g (K1, K3, K4, K5): the top rows, then the tree near first
 // with bound min(best, tmax), each reached cluster's rows split over the
-// lanes and folded with xor shuffles on (t, id), the kd row carried. Every
-// lane ends with the group's (best, best_id, best_row).
+// lanes and folded with xor shuffles on (t, id), the kd row carried (a
+// copy with no clusters ends after its top rows). Every lane ends with
+// the group's (best, best_id, best_row).
 template <int G>
 __device__ __forceinline__ void closest_walk(const Ray& r, const tpt::Group& g,
                                              const KdCopy& kd, float tmin,
@@ -347,6 +384,7 @@ __device__ __forceinline__ void closest_walk(const Ray& r, const tpt::Group& g,
     best_row = rl;
   };
   if (kd.n_top > 0) sweep(0, kd.n_top);
+  if (kd.n_boxes == 0) return;
   tpt::walk_tree(r, tpt::make_slab(r), tmin, fminf(best, tmax), kd.tree(r), g,
                  s_ref, s_tn, [&](int c, float* bound) {
                    sweep(kd.n_top + c * kd.cluster, kd.cluster);
@@ -356,11 +394,12 @@ __device__ __forceinline__ void closest_walk(const Ray& r, const tpt::Group& g,
 }
 
 // Is a non-refractive row of a kd copy hit by ray r with tmin < t < tm?
-// Walked by the G lanes of group g (K2, K5's shadow ray): the top rows
-// (one masked ballot), then the tree any-hit with bound tm, stopping at
-// the first blocking row. Nothing can block when (tmin, tm) is empty; a
-// box entered at tn >= tm holds no blocking hit, so the bound is tm
-// throughout.
+// Walked by the G lanes of group g (K2, K4's and K5's shadow rays): the
+// top rows (one masked ballot), then the tree any-hit with bound tm,
+// stopping at the first blocking row; a copy with no clusters (a table
+// swept whole, K4's small subsets) ends after its top rows. Nothing can
+// block when (tmin, tm) is empty; a box entered at tn >= tm holds no
+// blocking hit, so the bound is tm throughout.
 template <int G>
 __device__ __forceinline__ bool any_hit_walk(const Ray& r, const tpt::Group& g,
                                              const KdCopy& kd, float tmin,
@@ -370,6 +409,7 @@ __device__ __forceinline__ bool any_hit_walk(const Ray& r, const tpt::Group& g,
   if (kd.n_top > 0 &&
       tpt::cluster_blocked(r, kd.rows, 0, kd.n_top, G, g, tmin, tm))
     return true;
+  if (kd.n_boxes == 0) return false;
   bool blocked = false;
   tpt::walk_tree(r, tpt::make_slab(r), tmin, tm, kd.tree(r), g, s_ref, s_tn,
                  [&](int c, float*) {
@@ -409,6 +449,63 @@ closest_full_tree_kernel(const float* __restrict__ orig,
   row_out[i] = best < kTFar ? best_id : 0;
   write_attrs(reinterpret_cast<const float*>(kd.rows), r, i, best, best_row,
               want_uv, nrm_out, mat_out, u_out, v_out);
+}
+
+// K1 as a walk: one ray to a group of G lanes, closest_walk over the kd
+// copy with no tmax; t and the dense row (column 15) out, as the dense
+// body writes them.
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
+closest_lean_tree_kernel(const float* __restrict__ orig,
+                         const float* __restrict__ dir, KdCopy kd, int n_rays,
+                         float tmin, float* __restrict__ t_out,
+                         int* __restrict__ row_out) {
+  __shared__ int s_ref[tpt::kWalkThreads / G][tpt::kStack];
+  __shared__ float s_tn[tpt::kWalkThreads / G][tpt::kStack];
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;  // whole groups leave together
+  const Ray r = load_ray(orig, dir, i);
+  float best;
+  int best_id, best_row;
+  closest_walk<G>(r, g, kd, tmin, kTFar, s_ref[g.slot], s_tn[g.slot], best,
+                  best_id, best_row);
+  if (g.lane != 0) return;
+  t_out[i] = best;
+  row_out[i] = best < kTFar ? best_id : 0;
+}
+
+// K4 as a walk: K1's walk, then the shadow ray any_hit_walk over `occ`,
+// the occluder subset's kd copy or its rows as top rows only.
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
+closest_nee_lean_tree_kernel(const float* __restrict__ orig,
+                             const float* __restrict__ dir,
+                             const float* __restrict__ lz1,
+                             const float* __restrict__ lz2, KdCopy kd,
+                             KdCopy occ, const float* __restrict__ light,
+                             int n_rays, float tmin,
+                             float* __restrict__ t_out,
+                             int* __restrict__ row_out,
+                             uint8_t* __restrict__ occ_out) {
+  __shared__ int s_ref[tpt::kWalkThreads / G][tpt::kStack];
+  __shared__ float s_tn[tpt::kWalkThreads / G][tpt::kStack];
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;
+  const Ray r = load_ray(orig, dir, i);
+  float best;
+  int best_id, best_row;
+  closest_walk<G>(r, g, kd, tmin, kTFar, s_ref[g.slot], s_tn[g.slot], best,
+                  best_id, best_row);
+  float tm;
+  const Ray s = shadow_ray(r, best, lz1[i], lz2[i], light, tm);
+  const bool blocked =
+      any_hit_walk<G>(s, g, occ, tmin, tm, s_ref[g.slot], s_tn[g.slot]);
+  if (g.lane != 0) return;
+  t_out[i] = best;
+  row_out[i] = best < kTFar ? best_id : 0;
+  occ_out[i] = blocked ? 1 : 0;
 }
 
 // K2 as a walk: one ray to a group of G lanes, any_hit_walk over the kd
@@ -456,21 +553,8 @@ closest_nee_tree_kernel(const float* __restrict__ orig,
   closest_walk<G>(r, g, kd, tmin, tmax, s_ref[g.slot], s_tn[g.slot], best,
                   best_id, best_row);
 
-  // The shadow ray, in registers, as closest_nee_kernel forms it.
-  Ray s;
-  const float a = lz1[i], b = lz2[i];
-  s.ox = r.ox + best * r.dx;
-  s.oy = r.oy + best * r.dy;
-  s.oz = r.oz + best * r.dz;
-  const float tlx = light[0] + light[3] * a + light[6] * b - s.ox;
-  const float tly = light[1] + light[4] * a + light[7] * b - s.oy;
-  const float tlz = light[2] + light[5] * a + light[8] * b - s.oz;
-  const float dist2 = tlx * tlx + tly * tly + tlz * tlz;
-  const float inv = 1.0f / sqrtf(fmaxf(dist2, 1e-12f));
-  s.dx = tlx * inv;
-  s.dy = tly * inv;
-  s.dz = tlz * inv;
-  const float tm = dist2 * inv - kNeeEps;
+  float tm;
+  const Ray s = shadow_ray(r, best, lz1[i], lz2[i], light, tm);
   const bool blocked =
       any_hit_walk<G>(s, g, kd, tmin, tm, s_ref[g.slot], s_tn[g.slot]);
   if (g.lane != 0) return;
@@ -496,8 +580,9 @@ extern "C" {
 
 // Each entry point launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() as an int (0 = success).
-// The walks (tpt_closest_full_tree, tpt_occluded_tree,
-// tpt_closest_nee_full) take a kd copy: `tris` [n_top + n_boxes *
+// The walks (tpt_closest_lean_tree, tpt_closest_full_tree,
+// tpt_occluded_tree, tpt_closest_nee_lean_tree, tpt_closest_nee_full)
+// take a kd copy: `tris` [n_top + n_boxes *
 // cluster, 16], `boxes` [n_boxes, 8] and `nodes` [n_boxes - 1, 8] f32,
 // 16-byte aligned, the boxes' scale and the relative culling margin
 // (clustered.py, BOX_MARGIN), and the walk's lanes a ray (4, 8, 16 or
@@ -510,6 +595,49 @@ int tpt_closest_lean(const float* orig, const float* dir, const float* tris,
       orig, dir, tris, n_rays, n_rows, tmin, kTFar, 0, t_out, row_out,
       nullptr, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
+}
+
+int tpt_closest_lean_tree(const float* orig, const float* dir,
+                          const float* tris, int n_top, const float* boxes,
+                          const float* nodes, int n_boxes, int cluster,
+                          float scale, float margin, int n_rays, float tmin,
+                          float* t_out, int* row_out, int group,
+                          void* stream) {
+  const KdCopy kd =
+      kd_copy(tris, n_top, boxes, nodes, n_boxes, cluster, scale, margin);
+  const bool ok = tpt::with_group(group, [&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+    closest_lean_tree_kernel<G>
+        <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
+           (cudaStream_t)stream>>>(orig, dir, kd, n_rays, tmin, t_out,
+                                   row_out);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// The occluder subset of tpt_closest_nee_lean_tree is a kd copy
+// (occ_n_boxes > 0) or its rows swept whole: occ_top = its row count,
+// occ_boxes = occ_nodes = NULL, occ_n_boxes = occ_cluster = 0.
+int tpt_closest_nee_lean_tree(
+    const float* orig, const float* dir, const float* lz1, const float* lz2,
+    const float* tris, int n_top, const float* boxes, const float* nodes,
+    int n_boxes, int cluster, float scale, const float* occ_tris, int occ_top,
+    const float* occ_boxes, const float* occ_nodes, int occ_n_boxes,
+    int occ_cluster, float occ_scale, float margin, const float* light,
+    int n_rays, float tmin, float* t_out, int* row_out, uint8_t* occ_out,
+    int group, void* stream) {
+  const KdCopy kd =
+      kd_copy(tris, n_top, boxes, nodes, n_boxes, cluster, scale, margin);
+  const KdCopy occ = kd_copy(occ_tris, occ_top, occ_boxes, occ_nodes,
+                             occ_n_boxes, occ_cluster, occ_scale, margin);
+  const bool ok = tpt::with_group(group, [&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+    closest_nee_lean_tree_kernel<G>
+        <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
+           (cudaStream_t)stream>>>(orig, dir, lz1, lz2, kd, occ, light,
+                                   n_rays, tmin, t_out, row_out, occ_out);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 int tpt_closest_full(const float* orig, const float* dir, const float* tris,

@@ -7,7 +7,8 @@ counter (wrapper: the kernel it replaces, via its call site; plain
 version):
 
 - ``closest_lean`` (K1): ``_closest_kernel_lean`` via
-  ``_closest_call_lean``; ``_closest_plain``;
+  ``_closest_call_lean``; ``_closest_plain``; as a walk of the table's kd
+  copy, ``closest_lean_tree``; ``_closest_lean_kd_plain``;
 - ``occluded`` (K2): ``_occluded_kernel`` via ``_occluded_call``;
   ``_occluded_plain``; as a walk of a kd copy of the occluder subset,
   ``occluded_tree``; ``_occluded_kd_plain``;
@@ -15,7 +16,9 @@ version):
   ``_closest_plain(full=True)``; as a walk of the table's kd copy,
   ``closest_full_tree``; ``_closest_full_kd_plain``;
 - ``closest_nee_lean`` (K4): ``_closest_nee_kernel_lean`` via
-  ``_closest_nee_call_lean``; ``_closest_nee_plain``;
+  ``_closest_nee_call_lean``; ``_closest_nee_plain``; as a walk of the
+  table's kd copy, ``closest_nee_lean_tree``;
+  ``_closest_nee_lean_kd_plain``;
 - ``closest_nee_full`` (K5): ``_closest_nee_kernel`` via
   ``_closest_nee_call``; ``_closest_nee_kd_plain`` (the function of
   ``_closest_nee_plain(full=True)`` on the kd copy of the table).
@@ -24,14 +27,18 @@ K4 and K5 are the fused closest hit + NEE shadow ray of
 ``RenderConfig.fused_nee`` (``intersect_closest_nee``). K5 walks a kd copy
 of its table (``KdTables``: the rows of the triangles that span the scene
 first, then the rest in 128-row clusters with boxes and their
-``cluster_tree``), which ``prepare`` builds for a table above
-``LEAN_MAX_TRIS`` rows; ties go to the lowest dense row (column 15), as in
-the dense sweep. Its dense body stays as ``closest_nee_full_dense``, on no
-path, the yardstick ``chip_smoke.py`` holds the walk against. K3 walks the
-same copy (``closest_full_tree``); K2 walks a kd copy of the occluder
-subset (``DenseTables.occ_kd``), which ``prepare`` builds for a subset of
-more than ``LEAN_MAX_TRIS`` rows. ``closest_full`` and ``occluded`` stay
-on the path for the tables without a copy.
+``cluster_tree``), which ``prepare`` builds for every table that leaves at
+least one cluster of rows outside the top rows; ties go to the lowest
+dense row (column 15), as in the dense sweep. Its dense body stays as
+``closest_nee_full_dense``, on no path, the yardstick ``chip_smoke.py``
+holds the walk against. K3, K1 and K4 walk the same copy
+(``closest_full_tree``, ``closest_lean_tree``, ``closest_nee_lean_tree``);
+K2 walks a kd copy of the occluder subset (``DenseTables.occ_kd``), which
+``prepare`` builds by the same rule, and so does K4's shadow ray, which
+sweeps the subset's rows where it has no copy. The dense bodies
+``closest_lean``, ``closest_full``, ``occluded`` and ``closest_nee_lean``
+stay on the path for the tables without a copy (``cornell_box.obj``: 32
+rows, all spanning the room).
 
 The CUDA kernels are in ``csrc/dense_intersect.cu`` (bound by
 ``tpu_pt_torch._kernels``). A wrapper runs the plain version only for
@@ -72,7 +79,8 @@ _PLAIN_ROWS = 4096      # rows per block (temporaries stay cache-sized)
 LAUNCHES = {"closest_lean": 0, "occluded": 0, "closest_full": 0,
             "closest_full_tree": 0, "occluded_tree": 0,
             "closest_nee_lean": 0, "closest_nee_full": 0,
-            "closest_nee_full_dense": 0}
+            "closest_nee_full_dense": 0, "closest_lean_tree": 0,
+            "closest_nee_lean_tree": 0}
 NEE_EPS = 0.01         # shadow-ray range shrink (cu:1017 "Ldist - 0.01")
 
 
@@ -304,6 +312,14 @@ def _closest_full_kd_plain(origins, dirs, kd_rows, tmin: float,
     return t, ids, normal, mat, u, v
 
 
+def _closest_lean_kd_plain(origins, dirs, kd_rows, tmin: float):
+    """Plain version of K1 on the kd copy of its table: (t, dense row) of
+    the closest hit, ties to the lowest dense row (column 15), bit for bit
+    ``_closest_plain`` on the dense table."""
+    t, ids, _ = _closest_by_id_plain(origins, dirs, kd_rows, tmin)
+    return t, ids
+
+
 def _occluded_kd_plain(origins, dirs, tmax, kd_rows,
                        tmin: float) -> torch.Tensor:
     """Plain version of K2 on a kd copy of its table: any-hit needs no
@@ -326,6 +342,18 @@ def _closest_nee_plain(origins, dirs, lz1, lz2, tris, occ_tris, light,
     so, sd, stmax = _shadow_rays(origins, dirs, t, lz1, lz2, light)
     occ = _occluded_plain(so, sd, stmax, occ_tris, tmin)
     return (t, row, normal, mat, occ) if full else (t, row, occ)
+
+
+def _closest_nee_lean_kd_plain(origins, dirs, lz1, lz2, kd_rows, occ_rows,
+                               light, tmin: float):
+    """Plain version of K4 on the kd copy of its table: K1's closest hit
+    (``_closest_lean_kd_plain``), then the shadow ray any-hit over
+    ``occ_rows`` (the occluder subset's kd copy or its dense rows: any-hit
+    needs no order). Returns (t, dense row, occ), bit for bit
+    ``_closest_nee_plain`` on the dense tables."""
+    t, ids = _closest_lean_kd_plain(origins, dirs, kd_rows, tmin)
+    so, sd, stmax = _shadow_rays(origins, dirs, t, lz1, lz2, light)
+    return t, ids, _occluded_plain(so, sd, stmax, occ_rows, tmin)
 
 
 def _closest_nee_kd_plain(origins, dirs, lz1, lz2, kd_rows, light,
@@ -354,7 +382,10 @@ def full_walk_group(n_rays: int) -> int:
     tools/clustered_group_trial.py on the sphere box (PERF.md): 16 up to
     ``clustered.WALK_NARROW_RAYS`` (the frame's 65,536 lanes; 4 lanes lose
     29% there) and 8 above (262,144: within 1.4% of 4), the widths of
-    ``clustered.walk_group``."""
+    ``clustered.walk_group``. K1's and K4's walks take the same widths:
+    on the mixed box 8 was best over a bench frame's 262,144-ray calls
+    (4 wins on 262,144 camera and bounce rays of chip_smoke.py's kernels
+    phase, 8 and 16 on later rounds of a frame)."""
     from . import clustered
     return clustered.walk_group(n_rays)
 
@@ -485,6 +516,49 @@ def _check_kd(rows, top: int, boxes, nodes, device) -> tuple[int, int]:
     return n_boxes, cluster
 
 
+def _kd_launch_args(rows, top, boxes, nodes, scale, device) -> tuple:
+    """A kd copy's arguments of a walk's C entry point: rows, top rows,
+    boxes, nodes, clusters, rows a cluster, scale. ``boxes`` None is a
+    table swept whole (K4's shadow ray over an occluder subset with no
+    copy): every row a top row, no cluster."""
+    if boxes is None:
+        if top != rows.shape[0]:
+            raise ValueError(f"a table with no clusters sweeps all its "
+                             f"{rows.shape[0]} rows as top rows, not {top}")
+        return rows.data_ptr(), int(top), None, None, 0, 0, 0.0
+    n_boxes, cluster = _check_kd(rows, top, boxes, nodes, device)
+    return (rows.data_ptr(), int(top), boxes.data_ptr(), nodes.data_ptr(),
+            n_boxes, cluster, float(scale))
+
+
+def closest_lean_tree(origins: torch.Tensor, dirs: torch.Tensor,
+                      rows: torch.Tensor, top: int, boxes: torch.Tensor,
+                      nodes: torch.Tensor, scale: float, tmin: float,
+                      group: int | None = None):
+    """K1 as a walk of the kd copy of its table (laid out as
+    ``closest_full_tree`` takes it), ``group`` lanes a ray
+    (``full_walk_group`` of the ray count when None): per ray, (t, dense
+    row) of the closest hit, t = T_FAR and row 0 on a miss, bit for bit
+    ``closest_lean`` on the dense table."""
+    if _on_cpu(origins):
+        return _closest_lean_kd_plain(origins, dirs, rows, tmin)
+    from .. import _kernels
+    from . import clustered
+    n, _ = _check_inputs(origins, dirs, rows)
+    dev = origins.device
+    kd = _kd_launch_args(rows, top, boxes, nodes, scale, dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_lean_tree", origins.data_ptr(),
+                        dirs.data_ptr(), *kd, clustered.BOX_MARGIN, n,
+                        float(tmin), t.data_ptr(), row.data_ptr(),
+                        full_walk_group(n) if group is None else int(group),
+                        _stream(dev))
+        LAUNCHES["closest_lean_tree"] += 1
+    return t, row
+
+
 def closest_full_tree(origins: torch.Tensor, dirs: torch.Tensor,
                       rows: torch.Tensor, top: int, boxes: torch.Tensor,
                       nodes: torch.Tensor, scale: float, tmin: float,
@@ -503,7 +577,7 @@ def closest_full_tree(origins: torch.Tensor, dirs: torch.Tensor,
     from . import clustered
     n, _ = _check_inputs(origins, dirs, rows)
     dev = origins.device
-    n_boxes, cluster = _check_kd(rows, top, boxes, nodes, dev)
+    kd = _kd_launch_args(rows, top, boxes, nodes, scale, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -512,12 +586,10 @@ def closest_full_tree(origins: torch.Tensor, dirs: torch.Tensor,
     v = torch.empty(n, dtype=torch.float32, device=dev)
     if n:
         _kernels.launch("tpt_closest_full_tree", origins.data_ptr(),
-                        dirs.data_ptr(), rows.data_ptr(), int(top),
-                        boxes.data_ptr(), nodes.data_ptr(), n_boxes, cluster,
-                        float(scale), clustered.BOX_MARGIN, n, float(tmin),
-                        float(tmax), int(bool(want_uv)), t.data_ptr(),
-                        row.data_ptr(), normal.data_ptr(), mat.data_ptr(),
-                        u.data_ptr(), v.data_ptr(),
+                        dirs.data_ptr(), *kd, clustered.BOX_MARGIN, n,
+                        float(tmin), float(tmax), int(bool(want_uv)),
+                        t.data_ptr(), row.data_ptr(), normal.data_ptr(),
+                        mat.data_ptr(), u.data_ptr(), v.data_ptr(),
                         full_walk_group(n) if group is None else int(group),
                         _stream(dev))
         LAUNCHES["closest_full_tree"] += 1
@@ -540,14 +612,12 @@ def occluded_tree(origins: torch.Tensor, dirs: torch.Tensor,
     n, _ = _check_inputs(origins, dirs, rows)
     dev = origins.device
     _check("tmax", tmax, torch.float32, (n,), dev)
-    n_boxes, cluster = _check_kd(rows, top, boxes, nodes, dev)
+    kd = _kd_launch_args(rows, top, boxes, nodes, scale, dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         _kernels.launch("tpt_occluded_tree", origins.data_ptr(),
-                        dirs.data_ptr(), tmax.data_ptr(), rows.data_ptr(),
-                        int(top), boxes.data_ptr(), nodes.data_ptr(), n_boxes,
-                        cluster, float(scale), clustered.BOX_MARGIN, n,
-                        float(tmin), out.data_ptr(),
+                        dirs.data_ptr(), tmax.data_ptr(), *kd,
+                        clustered.BOX_MARGIN, n, float(tmin), out.data_ptr(),
                         occ_walk_group(n) if group is None else int(group),
                         _stream(dev))
         LAUNCHES["occluded_tree"] += 1
@@ -589,6 +659,50 @@ def closest_nee_lean(origins: torch.Tensor, dirs: torch.Tensor,
     return t, row, occ
 
 
+def closest_nee_lean_tree(origins: torch.Tensor, dirs: torch.Tensor,
+                          lz1: torch.Tensor, lz2: torch.Tensor,
+                          rows: torch.Tensor, top: int, boxes: torch.Tensor,
+                          nodes: torch.Tensor, scale: float,
+                          occ_rows: torch.Tensor, occ_top: int,
+                          occ_boxes: torch.Tensor | None,
+                          occ_nodes: torch.Tensor | None, occ_scale: float,
+                          light: torch.Tensor, tmin: float,
+                          group: int | None = None):
+    """K4 as a walk: K1's walk of the table's kd copy (``rows`` ... ``scale``,
+    as ``closest_lean_tree`` takes it), then the NEE shadow ray toward the
+    light point (lz1, lz2) any-hit over the occluder subset: its kd copy
+    (``occ_rows`` ... ``occ_scale``), or with ``occ_boxes`` and
+    ``occ_nodes`` None its dense rows, every one a top row (``occ_top`` =
+    their count). ``group`` lanes a ray (``full_walk_group`` of the ray
+    count when None). Returns (t, dense row, occluded bool [N]), bit for
+    bit ``closest_nee_lean`` on the dense tables."""
+    if _on_cpu(origins):
+        return _closest_nee_lean_kd_plain(origins, dirs, lz1, lz2, rows,
+                                          occ_rows, light, tmin)
+    from .. import _kernels
+    from . import clustered
+    n, _ = _check_inputs(origins, dirs, rows)
+    _check_inputs(origins, dirs, occ_rows)
+    _check_nee(origins, lz1, lz2, light)
+    dev = origins.device
+    kd = _kd_launch_args(rows, top, boxes, nodes, scale, dev)
+    occ_kd = _kd_launch_args(occ_rows, occ_top, occ_boxes, occ_nodes,
+                             occ_scale, dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_nee_lean_tree", origins.data_ptr(),
+                        dirs.data_ptr(), lz1.data_ptr(), lz2.data_ptr(), *kd,
+                        *occ_kd, clustered.BOX_MARGIN, light.data_ptr(), n,
+                        float(tmin), t.data_ptr(), row.data_ptr(),
+                        occ.data_ptr(),
+                        full_walk_group(n) if group is None else int(group),
+                        _stream(dev))
+        LAUNCHES["closest_nee_lean_tree"] += 1
+    return t, row, occ
+
+
 def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
                      lz1: torch.Tensor, lz2: torch.Tensor, rows: torch.Tensor,
                      top: int, boxes: torch.Tensor, nodes: torch.Tensor,
@@ -610,7 +724,7 @@ def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
     n, _ = _check_inputs(origins, dirs, rows)
     _check_nee(origins, lz1, lz2, light)
     dev = origins.device
-    n_boxes, cluster = _check_kd(rows, top, boxes, nodes, dev)
+    kd = _kd_launch_args(rows, top, boxes, nodes, scale, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -618,9 +732,7 @@ def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         _kernels.launch("tpt_closest_nee_full", origins.data_ptr(),
-                        dirs.data_ptr(), lz1.data_ptr(), lz2.data_ptr(),
-                        rows.data_ptr(), int(top), boxes.data_ptr(),
-                        nodes.data_ptr(), n_boxes, cluster, float(scale),
+                        dirs.data_ptr(), lz1.data_ptr(), lz2.data_ptr(), *kd,
                         clustered.BOX_MARGIN, light.data_ptr(), n,
                         float(tmin), float(tmax),
                         t.data_ptr(), row.data_ptr(), normal.data_ptr(),
@@ -666,8 +778,8 @@ def closest_nee_full_dense(origins: torch.Tensor, dirs: torch.Tensor,
 
 @dataclasses.dataclass
 class KdTables:
-    """A kd copy of a dense table (``kd_tables``), which K5, K3 and K2
-    walk: the packed rows of the triangles it copies, bit for bit the
+    """A kd copy of a dense table (``kd_tables``), which K1, K3, K4, K5
+    and K2 walk: the packed rows of the triangles it copies, bit for bit the
     dense table's (column 15 is the dense row), the ``top`` rows of the
     triangles that span the scene first, then the rest in balanced-kd
     order cut into clusters of ``clustered.CLUSTER`` rows (zero rows pad
@@ -686,23 +798,25 @@ class DenseTables:
     rows: torch.Tensor        # K1 / K3 table
     occ_rows: torch.Tensor    # K2 table: the NEE occluder subset, or all rows
     mat_bsdf: torch.Tensor    # [M] i32, for the first-hit occlusion quirk
-    kd: KdTables | None = None  # K5's and K3's walk, above LEAN_MAX_TRIS rows
-    occ_kd: KdTables | None = None  # K2's walk, above LEAN_MAX_TRIS rows
+    kd: KdTables | None = None  # the walks' copy (K1, K3, K4, K5)
+    occ_kd: KdTables | None = None  # K2's and K4's shadow rays' copy
 
 
-def kd_tables(scene: SceneArrays, tris=None) -> KdTables:
+def kd_tables(scene: SceneArrays, tris=None) -> KdTables | None:
     """A kd copy of the packed rows of ``scene``'s triangles ``tris``
-    (indices; every real triangle when None, the table K5 and K3 walk; the
-    NEE occluder subset for K2). A triangle whose box spans more than
-    1 / TOP_SPAN of the copied triangles' largest extent (a Cornell box's
-    walls, floor, ceiling and blocks) would stretch any cluster box over
-    the room, so such triangles, at most CLUSTER of them (the widest),
-    lead the copy as rows every ray sweeps; the others are ordered by
-    ``median_split_order`` and cut into clusters whose boxes span their
-    rows' vertices. Host numpy, once per ``prepare``."""
+    (indices; every real triangle when None, the table K1, K3, K4 and K5
+    walk; the NEE occluder subset for K2 and K4's shadow ray). A triangle
+    whose box spans more than 1 / TOP_SPAN of the copied triangles'
+    largest extent (a Cornell box's walls, floor, ceiling and blocks)
+    would stretch any cluster box over the room, so such triangles, at
+    most CLUSTER of them (the widest), lead the copy as rows every ray
+    sweeps; the others are ordered by ``median_split_order`` and cut into
+    clusters whose boxes span their rows' vertices. None when fewer than
+    CLUSTER triangles are left outside the top rows (``cornell_box.obj``:
+    all 32 span the room): a walk would sweep every row anyway. Host
+    numpy, once per ``prepare``."""
     from . import clustered
     cluster = clustered.CLUSTER
-    packed = pack_tris(scene)
     host = [np.asarray(x.cpu()) for x in (scene.tri_v0, scene.tri_e1,
                                             scene.tri_e2, scene.tri_valid)]
     v0, e1, e2, valid = host
@@ -717,6 +831,9 @@ def kd_tables(scene: SceneArrays, tris=None) -> KdTables:
     wide = real[ext[real] > span / TOP_SPAN]
     wide = wide[np.argsort(-ext[wide], kind="stable")[:cluster]]
     rest = np.setdiff1d(real, wide)
+    if rest.size < cluster:
+        return None
+    packed = pack_tris(scene)
     rest = rest[median_split_order(v0[rest], e1[rest], e2[rest],
                                    np.ones(rest.size, bool), leaf=cluster)]
     n_c = max(1, -(-rest.size // cluster))
@@ -747,15 +864,21 @@ def occ_kd_tables(scene: SceneArrays, occ_rows: torch.Tensor):
 
 
 def prepare(scene: SceneArrays) -> DenseTables:
-    """The scene's single-slab kernel tables (one table of every row), and
-    for a table above LEAN_MAX_TRIS rows (the K3 / K5 side) its kd copy,
-    for an occluder subset above LEAN_MAX_TRIS rows its own (K2's; with no
-    subset K2 sweeps every row, and walks the table's copy)."""
+    """The scene's single-slab kernel tables (one table of every row), the
+    table's kd copy and the occluder subset's (K2's and K4's shadow rays;
+    with no subset they sweep every row, and walk the table's copy). A
+    table or subset gets a copy when at least one cluster of its
+    triangles is left outside the top rows (``kd_tables``): every table
+    above LEAN_MAX_TRIS rows (K3 and K5 need it), the mixed box's 432-row
+    table (396 sphere rows) but not its 24 occluders (all top rows), and
+    neither of ``cornell_box.obj``'s 32 rows, which keep the dense
+    bodies."""
     rows = _trim_rows(scene.num_tris, pack_tris(scene))
     sub = _occ_subset(scene)
     occ_rows = rows if sub is None else _trim_rows(sub[1], sub[0])
-    kd = kd_tables(scene) if rows.shape[0] > LEAN_MAX_TRIS else None
-    occ_kd = kd if sub is None else occ_kd_tables(scene, occ_rows)
+    kd = kd_tables(scene)
+    occ_kd = kd if sub is None else kd_tables(
+        scene, scene.occ_index[:scene.num_occluders].cpu())
     return DenseTables(rows=rows.contiguous(), occ_rows=occ_rows.contiguous(),
                        mat_bsdf=scene.mat_bsdf, kd=kd, occ_kd=occ_kd)
 
@@ -781,15 +904,19 @@ def closest_hit(tables: DenseTables, origins: torch.Tensor,
                 dirs: torch.Tensor, tmin: float = 0.01,
                 tmax: float = T_FAR, want_uv: bool = True) -> Hit:
     """Closest hit: K1 + gather for small tables at tmax = T_FAR, else K3
-    (``pallas_bf._intersect_closest_tiled``, single-slab branches): its
-    walk of the kd copy where the table has one, else its dense sweep.
+    (``pallas_bf._intersect_closest_tiled``, single-slab branches), each
+    its walk of the kd copy where the table has one, else its dense sweep.
     ``TPT_LEAN_UV=0``, read at every call, sends a call that wants u, v to
     K3 whatever the table's size (``pallas_bf.py:2324-2339``)."""
     lean_ok = not want_uv or os.environ.get("TPT_LEAN_UV", "1") == "1"
-    if lean_ok and tmax >= T_FAR and tables.rows.shape[0] <= LEAN_MAX_TRIS:
-        t, row = closest_lean(origins, dirs, tables.rows, tmin)
-        return _lean_resolve(tables.rows, origins, dirs, t, row, want_uv)
     kd = tables.kd
+    if lean_ok and tmax >= T_FAR and tables.rows.shape[0] <= LEAN_MAX_TRIS:
+        if kd is not None:
+            t, row = closest_lean_tree(origins, dirs, kd.rows, kd.top,
+                                       kd.boxes, kd.nodes, kd.scale, tmin)
+        else:
+            t, row = closest_lean(origins, dirs, tables.rows, tmin)
+        return _lean_resolve(tables.rows, origins, dirs, t, row, want_uv)
     if kd is not None:
         t, row, normal, mat, u, v = closest_full_tree(
             origins, dirs, kd.rows, kd.top, kd.boxes, kd.nodes, kd.scale,
@@ -839,14 +966,27 @@ def closest_nee_hit(tables: DenseTables, light: torch.Tensor,
                     tmax: float = T_FAR) -> tuple[Hit, torch.Tensor]:
     """Closest hit plus the NEE shadow ray's occlusion in one kernel
     (``pallas_bf.intersect_closest_nee``): K4 when the table has at most
-    LEAN_MAX_TRIS rows, whatever tmax is (its shadow sweep takes the
-    occluder subset), else K5 on the kd copy. Returns (Hit without u/v,
-    occluded [N] bool); the flag is meaningful only on hit lanes."""
-    if tables.rows.shape[0] <= LEAN_MAX_TRIS:
-        t, row, occ = closest_nee_lean(origins, dirs, lz1, lz2, tables.rows,
-                                       tables.occ_rows, light, tmin)
-        return _lean_resolve(tables.rows, origins, dirs, t, row, False), occ
+    LEAN_MAX_TRIS rows, whatever tmax is (its shadow ray takes the
+    occluder subset), as the walk of the kd copies where the table has
+    one, else its dense sweeps; else K5 on the kd copy. Returns (Hit
+    without u/v, occluded [N] bool); the flag is meaningful only on hit
+    lanes."""
     kd = tables.kd
+    if tables.rows.shape[0] <= LEAN_MAX_TRIS:
+        if kd is None:
+            t, row, occ = closest_nee_lean(origins, dirs, lz1, lz2,
+                                           tables.rows, tables.occ_rows,
+                                           light, tmin)
+        else:
+            occ_kd = tables.occ_kd
+            subset = ((tables.occ_rows, tables.occ_rows.shape[0], None,
+                       None, 0.0) if occ_kd is None else
+                      (occ_kd.rows, occ_kd.top, occ_kd.boxes, occ_kd.nodes,
+                       occ_kd.scale))
+            t, row, occ = closest_nee_lean_tree(
+                origins, dirs, lz1, lz2, kd.rows, kd.top, kd.boxes, kd.nodes,
+                kd.scale, *subset, light, tmin)
+        return _lean_resolve(tables.rows, origins, dirs, t, row, False), occ
     t, row, normal, mat, occ = closest_nee_full(
         origins, dirs, lz1, lz2, kd.rows, kd.top, kd.boxes, kd.nodes,
         kd.scale, light, tmin, tmax)
