@@ -7,11 +7,9 @@ bench.py's frame (unfused, fused_nee and regen), of the sphere box
 (unfused and fused), of the big-mesh frame through each pair of clustered
 kernels (interleaved with the lean one) and of each Whitted main-path run
 (device busy and idle share, time by kernel) and prints no result line.
-It runs in three parts, each inside 1,200 s: ``--profile pt`` (the bench
-frame, the sphere box), ``--profile whitted`` (the Whitted runs) and
-``--profile big`` (the big-mesh frames); ``--profile rest`` is the first
-two (1,192.9 s on an NVIDIA H100 80GB HBM3: too close to 1,200 s for one
-call), and
+It runs in three parts: ``--profile pt`` (the bench frame, the sphere
+box), ``--profile whitted`` (the Whitted runs) and ``--profile big`` (the
+big-mesh frames, over 1,200 s); ``--profile rest`` is the first two, and
 ``--profile`` alone runs all three, one after the other.
 It needs one CUDA device, ``nvcc`` (the kernels are built from
 ``tpu_pt_torch/csrc/`` on first use) and nothing of JAX. Phases, one line
@@ -54,17 +52,18 @@ The glTF / Whitted pipeline and the instanced kernels K9 / K10:
    depth 8, pixelq; frame 0 warm-up, frames 1-3 timed) on the 1,001-
    instance forest (auto must keep the instances: K9/K10), on pbr_big.glb
    (100,354 triangles flattened: K6) and on foliage kept instanced
-   (2 spp), counters zeroed before each run and read after; each run's
-   warm-up frame records one call of every kernel it launches on each
-   table;
+   (2 spp), counters zeroed before each run and read after (K10 once per
+   instanced shadow call); each run's warm-up frame records one call of
+   every kernel it launches on each table;
 10. instanced kernels: K9 and K10 bitwise against their plain versions
    on the forest at the frame's 16,384-lane width with every eighth lane
    parked (timed there and at 262,144 rays), K10 also on shadow rays from
-   above the forest's edge, blocked only in part, and both on the
+   above the forest's edge, blocked only in part, on foliage's opaque
+   subset and on tables of one and two instances, and both on the
    mirrored / non-uniformly scaled fixture of tests/test_instanced.py
    built by the port; then every call recorded in 9 (the forest's K9 /
-   K10, pbr_big's K6 / K8, foliage's K9 on both of its tables and K10),
-   bitwise;
+   K10, pbr_big's K6 / K8, foliage's K9 on both of its tables and its
+   K10 on the opaque subset), bitwise;
 11. Whitted cross-checks: the forest at 64^2 x 2 spp instanced against
    flattened (492,002 triangles through K6/K8), within
    tests/test_torch_instanced.py's bound; a small instanced glTF at 32^2
@@ -162,107 +161,61 @@ The rest of pallas_ablations.py (K14 pair-binned, K15 8-lane groups:
    bf16 ulp (the count of differing elements printed), then 200 chained
    calls of each, timed: ms per call, Tops/s, the bound and the ratio.
 
-The tree walk of K6, K6f and K8 (``csrc/clustered_intersect.cu``: a
-group of 16 or 8 lanes, ``clustered.walk_group`` of the call's ray count,
-walks the kd tree over the clusters near first) and the flat scans it
-replaced (``*_flat``, on no path):
+The tree walks (``csrc/walk.cuh``: one ray to a group of G lanes walks a
+box tree near first): K6, K6f and K8 over the kd tree of the clusters
+(``clustered.walk_group``), K5, K3, K2, K1 and K4 over kd copies of the
+dense tables (``dense.kd_tables``), K9 and K10 over the tree of the
+instances (``instanced.instance_tree``). Every kernel of a default path
+walks; the dense bodies of K1-K4 stay on the path of the tables without
+a kd copy (``cornell_box.obj``):
 
-27. kernels (in phase 4): the walk's K6, K6f and K8 and the flat scans,
-   each bitwise against its plain version at 32,768 rays with every eighth
-   lane parked and timed there and at 262,144 rays; the walk against the
-   flat scan bit for bit and timed in interleaved pairs at both widths and
-   on the recorded bench_big calls; node tests and clusters swept per
+27. kernels (in phase 4): the walk's K6, K6f and K8, each bitwise
+   against its plain version at 32,768 rays with every eighth lane parked
+   and timed there and at 262,144 rays; node tests and clusters swept per
    live ray of a walk at the final bound (``_tree_leaves_plain``), which
    sets the walk's bound; the time of ``cluster_tree``;
-28. big-mesh variants (in phase 16): the frame with the flat scans in the
-   walk's place (``_flat_scans``), accumulator bitwise equal to the
-   lean frame's; every other frame of every path
-   launches no flat scan;
-29. huge mesh (in phase 17): one K6 and one K8 call at 32,768 rays (one
-   lane in eight parked) bitwise against the flat scans, both timed in
-   interleaved pairs;
-30. incoherent rays (in phase 22): the flat scans beside the default path.
-``--profile big`` profiles the flat frame between two lean ones too.
-
-The walks of K5 and K9 (``csrc/walk.cuh``, shared with K6 / K8): K5
-sweeps the rows of the triangles that span the scene and walks a kd copy
-of the rest (``dense.kd_tables``), K9 walks a tree over the instances
-(``instanced.instance_tree``); their bodies before the walks stay on no
-path as yardsticks (``closest_nee_full_dense``, ``closest_inst_flat``):
-
-31. fused kernels (in phase 12): K5's walk and its dense body each
-   bitwise against the dense plain version at 262,144 rays with one lane
-   in eight parked, then against each other, timed in interleaved pairs;
-   the walk's bound from its own node tests and reached clusters
-   (``_fused_walk_work``) beside the dense count; 65,536 rays aimed at
-   shared edges (rows tie on t, the lowest dense row wins) against the
-   plain version and the dense body;
-32. fused main path (in phase 13): the recorded K5 call of the sphere-box
-   frame against the dense body on the dense table, timed in pairs;
-33. instanced kernels (in phase 10): K9's walk and its flat loop each
-   bitwise against the plain version on the forest at 16,384 parked rays
-   and (the walk) at 262,144, on foliage at 16,384 parked rays and on the
-   fixture, the walk against the flat loop timed in pairs at each; the
-   walk's bound from its instance-node tests (``_inst_work(tree=True)``)
-   beside the flat count; the recorded K9 calls of phase 9 (foliage's
-   alpha-subset table too) against the flat loop, timed in pairs;
-34. yardstick frames: the sphere-box ``fused_nee`` frame, the forest and
-   foliage again through the yardsticks (``_yardsticks``), each
-   accumulator bitwise equal to the walk's; no other frame launches a
-   yardstick.
-``--profile pt`` and ``--profile whitted`` profile the sphere-box
-``fused_nee`` frame and each instanced Whitted frame through the
-yardstick too, between two walk frames.
-
-The walks of K3 and K2 (``dense.closest_full_tree`` over the kd copy K5
-walks, ``dense.occluded_tree`` over a kd copy of the NEE occluder subset,
-``DenseTables.occ_kd``; the two halves of K5's walk, each its own kernel)
-on the sphere box, their dense bodies (``closest_full``, ``occluded``)
-on the small tables' path and as their yardsticks:
-
-35. kernels (in phase 4): K3's and K2's walks on the sphere box at the
+28. huge mesh (in phase 17): one K6 and one K8 call at 32,768 rays (one
+   lane in eight parked) bitwise against K7 / K8b on the same rays, the
+   walks timed, with their node tests;
+29. fused kernels (in phase 12): K5's walk bitwise against the dense
+   plain version at 262,144 rays with one lane in eight parked; its bound
+   from its own node tests and reached clusters (``_fused_walk_work``)
+   beside the dense count; 65,536 rays aimed at shared edges (rows tie
+   on t, the lowest dense row wins) against the plain version;
+30. instanced kernels (in phase 10): K9's and K10's walks bitwise against
+   their plain versions on the forest at 16,384 parked rays and at
+   262,144, K10 also on the shadow rays from above the forest's edge, on
+   foliage's opaque subset (301 real instances) at 16,384 parked rays, on
+   the fixture and on tables of one and two of its instances; each
+   walk's bound from its own instance-node tests (``_inst_work``; an
+   occluded shadow ray needs one path), the node tests of a
+   blocked and of an open shadow ray apart; in phase 9 the forest and
+   foliage frames launch K10 once per instanced shadow call;
+31. kernels (in phase 4): K3's and K2's walks on the sphere box at the
    frame's 65,536 lanes with one in eight parked and at 262,144 rays,
    each bitwise against its plain version and against its dense body,
    the two timed in interleaved pairs; each walk's bound from its own
    node tests and reached clusters beside the dense count; K3 also on
    65,536 rays aimed at shared edges;
-36. main path (in phase 6): the sphere-box frame launches K3's and K2's
+32. main path (in phase 6): the sphere-box frame launches K3's and K2's
    walks once per round each and their dense bodies never; no other run
-   launches a walk; the two calls recorded from its warm-up frame, bitwise
-   against their plain versions and their dense bodies, timed in pairs;
-37. yardstick frames (in phase 34): the sphere-box frame again through
-   the dense bodies, its accumulator bitwise equal to the walks'.
-``--profile pt`` profiles that frame through the dense bodies too,
-between two walk frames.
-
-The walks of K1 and K4 (``dense.closest_lean_tree`` and
-``dense.closest_nee_lean_tree`` over the kd copy of a table of at most
-2,048 rows that leaves a cluster of rows outside its top rows: the mixed
-and monkey boxes'; K4's shadow ray over the subset's copy, or over its
-rows where it has none, as the mixed box's 24 occluders), their dense
-bodies (``closest_lean``, ``closest_nee_lean``) on the path of the tables
-without a copy and as their yardsticks:
-
-38. kernels (in phase 12): K1's and K4's walks on the mixed and monkey
-   boxes at 262,144 rays with one in eight parked, each bitwise against
-   its plain version and against its dense body, the two timed in
+   launches a walk of K2 or K3; the two calls recorded from its warm-up
+   frame, bitwise against their plain versions and their dense bodies,
+   timed in pairs;
+33. fused kernels (in phase 12): K1's and K4's walks on the mixed and
+   monkey boxes at 262,144 rays with one in eight parked, each bitwise
+   against its plain version and against its dense body, the two timed in
    interleaved pairs; each walk's bound from its own node tests and
    reached clusters beside the dense count; both on 65,536 rays aimed at
    shared edges; K2's walk on the monkey box's subset against its dense
    body; the host time of ``dense.prepare`` and of its kd copy;
-39. main path (in phases 5, 6 and 13): the path-trace goldens, the
+34. main path (in phases 5, 6 and 13): the path-trace goldens, the
    reference launch, the bench frame and its ``regen`` run launch K1's
    walk (the reference launch and the bench frame once per round), the
    ``fused_nee`` goldens and bench frame K4's walk (once per round), and
    never K1's or K4's dense body; one call of each walk recorded from the
    warm-up frames (reference launch, bench frame, fused bench frame),
-   bitwise against its plain version and its dense body, timed in pairs;
-40. yardstick frames (in phase 34): the bench frame's first two frames,
-   unfused and under ``fused_nee``, again through K1's / K4's dense
-   bodies, each accumulator bitwise equal to the walk's after the same
-   frames.
-``--profile pt`` profiles the bench frame and its ``fused_nee`` twin
-through the dense bodies too, each between two walk frames.
+   bitwise against its plain version and its dense body, timed in pairs.
 
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
@@ -353,19 +306,6 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "occluded_grp": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1791"),
     "chain_f32": (_BF16, "tools/microbench_bf16.py:37"),
     "chain_bf16": (_BF16, "tools/microbench_bf16.py:37"),
-    # K6, K6f and K8 before the tree walk (a thread a ray, every box
-    # tested): on no path, the walk's yardstick.
-    "closest_clustered_flat": (_CLUSTERED,
-                               "tpu_pt/intersect/pallas_bf.py:1042"),
-    "closest_clustered_full_flat": (_CLUSTERED,
-                                    "tpu_pt/intersect/pallas_bf.py:993"),
-    "occluded_clustered_flat": (_CLUSTERED,
-                                "tpu_pt/intersect/pallas_bf.py:1204"),
-    # K5 and K9 before their walks (K5: both sweeps over every dense row;
-    # K9: a thread a ray, every instance box tested): on no path, the
-    # walks' yardsticks.
-    "closest_nee_full_dense": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1222"),
-    "closest_inst_flat": (_INSTANCED, "tpu_pt/intersect/pallas_inst.py:236"),
     # K3 and K2 as walks of kd copies (the sphere box's table and occluder
     # subset); their dense bodies above stay on the path for the tables
     # without a copy.
@@ -378,11 +318,8 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "closest_lean_tree": (_DENSE, "tpu_pt/intersect/pallas_bf.py:976"),
     "closest_nee_lean_tree": (_DENSE, "tpu_pt/intersect/pallas_bf.py:1263"),
 }
-# The yardstick of each walk of K5 and K9 (its body before the walk).
-YARDSTICK = {"closest_nee_full": "closest_nee_full_dense",
-             "closest_inst": "closest_inst_flat"}
 # The dense body of each walk of K1-K4: on the path for the tables without
-# a kd copy, and the walk's yardstick where there is one.
+# a kd copy, and held against the walk where there is one.
 DENSE_BODY = {"closest_full_tree": "closest_full", "occluded_tree": "occluded",
               "closest_lean_tree": "closest_lean",
               "closest_nee_lean_tree": "closest_nee_lean"}
@@ -395,15 +332,9 @@ BENCH_TAG = "bench.py 1024^2 x 16 spp, depth 8, mixed"
 LEAN_BOXES = (("mixed", "cornell_box_mixed.obj", "wide"),
               ("monkey", "cornell_box_monkey.obj", "monkey"))
 N_SPHERE_RAYS = 65536    # the sphere-box frame's pixelq width
-FLAT = {"closest_clustered": "closest_clustered_flat",
-        "closest_clustered_full": "closest_clustered_full_flat",
-        "occluded_clustered": "occluded_clustered_flat"}
-CLOSEST_K6 = ("closest_clustered", "closest_clustered_b",
-              "closest_clustered_flat")
-CLOSEST_K6F = ("closest_clustered_full", "closest_clustered_full_b",
-               "closest_clustered_full_flat")
-OCCLUDED_K8 = ("occluded_clustered", "occluded_clustered_b",
-               "occluded_clustered_flat")
+CLOSEST_K6 = ("closest_clustered", "closest_clustered_b")
+CLOSEST_K6F = ("closest_clustered_full", "closest_clustered_full_b")
+OCCLUDED_K8 = ("occluded_clustered", "occluded_clustered_b")
 # The wrappers of tpu_pt_torch.intersect (K16's live in its tool).
 INTERSECT_WRAPPERS = tuple(k for k, (src, _) in KERNELS.items()
                            if src != _BF16)
@@ -492,8 +423,7 @@ MAIN_RUNS = [
 ]
 # The big-mesh frame through the other clustered kernels: (what, the JAX
 # package's variables that select them, kernels the run must launch,
-# kernels it must not). The flat scans launch only in FLAT_FRAME frames.
-FLAT_FRAME = "flat K6 + K8"
+# kernels it must not).
 BIG_VARIANTS = [
     ("full carry", dict(TPT_LEAN_BIG="0"),
      ("closest_clustered_full", "occluded_clustered"),
@@ -538,23 +468,15 @@ BIG_VARIANTS = [
      ("closest_grp", "occluded_grp"),
      ("closest_clustered", "occluded_clustered", "closest_binned",
       "occluded_binned", "closest_streamed")),
-    # The flat scans in the walk's place (``_flat_scans``: the module
-    # attributes closest_hit / occluded_hit call), lean and full carry.
-    (FLAT_FRAME, {},
-     ("closest_clustered_flat", "occluded_clustered_flat"),
-     ("closest_clustered", "occluded_clustered")),
 ]
 NEW_WRAPPERS = ("closest_clustered_full", "closest_clustered_b",
                 "closest_clustered_full_b", "occluded_clustered_b",
                 "closest_rotated", "closest_streamed", "occluded_streamed",
                 "closest_cbin", "occluded_cbin", "closest_binned",
-                "occluded_binned", "closest_grp", "occluded_grp",
-                "closest_clustered_flat", "closest_clustered_full_flat",
-                "occluded_clustered_flat")
+                "occluded_binned", "closest_grp", "occluded_grp")
 # The wrappers the incoherent phase must launch (its lean closest path
 # takes no full carry).
-INCOHERENT_WRAPPERS = NEW_WRAPPERS[4:13] + ("closest_clustered_flat",
-                                            "occluded_clustered_flat")
+INCOHERENT_WRAPPERS = NEW_WRAPPERS[4:]
 N_RAGGED = (1000, 77)    # ray counts that leave a ragged last block
 INCOHERENT = dict(n=262144, reps=3)   # tools/bench_incoherent_torch.py
 WHITTED_TOL, WHITTED_SHARE = 1e-3, 0.02   # tests/test_torch_whitted.py
@@ -574,17 +496,15 @@ FUSED_TWINS = [
 ]
 # Runs of MAIN_RUNS that launch each of their walks once per round: (the
 # walks, the kernels they must never launch, the label of the recorded
-# calls' timings, whether a yardstick frame re-renders the run's first
-# YARD_FRAMES frames through the dense bodies).
+# calls' timings against the dense bodies).
 _LEAN_BANNED = ("closest_lean", "closest_full", "closest_full_tree",
                 "occluded_tree", "closest_nee_lean", "closest_nee_lean_tree")
 WALK_RUNS = {
-    REFERENCE_TAG: (("closest_lean_tree",), _LEAN_BANNED, "reference", False),
-    BENCH_TAG: (("closest_lean_tree",), _LEAN_BANNED, "recorded", True),
+    REFERENCE_TAG: (("closest_lean_tree",), _LEAN_BANNED, "reference"),
+    BENCH_TAG: (("closest_lean_tree",), _LEAN_BANNED, "recorded"),
     SPHERE_TAG: (("closest_full_tree", "occluded_tree"),
                  ("closest_full", "occluded", "closest_lean",
-                  "closest_lean_tree"), "recorded", True)}
-YARD_FRAMES = 2
+                  "closest_lean_tree"), "recorded")}
 REGEN_OF = BENCH_TAG
 TWIN_RMSE = 0.01         # fused / regen frame against its twin (sRGB)
 # The entry points on the card: the CLI render and its resume, a Whitted
@@ -928,11 +848,7 @@ def _plain(name: str, args):
         o, d, lz1, lz2, rows, _, _, _, _, light, tmin, tmax = args[:12]
         return dense._closest_nee_kd_plain(o, d, lz1, lz2, rows, light, tmin,
                                            tmax)
-    if name == "closest_nee_full_dense":
-        o, d, lz1, lz2, tris, light, tmin, tmax = args
-        return dense._closest_nee_plain(o, d, lz1, lz2, tris, tris, light,
-                                        tmin, tmax, full=True)
-    # K6, K6f and K8 (and their flat scans) take the node table last.
+    # K6, K6f and K8 take the node table last.
     if name in CLOSEST_K6:
         o, d, rows, _, _, tmin, *rest = args
         return clustered._closest_clustered_plain(o, d, rows, tmin,
@@ -944,12 +860,13 @@ def _plain(name: str, args):
     if name in OCCLUDED_K8:
         o, d, tmax, rows, _, _, tmin = args[:7]
         return clustered._occluded_clustered_plain(o, d, tmax, rows, tmin)
-    if name in ("closest_inst", "closest_inst_flat"):
-        # K9 takes the instance tree after tmax; its flat loop none.
+    if name == "closest_inst":
+        # K9 takes the instance tree after tmax.
         o, d, tris, _, _, inst_rows, _, tmin, *tmax = args
         return instanced._closest_inst_plain(o, d, tris, clustered.CLUSTER,
                                              inst_rows, tmin, *tmax[:1])
-    o, d, tmax, tris, _, _, inst_rows, _, tmin = args      # occluded_inst
+    # K10 takes the instance tree and the width after tmin.
+    o, d, tmax, tris, _, _, inst_rows, _, tmin = args[:9]
     return instanced._occluded_inst_plain(o, d, tmax, tris, clustered.CLUSTER,
                                           inst_rows, tmin)
 
@@ -1144,33 +1061,9 @@ def _walk_counts(o, d, bound, tb, occluded=None):
 
 
 def _nodes_kw(fn, nodes) -> dict:
-    """``nodes=`` for a walking wrapper (K6, K6f, K8); the flat scans and
-    K7 / K8b take no node table."""
-    return {} if fn.__name__.endswith(("_flat", "_b")) else dict(nodes=nodes)
-
-
-def _walk_against_flat(records, name, label, walk, flat, width: str):
-    """The tree walk (``walk()``) against the flat scan (``flat()``) on the
-    same inputs, bit for bit, and both timed in interleaved pairs (walk,
-    flat, flat, walk); each time goes on its kernel's first record under
-    ``pair_ms_<width>``."""
-    import torch
-    a, b = walk(), flat()
-    torch.cuda.synchronize()
-    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
-    if not all(torch.equal(x, y) for x, y in zip(a, b)):
-        raise AssertionError(f"{label}: the walk differs from the flat scan")
-    w0, f0, f1, w1 = (gpu_ms(fn, 10) for fn in (walk, flat, flat, walk))
-    pair = ((w0 + w1) / 2, (f0 + f1) / 2)
-    records[name][0][f"pair_ms_{width}"] = pair[0]
-    records[FLAT[name]][0][f"pair_ms_{width}"] = pair[1]
-    from tpu_pt_torch.intersect import clustered
-    n = a[0].shape[0]
-    say("kernels", f"{label}, {width} ({n} rays, {clustered.walk_group(n)} "
-        f"lanes a ray): the walk bitwise equal to the flat scan; "
-        f"interleaved, walk {pair[0]:.4f} "
-        f"ms ({w0:.4f}, {w1:.4f}), flat {pair[1]:.4f} ms ({f0:.4f}, "
-        f"{f1:.4f}), {pair[1] / pair[0]:.2f}x")
+    """``nodes=`` for a walking wrapper (K6, K6f, K8); K7 / K8b take no
+    node table."""
+    return {} if fn.__name__.endswith("_b") else dict(nodes=nodes)
 
 
 def _check_kernel(records, name, kernel, plain, rows, compare, work,
@@ -1257,7 +1150,7 @@ def _check_dense_walks(records, device, sphere, tables):
             per_ray["K2"] = (tests / live, leaves / live, live)
             return (pairs * PAIR_FLOPS + tests * BOX_FLOPS,
                     so.shape[0] * (28 + 1) + _kd_bytes(occ_kd))
-        for name, walk, plain, table, work, dense_work, yard in (
+        for name, walk, plain, table, work, dense_work, body in (
                 ("closest_full_tree", k3,
                  lambda o=o, d=d: dense._closest_full_kd_plain(
                      o, d, kd.rows, 0.01, 1e16, True), kd,
@@ -1285,8 +1178,8 @@ def _check_dense_walks(records, device, sphere, tables):
                 f"{per_ray[what][1]:.2f} clusters; bound "
                 f"{rec['bound_ms']:.4f} ms against the dense count's "
                 f"{rec['dense_bound_ms']:.4f}")
-            _walk_against_yardstick(records, name, f"{what} (sphere box)",
-                                    walk, yard, width)
+            _walk_against_dense(records, name, f"{what} (sphere box)",
+                                walk, body, width)
     # Rays aimed at shared edges: ties that the lowest dense row wins.
     eo, ed = _edge_rays(sphere, N_RAYS // 4, 15, device)
     t_all, _, _ = dense._pe_block(eo[:16384], ed[:16384], rows, 0.01)
@@ -1804,8 +1697,7 @@ def phase_kernels(device, big):
     # PARK_EVERY parked: K6 / K8 bitwise against their plain versions
     # (bounce origins from the plain version's hits), both timed there,
     # and the kernels timed at N_RAYS (bounce origins from K6's own hits).
-    # The bound counts the node tests of a walk at each ray's final bound;
-    # the flat scans' bound, every box for every ray.
+    # The bound counts the node tests of a walk at each ray's final bound.
     if kernel_module(big) is not clustered:
         raise AssertionError("the big mesh must take the clustered kernels")
     tb = clustered.prepare(big)
@@ -1839,33 +1731,18 @@ def phase_kernels(device, big):
                                occluded=occluded, box_tests=tests,
                                list_bytes=nodes.shape[0] * 32)
 
-    flat6, flat8 = (clustered.closest_clustered_flat,
-                    clustered.occluded_clustered_flat)
     rays = _phase3_rays(big, device, 3, rows, k6_plain, N_PLAIN_BIG)
     (ob, db), shadow = _park(rays[:2], rays[2], PARK_EVERY)
     oB, dB, shadow_B = _phase3_rays(big, device, 3, rows, k6, N_RAYS)
     torch.cuda.synchronize()
-    for name, fn in (("closest_clustered", None), (FLAT["closest_clustered"],
-                                                    flat6)):
-        run(name, lambda fn=fn: k6(ob, db, fn or clustered.closest_clustered),
-            lambda: k6_plain(ob, db), rows.shape[0], _compare_exact,
-            (lambda out: walk_work(ob, db, out[0], 8)) if fn is None else
-            (lambda out: _clustered_work(ob, db, out[0], rows, boxes, scale,
-                                         8)),
-            n=N_PLAIN_BIG, reps=10, plain_reps=2 if fn is None else 1,
-            at_n_rays=lambda fn=fn: k6(oB, dB,
-                                       fn or clustered.closest_clustered))
-    for name, fn in (("occluded_clustered", None),
-                     (FLAT["occluded_clustered"], flat8)):
-        run(name,
-            lambda fn=fn: k8(*shadow, fn or clustered.occluded_clustered),
-            lambda: k8_plain(*shadow), rows.shape[0], _compare_exact,
-            (lambda out: walk_work(*shadow, 1, occluded=out)) if fn is None
-            else (lambda out: _clustered_work(*shadow, rows, boxes, scale, 1,
-                                              occluded=out)),
-            n=N_PLAIN_BIG, reps=10, plain_reps=2 if fn is None else 1,
-            at_n_rays=lambda fn=fn: k8(*shadow_B,
-                                       fn or clustered.occluded_clustered))
+    run("closest_clustered", lambda: k6(ob, db), lambda: k6_plain(ob, db),
+        rows.shape[0], _compare_exact,
+        lambda out: walk_work(ob, db, out[0], 8), n=N_PLAIN_BIG, reps=10,
+        plain_reps=2, at_n_rays=lambda: k6(oB, dB))
+    run("occluded_clustered", lambda: k8(*shadow), lambda: k8_plain(*shadow),
+        rows.shape[0], _compare_exact,
+        lambda out: walk_work(*shadow, 1, occluded=out), n=N_PLAIN_BIG,
+        reps=10, plain_reps=2, at_n_rays=lambda: k8(*shadow_B))
     t6n, _ = k6(ob, db)
     o8n = k8(*shadow)
     for what, counts in (
@@ -1874,8 +1751,8 @@ def phase_kernels(device, big):
         tests, leaves, live = counts
         say("kernels", f"{what}'s walk at the final bound, {N_PLAIN_BIG} rays "
             f"({live} live): {tests / live:.2f} node tests and "
-            f"{leaves / live:.2f} clusters swept per live ray (the flat "
-            f"scan: {boxes.shape[0]} box tests per ray)")
+            f"{leaves / live:.2f} clusters swept per live ray (of "
+            f"{boxes.shape[0]} clusters)")
 
     # The rest of the clustered kernels on the same rays: K6f (the full
     # carry, with u and v), K7 lean and full and K8b (the block's shared
@@ -1903,10 +1780,6 @@ def phase_kernels(device, big):
              lambda: full(clustered.closest_clustered_full, ob, db),
              lambda: full_plain(ob, db), 32,
              lambda: full(clustered.closest_clustered_full, oB, dB)),
-            ("closest_clustered_full_flat",
-             lambda: full(clustered.closest_clustered_full_flat, ob, db),
-             lambda: full_plain(ob, db), 32,
-             lambda: full(clustered.closest_clustered_full_flat, oB, dB)),
             ("closest_clustered_b", lambda: k7(ob, db),
              lambda: k6_plain(ob, db), 8, lambda: k7(oB, dB)),
             ("closest_clustered_full_b",
@@ -1940,44 +1813,20 @@ def phase_kernels(device, big):
         say("kernels", f"{what}: bitwise equal on {N_PLAIN_BIG} rays")
     if not bool(f6[4].any()) or not bool(f6[5].any()):
         raise AssertionError("K6f returned no u, v")
-    # The walk against the flat scan on the same rays, bit for bit, timed
-    # in interleaved pairs (walk, flat, flat, walk).
-    for label, walk, flat in (
-            ("K6", lambda o, d: k6(o, d), lambda o, d: k6(o, d, flat6)),
-            ("K6f", lambda o, d: full(clustered.closest_clustered_full, o, d),
-             lambda o, d: full(clustered.closest_clustered_full_flat, o, d)),
-            ("K8", lambda *s: (k8(*s),), lambda *s: (k8(*s, flat8),))):
-        name = {"K6": "closest_clustered", "K6f": "closest_clustered_full",
-                "K8": "occluded_clustered"}[label]
-        for width, args in (("narrow", (ob, db) if label != "K8" else shadow),
-                            ("wide", (oB, dB) if label != "K8"
-                             else shadow_B)):
-            _walk_against_flat(records, name, label, lambda: walk(*args),
-                               lambda: flat(*args), width)
 
     _check_ablations(records, tb, (ob, db), shadow, (oB, dB), shadow_B,
                      (t6, row6), k8(*shadow))
 
     # The exact inputs of one K6 and one K8 call of a bench_big frame,
-    # through each wrapper and its plain version, and the walk against the
-    # flat scan.
-    recorded = _record_big_calls(big, device)
-    _hold_recorded(records, recorded, "bench_big")
-    for (name, _), (args, _) in recorded.items():
-        # The recorded walk's arguments, the node table among them.
-        flat = _incoherent_tool().flat_in_place(name, getattr(clustered, name))
-        _walk_against_flat(
-            records, name, f"{name} (a bench_big call)",
-            lambda: getattr(clustered, name)(*args), lambda: flat(*args),
-            "recorded")
+    # through each wrapper and its plain version.
+    _hold_recorded(records, _record_big_calls(big, device), "bench_big")
     return records
 
 
-def _render(scene, device, frames, tap=None, kept=None, **cfg_kw):
+def _render(scene, device, frames, tap=None, **cfg_kw):
     """Render ``frames`` progressive frames; returns (accum, u8, per-frame
     [(seconds, rays, stats)]). ``tap`` (a context manager) is entered
-    around the first frame only, the warm-up; ``kept`` (a dict), when
-    given, receives a copy of the accumulator after each frame."""
+    around the first frame only, the warm-up."""
     import torch
     import tpu_pt_torch as tp
     from tpu_pt_torch.render import CameraArrays, init_accum, render_frame
@@ -1993,8 +1842,6 @@ def _render(scene, device, frames, tap=None, kept=None, **cfg_kw):
               else contextlib.nullcontext()):
             accum, u8, stats = render_frame(scene, cam, cfg, f, accum)
         torch.cuda.synchronize()
-        if kept is not None:
-            kept[f] = accum.clone()
         out.append((time.perf_counter() - t0,
                     int(stats.rays_traced) + int(stats.shadow_rays), stats))
     return accum, u8, out
@@ -2077,36 +1924,32 @@ def _read_counters() -> dict:
 
 def phase_main_path(device, smi, big, records):
     """Each main-path run with the launch counters zeroed just before it
-    and read just after; returns the launches summed per kernel, for each
-    run of FUSED_TWINS and for the big-mesh run (tag -> (run, accum,
-    s/frame, Mrays/s)), and for each run of WALK_RUNS with a yardstick
-    frame (tag -> (scene, its first YARD_FRAMES frames, config, the
-    accumulator after them)). A run of WALK_RUNS launches each of its
-    walks once per round and the kernels it bans never; its warm-up frame
-    records one call of each walk, held bitwise against its plain version
-    and against its dense body, timed in interleaved pairs."""
+    and read just after; returns the launches summed per kernel, and for
+    each run of FUSED_TWINS and for the big-mesh run (tag -> (run, accum,
+    s/frame, Mrays/s)). A run of WALK_RUNS launches each of its walks once
+    per round and the kernels it bans never; its warm-up frame records one
+    call of each walk, held bitwise against its plain version and against
+    its dense body, timed in interleaved pairs."""
     import tpu_pt_torch as tp
     from tpu_pt_torch.intersect import dense
     scenes = {BIG_MESH: big}
     launches = dict.fromkeys(KERNELS, 0)
-    twins, walk_frames = {}, {}
+    twins = {}
     for run in MAIN_RUNS:
         tag, scene_file, frames, timed, kw, expect = run
         if scene_file not in scenes:
             scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
                                                device=device)
         # Other runs never launch the walks of K1-K4.
-        once, banned, label, yard_frame = WALK_RUNS.get(
-            tag, ((), tuple(DENSE_BODY), None, False))
+        once, banned, label = WALK_RUNS.get(tag, ((), tuple(DENSE_BODY),
+                                                  None))
         tap = _Tap(once) if once else None
-        kept = {} if yard_frame else None
         _zero_counters()
         accum, _, per = _render(scenes[scene_file], device, frames, tap=tap,
-                                kept=kept, use_direct_lighting=True,
+                                use_direct_lighting=True,
                                 use_importance_sampling=True, **kw)
         counts = _read_counters()
         _check_frame(tag, accum, per)
-        _no_flat(tag, counts)
         sec = sum(p[0] for p in per[-timed:])
         rays = sum(p[1] for p in per[-timed:])
         iters = [int(p[2].wavefront_iterations) for p in per[-timed:]]
@@ -2132,19 +1975,15 @@ def phase_main_path(device, smi, big, records):
             twins[tag] = (run, accum, sec / timed, rays / sec / 1e6)
         if not once:
             continue
-        if yard_frame:
-            walk_frames[tag] = (scenes[scene_file], frames[:YARD_FRAMES], kw,
-                                kept[frames[YARD_FRAMES - 1]])
-        del kept
         _hold_recorded(records, tap.picked, f"{tag} warm-up")
         tables = dense.prepare(scenes[scene_file])
         for (name, _), (args, _) in tap.picked.items():
-            _walk_against_yardstick(
+            _walk_against_dense(
                 records, name, f"{name} (a {tag} call)",
                 lambda name=name, args=args: getattr(dense, name)(*args),
                 functools.partial(_dense_body_of, name, args, tables), label)
     say("main", f"kernel launches on the main path: {launches}")
-    return launches, twins, walk_frames
+    return launches, twins
 
 
 def _dense_body_of(name: str, args, tables):
@@ -2206,101 +2045,6 @@ def _env(**variables):
                 os.environ[k] = v
 
 
-@contextlib.contextmanager
-def _flat_scans(on: bool = True):
-    """With ``on``, the module attributes of K6, K6f and K8 that
-    ``closest_hit`` / ``occluded_hit`` call point at the flat scans (the
-    FLAT_FRAME frames; ``flat_in_place`` of
-    tools/bench_incoherent_torch.py), for the block."""
-    from tpu_pt_torch.intersect import clustered
-    saved = {k: getattr(clustered, k) for k in FLAT}
-    if on:
-        for k in FLAT:
-            setattr(clustered, k, _incoherent_tool().flat_in_place(k,
-                                                                   saved[k]))
-    try:
-        yield
-    finally:
-        for k, fn in saved.items():
-            setattr(clustered, k, fn)
-
-
-def _variant(what: str, variables: dict):
-    """The context of a BIG_VARIANTS frame: its variables, and the flat
-    scans for the FLAT_FRAME ones."""
-    stack = contextlib.ExitStack()
-    stack.enter_context(_env(**variables))
-    stack.enter_context(_flat_scans(what.startswith(FLAT_FRAME)))
-    return stack
-
-
-def _no_flat(tag: str, counts: dict) -> None:
-    """The flat scans and the yardsticks of K5 and K9 are on no path: only
-    FLAT_FRAME frames launch the first, only _yardstick_frames the
-    others."""
-    for k in (*FLAT.values(), *YARDSTICK.values()):
-        if counts[k]:
-            raise AssertionError(f"{tag}: {k} launched {counts[k]} times")
-
-
-def _dense_of(kd_rows):
-    """The dense table a kd copy of K5 permutes: each real kd row back at
-    its dense index (column 15); the dense table's trailing padding rows,
-    which no ray hits, are left out."""
-    import torch
-    ids = kd_rows[:, 15].long()
-    real = kd_rows[:, 0:12].any(1)
-    out = torch.zeros((int(ids[real].max()) + 1, 16), dtype=kd_rows.dtype,
-                      device=kd_rows.device)
-    out[ids[real]] = kd_rows[real]
-    return out.contiguous()
-
-
-@contextlib.contextmanager
-def _yardsticks():
-    """K5's dense body, K9's flat loop and K1's to K4's dense bodies in
-    the walks' place, for the block: the module attributes
-    ``dense.closest_nee_hit`` and ``instanced.closest_hit`` call are
-    pointed at shims that drop the walks' tables (K5's dense table is
-    rebuilt from its kd copy, once per table), and ``dense.closest_hit`` /
-    ``occluded_hit`` / ``closest_nee_hit`` at shims that hand on the
-    tables without their kd copies (``closest_nee_hit``: the tables of at
-    most LEAN_MAX_TRIS rows, K4's; K5 needs its copy)."""
-    import dataclasses
-    from tpu_pt_torch.intersect import dense, instanced
-    saved = (dense.closest_nee_full, instanced.closest_inst,
-             dense.closest_hit, dense.occluded_hit, dense.closest_nee_hit)
-    tables = {}
-
-    def k5(o, d, lz1, lz2, rows, top, boxes, nodes, scale, light, tmin, tmax,
-           group=None):
-        key = rows.data_ptr()
-        if key not in tables:
-            tables[key] = _dense_of(rows)
-        return dense.closest_nee_full_dense(o, d, lz1, lz2, tables[key],
-                                            light, tmin, tmax)
-
-    def k9(o, d, tris, cboxes, scale, inst_rows, inst_boxes, tmin,
-           tmax=1e16, tree=None, group=None):
-        return instanced.closest_inst_flat(o, d, tris, cboxes, scale,
-                                           inst_rows, inst_boxes, tmin, tmax)
-    def drop(hit_fn, rows_max=None):
-        def call(tb, *args, **kw):
-            if rows_max is None or tb.rows.shape[0] <= rows_max:
-                tb = dataclasses.replace(tb, kd=None, occ_kd=None)
-            return hit_fn(tb, *args, **kw)
-        return call
-    (dense.closest_nee_full, instanced.closest_inst, dense.closest_hit,
-     dense.occluded_hit, dense.closest_nee_hit) = (
-         k5, k9, drop(saved[2]), drop(saved[3]),
-         drop(saved[4], dense.LEAN_MAX_TRIS))
-    try:
-        yield
-    finally:
-        (dense.closest_nee_full, instanced.closest_inst, dense.closest_hit,
-         dense.occluded_hit, dense.closest_nee_hit) = saved
-
-
 def _image_bound(tag, a, b, tol, share_max):
     """Two accumulators within (mean |diff| < tol, share of pixels beyond
     tol <= share_max); returns the line to print."""
@@ -2329,15 +2073,13 @@ def phase_big_variants(device, smi, big, lean, records):
     (_, _, frames, timed, kw, _), lean_accum, lean_s, lean_mr = lean
     for what, variables, expect, banned in BIG_VARIANTS:
         tap = _Tap(NEW_WRAPPERS)
-        with _variant(what, variables):
+        with _env(**variables):
             _zero_counters()
             accum, _, per = _render(big, device, frames, tap=tap,
                                     use_direct_lighting=True,
                                     use_importance_sampling=True, **kw)
             counts = _read_counters()
         tag = f"{BIG_TAG}, {what} {variables}"
-        if not what.startswith(FLAT_FRAME):
-            _no_flat(tag, counts)
         _check_frame(tag, accum, per)
         sec = sum(p[0] for p in per[-timed:])
         rays = sum(p[1] for p in per[-timed:])
@@ -2380,7 +2122,6 @@ def phase_big_variants(device, smi, big, lean, records):
                                             tap=tap, **WHITTED_BENCH)
             counts = _read_counters()
         _check_frame(f"pbr_big {what}", accum, per)
-        _no_flat(f"pbr_big {what}", counts)
         out[what] = (accum.clone(), counts, per[1][0])
         for k, n in counts.items():
             launches[k] += n
@@ -2402,8 +2143,9 @@ def phase_big_variants(device, smi, big, lean, records):
 def phase_huge_mesh(device, smi, records):
     """The 1M-triangle mesh: written, loaded (with the seconds each step
     took); one K6 and one K8 call at N_PLAIN_BIG rays (one lane in
-    PARK_EVERY parked) bitwise against the flat scans, both timed; and
-    bench_big's frame through K6 + K8 and through K7 + K8b."""
+    PARK_EVERY parked) bitwise against K7 / K8b on the same rays, the
+    walks timed; and bench_big's frame through K6 + K8 and through
+    K7 + K8b."""
     import torch
     import tpu_pt_torch as tp
     from tpu_pt_torch.intersect import clustered, kernel_module, lbvh
@@ -2461,22 +2203,27 @@ def phase_huge_mesh(device, smi, records):
 
     rays = _phase3_rays(scene, device, 3, tables.rows, k6, N_PLAIN_BIG)
     (oh, dh), sh = _park(rays[:2], rays[2], PARK_EVERY)
-    _walk_against_flat(records, "closest_clustered", "K6 on the huge mesh",
-                       lambda: k6(oh, dh),
-                       lambda: k6(oh, dh, clustered.closest_clustered_flat),
-                       "huge")
-    _walk_against_flat(records, "occluded_clustered", "K8 on the huge mesh",
-                       lambda: (k8(*sh),),
-                       lambda: (k8(*sh, clustered.occluded_clustered_flat),),
-                       "huge")
-    for what, counts in (
-            ("K6", _walk_counts(oh, dh, k6(oh, dh)[0], tables)),
-            ("K8", _walk_counts(*sh, tables, occluded=k8(*sh)))):
+    for what, a, b in (
+            ("K6 against K7 lean", k6(oh, dh),
+             k6(oh, dh, clustered.closest_clustered_b)),
+            ("K8 against K8b", (k8(*sh),),
+             (k8(*sh, clustered.occluded_clustered_b),))):
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"huge mesh, {what}: the kernels differ")
+        say("huge", f"{what}: bitwise equal on {N_PLAIN_BIG} rays")
+    for what, name, call, counts in (
+            ("K6", "closest_clustered", lambda: k6(oh, dh),
+             _walk_counts(oh, dh, k6(oh, dh)[0], tables)),
+            ("K8", "occluded_clustered", lambda: k8(*sh),
+             _walk_counts(*sh, tables, occluded=k8(*sh)))):
         tests, leaves, live = counts
+        ms = gpu_ms(call, 10)
+        records[name][0]["ms_huge"] = ms
         say("huge", f"{what}'s walk at the final bound, {N_PLAIN_BIG} rays "
-            f"({live} live): {tests / live:.2f} node tests and "
-            f"{leaves / live:.2f} clusters swept per live ray (the flat "
-            f"scan: {tables.boxes.shape[0]} box tests per ray)")
+            f"({live} live): {ms:.4f} ms a call, {tests / live:.2f} node "
+            f"tests and {leaves / live:.2f} clusters swept per live ray (of "
+            f"{tables.boxes.shape[0]} clusters)")
     del tables
     launches = dict.fromkeys(KERNELS, 0)
     frames = {}
@@ -2491,7 +2238,6 @@ def phase_huge_mesh(device, smi, records):
                                     use_importance_sampling=True, **BENCH_BIG)
             counts = _read_counters()
         _check_frame(f"huge mesh {what}", accum, per)
-        _no_flat(f"huge mesh {what}", counts)
         for k in expect:
             if counts[k] <= 0:
                 raise AssertionError(f"huge mesh {what}: {k} never launched")
@@ -2758,7 +2504,7 @@ def _check_lean_walks(records, device):
                                                 tables, out)
             per_ray[name] = (tests, leaves)
             return w
-        for name, walk, plain, yard, compare, dense_work in (
+        for name, walk, plain, body, compare, dense_work in (
                 ("closest_lean_tree", k1,
                  lambda o=o, d=d: dense._closest_plain(o, d, rows, 0.01),
                  k1_dense, _compare_exact,
@@ -2792,12 +2538,12 @@ def _check_lean_walks(records, device):
                 f"{per_ray[name][1]:.2f} clusters; bound "
                 f"{rec['bound_ms']:.4f} ms against the dense count's "
                 f"{rec['dense_bound_ms']:.4f}")
-            _walk_against_yardstick(records, name, f"{name} ({box} box)",
-                                    walk, yard, width)
+            _walk_against_dense(records, name, f"{name} ({box} box)",
+                                walk, body, width)
         if tables.occ_kd is not None:
             so, sd, st = shadow
             okd = tables.occ_kd
-            _walk_against_yardstick(
+            _walk_against_dense(
                 records, "occluded_tree", f"occluded_tree ({box} box)",
                 lambda: dense.occluded_tree(so, sd, st, okd.rows, okd.top,
                                             okd.boxes, okd.nodes, okd.scale,
@@ -2868,30 +2614,26 @@ def _edge_rays(scene, n: int, seed: int, device):
     return t(o), t(d)
 
 
-def _walk_against_yardstick(records, name, label, walk, yard, width: str):
-    """A walk of K5 or K9 (``walk()``) against its yardstick (``yard()``),
-    or of K3 or K2 against its dense body, on the same inputs, bit for
-    bit, and both timed in interleaved pairs (walk, yardstick, yardstick,
-    walk); the walk's time goes on its first record under
-    ``pair_ms_<width>``, the yardstick's on the yardstick's first record
-    (K3 and K2: on the walk's, under ``dense_pair_ms_<width>``)."""
+def _walk_against_dense(records, name, label, walk, body, width: str):
+    """A walk of K1-K4 (``walk()``) against its dense body (``body()``,
+    DENSE_BODY) on the same inputs, bit for bit, and both timed in
+    interleaved pairs (walk, body, body, walk); both times go on the
+    walk's first record, under ``pair_ms_<width>`` and
+    ``dense_pair_ms_<width>``."""
     import torch
-    a, b = walk(), yard()
+    a, b = walk(), body()
     torch.cuda.synchronize()
     a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
-    yard_name = YARDSTICK.get(name) or DENSE_BODY[name]
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
-        raise AssertionError(f"{label}: the walk differs from {yard_name}")
-    w0, y0, y1, w1 = (gpu_ms(fn, 10) for fn in (walk, yard, yard, walk))
+        raise AssertionError(f"{label}: the walk differs from "
+                             f"{DENSE_BODY[name]}")
+    w0, y0, y1, w1 = (gpu_ms(fn, 10) for fn in (walk, body, body, walk))
     pair = ((w0 + w1) / 2, (y0 + y1) / 2)
     records[name][0][f"pair_ms_{width}"] = pair[0]
-    if name in YARDSTICK:
-        records[YARDSTICK[name]][0][f"pair_ms_{width}"] = pair[1]
-    else:
-        records[name][0][f"dense_pair_ms_{width}"] = pair[1]
+    records[name][0][f"dense_pair_ms_{width}"] = pair[1]
     say("kernels", f"{label}, {width} ({a[0].shape[0]} rays): the walk "
-        f"bitwise equal to {yard_name}; interleaved, walk "
-        f"{pair[0]:.4f} ms ({w0:.4f}, {w1:.4f}), yardstick {pair[1]:.4f} "
+        f"bitwise equal to {DENSE_BODY[name]}; interleaved, walk "
+        f"{pair[0]:.4f} ms ({w0:.4f}, {w1:.4f}), dense body {pair[1]:.4f} "
         f"ms ({y0:.4f}, {y1:.4f}), {pair[1] / pair[0]:.2f}x")
 
 
@@ -2900,10 +2642,8 @@ def phase_fused_kernels(device, records):
     rays and bounce rays, one lane in PARK_EVERY parked, light samples from
     the counter RNG) against their plain versions, timed; bound from
     _dense_work / _dense_occluded_work (K5: its walk's own work,
-    _fused_walk_work, the dense count beside it). K5's walk and its dense
-    body (the yardstick) each against the dense plain version, then
-    against each other on the same rays and on rays aimed at shared
-    edges, where rows tie, timed in interleaved pairs."""
+    _fused_walk_work, the dense count beside it). K5's walk also on rays
+    aimed at shared edges, where rows tie."""
     import torch
     import tpu_pt_torch as tp
     from tpu_pt_torch.intersect import clustered, dense
@@ -2943,9 +2683,6 @@ def phase_fused_kernels(device, records):
                                           kd.boxes, kd.nodes, kd.scale,
                                           light, 0.01, 1e16)
 
-        def yard(o=o, d=d, lz1=lz1, lz2=lz2):
-            return dense.closest_nee_full_dense(o, d, lz1, lz2, rows, light,
-                                                0.01, 1e16)
         counts = {}
 
         def walk_work(out):
@@ -2956,18 +2693,13 @@ def phase_fused_kernels(device, records):
         torch.cuda.synchronize()
         _check_kernel(records, name, walk, plain, kd.rows.shape[0],
                       _compare_fused, walk_work, reps=10, plain_reps=2)
-        _check_kernel(records, YARDSTICK[name], yard, plain, rows.shape[0],
-                      _compare_fused,
-                      lambda out: _fused_work(o, d, lz1, lz2, light, rows,
-                                              occ, out, 25),
-                      reps=10, plain_reps=1)
-        dense_bound = records[YARDSTICK[name]][-1]["bound_ms"]
+        dense_bound = _bound(*_fused_work(o, d, lz1, lz2, light, rows, occ,
+                                          plain(), 25))["bound_ms"]
         rec = records[name][-1]
         rec.update(occ_rows=kd.rows.shape[0], dense_bound_ms=dense_bound,
                    top_rows=kd.top, clusters=kd.boxes.shape[0],
                    node_tests_per_ray=counts["tests"],
                    clusters_per_ray=counts["leaves"])
-        records[YARDSTICK[name]][-1]["occ_rows"] = rows.shape[0]
         say("kernels", f"{name}: the kd copy, {kd.top} top rows and "
             f"{kd.boxes.shape[0]} clusters of "
             f"{(kd.rows.shape[0] - kd.top) // kd.boxes.shape[0]} rows "
@@ -2976,7 +2708,6 @@ def phase_fused_kernels(device, records):
             f"tests, {counts['leaves']:.2f} clusters swept (closest and "
             f"shadow); bound {rec['bound_ms']:.4f} ms against the dense "
             f"count's {dense_bound:.4f}")
-        _walk_against_yardstick(records, name, "K5", walk, yard, "wide")
         # Rays aimed at shared edges: ties that the lowest dense row wins.
         eo, ed = _edge_rays(scene, N_RAYS // 4, 13, device)
         elz1, elz2 = _light_samples(N_RAYS // 4, 13, device)
@@ -2994,14 +2725,12 @@ def phase_fused_kernels(device, records):
         by_kd_row = torch.where(tk < 1e15, kd.rows[rk.long(), 15], 0.0)
         out_p = plain(eo, ed, elz1, elz2)
         wrong = int((by_kd_row.to(torch.int32) != out_p[1]).sum())
-        for what, other in (("plain", out_p),
-                            ("dense body", yard(eo, ed, elz1, elz2))):
-            torch.cuda.synchronize()
-            err, extra = _compare_exact(name, out_w, other)
-            say("kernels", f"{name}: {N_RAYS // 4} rays aimed at shared "
-                f"edges ({ties} of the first {best.shape[0]} tie on t; a "
-                f"fold on the kd row would answer another row on {wrong}), "
-                f"walk against the {what}: max|err| {err} ({extra})")
+        torch.cuda.synchronize()
+        err, extra = _compare_exact(name, out_w, out_p)
+        say("kernels", f"{name}: {N_RAYS // 4} rays aimed at shared edges "
+            f"({ties} of the first {best.shape[0]} tie on t; a fold on the "
+            f"kd row would answer another row on {wrong}), walk against the "
+            f"plain version: max|err| {err} ({extra})")
         records[name].append(dict(rows=kd.rows.shape[0], rays=N_RAYS // 4,
                                   max_abs_err=0.0))
     _check_lean_walks(records, device)
@@ -3050,15 +2779,12 @@ def phase_fused_main(device, smi, twins, records):
     pixelq twin of phase 6 (``twins``: tag -> (run, accum, s/frame, Mrays/s)).
     The fused kernel must launch once per round and the kernels it
     replaces never. The warm-up frames record one call of each fused
-    kernel, then held bitwise against its plain version and (K4's and K5's
-    walks) against its dense body, timed in pairs. Returns the launches
-    summed per kernel and, for each fused run, (scene, its first
-    YARD_FRAMES frames, config, the accumulator after them) for its
-    yardstick frame."""
+    kernel, then held bitwise against its plain version and (K4's walk)
+    against its dense body, timed in pairs. Returns the launches summed
+    per kernel."""
     import tpu_pt_torch as tp
     from tpu_pt_torch.intersect import dense
     launches = dict.fromkeys(KERNELS, 0)
-    accums = {}
     fused_walks = ("closest_nee_lean_tree", "closest_nee_full")
     tap = _Tap(fused_walks)
     runs = [(tag, dict(fused_nee=True), fused, banned)
@@ -3071,11 +2797,10 @@ def phase_fused_main(device, smi, twins, records):
         if scene_file not in scenes:
             scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
                                                device=device)
-        kept = {} if once in fused_walks else None
         _zero_counters()
         accum, _, per = _render(scenes[scene_file], device, frames,
                                 tap=tap if "fused_nee" in extra else None,
-                                kept=kept, use_direct_lighting=True,
+                                use_direct_lighting=True,
                                 use_importance_sampling=True, **kw, **extra)
         counts = _read_counters()
         what = "fused_nee" if "fused_nee" in extra else "regen"
@@ -3101,36 +2826,21 @@ def phase_fused_main(device, smi, twins, records):
             raise AssertionError(f"{tag} {what}: RMSE {err} >= {TWIN_RMSE}")
         for k, n in counts.items():
             launches[k] += n
-        if once in fused_walks:
-            accums[tag] = (scenes[scene_file], frames[:YARD_FRAMES], kw,
-                           kept[frames[YARD_FRAMES - 1]])
-        del kept
     _hold_recorded(records, tap.picked, "fused main-path")
     for name in fused_walks:
         if not any(k[0] == name for k in tap.picked):
             raise AssertionError(f"no {name} call was recorded")
-    # The recorded calls against the dense bodies on the scenes' dense
-    # tables (K4's walk: the mixed box's; K5's: the sphere box's), bit for
-    # bit, both timed in interleaved pairs.
+    # K4's recorded call against its dense body on the mixed box's dense
+    # table, bit for bit, both timed in interleaved pairs.
     mixed = dense.prepare(scenes["cornell_box_mixed.obj"])
-    sphere = scenes["cornell_box_sphere.obj"]
-    rows, light = dense.prepare(sphere).rows, dense.light_vector(sphere)
     for (name, _), (args, _) in tap.picked.items():
         if name == "closest_nee_lean_tree":
-            _walk_against_yardstick(
+            _walk_against_dense(
                 records, name, "K4 (a bench-frame fused_nee call)",
                 lambda args=args: dense.closest_nee_lean_tree(*args),
                 functools.partial(_dense_body_of, name, args, mixed),
                 "recorded")
-            continue
-        o, d, lz1, lz2, *_, tmin, tmax = args
-        _walk_against_yardstick(
-            records, name, "K5 (a sphere-box fused_nee call)",
-            lambda args=args: dense.closest_nee_full(*args),
-            lambda o=o, d=d, lz1=lz1, lz2=lz2, tmin=tmin, tmax=tmax:
-            dense.closest_nee_full_dense(o, d, lz1, lz2, rows, light, tmin,
-                                         tmax), "recorded")
-    return launches, accums
+    return launches
 
 
 def _run(cmd, what: str, env=None, timeout=600):
@@ -3297,12 +3007,12 @@ def phase_whitted_main(device, smi):
     before it and read just after. Each run's warm-up frame also records,
     for every kernel it launches, one call's arguments on each table (a
     call with parked lanes where there is one: on the forest at the bench
-    view every path ends at its first hit and no lane is parked). Returns
-    (launches summed per kernel, {run tag: recorded calls}, {run tag:
-    (scene, frames, config, accumulator)} of the instanced runs)."""
+    view every path ends at its first hit and no lane is parked). An
+    instanced run launches K10 once per shadow call. Returns (launches
+    summed per kernel, {run tag: recorded calls})."""
     import tpu_pt_torch as tp
     launches = dict.fromkeys(KERNELS, 0)
-    recorded, accums = {}, {}
+    recorded = {}
     for tag, scene, inst_mode, frames, timed, kw, expect in WHITTED_RUNS:
         t0 = time.perf_counter()
         ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
@@ -3313,12 +3023,17 @@ def phase_whitted_main(device, smi):
                                  "instances")
         tap = _Tap(INTERSECT_WRAPPERS)
         _zero_counters()
-        accum, _, per = _render_whitted(ws, device, WHITTED_VIEW, frames,
-                                        tap=tap, **kw)
+        with _shadow_calls() as calls:
+            accum, _, per = _render_whitted(ws, device, WHITTED_VIEW, frames,
+                                            tap=tap, **kw)
         counts = _read_counters()
         recorded[tag] = tap.picked
         _check_frame(tag, accum, per)
-        _no_flat(tag, counts)
+        # K10's walk once per instanced shadow call.
+        if counts["occluded_inst"] != calls[0]:
+            raise AssertionError(f"{tag}: occluded_inst launched "
+                                 f"{counts['occluded_inst']} times in "
+                                 f"{calls[0]} instanced shadow calls")
         sec = sum(p[0] for p in per[-timed:])
         rays = sum(p[1] for p in per[-timed:])
         iters = [int(p[2].wavefront_iterations) for p in per[-timed:]]
@@ -3347,39 +3062,43 @@ def phase_whitted_main(device, smi):
                 raise AssertionError(f"{tag}: no {k} call was recorded")
         for k, n in counts.items():
             launches[k] += n
-        if ws.inst is not None:
-            accums[tag] = (ws, frames, kw, accum)
     say("whitted", f"kernel launches on the Whitted main path: "
         f"{ {k: n for k, n in launches.items() if n} }")
-    return launches, recorded, accums
+    return launches, recorded
 
 
-def _inst_work(o, d, bound, tables, out_bytes: int, occluded=None,
-               tree: bool = False):
-    """A two-level traversal needs one slab test per (ray, instance) (with
-    ``tree``, the instance-node tests of K9's walk at each ray's final
-    bound instead, ``_inst_tree_leaves_plain``, and the node table read);
-    for each instance box a ray pierces up to ``bound`` (its closest hit
-    or shadow tmax), the transform and a slab test per cluster of its
-    mesh; and the rows of every cluster it pierces up to ``bound``. An
-    occluded shadow ray needs one cluster's rows per pierced instance at
-    most."""
+@contextlib.contextmanager
+def _shadow_calls():
+    """Counts the calls of ``instanced.occluded_hit`` (the instanced
+    shadow entry point) with at least one ray, in ``[count]``."""
+    from tpu_pt_torch.intersect import instanced
+    real, calls = instanced.occluded_hit, [0]
+
+    def count(tables, origins, *args, **kw):
+        calls[0] += origins.shape[0] > 0
+        return real(tables, origins, *args, **kw)
+    instanced.occluded_hit = count
+    try:
+        yield calls
+    finally:
+        instanced.occluded_hit = real
+
+
+def _inst_work(o, d, bound, tables, out_bytes: int, occluded=None):
+    """A walk of the instance tree needs its instance-node tests at each
+    ray's ``bound`` (its closest hit or shadow tmax: _inst_node_tests)
+    and the node table read; for each instance box a ray pierces up to
+    ``bound``, the transform and a slab test per cluster of its mesh; and
+    the rows of every cluster it pierces up to ``bound``. An occluded
+    shadow ray needs one cluster's rows per pierced instance at most."""
     import torch
     from tpu_pt_torch.intersect import clustered, instanced
     table = tables.table
     n, n_inst = o.shape[0], table.rows.shape[0]
     cluster = clustered.CLUSTER
     omax = o.abs().amax(1)
-    flops = n * n_inst * BOX_FLOPS
-    node_bytes = 0
-    if tree:
-        tests = 0
-        for a in range(0, n, 4096):
-            tests += int(instanced._inst_tree_leaves_plain(
-                o[a:a + 4096], d[a:a + 4096], tables.tree, table.boxes, 0.01,
-                bound[a:a + 4096])[1].sum())
-        flops = tests * BOX_FLOPS
-        node_bytes = tables.tree.nodes.shape[0] * 48
+    flops = int(_inst_node_tests(o, d, bound, tables, occluded).sum()) \
+        * BOX_FLOPS
     wb = table.boxes
     meta = table.rows[:, 12:14].round().long().tolist()
     for i, (clo, ncl) in enumerate(meta):
@@ -3401,8 +3120,27 @@ def _inst_work(o, d, bound, tables, out_bytes: int, occluded=None,
             + int(cnt.sum()) * cluster * PAIR_FLOPS
     nbytes = (n * (24 + (4 if occluded is not None else 0))
               + tables.tris.shape[0] * 64 + tables.boxes.shape[0] * 32
-              + n_inst * 96 + node_bytes + n * out_bytes)
+              + n_inst * 96 + tables.tree.nodes.shape[0] * 48
+              + n * out_bytes)
     return flops, nbytes
+
+
+def _inst_node_tests(o, d, bound, tables, occluded=None):
+    """Instance-node and instance-box tests [N] of a walk of the instance
+    tree at each ray's ``bound`` (``_inst_tree_leaves_plain``). For an
+    any-hit (``occluded`` given) a ray with an empty interval (bound at or
+    below tmin: parked and ineligible shadow rays) tests nothing, and an
+    occluded one needs one root-to-leaf path, 2 * depth + 1 tests."""
+    import torch
+    from tpu_pt_torch.intersect import clustered, instanced
+    tests = torch.cat([instanced._inst_tree_leaves_plain(
+        o[a:a + 4096], d[a:a + 4096], tables.tree, tables.table.boxes, 0.01,
+        bound[a:a + 4096])[1] for a in range(0, o.shape[0], 4096)])
+    if occluded is not None:
+        depth = clustered.tree_depth(tables.tree.nodes.shape[0] + 1)
+        tests = torch.where(occluded, tests.clamp_max(2 * depth + 1), tests)
+        tests = torch.where(bound > 0.01, tests, 0)
+    return tests
 
 
 def _inst_rays(ws, tables, device, seed: int, n_rays: int,
@@ -3441,10 +3179,11 @@ def _inst_rays(ws, tables, device, seed: int, n_rays: int,
             shadow)
 
 
-def _fixture(device):
+def _fixture(device, count: int = 9):
     """tests/test_instanced.py's fixture, built by the port: a cube and a
     glass tetrahedron instanced nine times (rotations, non-uniform scales,
-    one mirrored instance). Returns (tables, instance list)."""
+    one mirrored instance), or its first ``count`` instances. Returns
+    (tables, instance list)."""
     import numpy as np
     import tpu_pt_torch as tp
     from tpu_pt_torch.intersect import instanced
@@ -3484,7 +3223,8 @@ def _fixture(device):
         instances.append((i % 2, m))
     table = instanced.build_instance_table(
         [(0, len(cf)), (len(cf), len(cf) + len(tf))],
-        [(cv.min(0), cv.max(0)), (tv.min(0), tv.max(0))], instances)
+        [(cv.min(0), cv.max(0)), (tv.min(0), tv.max(0))],
+        instances[:count])
     return instanced.prepare(geom, table), instances
 
 
@@ -3508,25 +3248,25 @@ def _aimed_rays(instances, n, seed, device):
 def phase_inst_kernels(device, records):
     """K9 and K10 against their plain versions on the card, bitwise: (b)
     on the forest at the frame's width with every eighth lane parked,
-    timed there and at N_RAYS, and K10 again on shadow rays from the
-    surfaces seen from above the forest's edge, of which some reach the
-    light; (c) on the port's build of the mirrored / non-uniform fixture.
-    K9's walk and its flat loop (the yardstick) each against the plain
-    version, and against each other, timed in interleaved pairs: on the
-    forest at 16,384 parked rays and at N_RAYS (there against the plain
-    version too), on foliage at 16,384 parked rays, on the fixture. (a),
-    the recorded calls of the Whitted runs, follows in
-    phase_whitted_calls."""
+    timed there and at N_RAYS (there against the plain version too), and
+    K10 again on shadow rays from the surfaces seen from above the
+    forest's edge, of which some reach the light; on foliage at the
+    frame's width (K10 over its opaque subset, the table its shadow rays
+    take); (c) on the port's build of the mirrored / non-uniform fixture,
+    K10 also on tables of one and two of its instances. Each walk's bound
+    comes from its own instance-node tests. (a), the recorded calls of the
+    Whitted runs, follows in phase_whitted_calls."""
     import torch
     import tpu_pt_torch as tp
     from tpu_pt_torch.intersect import clustered, instanced
+    from tpu_pt_torch.render import PARK_COORD
     ws = tp.load_gltf(str(ASSETS / FOREST), device=device)
     tables = instanced.prepare(ws.geom, ws.inst)
 
-    def k9(o, d, tb=tables, fn=instanced.closest_inst):
-        extra = (1e16, tb.tree) if fn is instanced.closest_inst else ()
-        return fn(o, d, tb.tris, tb.boxes, tb.scale, tb.table.rows,
-                  tb.table.boxes, 0.01, *extra)
+    def k9(o, d, tb=tables):
+        return instanced.closest_inst(o, d, tb.tris, tb.boxes, tb.scale,
+                                      tb.table.rows, tb.table.boxes, 0.01,
+                                      1e16, tb.tree)
 
     def k9_plain(o, d, tb=tables):
         return instanced._closest_inst_plain(o, d, tb.tris, clustered.CLUSTER,
@@ -3535,14 +3275,15 @@ def phase_inst_kernels(device, records):
     def k10(o, d, tmax, tb=tables):
         return instanced.occluded_inst(o, d, tmax, tb.tris, tb.boxes,
                                        tb.scale, tb.table.rows,
-                                       tb.table.boxes, 0.01)
+                                       tb.table.boxes, 0.01, tb.tree)
 
     def k10_plain(o, d, tmax, tb=tables):
-        return instanced._occluded_inst_plain(o, d, tmax, tb.tris,
-                                              clustered.CLUSTER,
-                                              tb.table.rows, 0.01)
+        out = [instanced._occluded_inst_plain(
+            o[a:a + 65536], d[a:a + 65536], tmax[a:a + 65536], tb.tris,
+            clustered.CLUSTER, tb.table.rows, 0.01)
+            for a in range(0, o.shape[0], 65536)]
+        return torch.cat(out)
 
-    flat = instanced.closest_inst_flat
     rows = tables.tris.shape[0]
     o, d, shadow = _inst_rays(ws, tables, device, 5, N_INST_RAYS)
     (ob, db), shadow_b = _park((o, d), shadow, PARK_EVERY)
@@ -3550,42 +3291,26 @@ def phase_inst_kernels(device, records):
     torch.cuda.synchronize()
     _check_kernel(records, "closest_inst", lambda: k9(ob, db),
                   lambda: k9_plain(ob, db), rows, _compare_exact,
-                  lambda out: _inst_work(ob, db, out[0], tables, 12,
-                                         tree=True),
-                  n=N_INST_RAYS, reps=10, plain_reps=1,
-                  at_n_rays=lambda: k9(oW, dW))
-    _check_kernel(records, "closest_inst_flat", lambda: k9(ob, db, fn=flat),
-                  lambda: k9_plain(ob, db), rows, _compare_exact,
                   lambda out: _inst_work(ob, db, out[0], tables, 12),
                   n=N_INST_RAYS, reps=10, plain_reps=1,
-                  at_n_rays=lambda: k9(oW, dW, fn=flat))
+                  at_n_rays=lambda: k9(oW, dW))
     rec = records["closest_inst"][-1]
-    rec["flat_bound_ms"] = records["closest_inst_flat"][-1]["bound_ms"]
-    final, tests = k9(ob, db)[0], 0
-    for a in range(0, N_INST_RAYS, 4096):
-        tests += int(instanced._inst_tree_leaves_plain(
-            ob[a:a + 4096], db[a:a + 4096], tables.tree, tables.table.boxes,
-            0.01, final[a:a + 4096])[1].sum())
-    from tpu_pt_torch.render import PARK_COORD
     live = int((ob[:, 0] != PARK_COORD).sum())
+    tests = int(_inst_node_tests(ob, db, k9(ob, db)[0], tables).sum())
     rec["node_tests_per_ray"] = tests / live
     say("kernels", f"closest_inst: the instance tree, "
         f"{tables.tree.nodes.shape[0]} nodes over {tables.table.count} "
         f"instances; a walk at the final bound tests {tests / live:.2f} "
-        f"instance boxes and nodes a live ray (the flat loop: "
-        f"{tables.table.rows.shape[0]}); bound {rec['bound_ms']:.4f} ms "
-        f"against the flat count's {rec['flat_bound_ms']:.4f}")
-    _walk_against_yardstick(records, "closest_inst", "K9 (forest)",
-                            lambda: k9(ob, db), lambda: k9(ob, db, fn=flat),
-                            "narrow")
-    _walk_against_yardstick(records, "closest_inst", "K9 (forest)",
-                            lambda: k9(oW, dW), lambda: k9(oW, dW, fn=flat),
-                            "wide")
+        f"instance boxes and nodes a live ray (of "
+        f"{tables.table.rows.shape[0]} instance boxes)")
     err, extra = _compare_exact("closest_inst", k9(oW, dW), k9_plain(oW, dW))
     records["closest_inst"].append(dict(rows=rows, rays=N_RAYS,
                                         max_abs_err=err))
     say("kernels", f"closest_inst: forest, {N_RAYS} rays against the plain "
         f"version: max|err| {err} ({extra})")
+
+    # K10: the walk at each shadow ray's tmax, its bound from its own
+    # node tests (an occluded ray: one path).
     _check_kernel(records, "occluded_inst", lambda: k10(*shadow_b),
                   lambda: k10_plain(*shadow_b), rows, _compare_exact,
                   lambda out: _inst_work(shadow_b[0], shadow_b[1],
@@ -3593,6 +3318,15 @@ def phase_inst_kernels(device, records):
                                          occluded=out),
                   n=N_INST_RAYS, reps=10, plain_reps=1,
                   at_n_rays=lambda: k10(*shadow_W))
+    rec = records["occluded_inst"][-1]
+    _k10_node_tests(rec, "forest, 16,384 parked", shadow_b, k10(*shadow_b),
+                    tables)
+    err, extra = _compare_exact("occluded_inst", k10(*shadow_W),
+                                k10_plain(*shadow_W))
+    records["occluded_inst"].append(dict(rows=rows, rays=N_RAYS,
+                                         max_abs_err=err))
+    say("kernels", f"occluded_inst: forest, {N_RAYS} shadow rays against "
+        f"the plain version: max|err| {err} ({extra})")
 
     # From the bench view inside the forest every live shadow ray is
     # blocked, so that set cannot fail a K10 that always says "blocked".
@@ -3603,8 +3337,8 @@ def phase_inst_kernels(device, records):
     _, shadow_e = _park((o, d), shadow, PARK_EVERY)
     out_k, out_p = k10(*shadow_e), k10_plain(*shadow_e)
     torch.cuda.synchronize()
-    err, extra = _compare_exact("occluded_inst", out_k, out_p)
     share = float(out_k[shadow_e[2] > 0].float().mean())
+    err, extra = _compare_exact("occluded_inst", out_k, out_p)
     records["occluded_inst"].append(dict(rows=rows, rays=N_INST_RAYS,
                                          max_abs_err=err))
     say("kernels", f"occluded_inst: forest shadow rays from above the edge, "
@@ -3613,114 +3347,87 @@ def phase_inst_kernels(device, records):
     if not 0.0 < share < 1.0:
         raise AssertionError("the forest shadow rays from above the edge "
                              f"must be blocked only in part ({share})")
+    _k10_node_tests(rec, "forest from above the edge", shadow_e, out_k,
+                    tables)
+    rec["ms_edge"] = gpu_ms(lambda: k10(*shadow_e), 10)
 
-    # Foliage (601 instances, kept instanced) at the frame's width.
+    # Foliage (601 instances, kept instanced) at the frame's width; its
+    # shadow rays take K10 over the opaque subset (301 real instances).
     fol = tp.load_gltf(str(ASSETS / "foliage.gltf"), instancing="instanced",
                        device=device)
     ft = instanced.prepare(fol.geom, fol.inst)
     fo, fd, fshadow = _inst_rays(fol, ft, device, 9, N_INST_RAYS)
-    (fo, fd), _ = _park((fo, fd), fshadow, PARK_EVERY)
-    for name, out_k in (("closest_inst", k9(fo, fd, ft)),
-                        ("closest_inst_flat", k9(fo, fd, ft, fn=flat))):
-        err, extra = _compare_exact(name, out_k, k9_plain(fo, fd, ft))
-        records[name].append(dict(rows=ft.tris.shape[0], rays=N_INST_RAYS,
-                                  max_abs_err=err))
-        say("kernels", f"{name}: foliage, {N_INST_RAYS} rays, one in "
-            f"{PARK_EVERY} parked: max|err| {err} ({extra})")
-    _walk_against_yardstick(records, "closest_inst", "K9 (foliage)",
-                            lambda: k9(fo, fd, ft),
-                            lambda: k9(fo, fd, ft, fn=flat), "foliage")
+    (fo, fd), fshadow = _park((fo, fd), fshadow, PARK_EVERY)
+    out_k = k9(fo, fd, ft)
+    err, extra = _compare_exact("closest_inst", out_k, k9_plain(fo, fd, ft))
+    records["closest_inst"].append(dict(rows=ft.tris.shape[0],
+                                        rays=N_INST_RAYS, max_abs_err=err))
+    records["closest_inst"][0]["ms_foliage"] = gpu_ms(lambda: k9(fo, fd, ft),
+                                                      10)
+    say("kernels", f"closest_inst: foliage, {N_INST_RAYS} rays, one in "
+        f"{PARK_EVERY} parked: max|err| {err} ({extra}); "
+        f"{records['closest_inst'][0]['ms_foliage']:.4f} ms")
+    ao = fol.alpha_occ
+    fot = instanced.prepare(ao.occ_geom, ao.occ_inst)
+    out_k = k10(*fshadow, fot)
+    err, extra = _compare_exact("occluded_inst", out_k,
+                                k10_plain(*fshadow, fot))
+    records["occluded_inst"].append(dict(rows=fot.tris.shape[0],
+                                         rays=N_INST_RAYS, max_abs_err=err))
+    flops, nbytes = _inst_work(*fshadow, fot, 1, occluded=out_k)
+    rec.update(foliage_bound_ms=_bound(flops, nbytes)["bound_ms"],
+               ms_foliage=gpu_ms(lambda: k10(*fshadow, fot), 10))
+    say("kernels", f"occluded_inst: foliage's opaque subset "
+        f"({fot.tree.nodes.shape[0] + 1} real instances), {N_INST_RAYS} "
+        f"shadow rays, one in {PARK_EVERY} parked: max|err| {err} ({extra}); "
+        f"{rec['ms_foliage']:.4f} ms, bound {rec['foliage_bound_ms']:.4f}")
+    _k10_node_tests(rec, "foliage's opaque subset", fshadow, out_k, fot)
 
     fx, instances = _fixture(device)
     fo, fd, ftmax = _aimed_rays(instances, 4096, 7, device)
-    for name, out_k, out_p in (
-            ("closest_inst", k9(fo, fd, fx), k9_plain(fo, fd, fx)),
-            ("closest_inst_flat", k9(fo, fd, fx, fn=flat),
-             k9_plain(fo, fd, fx)),
-            ("occluded_inst", k10(fo, fd, ftmax, fx),
-             k10_plain(fo, fd, ftmax, fx))):
+    checks = [("closest_inst", "", k9(fo, fd, fx), k9_plain(fo, fd, fx)),
+              ("occluded_inst", "", k10(fo, fd, ftmax, fx),
+               k10_plain(fo, fd, ftmax, fx))]
+    # Tables of one (a root leaf, no node) and two of its instances.
+    for k in (1, 2):
+        sub = _fixture(device, k)[0]
+        checks.append(("occluded_inst", f", its first {k} instance(s)",
+                       k10(fo, fd, ftmax, sub),
+                       k10_plain(fo, fd, ftmax, sub)))
+    for name, which, out_k, out_p in checks:
         torch.cuda.synchronize()
         err, extra = _compare_exact(name, out_k, out_p)
         records[name].append(dict(rows=fx.tris.shape[0], rays=4096,
                                   max_abs_err=err))
-        say("kernels", f"{name}: the mirrored / non-uniform fixture, 4096 "
-            f"aimed rays: max|err| {err} ({extra})")
+        say("kernels", f"{name}: the mirrored / non-uniform fixture{which}, "
+            f"4096 aimed rays: max|err| {err} ({extra})")
 
 
-def phase_yardstick_frames(device, smi, fused, instanced_frames,
-                           walk_frames):
-    """The ``fused_nee`` frames of the bench frame and the sphere box
-    (``fused``, from phase_fused_main), the forest and foliage frames
-    (``instanced_frames``, from phase_whitted_main) and the unfused bench
-    and sphere-box frames (``walk_frames``, from phase_main_path) again
-    with K5's dense body, K9's flat loop and K1's to K4's dense bodies in
-    the walks' place (``_yardsticks``), counters zeroed before each run
-    and read after: each accumulator bitwise equal to the walk's after the
-    same frames, the yardsticks launched and the walks not. Returns the
-    launches summed per kernel."""
-    import torch
-    launches = dict.fromkeys(KERNELS, 0)
-    k9 = ("closest_inst",)
-    runs = []
-    for tag, (scene, frames, kw, accum) in fused.items():
-        walk = next(f for t, f, _ in FUSED_TWINS if t == tag)
-        yard = YARDSTICK.get(walk) or DENSE_BODY[walk]
-        runs.append((f"{tag}, fused_nee", (walk,), (yard,),
-                     lambda s=scene, f=frames, kw=kw: _render(
-                         s, device, f, use_direct_lighting=True,
-                         use_importance_sampling=True, fused_nee=True, **kw),
-                     accum))
-    runs += [(tag, k9, (YARDSTICK[k9[0]],), lambda ws=ws, f=frames, kw=kw:
-              _render_whitted(ws, device, WHITTED_VIEW, f, **kw), accum)
-             for tag, (ws, frames, kw, accum) in instanced_frames.items()]
-    runs += [(f"{tag}, unfused", WALK_RUNS[tag][0],
-              tuple(DENSE_BODY[k] for k in WALK_RUNS[tag][0]),
-              lambda s=scene, f=frames, kw=kw:
-              _render(s, device, f, use_direct_lighting=True,
-                      use_importance_sampling=True, **kw), accum)
-             for tag, (scene, frames, kw, accum) in walk_frames.items()]
-    if len(runs) != 6:
-        raise AssertionError(f"{len(runs)} yardstick frames, expected 6")
-    for tag, walks, yards, render, accum in runs:
-        _zero_counters()
-        with _yardsticks():
-            other, _, per = render()
-        counts = _read_counters()
-        _check_frame(f"{tag}, {' + '.join(yards)}", other, per)
-        if any(counts[k] for k in walks) or not all(counts[k] for k in yards):
-            raise AssertionError(f"{tag} through the yardstick: launches "
-                                 f"{counts}")
-        if not torch.equal(other, accum):
-            raise AssertionError(f"{tag}: the yardstick frame differs from "
-                                 "the walk's")
-        say("yardstick", f"{tag} through {' + '.join(yards)} "
-            f"({', '.join(str(counts[k]) for k in yards)} launches, "
-            f"{sum(p[0] for p in per) / len(per) * 1e3:.1f} ms/frame): "
-            f"accumulator bitwise equal to the walk's; {smi}")
-        for k, n in counts.items():
-            launches[k] += n
-    return launches
+def _k10_node_tests(rec, what: str, shadow, occluded, tables) -> None:
+    """Say (and keep on ``rec``) the instance-node tests a live shadow
+    ray of K10's walk makes at its tmax, blocked and unblocked apart."""
+    from tpu_pt_torch.render import PARK_COORD
+    tests = _inst_node_tests(*shadow, tables, occluded)
+    live = (shadow[0][:, 0] != PARK_COORD) & (shadow[2] > 0.01)
+    per = {}
+    for k, sel in (("blocked", live & occluded), ("open", live & ~occluded)):
+        n = int(sel.sum())
+        per[k] = float(tests[sel].sum()) / n if n else 0.0
+    rec.setdefault("node_tests_per_ray", {})[what] = per
+    say("kernels", f"occluded_inst, {what}: {int(live.sum())} live shadow "
+        f"rays, {float(occluded[live].float().mean()):.4f} blocked; node "
+        f"tests a blocked ray {per['blocked']:.2f} (one path), an open one "
+        f"{per['open']:.2f} (of {tables.tree.nodes.shape[0]} nodes)")
 
 
 def phase_whitted_calls(recorded, records):
     """(a) Every kernel call recorded from a Whitted run's warm-up frame
     (the forest's K9 / K10, pbr_big's K6 / K8 on its 100,354 rows at the
     run's width, foliage's K9 on the main and the alpha-subset tables and
-    its K10) against its plain version on the same arguments, bitwise."""
-    from tpu_pt_torch.intersect import instanced
+    its K10 on the opaque subset) against its plain version on the same
+    arguments, bitwise."""
     for tag, picked in recorded.items():
         _hold_recorded(records, picked, tag.split(" ")[0])
-        # K9's recorded calls (foliage: its main and alpha-subset tables)
-        # against the flat loop, bit for bit, timed in interleaved pairs.
-        for (name, _), (args, _) in picked.items():
-            if name != "closest_inst":
-                continue
-            _walk_against_yardstick(
-                records, name, f"K9 (a {tag.split(' ')[0]} call on "
-                f"{tuple(args[2].shape)} rows)",
-                lambda args=args: instanced.closest_inst(*args),
-                lambda args=args: instanced.closest_inst_flat(*args[:9]),
-                "recorded")
 
 
 def _write_city(path):
@@ -3816,36 +3523,16 @@ def phase_whitted_cross_check(device):
         f"card {card_s:.2f} s; {line}")
 
 
-# Path-trace runs of ``--profile``: bench.py's frame unfused, through K1's
-# dense body (``_yardsticks``: the last element) and unfused again (the
-# host's speed drifts during a call, so each variant is read before and
-# after the other), then under fused_nee, through K4's dense body and
-# fused again, then on regen; the sphere box unfused, through K3's and
-# K2's dense bodies and unfused again, then fused, fused through K5's
-# dense body and fused again.
+# Path-trace runs of ``--profile pt``: bench.py's frame unfused, under
+# fused_nee and on regen; the sphere box unfused and under fused_nee.
 PROFILE_PT = [
-    ("bench frame, pixelq", "cornell_box_mixed.obj", {}, False),
-    ("bench frame, pixelq, K1's dense body", "cornell_box_mixed.obj", {},
-     True),
-    ("bench frame, pixelq", "cornell_box_mixed.obj", {}, False),
+    ("bench frame, pixelq", "cornell_box_mixed.obj", {}),
     ("bench frame, pixelq, fused_nee", "cornell_box_mixed.obj",
-     dict(fused_nee=True), False),
-    ("bench frame, pixelq, fused_nee, K4's dense body",
-     "cornell_box_mixed.obj", dict(fused_nee=True), True),
-    ("bench frame, pixelq, fused_nee", "cornell_box_mixed.obj",
-     dict(fused_nee=True), False),
-    ("bench frame, regen", "cornell_box_mixed.obj", dict(scheduler="regen"),
-     False),
-    ("sphere box, pixelq", "cornell_box_sphere.obj", {}, False),
-    ("sphere box, pixelq, K3 and K2's dense bodies",
-     "cornell_box_sphere.obj", {}, True),
-    ("sphere box, pixelq", "cornell_box_sphere.obj", {}, False),
+     dict(fused_nee=True)),
+    ("bench frame, regen", "cornell_box_mixed.obj", dict(scheduler="regen")),
+    ("sphere box, pixelq", "cornell_box_sphere.obj", {}),
     ("sphere box, pixelq, fused_nee", "cornell_box_sphere.obj",
-     dict(fused_nee=True), False),
-    ("sphere box, pixelq, fused_nee, K5's dense body",
-     "cornell_box_sphere.obj", dict(fused_nee=True), True),
-    ("sphere box, pixelq, fused_nee", "cornell_box_sphere.obj",
-     dict(fused_nee=True), False),
+     dict(fused_nee=True)),
 ]
 
 
@@ -3899,7 +3586,7 @@ def _profile_big(device, smi):
     for what, variables, _, _ in BIG_VARIANTS:
         order += [(what, variables), ("lean (K6 + K8)", {})]
     for what, variables in order:
-        with _variant(what, variables):
+        with _env(**variables):
             _, _, per = _render(big, device, [0, 1], **kw)
             accum = init_accum(cfg, device=device)
             _profile_frame(f"big mesh, {what} {variables or ''}".strip(),
@@ -3917,7 +3604,7 @@ def _profile_pt(device, smi):
     from tpu_pt_torch.render import CameraArrays, init_accum, render_frame
     scenes = {}
     bench_kw = next(r[4] for r in MAIN_RUNS if r[0] == REGEN_OF)
-    for tag, scene_file, extra, yard in PROFILE_PT:
+    for tag, scene_file, extra in PROFILE_PT:
         if scene_file not in scenes:
             scenes[scene_file] = tp.load_scene(str(ASSETS / scene_file),
                                                device=device)
@@ -3925,40 +3612,32 @@ def _profile_pt(device, smi):
                   next(r[4] for r in MAIN_RUNS if r[1] == scene_file),
                   use_direct_lighting=True, use_importance_sampling=True,
                   **extra)
-        with _yardsticks() if yard else contextlib.nullcontext():
-            _, _, per = _render(scenes[scene_file], device, [0, 1], **kw)
-            cfg = tp.RenderConfig(**kw)
-            cam = CameraArrays.from_camera(tp.cornell_default_camera(),
-                                           device=device)
-            accum = init_accum(cfg, device=device)
-            _profile_frame(f"{tag} ({kw['width']}^2 x {kw['spp']} spp)",
-                           lambda: render_frame(scenes[scene_file], cam, cfg,
-                                                2, accum),
-                           per[1][0] * 1e3,
-                           int(per[1][2].wavefront_iterations), smi)
+        _, _, per = _render(scenes[scene_file], device, [0, 1], **kw)
+        cfg = tp.RenderConfig(**kw)
+        cam = CameraArrays.from_camera(tp.cornell_default_camera(),
+                                       device=device)
+        accum = init_accum(cfg, device=device)
+        _profile_frame(f"{tag} ({kw['width']}^2 x {kw['spp']} spp)",
+                       lambda: render_frame(scenes[scene_file], cam, cfg, 2,
+                                            accum),
+                       per[1][0] * 1e3, int(per[1][2].wavefront_iterations),
+                       smi)
 
 
 def _profile_whitted(device, smi):
     """One profiled frame of each Whitted main-path run (``--profile
-    whitted``), as _profile_pt profiles; an instanced run also through
-    K9's flat loop, then through the walk again."""
+    whitted``), as _profile_pt profiles."""
     import tpu_pt_torch as tp
     for tag, scene, inst_mode, _, _, kw, _ in WHITTED_RUNS:
         ws = tp.load_gltf(str(ASSETS / scene), instancing=inst_mode,
                           device=device)
-        order = [(tag, False)]
-        if ws.inst is not None:
-            order += [(f"{tag}, K9's flat loop", True), (tag, False)]
-        for what, yard in order:
-            with _yardsticks() if yard else contextlib.nullcontext():
-                _, _, per = _render_whitted(ws, device, WHITTED_VIEW, [0, 1],
-                                            **kw)
-                cfg = tp.RenderConfig(**kw)
-                cam = _whitted_camera(WHITTED_VIEW, device)
-                accum = tp.init_accum(cfg, device=device)
-                _profile_frame(what, lambda: tp.render_whitted_frame(
-                    ws, cam, cfg, 2, accum), per[1][0] * 1e3,
-                    int(per[1][2].wavefront_iterations), smi)
+        _, _, per = _render_whitted(ws, device, WHITTED_VIEW, [0, 1], **kw)
+        cfg = tp.RenderConfig(**kw)
+        cam = _whitted_camera(WHITTED_VIEW, device)
+        accum = tp.init_accum(cfg, device=device)
+        _profile_frame(tag, lambda: tp.render_whitted_frame(
+            ws, cam, cfg, 2, accum), per[1][0] * 1e3,
+            int(per[1][2].wavefront_iterations), smi)
 
 
 def main() -> int:
@@ -3983,19 +3662,15 @@ def main() -> int:
     phase_goldens(device)
     phase_fused_goldens(device)
     phase_whitted_goldens(device)
-    launches, twins, walk_frames = phase_main_path(device, smi, big,
-                                                   records)
+    launches, twins = phase_main_path(device, smi, big, records)
     b_launches = phase_big_variants(device, smi, big, twins[BIG_TAG],
                                     records)
-    f_launches, fused = phase_fused_main(device, smi, twins, records)
+    f_launches = phase_fused_main(device, smi, twins, records)
     del twins
-    w_launches, recorded, instanced_frames = phase_whitted_main(device, smi)
+    w_launches, recorded = phase_whitted_main(device, smi)
     phase_inst_kernels(device, records)
     phase_whitted_calls(recorded, records)
     del recorded
-    y_launches = phase_yardstick_frames(device, smi, fused, instanced_frames,
-                                        walk_frames)
-    del fused, instanced_frames, walk_frames
     phase_cross_check(big)
     phase_lbvh(device, smi, big)
     phase_whitted_cross_check(device)
@@ -4013,7 +3688,7 @@ def main() -> int:
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=sum(part.get(kname, 0) for part in (
                 launches, w_launches, f_launches, b_launches, h_launches,
-                i_launches, p_launches, y_launches)),
+                i_launches, p_launches)),
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -4023,21 +3698,22 @@ def main() -> int:
             # K12-K15: the schedule build and the whole path (build,
             # kernel, reduce, completion) beside the whole function's
             # bound; K16: ms per call over its 200 chained calls.
-            # K6, K6f, K8 and their flat scans: interleaved pairs of the
-            # two (32,768 parked and 262,144 rays, a recorded bench_big
-            # call, the huge mesh).
-            # K5 and K9: the yardstick's count of their work beside the
-            # walk's (bound_ms), and the walk against its yardstick in
-            # interleaved pairs. K1's to K4's walks: the same, their
-            # dense bodies' times on the walk's record (dense_pair_ms_*;
-            # _monkey: on the monkey box, _reference: a recorded call of
-            # the reference launch).
+            # K6, K8: a call on the huge mesh (ms_huge). K5: the dense
+            # count of its work beside the walk's (bound_ms). K9, K10:
+            # foliage's calls (ms_foliage, K10's bound there too), K10
+            # from above the forest's edge (ms_edge), instance-node tests
+            # per ray. K1's to K4's walks: the dense count, and the walk
+            # against its dense body in interleaved pairs, both times on
+            # the walk's record (pair_ms_*, dense_pair_ms_*; _monkey: on
+            # the monkey box, _reference: a recorded call of the
+            # reference launch).
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
                                      "path_bound_by", "bench_ms",
-                                     "ms_at_n_rays", "pair_ms_narrow",
-                                     "pair_ms_wide", "pair_ms_recorded",
-                                     "pair_ms_huge", "dense_bound_ms",
-                                     "flat_bound_ms", "pair_ms_foliage",
+                                     "ms_at_n_rays", "ms_huge", "ms_foliage",
+                                     "ms_edge", "foliage_bound_ms",
+                                     "node_tests_per_ray", "dense_bound_ms",
+                                     "pair_ms_narrow", "pair_ms_wide",
+                                     "pair_ms_recorded",
                                      "dense_pair_ms_narrow",
                                      "dense_pair_ms_wide",
                                      "dense_pair_ms_recorded",

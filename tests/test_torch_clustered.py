@@ -455,11 +455,7 @@ def test_inkb_dispatch_matches_pallas(mixed_scenes, monkeypatch, lean_big):
     _shrink(monkeypatch)
     monkeypatch.setenv("TPT_INKB", "1")
     monkeypatch.setenv("TPT_LEAN_BIG", lean_big)
-    # The flat scans are spied too: they are on no path.
-    names = CLOSEST_WRAPPERS + ("occluded_clustered", "occluded_clustered_b",
-                                "closest_clustered_flat",
-                                "closest_clustered_full_flat",
-                                "occluded_clustered_flat")
+    names = CLOSEST_WRAPPERS + ("occluded_clustered", "occluded_clustered_b")
     calls = _spy(monkeypatch, clustered, names)
     monkeypatch.setattr(dense, "TRI_SLAB", 16)      # shadow rays take K8(b)
     o, d, p, ld, tmax = _rays(jscene, 512, seed=18)

@@ -364,8 +364,7 @@ def test_wrapper_tables(mixed_scenes, monkeypatch):
     handed, _, _, walk = clustered._tables("occluded_clustered", rows, boxes,
                                            None, 16, 5, cpu)
     assert len(handed) == 3 and walk == (16,)
-    for name in ("closest_clustered_flat", "closest_clustered_b",
-                 "occluded_clustered_b", "closest_clustered_full_flat"):
+    for name in ("closest_clustered_b", "occluded_clustered_b"):
         handed, _, _, walk = clustered._tables(name, rows, boxes, None, None,
                                                5, cpu)
         assert len(handed) == 2 and walk == ()
@@ -380,52 +379,3 @@ def test_walk_group_is_a_built_width(n_rays):
     """The walk's lanes a ray is one of the widths the kernels are built
     for (csrc/clustered_intersect.cu, with_group), whatever the ray count."""
     assert clustered.walk_group(n_rays) in (4, 8, 16, 32)
-
-
-def _bench_incoherent():
-    """tools/bench_incoherent_torch.py, loaded by its path."""
-    import importlib.util
-    import pathlib
-    path = (pathlib.Path(__file__).resolve().parent.parent / "tools"
-            / "bench_incoherent_torch.py")
-    spec = importlib.util.spec_from_file_location("bench_incoherent_torch",
-                                                  path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    return tool
-
-
-@pytest.mark.parametrize("how", ["lean", "full carry", "any-hit"])
-def test_flat_scans_in_the_walks_place(mixed_scenes, monkeypatch, how):
-    """``flat_in_place`` (tools/bench_incoherent_torch.py, and
-    chip_smoke.py's flat frames) puts the flat scans in K6's, K6f's and
-    K8's place: ``closest_hit`` / ``occluded_hit`` reach them with the
-    walk's arguments less the node table, and return what the walk's
-    wrappers return."""
-    jscene, tscene = mixed_scenes
-    _shrink(monkeypatch)
-    monkeypatch.setattr(dense, "TRI_SLAB", 16)   # shadow rays take K8 too
-    tables = clustered.prepare(tscene)
-    o, d, p, ld, tmax = (_t(a) for a in _rays(jscene, 256, seed=23))
-    if how == "full carry":
-        monkeypatch.setenv("TPT_LEAN_BIG", "0")
-
-    def run():
-        if how == "any-hit":
-            return (clustered.occluded_hit(tables, p, ld, tmax),)
-        h = clustered.closest_hit(tables, o, d)
-        return h.t, h.tri, h.normal, h.u, h.v
-    want = run()
-    tool = _bench_incoherent()
-    walk = {"lean": "closest_clustered",
-            "full carry": "closest_clustered_full",
-            "any-hit": "occluded_clustered"}[how]
-    seen = _spy_args(monkeypatch, (walk + "_flat",))
-    monkeypatch.setattr(clustered, walk,
-                        tool.flat_in_place(walk, getattr(clustered, walk)))
-    got = run()
-    assert len(seen[walk + "_flat"]) == 1
-    a, kw = seen[walk + "_flat"][0]
-    assert not kw and not any(x is tables.nodes for x in a)
-    for x, y in zip(got, want):
-        assert torch.equal(x, y)

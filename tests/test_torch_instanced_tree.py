@@ -1,5 +1,6 @@
-"""K9's tree over the instances (``tpu_pt_torch.intersect.instanced``:
-``instance_tree``, the plain walk ``_inst_tree_leaves_plain``), on the CPU.
+"""K9's and K10's tree over the instances
+(``tpu_pt_torch.intersect.instanced``: ``instance_tree``, the plain walk
+``_inst_tree_leaves_plain``), on the CPU.
 
 The instanced kernel K9 (``csrc/instanced_intersect.cu``) walks a tree
 over the real instances of an instance table, near first, before it moves
@@ -14,11 +15,23 @@ bit for bit and the JAX package's ``pallas_inst.intersect_closest``
 (interpret mode) within ``tests/test_torch_instanced.py``'s bounds, and
 no answer changes when the instances come in another order.
 
+The shadow-ray kernel K10 walks the same tree at each ray's tmax, culls a
+reached instance's clusters by their mesh-space boxes and stops at the
+first cluster with a blocking row. Its plain twin here (the walk, then an
+any-hit sweep of the reached instances' passing clusters) equals
+``_occluded_inst_plain`` bit for bit, on subset tables of 0, 1 and 2
+real instances too (foliage's opaque subset is such a table), and
+``pallas_inst.intersect_occluded`` (interpret mode) on >= 99% of aimed
+rays.
+
 Scenes: ``tests/test_torch_instanced.py``'s fixture (a cube and a glass
 tetrahedron instanced nine times, non-uniform scales and a mirror) and
 the 1,001-instance forest (``assets/forest.gltf``).
 """
 
+import dataclasses
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -247,10 +260,178 @@ def test_instance_order_changes_no_answer(name, fixture, forest):
     assert torch.equal(ids[hit], want[2][hit])
 
 
+def _shadow_rays(name, fixture, forest, n=256, seed=50):
+    """(InstTables, origins, dirs, tmax) of shadow rays of a scene of
+    SCENES: the fixture's aimed rays, or the forest's rays, each with a
+    random tmax; one ray in eight parked (tmax 0)."""
+    tables, o, d = _scene(name, fixture, forest, n=n, seed=seed)
+    r = np.random.default_rng(seed + 1)
+    lo, hi = (2.0, 20.0) if name == "fixture" else (1.0, 60.0)
+    tmax = r.uniform(lo, hi, n).astype(np.float32)
+    tmax[::8] = 0.0
+    return tables, o, d, _t(tmax)
+
+
+def _cluster_passes(om, dm, cboxes, scale, tmin, bound):
+    """The kernels' slab test of mesh-space rays [N] against cluster
+    boxes [C, 8], each grown by BOX_MARGIN * (scale + max|o_m|): [N, C]."""
+    from tpu_pt_torch.intersect import ablations
+    m = clustered.BOX_MARGIN * (scale + om.abs().amax(1))
+    tn, tf = ablations._near_far(om, ablations._ray_inv(dm), m, cboxes)
+    return (tn <= tf) & (tf > tmin) & (tn <= bound[:, None])
+
+
+def _walk_occluded(o, d, tmax, tables):
+    """K10's plain twin: the instance walk at each ray's tmax, then, for
+    each reached instance, its clusters culled by their mesh-space boxes
+    and an any-hit sweep of the rest."""
+    table = tables.table
+    reached, _ = instanced._inst_tree_leaves_plain(
+        o, d, tables.tree, table.boxes, TMIN, tmax)
+    out = torch.zeros(o.shape[0], dtype=torch.bool)
+    meta = table.rows[:, 12:14].round().long().tolist()
+    for i, (clo, ncl) in enumerate(meta):
+        sel = reached[:, i].nonzero()[:, 0]
+        if ncl == 0 or not sel.numel():
+            continue
+        om, dm = instanced._xform(table.rows[i:i + 1, 0:12], o[sel], d[sel])
+        passes = _cluster_passes(om, dm, tables.boxes[clo:clo + ncl],
+                                 tables.scale, TMIN, tmax[sel])
+        for k in range(ncl):
+            hit = passes[:, k].nonzero()[:, 0]
+            if not hit.numel():
+                continue
+            s = (clo + k) * clustered.CLUSTER
+            rows = tables.tris[s:s + clustered.CLUSTER]
+            out[sel[hit]] |= dense._occluded_plain(om[hit], dm[hit],
+                                                   tmax[sel[hit]], rows, TMIN)
+    return out
+
+
+def _subset(tables, keep):
+    """``tables`` with only the instances of ``keep`` real: the others
+    get the far-point box and no clusters, as the empty meshes of an
+    opaque subset have; the tree over what is left."""
+    table = tables.table
+    rows, boxes = table.rows.clone(), table.boxes.clone()
+    drop = [i for i in range(table.count) if i not in keep]
+    rows[drop, 13] = 0.0
+    boxes[drop, 0:6] = clustered.EMPTY_BOX
+    return instanced.InstTables(
+        tris=tables.tris, boxes=tables.boxes, scale=tables.scale,
+        table=dataclasses.replace(table, rows=rows, boxes=boxes),
+        tree=instanced.instance_tree(boxes))
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_shadow_walk_reaches_the_flat_leaf_set(name, fixture, forest):
+    """At each shadow ray's tmax (parked rays at 0) the plain walk
+    reaches exactly the instances the flat test of every instance box
+    passes."""
+    tables, o, d, tmax = _shadow_rays(name, fixture, forest)
+    boxes = tables.table.boxes
+    reached, tests = instanced._inst_tree_leaves_plain(
+        o, d, tables.tree, boxes, TMIN, tmax)
+    flat = instanced._inst_passes(o, d, boxes, TMIN, tmax[:, None])
+    assert torch.equal(reached, flat)
+    assert int(reached.any(1).sum()) > 50
+    if name == "forest":
+        assert float(tests.float().mean()) < boxes.shape[0] / 10
+
+
+@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("shrink", [1.0, 0.6])
+def test_shadow_walk_is_the_plain_version(name, shrink, fixture, forest):
+    """The walk, then the any-hit sweep of the reached instances' passing
+    clusters, gives ``_occluded_inst_plain`` bit for bit, at each ray's
+    tmax and at 0.6 of it, with blocked and open rays both present; the
+    wrapper on the CPU is the plain version."""
+    tables, o, d, tmax = _shadow_rays(name, fixture, forest, seed=51)
+    tmax = tmax * shrink
+    want = instanced._occluded_inst_plain(
+        o, d, tmax, tables.tris, clustered.CLUSTER, tables.table.rows, TMIN)
+    assert 0.0 < float(want.float().mean()) < 1.0
+    assert torch.equal(_walk_occluded(o, d, tmax, tables), want)
+    assert torch.equal(instanced.occluded_hit(tables, o, d, tmax), want)
+
+
+@pytest.mark.parametrize("n_real", [0, 1, 2])
+def test_shadow_walk_on_a_subset_table(n_real, fixture, forest):
+    """A subset table of 0, 1 or 2 real instances (a root leaf, or a
+    single node): the walk and its sweep give ``_occluded_inst_plain``
+    bit for bit, and the tree fits the wrapper's check."""
+    tables, o, d, tmax = _shadow_rays("fixture", fixture, forest, n=512,
+                                      seed=52)
+    # Opaque cubes (even instances), so that some rays are blocked.
+    sub = _subset(tables, [0, 2][:n_real])
+    assert sub.tree.nodes.shape[0] == max(n_real - 1, 0)
+    instanced._check_tree(sub.tree, sub.table.rows.shape[0],
+                          torch.device("cpu"))
+    want = instanced._occluded_inst_plain(
+        o, d, tmax, sub.tris, clustered.CLUSTER, sub.table.rows, TMIN)
+    assert bool(want.any()) == (n_real > 0)
+    assert torch.equal(_walk_occluded(o, d, tmax, sub), want)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_shadow_walk_ignores_instance_order(name, fixture, forest):
+    """The instances shuffled before the build (another tree): the
+    walk's flags are the same bit for bit."""
+    tables, o, d, tmax = _shadow_rays(name, fixture, forest, seed=53)
+    want = _walk_occluded(o, d, tmax, tables)
+    table = tables.table
+    count = table.count
+    perm = torch.as_tensor(np.random.default_rng(54).permutation(count))
+    order = torch.cat([perm, torch.arange(count, table.rows.shape[0])])
+    shuffled = instanced.InstTables(
+        tris=tables.tris, boxes=tables.boxes, scale=tables.scale,
+        table=dataclasses.replace(table, rows=table.rows[order],
+                                  nrm=table.nrm[order], fwd=table.fwd[order],
+                                  boxes=table.boxes[order]),
+        tree=instanced.instance_tree(table.boxes[order]))
+    assert not torch.equal(shuffled.tree.nodes[:, 8:10],
+                           tables.tree.nodes[:, 8:10])
+    assert torch.equal(_walk_occluded(o, d, tmax, shuffled), want)
+
+
+@pytest.mark.parametrize("tmax_v", [4.0, 14.0])
+def test_shadow_walk_matches_pallas(fixture, tmax_v):
+    """The walk's sweep against ``pallas_inst.intersect_occluded`` on 512
+    aimed rays, as tests/test_torch_instanced.py holds K10's plain
+    version: equal flags on >= 99% of them, parked rays (tmax 0) never
+    blocked."""
+    o, d = _aimed_rays(fixture["instances"], 512, seed=11)
+    tmax = np.full(512, tmax_v, np.float32)
+    tmax[:16] = 0.0
+    j = np.asarray(pi.intersect_occluded(fixture["jgeom"], fixture["jtable"],
+                                         _v3(o), _v3(d), jnp.asarray(tmax)))
+    tables = instanced.prepare(fixture["geom"], fixture["table"])
+    ours = _walk_occluded(_t(o), _t(d), _t(tmax), tables).numpy()
+    assert (ours == j).mean() >= 0.99
+    assert not ours[:16].any()
+    if tmax_v > 10:
+        assert 0.2 < j.mean() < 0.9
+
+
+def test_shadow_entry_point_hands_the_tree_to_k10(fixture, monkeypatch):
+    """``occluded_hit`` calls K10 with the prepared instance tree, so the
+    kernel never builds one per call."""
+    tables = instanced.prepare(fixture["geom"], fixture["table"])
+    seen = []
+    real = instanced.occluded_inst
+
+    def spy(*a, **kw):
+        seen.append(a)
+        return real(*a, **kw)
+    monkeypatch.setattr(instanced, "occluded_inst", spy)
+    o, d = _aimed_rays(fixture["instances"], 64, seed=45)
+    instanced.occluded_hit(tables, _t(o), _t(d), _t(np.full(64, 9.0)))
+    assert len(seen) == 1 and seen[0][-1] is tables.tree
+
+
 def test_entry_point_hands_the_tree_to_k9(fixture, monkeypatch):
-    """``closest_hit`` calls K9 with the prepared instance tree, never the
-    flat yardstick; the wrapper refuses a tree that does not fit its
-    table."""
+    """``closest_hit`` calls K9 with the prepared instance tree; the
+    wrapper refuses a tree that does not fit its table."""
     tables = instanced.prepare(fixture["geom"], fixture["table"])
     seen = []
     real = instanced.closest_inst
@@ -259,7 +440,6 @@ def test_entry_point_hands_the_tree_to_k9(fixture, monkeypatch):
         seen.append(a)
         return real(*a, **kw)
     monkeypatch.setattr(instanced, "closest_inst", spy)
-    monkeypatch.setattr(instanced, "closest_inst_flat", None)
     o, d = _aimed_rays(fixture["instances"], 64, seed=44)
     instanced.closest_hit(tables, _t(o), _t(d))
     assert len(seen) == 1 and seen[0][-1] is tables.tree
@@ -279,3 +459,10 @@ def test_walk_group_is_a_built_width(n_rays):
     """K9's lanes a ray is one of the widths the kernels are built for
     (csrc/walk.cuh, with_group), whatever the ray count."""
     assert instanced.walk_group(n_rays) in (4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("n_rays", [1, 16384, 65536, 262144, 1 << 20])
+def test_occluded_walk_group_is_a_built_width(n_rays):
+    """K10's lanes a ray is one of the widths the kernels are built for,
+    whatever the ray count."""
+    assert instanced.occluded_walk_group(n_rays) in (4, 8, 16, 32)

@@ -8,8 +8,7 @@ worst case, origins uniform in the box of the scene's triangle vertices
 with uniform-sphere directions and tmax 1e4, and times every scheduler of
 the clustered closest hit and any-hit on it through the entry points
 ``clustered.closest_hit`` / ``occluded_hit``, each selected by its
-variable: K6 / K8 (default, the tree walk), their flat scans (by the
-module attributes, not a variable), K7 / K8b (``TPT_INKB=1``), K11
+variable: K6 / K8 (default, the tree walk), K7 / K8b (``TPT_INKB=1``), K11
 (``TPT_SEED=1``, no prediction known), K12 (``TPT_STREAM=1``), K13
 (``TPT_CBIN=1``), K14 (``TPT_BINNED=1``, the workload it was written for),
 K15 serial (``TPT_GRP=1``) and bundled (``TPT_GRP=2``, "K15b"). The rays
@@ -45,54 +44,25 @@ sys.path.insert(0, REPO)
 
 LATE = [("K14", {"TPT_BINNED": "1"}), ("K15", {"TPT_GRP": "1"}),
         ("K15b", {"TPT_GRP": "2"})]
-# "flat": the flat scans in the tree walk's place (K6 / K8 before the
-# walk), by the module attributes closest_hit / occluded_hit call.
-CLOSEST_PATHS = [("K6", {}), ("K6 flat", "flat"),
-                 ("K7", {"TPT_INKB": "1"}), ("K11", {"TPT_SEED": "1"}),
-                 ("K12", {"TPT_STREAM": "1"}), ("K13", {"TPT_CBIN": "1"})] \
+CLOSEST_PATHS = [("K6", {}), ("K7", {"TPT_INKB": "1"}),
+                 ("K11", {"TPT_SEED": "1"}), ("K12", {"TPT_STREAM": "1"}),
+                 ("K13", {"TPT_CBIN": "1"})] + LATE
+OCCLUDED_PATHS = [("K8", {}), ("K8b", {"TPT_INKB": "1"}),
+                  ("K12", {"TPT_STREAM": "1"}), ("K13", {"TPT_CBIN": "1"})] \
     + LATE
-OCCLUDED_PATHS = [("K8", {}), ("K8 flat", "flat"),
-                  ("K8b", {"TPT_INKB": "1"}), ("K12", {"TPT_STREAM": "1"}),
-                  ("K13", {"TPT_CBIN": "1"})] + LATE
-WALKS = ("closest_clustered", "closest_clustered_full", "occluded_clustered")
 DISPATCH = ("TPT_INKB", "TPT_SEED", "TPT_STREAM", "TPT_CBIN", "TPT_LEAN_BIG",
             "TPT_LEAN_UV", "TPT_SORT_KEY", "TPT_CBIN_OCC", "TPT_BINNED",
             "TPT_GRP")
 
 
-def flat_in_place(name: str, walk):
-    """The flat scan of ``clustered``'s walk ``name`` called as ``walk``
-    is: the node table ``closest_hit`` / ``occluded_hit`` hand on is
-    dropped, the other arguments go on in the walk's order, which is the
-    flat scan's. The flat scan is looked up at each call."""
-    import inspect
-    from tpu_pt_torch.intersect import clustered
-    sig = inspect.signature(walk)
-
-    def call(*a, **kw):
-        args = sig.bind(*a, **kw).arguments
-        args.pop("nodes", None)
-        return getattr(clustered, name + "_flat")(*args.values())
-    return call
-
-
 @contextlib.contextmanager
-def _env(variables, walks: dict):
+def _env(variables):
     """The dispatch variables cleared, then ``variables`` set, for the
-    block; ``"flat"`` sets none and puts the flat scans in K6's, K6f's and
-    K8's place, any other value ``walks`` (the walk functions, as
-    ``clustered`` has them outside any block)."""
-    from tpu_pt_torch.intersect import clustered
-    flat = variables == "flat"
+    block."""
     saved = {k: os.environ.get(k) for k in DISPATCH}
-    current = {k: getattr(clustered, k) for k in WALKS}
     for k in DISPATCH:
         os.environ.pop(k, None)
-    for k in WALKS:
-        setattr(clustered, k, flat_in_place(k, walks[k]) if flat
-                else walks[k])
-    if not flat:
-        os.environ.update(variables)
+    os.environ.update(variables)
     try:
         yield
     finally:
@@ -100,8 +70,6 @@ def _env(variables, walks: dict):
             os.environ.pop(k, None)
             if v is not None:
                 os.environ[k] = v
-        for k, fn in current.items():
-            setattr(clustered, k, fn)
 
 
 def make_rays(scene, n: int, device, seed: int = 0):
@@ -193,7 +161,6 @@ def run(scene, n: int, reps: int, want_uv: bool, device, say=None,
     if kernel_module(scene) is not clustered:
         raise SystemExit("the scene is too small for the clustered kernels")
     tables = clustered.prepare(scene)
-    walks = {k: getattr(clustered, k) for k in WALKS}
     o, d, tmax = make_rays(scene, n, device)
     unknown = torch.full((n,), clustered.SLAB_UNKNOWN, dtype=torch.int32,
                          device=device)
@@ -216,22 +183,22 @@ def run(scene, n: int, reps: int, want_uv: bool, device, say=None,
     out = []
     for what, fn, paths in (("closest", closest, CLOSEST_PATHS),
                             ("occluded", occluded, OCCLUDED_PATHS)):
-        with _env({}, walks):
+        with _env({}):
             base = fn()                                 # also warms up
         share = float((base[0] < 1e15).float().mean()) if what == "closest" \
             else float(base[0].float().mean())
         for name, variables in paths:
-            with _env(variables, walks):
+            with _env(variables):
                 got = fn()
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(got, base)):
                     raise AssertionError(
                         f"incoherent {what}: {name} differs from the "
                         f"default path")
-                with _env({}, walks):
+                with _env({}):
                     b0 = _ms(fn, reps)
                 p0, p1 = _ms(fn, reps), _ms(fn, reps)
-                with _env({}, walks):
+                with _env({}):
                     b1 = _ms(fn, reps)
                 parts = _parts(tables, o, d, tmax, name, what == "occluded",
                                reps)

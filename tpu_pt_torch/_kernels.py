@@ -56,8 +56,6 @@ _SIGNATURES = {
         "tpt_closest_nee_full": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F,
                                  _F, _P, _I, _F, _F, _P, _P, _P, _P, _P, _I,
                                  _P),
-        "tpt_closest_nee_full_dense": (_P, _P, _P, _P, _P, _I, _P, _I, _F, _F,
-                                       _P, _P, _P, _P, _P, _P),
     },
     "clustered_intersect": {
         "tpt_closest_clustered": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
@@ -67,13 +65,6 @@ _SIGNATURES = {
         "tpt_closest_clustered_full": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                                        _F, _F, _I, _P, _P, _P, _P, _P, _P,
                                        _I, _P),
-        "tpt_closest_clustered_flat": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                                       _F, _P, _P, _P),
-        "tpt_occluded_clustered_flat": (_P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                        _F, _F, _P, _P),
-        "tpt_closest_clustered_full_flat": (_P, _P, _P, _P, _I, _I, _I, _F,
-                                            _F, _F, _F, _I, _P, _P, _P, _P,
-                                            _P, _P, _P),
     },
     "clustered_build": {
         "tpt_closest_clustered_b": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
@@ -109,10 +100,8 @@ _SIGNATURES = {
     "instanced_intersect": {
         "tpt_closest_inst": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                              _F, _F, _P, _P, _P, _I, _P),
-        "tpt_closest_inst_flat": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                                  _F, _F, _P, _P, _P, _P),
-        "tpt_occluded_inst": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                              _F, _P, _P),
+        "tpt_occluded_inst": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                              _F, _F, _P, _I, _P),
     },
 }
 

@@ -53,13 +53,12 @@
 // it as `group`, and clustered.walk_group picks it from the ray count, as
 // measured by tools/clustered_group_trial.py (PERF.md).
 //
-// What bounded the flat design (tpt_*_flat below, kept on no path as the
-// yardstick of chip_smoke.py): (1) each thread slab-tested all C boxes
+// Why a walk. A flat design, one thread a ray, (1) slab-tests all C boxes
 // in file order, whatever its ray pierces: 784 boxes on the big mesh,
-// 7,824 on the 1M mesh; (2) the visit order was not near first, so every
-// cluster met before the eventual hit and pierced behind it was swept
-// whole, 128 rows with an IEEE division each; (3) one thread per ray at
-// the path's 32,768 lanes is 256 blocks of 128 threads, ~8 warps an SM
+// 7,824 on the 1M mesh; (2) visits them in an order that is not near
+// first, so every cluster met before the eventual hit and pierced behind
+// it is swept whole, 128 rows with an IEEE division each; (3) at the
+// path's 32,768 lanes runs 256 blocks of 128 threads, ~8 warps an SM
 // (12.5% occupancy), with every dependent load's latency in view. The
 // walk tests ~2 log2 C boxes per pierced cluster instead of C, sweeps
 // near first so that the bound shrinks before the far clusters are met,
@@ -85,15 +84,16 @@
 //   --fmad=false. The full carry is write_attrs of pe_block.cuh, the
 //   device code of the dense full-carry kernel (tpt_closest_full): u and v
 //   are formed once from the winning row, never reduced over rows.
-// - The tree culls exactly what the flat scan culls. min and max are
-//   exact, and each rounded step of the slab test, (lo - m - o) * inv, is
-//   monotone in the box coordinate; so a node's interval contains each
-//   descendant's at the same margin m, and a node passes whenever any
-//   cluster under it passes. The clusters the walk sweeps at a bound are
-//   the ones the flat scan passes at that bound (clustered._tree_leaves_
-//   plain; tests/test_torch_clustered_tree.py). The bound only shrinks to
-//   the t of a row already found, and a cluster entered at exactly the
-//   bound is still swept (tn <= bound), so a tie on a lower row is found.
+// - The tree culls exactly what a flat test of every box culls. min and
+//   max are exact, and each rounded step of the slab test,
+//   (lo - m - o) * inv, is monotone in the box coordinate; so a node's
+//   interval contains each descendant's at the same margin m, and a node
+//   passes whenever any cluster under it passes. The clusters the walk
+//   sweeps at a bound are the ones that flat test passes at that bound
+//   (clustered._tree_leaves_plain; tests/test_torch_clustered_tree.py).
+//   The bound only shrinks to the t of a row already found, and a
+//   cluster entered at exactly the bound is still swept (tn <= bound), so
+//   a tie on a lower row is found.
 // - The slab test (pe_block.cuh, slab_enter) takes the eps-guarded
 //   reciprocal of _ray_inv (pallas_bf.py:533-542), so axis-parallel rays
 //   stay finite, and every quantity it forms is finite or +-inf, never
@@ -114,7 +114,6 @@ using tpt::max_abs_origin;
 using tpt::pe_test;
 using tpt::Ray;
 using tpt::Slab;
-using tpt::box_passes;  // cluster c of boxes [C, 8] grown by m
 using tpt::walk_grid;
 using tpt::walk_tree;
 using tpt::with_group;
@@ -229,99 +228,6 @@ occluded_tree_kernel(const float* __restrict__ orig,
   if (g.lane == 0) occ_out[i] = blocked ? 1 : 0;
 }
 
-// ---------------------------------------------------------------------------
-// The flat scan (the bodies the walk replaced, verbatim): one thread a
-// ray, every box slab-tested in file order. On no path; chip_smoke.py's
-// yardstick.
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;  // rays per block, one thread per ray
-
-template <bool kFull>
-__global__ void __launch_bounds__(kThreads)
-closest_clustered_kernel(const float* __restrict__ orig,
-                         const float* __restrict__ dir,
-                         const float* __restrict__ tris,
-                         const float* __restrict__ boxes, int n_rays,
-                         int n_boxes, int cluster, float scale, float margin,
-                         float tmin, float tmax, int want_uv,
-                         float* __restrict__ t_out, int* __restrict__ row_out,
-                         float* __restrict__ nrm_out,
-                         int* __restrict__ mat_out, float* __restrict__ u_out,
-                         float* __restrict__ v_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(orig, dir, i);
-  const Slab s = tpt::make_slab(r);
-  // Culling margin: margin * (scale + max_k |o_k|) (clustered.BOX_MARGIN).
-  const float m = margin * (scale + max_abs_origin(r));
-  const float4* bx = reinterpret_cast<const float4*>(boxes);
-  const float4* rows = reinterpret_cast<const float4*>(tris);
-
-  float best = kTFar;
-  int best_row = 0;
-  for (int c = 0; c < n_boxes; ++c) {
-    if (!box_passes(r, s, m, bx, c, tmin, fminf(best, tmax))) continue;
-    const int base = c * cluster;
-    for (int j = 0; j < cluster; ++j) {
-      const int row = base + j;
-      const float4* p = rows + 4 * (size_t)row;
-      float t = pe_test(r, __ldg(p), __ldg(p + 1), __ldg(p + 2), tmin);
-      if (!(t < tmax)) t = kTFar;
-      if (t < best || (t == best && row < best_row)) {
-        best = t;
-        best_row = row;
-      }
-    }
-  }
-  t_out[i] = best;
-  if (kFull)
-    tpt::write_attrs(tris, r, i, best, best_row, want_uv, nrm_out, mat_out,
-                     u_out, v_out, row_out);
-  else
-    row_out[i] = best < kTFar ? best_row : 0;
-}
-
-__global__ void __launch_bounds__(kThreads)
-occluded_clustered_kernel(const float* __restrict__ orig,
-                          const float* __restrict__ dir,
-                          const float* __restrict__ tmax,
-                          const float* __restrict__ tris,
-                          const float* __restrict__ boxes, int n_rays,
-                          int n_boxes, int cluster, float scale,
-                          float margin, float tmin,
-                          uint8_t* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float tm = tmax[i];
-  bool blocked = false;
-  // Nothing can block when (tmin, tm) is empty (parked and ineligible
-  // shadow rays carry tm = 0).
-  if (tm > tmin) {
-    const Ray r = load_ray(orig, dir, i);
-    const Slab s = tpt::make_slab(r);
-    const float m = margin * (scale + max_abs_origin(r));
-    const float4* bx = reinterpret_cast<const float4*>(boxes);
-    const float4* rows = reinterpret_cast<const float4*>(tris);
-    for (int c = 0; c < n_boxes && !blocked; ++c) {
-      // A box entered at tn >= tm holds no blocking hit (t > tn).
-      if (!box_passes(r, s, m, bx, c, tmin, tm)) continue;
-      const int base = c * cluster;
-      // Any-hit: the thread stops at its first blocking row.
-      for (int j = 0; j < cluster && !blocked; ++j) {
-        const float4* p = rows + 4 * (size_t)(base + j);
-        if (!(__ldg(p + 3).y < 0.5f)) continue;  // refractive rows pass light
-        blocked = pe_test(r, __ldg(p), __ldg(p + 1), __ldg(p + 2), tmin) < tm;
-      }
-    }
-  }
-  occ_out[i] = blocked ? 1 : 0;
-}
-
-inline unsigned grid_for(int n_rays) {
-  return (unsigned)((n_rays + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
@@ -385,46 +291,6 @@ int tpt_occluded_clustered(const float* orig, const float* dir,
             scale, margin, tmin, occ_out);
   });
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
-}
-
-int tpt_closest_clustered_flat(const float* orig, const float* dir,
-                               const float* tris, const float* boxes,
-                               int n_rays, int n_boxes, int cluster,
-                               float scale, float margin, float tmin,
-                               float tmax, float* t_out, int* row_out,
-                               void* stream) {
-  closest_clustered_kernel<false>
-      <<<grid_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-          orig, dir, tris, boxes, n_rays, n_boxes, cluster, scale, margin,
-          tmin, tmax, 0, t_out, row_out, nullptr, nullptr, nullptr, nullptr);
-  return (int)cudaGetLastError();
-}
-
-int tpt_closest_clustered_full_flat(const float* orig, const float* dir,
-                                    const float* tris, const float* boxes,
-                                    int n_rays, int n_boxes, int cluster,
-                                    float scale, float margin, float tmin,
-                                    float tmax, int want_uv, float* t_out,
-                                    int* id_out, float* nrm_out, int* mat_out,
-                                    float* u_out, float* v_out,
-                                    void* stream) {
-  closest_clustered_kernel<true>
-      <<<grid_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-          orig, dir, tris, boxes, n_rays, n_boxes, cluster, scale, margin,
-          tmin, tmax, want_uv, t_out, id_out, nrm_out, mat_out, u_out, v_out);
-  return (int)cudaGetLastError();
-}
-
-int tpt_occluded_clustered_flat(const float* orig, const float* dir,
-                                const float* tmax, const float* tris,
-                                const float* boxes, int n_rays, int n_boxes,
-                                int cluster, float scale, float margin,
-                                float tmin, uint8_t* occ_out, void* stream) {
-  occluded_clustered_kernel<<<grid_for(n_rays), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      orig, dir, tmax, tris, boxes, n_rays, n_boxes, cluster, scale, margin,
-      tmin, occ_out);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

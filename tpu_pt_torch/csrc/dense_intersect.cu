@@ -39,10 +39,6 @@
 //                        tpt_closest_full's function (no u/v), then the
 //                        same shadow ray any-hit over all rows; since the
 //                        redesign a walk of a kd copy of the table (below).
-//   tpt_closest_nee_full_dense
-//                     <- the same: the body tpt_closest_nee_full had before
-//                        the walk (both sweeps over every row), kept on no
-//                        path as chip_smoke.py's yardstick.
 //
 // The per-pair test is pe_test of pe_block.cuh, shared with the clustered
 // kernels.
@@ -60,13 +56,13 @@
 // K5 is different: its table (the sphere box, 2,280 rows) is five times
 // K4's, and it is swept twice, once for the closest hit and once more by
 // the shadow ray over every row, while most rows are the sphere, a small
-// corner of the box. The dense body (now tpt_closest_nee_full_dense) did
-// 2 x 2,280 pair tests a ray, the block stopping its shadow sweep only
-// when all 256 of its rays were blocked; with --fmad=false every multiply
-// and add issues alone, so no cheaper pair test stays bitwise. So the
-// work itself is cut: dense.prepare keeps a kd copy of the table
-// (dense.kd_tables). The few triangles that span the scene (a box's
-// walls, floor, ceiling and blocks: 32 of the sphere box's 2,264) would
+// corner of the box. A dense body does 2 x 2,280 pair tests a ray, the
+// block stopping its shadow sweep only when all 256 of its rays are
+// blocked; with --fmad=false every multiply and add issues alone, so no
+// cheaper pair test stays bitwise. So the work itself is cut:
+// dense.prepare keeps a kd copy of the table (dense.kd_tables). The few
+// triangles that span the scene (a box's walls, floor, ceiling and
+// blocks: 32 of the sphere box's 2,264) would
 // stretch the box of any cluster they fell in over the whole room, so
 // they lead the copy as `n_top` rows that every ray sweeps; the rest are
 // cut into 128-row clusters in balanced-kd order with boxes and their
@@ -267,11 +263,9 @@ __device__ __forceinline__ Ray shadow_ray(const Ray& r, float t, float a,
   return s;
 }
 
-// Fused closest hit + NEE shadow ray. kFull: the full-carry closest hit
-// (clipped at tmax; normal and material out, no u/v) as _closest_nee_kernel,
-// else the lean (t, row) sweep with no clipping, as
-// _closest_nee_kernel_lean. light = (corner xyz, v1 xyz, v2 xyz).
-template <bool kFull>
+// Fused closest hit + NEE shadow ray, as _closest_nee_kernel_lean: the
+// lean (t, row) sweep with no clipping, then the shadow ray any-hit over
+// the occluder rows. light = (corner xyz, v1 xyz, v2 xyz).
 __global__ void __launch_bounds__(kThreads)
 closest_nee_kernel(const float* __restrict__ orig,
                    const float* __restrict__ dir,
@@ -280,16 +274,15 @@ closest_nee_kernel(const float* __restrict__ orig,
                    const float* __restrict__ tris, int n_rows,
                    const float* __restrict__ occ_tris, int n_occ,
                    const float* __restrict__ light, int n_rays, float tmin,
-                   float tmax, float* __restrict__ t_out,
-                   int* __restrict__ row_out, float* __restrict__ nrm_out,
-                   int* __restrict__ mat_out, uint8_t* __restrict__ occ_out) {
+                   float* __restrict__ t_out, int* __restrict__ row_out,
+                   uint8_t* __restrict__ occ_out) {
   __shared__ float4 s_rows[kTileRows * 4];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n_rays;
   const Ray r = live ? load_ray(orig, dir, i) : Ray{0, 0, 0, 0, 0, 0};
   float best;
   int best_row;
-  closest_sweep<kFull>(s_rows, r, live, tris, n_rows, tmin, tmax, best,
+  closest_sweep<false>(s_rows, r, live, tris, n_rows, tmin, kTFar, best,
                        best_row);
 
   Ray s{0, 0, 0, 0, 0, 0};
@@ -301,9 +294,6 @@ closest_nee_kernel(const float* __restrict__ orig,
   t_out[i] = best;
   row_out[i] = best < kTFar ? best_row : 0;
   occ_out[i] = blocked ? 1 : 0;
-  if (kFull)
-    write_attrs(tris, r, i, best, best_row, false, nrm_out, mat_out, nullptr,
-                nullptr);
 }
 
 inline unsigned grid_for(int n_rays) {
@@ -663,10 +653,9 @@ int tpt_closest_nee_lean(const float* orig, const float* dir, const float* lz1,
                          const float* occ_tris, int n_occ, const float* light,
                          int n_rays, float tmin, float* t_out, int* row_out,
                          uint8_t* occ_out, void* stream) {
-  closest_nee_kernel<false>
-      <<<grid_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-          orig, dir, lz1, lz2, tris, n_rows, occ_tris, n_occ, light, n_rays,
-          tmin, kTFar, t_out, row_out, nullptr, nullptr, occ_out);
+  closest_nee_kernel<<<grid_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+      orig, dir, lz1, lz2, tris, n_rows, occ_tris, n_occ, light, n_rays, tmin,
+      t_out, row_out, occ_out);
   return (int)cudaGetLastError();
 }
 
@@ -726,20 +715,6 @@ int tpt_occluded_tree(const float* orig, const float* dir, const float* tmax,
                                    occ_out);
   });
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
-}
-
-int tpt_closest_nee_full_dense(const float* orig, const float* dir,
-                               const float* lz1, const float* lz2,
-                               const float* tris, int n_rows,
-                               const float* light, int n_rays, float tmin,
-                               float tmax, float* t_out, int* row_out,
-                               float* nrm_out, int* mat_out, uint8_t* occ_out,
-                               void* stream) {
-  closest_nee_kernel<true>
-      <<<grid_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-          orig, dir, lz1, lz2, tris, n_rows, tris, n_rows, light, n_rays,
-          tmin, tmax, t_out, row_out, nrm_out, mat_out, occ_out);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // The near-first walk of a box tree by a group of lanes, shared by the
 // clustered kernels (K6, K6f, K8: a kd tree over the clusters of a big
-// table), the fused closest-hit + NEE kernel K5 (a kd copy of the dense
-// table) and the instanced kernel K9 (a tree over the instances).
+// table), the dense kernels' walks (K1-K5: a kd copy of the dense table)
+// and the instanced kernels K9 and K10 (a tree over the instances).
 //
 // One ray goes to a group of G lanes (a part of a warp). The group walks
 // the tree together, depth first and near first: it tests both children

@@ -37,10 +37,7 @@ the TPU path's chained slabs and ray sort exist only because its table
 had to fit in VMEM. The results are those of a dense sweep over every
 row, which is what the plain versions compute. A wrapper runs the plain
 version only for tensors on the CPU; for CUDA tensors it launches the
-kernel, and for anything else it raises. The flat scans that K6, K6f and
-K8 were until the tree walk (``*_flat``: each thread slab-tests every
-box) stay as wrappers on no path, the yardstick ``chip_smoke.py`` holds
-the walk against.
+kernel, and for anything else it raises.
 
 ``closest_hit`` / ``occluded_hit`` pick among them as the JAX package does
 (``variant``): ``TPT_LEAN_BIG=0``, or ``TPT_LEAN_UV=0`` on a call that wants
@@ -93,9 +90,7 @@ BOX_MARGIN = 1e-4
 # on CPU tensors do not count.
 LAUNCHES = {"closest_clustered": 0, "occluded_clustered": 0,
             "closest_clustered_full": 0, "closest_clustered_b": 0,
-            "closest_clustered_full_b": 0, "occluded_clustered_b": 0,
-            "closest_clustered_flat": 0, "closest_clustered_full_flat": 0,
-            "occluded_clustered_flat": 0}
+            "closest_clustered_full_b": 0, "occluded_clustered_b": 0}
 # Ray counts up to which the walk runs 16 lanes a ray, not 8 (walk_group).
 WALK_NARROW_RAYS = 65536
 # Stack entries of the tree walk (csrc/clustered_intersect.cu, kStack): a
@@ -367,7 +362,7 @@ def _tables(name: str, tris, boxes, nodes, group, n: int, dev):
     tables, walk = (tris, boxes), ()
     if name.endswith("_b"):
         _check_build(cluster)
-    elif not name.endswith("_flat"):
+    else:
         if nodes is None:
             nodes = cluster_tree(boxes)
         _check_nodes(nodes, n_boxes, dev)
@@ -378,8 +373,7 @@ def _tables(name: str, tris, boxes, nodes, group, n: int, dev):
 
 def _launch_lean(name: str, origins, dirs, tris, boxes, scale, tmin, tmax,
                  nodes=None, group=None):
-    """Launch a closest (t, packed row) kernel: K6, its flat scan or K7
-    lean."""
+    """Launch a closest (t, packed row) kernel: K6 or K7 lean."""
     from .. import _kernels
     n, _ = dense._check_inputs(origins, dirs, tris)
     dev = origins.device
@@ -400,8 +394,7 @@ def _launch_lean(name: str, origins, dirs, tris, boxes, scale, tmin, tmax,
 
 def _launch_full(name: str, origins, dirs, tris, boxes, scale, tmin, tmax,
                  want_uv, nodes=None, group=None):
-    """Launch a full-carry closest-hit kernel: K6f, its flat scan or K7
-    full."""
+    """Launch a full-carry closest-hit kernel: K6f or K7 full."""
     from .. import _kernels
     n, _ = dense._check_inputs(origins, dirs, tris)
     dev = origins.device
@@ -427,7 +420,7 @@ def _launch_full(name: str, origins, dirs, tris, boxes, scale, tmin, tmax,
 
 def _launch_occluded(name: str, origins, dirs, tmax, tris, boxes, scale,
                      tmin, nodes=None, group=None):
-    """Launch a clustered any-hit kernel: K8, its flat scan or K8b."""
+    """Launch a clustered any-hit kernel: K8 or K8b."""
     from .. import _kernels
     n, _ = dense._check_inputs(origins, dirs, tris)
     dev = origins.device
@@ -460,17 +453,6 @@ def closest_clustered(origins: torch.Tensor, dirs: torch.Tensor,
                         scale, tmin, tmax, nodes)
 
 
-def closest_clustered_flat(origins: torch.Tensor, dirs: torch.Tensor,
-                           tris: torch.Tensor, boxes: torch.Tensor,
-                           scale: float, tmin: float, tmax: float = T_FAR):
-    """K6's function through the flat scan (each thread slab-tests every
-    box): on no path, the yardstick of the walk."""
-    if dense._on_cpu(origins):
-        return _closest_clustered_plain(origins, dirs, tris, tmin, tmax)
-    return _launch_lean("closest_clustered_flat", origins, dirs, tris, boxes,
-                        scale, tmin, tmax)
-
-
 def closest_clustered_b(origins: torch.Tensor, dirs: torch.Tensor,
                         tris: torch.Tensor, boxes: torch.Tensor, scale: float,
                         tmin: float, tmax: float = T_FAR):
@@ -498,18 +480,6 @@ def closest_clustered_full(origins: torch.Tensor, dirs: torch.Tensor,
                         scale, tmin, tmax, want_uv, nodes)
 
 
-def closest_clustered_full_flat(origins: torch.Tensor, dirs: torch.Tensor,
-                                tris: torch.Tensor, boxes: torch.Tensor,
-                                scale: float, tmin: float,
-                                tmax: float = T_FAR, want_uv: bool = True):
-    """K6f's function through the flat scan: on no path."""
-    if dense._on_cpu(origins):
-        return _closest_clustered_full_plain(origins, dirs, tris, tmin, tmax,
-                                             want_uv)
-    return _launch_full("closest_clustered_full_flat", origins, dirs, tris,
-                        boxes, scale, tmin, tmax, want_uv)
-
-
 def closest_clustered_full_b(origins: torch.Tensor, dirs: torch.Tensor,
                              tris: torch.Tensor, boxes: torch.Tensor,
                              scale: float, tmin: float, tmax: float = T_FAR,
@@ -532,17 +502,6 @@ def occluded_clustered(origins: torch.Tensor, dirs: torch.Tensor,
         return _occluded_clustered_plain(origins, dirs, tmax, tris, tmin)
     return _launch_occluded("occluded_clustered", origins, dirs, tmax, tris,
                             boxes, scale, tmin, nodes)
-
-
-def occluded_clustered_flat(origins: torch.Tensor, dirs: torch.Tensor,
-                            tmax: torch.Tensor, tris: torch.Tensor,
-                            boxes: torch.Tensor, scale: float,
-                            tmin: float) -> torch.Tensor:
-    """K8's function through the flat scan: on no path."""
-    if dense._on_cpu(origins):
-        return _occluded_clustered_plain(origins, dirs, tmax, tris, tmin)
-    return _launch_occluded("occluded_clustered_flat", origins, dirs, tmax,
-                            tris, boxes, scale, tmin)
 
 
 def occluded_clustered_b(origins: torch.Tensor, dirs: torch.Tensor,

@@ -29,16 +29,14 @@ of its table (``KdTables``: the rows of the triangles that span the scene
 first, then the rest in 128-row clusters with boxes and their
 ``cluster_tree``), which ``prepare`` builds for every table that leaves at
 least one cluster of rows outside the top rows; ties go to the lowest
-dense row (column 15), as in the dense sweep. Its dense body stays as
-``closest_nee_full_dense``, on no path, the yardstick ``chip_smoke.py``
-holds the walk against. K3, K1 and K4 walk the same copy
-(``closest_full_tree``, ``closest_lean_tree``, ``closest_nee_lean_tree``);
-K2 walks a kd copy of the occluder subset (``DenseTables.occ_kd``), which
-``prepare`` builds by the same rule, and so does K4's shadow ray, which
-sweeps the subset's rows where it has no copy. The dense bodies
-``closest_lean``, ``closest_full``, ``occluded`` and ``closest_nee_lean``
-stay on the path for the tables without a copy (``cornell_box.obj``: 32
-rows, all spanning the room).
+dense row (column 15), as in the dense sweep. K3, K1 and K4 walk the
+same copy (``closest_full_tree``, ``closest_lean_tree``,
+``closest_nee_lean_tree``); K2 walks a kd copy of the occluder subset
+(``DenseTables.occ_kd``), which ``prepare`` builds by the same rule, and
+so does K4's shadow ray, which sweeps the subset's rows where it has no
+copy. The dense bodies ``closest_lean``, ``closest_full``, ``occluded``
+and ``closest_nee_lean`` stay on the path for the tables without a copy
+(``cornell_box.obj``: 32 rows, all spanning the room).
 
 The CUDA kernels are in ``csrc/dense_intersect.cu`` (bound by
 ``tpu_pt_torch._kernels``). A wrapper runs the plain version only for
@@ -79,8 +77,7 @@ _PLAIN_ROWS = 4096      # rows per block (temporaries stay cache-sized)
 LAUNCHES = {"closest_lean": 0, "occluded": 0, "closest_full": 0,
             "closest_full_tree": 0, "occluded_tree": 0,
             "closest_nee_lean": 0, "closest_nee_full": 0,
-            "closest_nee_full_dense": 0, "closest_lean_tree": 0,
-            "closest_nee_lean_tree": 0}
+            "closest_lean_tree": 0, "closest_nee_lean_tree": 0}
 NEE_EPS = 0.01         # shadow-ray range shrink (cu:1017 "Ldist - 0.01")
 
 
@@ -740,35 +737,6 @@ def closest_nee_full(origins: torch.Tensor, dirs: torch.Tensor,
                         NEE_WALK_GROUP if group is None else int(group),
                         _stream(dev))
         LAUNCHES["closest_nee_full"] += 1
-    return t, row, normal, mat, occ
-
-
-def closest_nee_full_dense(origins: torch.Tensor, dirs: torch.Tensor,
-                           lz1: torch.Tensor, lz2: torch.Tensor,
-                           tris: torch.Tensor, light: torch.Tensor,
-                           tmin: float, tmax: float):
-    """K5's function through its dense body (both sweeps over every row of
-    the dense table ``tris``): on no path, the yardstick of the walk."""
-    if _on_cpu(origins):
-        return _closest_nee_plain(origins, dirs, lz1, lz2, tris, tris, light,
-                                  tmin, tmax, full=True)
-    from .. import _kernels
-    n, rows = _check_inputs(origins, dirs, tris)
-    _check_nee(origins, lz1, lz2, light)
-    dev = origins.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    row = torch.empty(n, dtype=torch.int32, device=dev)
-    normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    mat = torch.empty(n, dtype=torch.int32, device=dev)
-    occ = torch.empty(n, dtype=torch.bool, device=dev)
-    if n:
-        _kernels.launch("tpt_closest_nee_full_dense", origins.data_ptr(),
-                        dirs.data_ptr(), lz1.data_ptr(), lz2.data_ptr(),
-                        tris.data_ptr(), rows, light.data_ptr(), n,
-                        float(tmin), float(tmax), t.data_ptr(),
-                        row.data_ptr(), normal.data_ptr(), mat.data_ptr(),
-                        occ.data_ptr(), _stream(dev))
-        LAUNCHES["closest_nee_full_dense"] += 1
     return t, row, normal, mat, occ
 
 

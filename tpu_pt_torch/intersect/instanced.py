@@ -18,18 +18,16 @@ wrapper                     replaces (``tpu_pt/intersect/...``)     plain versio
 ==========================  ======================================  ===========================
 
 The CUDA kernels are in ``csrc/instanced_intersect.cu``, one launch per
-call. K9 gives a ray to a group of lanes (``walk_group``), which walks
-a tree over the instances near first (``instance_tree``, built once per
-``prepare``), then culls each reached instance's clusters by their
-mesh-space boxes and sweeps the rest together. K10 traverses for its ray
-in each thread (every instance by world box, then the clusters of each
-pierced instance's mesh). K9's flat loop of that kind stays as
-``closest_inst_flat``, on no path, the yardstick ``chip_smoke.py`` holds
-the walk against. The TPU path's ray sort, per-tile candidate lists and
-one-hot row selects exist only for the TPU; here the winning instance's
-rows are gathers. A wrapper runs the plain version only for tensors on
-the CPU; for CUDA tensors it launches the kernel, and for anything else
-it raises.
+call. Each gives a ray to a group of lanes (``walk_group`` for K9,
+``occluded_walk_group`` for K10), which walks a tree over the instances
+near first (``instance_tree``, built once per ``prepare``), then culls
+each reached instance's clusters by their mesh-space boxes and sweeps the
+rest together: K9 with the best hit so far as its bound, K10 at the
+ray's tmax, ending at the first blocked cluster. The TPU path's ray
+sort, per-tile candidate lists and one-hot row selects exist only for the
+TPU; here the winning instance's rows are gathers. A wrapper runs the
+plain version only for tensors on the CPU; for CUDA tensors it launches
+the kernel, and for anything else it raises.
 """
 
 from __future__ import annotations
@@ -60,9 +58,9 @@ TABLE_CLUSTERS = 8
 
 # Kernel launches per wrapper (read by chip_smoke.py). Plain-version calls
 # on CPU tensors do not count.
-LAUNCHES = {"closest_inst": 0, "occluded_inst": 0, "closest_inst_flat": 0}
+LAUNCHES = {"closest_inst": 0, "occluded_inst": 0}
 # Ray counts up to which K9's walk runs 16 lanes a ray, not 8
-# (walk_group).
+# (walk_group), and K10's 8, not 4 (occluded_walk_group).
 WALK_NARROW_RAYS = 65536
 
 
@@ -175,13 +173,13 @@ def culling_margins(rows: np.ndarray, fwd: np.ndarray, boxes: np.ndarray,
 
 @dataclasses.dataclass
 class InstanceTree:
-    """The tree K9 walks over the real instances of an instance table
-    (``instance_tree``): ``nodes`` [n - 1, 12] f32 (min xyz, max xyz, the
-    margin coefficients a, b, the two children's references as int32
-    bits, 0, 0), and ``root``, the reference the walk starts from: node 0
-    (reference 0), or with one real instance its leaf (2 * index + 1). A
-    reference is 2 * index + 1 for instance ``index`` of the table,
-    2 * index for node ``index``."""
+    """The tree K9 and K10 walk over the real instances of an instance
+    table (``instance_tree``): ``nodes`` [n - 1, 12] f32 (min xyz, max
+    xyz, the margin coefficients a, b, the two children's references as
+    int32 bits, 0, 0), and ``root``, the reference the walk starts from:
+    node 0 (reference 0), or with one real instance its leaf
+    (2 * index + 1). A reference is 2 * index + 1 for instance ``index``
+    of the table, 2 * index for node ``index``."""
     nodes: torch.Tensor
     root: int
 
@@ -400,6 +398,15 @@ def walk_group(n_rays: int) -> int:
     return 16 if n_rays <= WALK_NARROW_RAYS else 8
 
 
+def occluded_walk_group(n_rays: int) -> int:
+    """Lanes a ray of K10's walk for a call of ``n_rays`` shadow rays: 8
+    up to WALK_NARROW_RAYS, 4 above. A shadow ray that ends at the light
+    walks every node it passes at its full tmax, and more lanes help
+    those; a blocked one stops after one path, and fewer lanes a ray fill
+    the card better at wide calls."""
+    return 8 if n_rays <= WALK_NARROW_RAYS else 4
+
+
 def _check_tree(tree: InstanceTree, n_inst: int, device) -> None:
     """An ``instance_tree`` of a table of ``n_inst`` instances: a root
     leaf when it has no nodes, else node 0 and fewer nodes than
@@ -458,42 +465,17 @@ def closest_inst(origins: torch.Tensor, dirs: torch.Tensor,
     return t, row, inst
 
 
-def closest_inst_flat(origins: torch.Tensor, dirs: torch.Tensor,
-                      tris: torch.Tensor, cboxes: torch.Tensor, scale: float,
-                      inst_rows: torch.Tensor, inst_boxes: torch.Tensor,
-                      tmin: float, tmax: float = T_FAR):
-    """K9's function through its flat loop (a thread a ray, every
-    instance box tested in table order): on no path, the yardstick of the
-    walk."""
-    if dense._on_cpu(origins):
-        cluster = tris.shape[0] // cboxes.shape[0]
-        return _closest_inst_plain(origins, dirs, tris, cluster, inst_rows,
-                                   tmin, tmax)
-    from .. import _kernels
-    n, _ = dense._check_inputs(origins, dirs, tris)
-    dev = origins.device
-    _, cluster, n_i = _check_inst(tris, cboxes, inst_rows, inst_boxes, dev)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    row = torch.empty(n, dtype=torch.int32, device=dev)
-    inst = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
-        _kernels.launch("tpt_closest_inst_flat", origins.data_ptr(),
-                        dirs.data_ptr(), tris.data_ptr(), cboxes.data_ptr(),
-                        inst_rows.data_ptr(), inst_boxes.data_ptr(), n, n_i,
-                        cluster, float(scale), clustered.BOX_MARGIN,
-                        float(tmin), float(tmax), t.data_ptr(),
-                        row.data_ptr(), inst.data_ptr(), dense._stream(dev))
-        LAUNCHES["closest_inst_flat"] += 1
-    return t, row, inst
-
-
 def occluded_inst(origins: torch.Tensor, dirs: torch.Tensor,
                   tmax: torch.Tensor, tris: torch.Tensor,
                   cboxes: torch.Tensor, scale: float,
                   inst_rows: torch.Tensor, inst_boxes: torch.Tensor,
-                  tmin: float) -> torch.Tensor:
+                  tmin: float, tree: InstanceTree | None = None,
+                  group: int | None = None) -> torch.Tensor:
     """K10: per ray, is any non-refractive row of any instance hit with
-    tmin < t < tmax[i]? Returns bool [N]."""
+    tmin < t < tmax[i]? Returns bool [N]. The tables as for
+    ``closest_inst``; the instance tree (built here when None, a host
+    sync: pass the prepared one) is walked at each ray's tmax by
+    ``group`` lanes a ray (``occluded_walk_group`` when None)."""
     if dense._on_cpu(origins):
         cluster = tris.shape[0] // cboxes.shape[0]
         return _occluded_inst_plain(origins, dirs, tmax, tris, cluster,
@@ -503,14 +485,19 @@ def occluded_inst(origins: torch.Tensor, dirs: torch.Tensor,
     dev = origins.device
     dense._check("tmax", tmax, torch.float32, (n,), dev)
     _, cluster, n_i = _check_inst(tris, cboxes, inst_rows, inst_boxes, dev)
+    if tree is None:
+        tree = instance_tree(inst_boxes)
+    _check_tree(tree, n_i, dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         _kernels.launch("tpt_occluded_inst", origins.data_ptr(),
                         dirs.data_ptr(), tmax.data_ptr(), tris.data_ptr(),
                         cboxes.data_ptr(), inst_rows.data_ptr(),
-                        inst_boxes.data_ptr(), n, n_i, cluster, float(scale),
+                        inst_boxes.data_ptr(), tree.nodes.data_ptr(),
+                        int(tree.root), n, cluster, float(scale),
                         clustered.BOX_MARGIN, float(tmin), out.data_ptr(),
-                        dense._stream(dev))
+                        occluded_walk_group(n) if group is None
+                        else int(group), dense._stream(dev))
         LAUNCHES["occluded_inst"] += 1
     return out
 
@@ -526,7 +513,7 @@ class InstTables:
     boxes: torch.Tensor       # [C, 8] mesh-space cluster boxes
     scale: float              # their box_scale
     table: InstanceTable      # on the scene's device
-    tree: InstanceTree        # K9's tree over the instances
+    tree: InstanceTree        # K9's and K10's tree over the instances
 
 
 def prepare(geom: SceneArrays, table: InstanceTable) -> InstTables:
@@ -598,7 +585,7 @@ def occluded_hit(tables: InstTables, origins: torch.Tensor,
     (``pallas_inst.intersect_occluded``); refractive rows pass light."""
     return occluded_inst(origins, dirs, tmax, tables.tris, tables.boxes,
                          tables.scale, tables.table.rows, tables.table.boxes,
-                         tmin)
+                         tmin, tables.tree)
 
 
 def get_intersectors(geom: SceneArrays, table: InstanceTable, cfg):
