@@ -215,7 +215,16 @@ a kd copy (``cornell_box.obj``):
    ``fused_nee`` goldens and bench frame K4's walk (once per round), and
    never K1's or K4's dense body; one call of each walk recorded from the
    warm-up frames (reference launch, bench frame, fused bench frame),
-   bitwise against its plain version and its dense body, timed in pairs.
+   bitwise against its plain version and its dense body, timed in pairs;
+35. multi-GPU: a one-rank NCCL world (``tpu_pt_torch.dist``) and its
+   (1, 1) mesh; bench.py's frame (two frames) through the sharded step,
+   its accumulators bitwise equal to two ``render_frame`` runs' (within
+   tests/test_dist.py's 1e-5 when those two differ from each other, with
+   the count of differing pixels printed), K1's walk and K2 once per
+   round; the forest at 256^2 x 2 spp through the sharded step against
+   ``render_whitted_frame`` (K9 and K10 launched); the 4K frame of
+   tools/bench_dist_torch.py in the same world; the NCCL ``all_reduce``
+   of the 4K radiance, timed with CUDA events.
 
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
@@ -520,6 +529,13 @@ TRACE = dict(width=32, height=32, spp=1, max_depth=4, fused_nee=True,
 # (tests/test_torch_render.py).
 CROSS_CHECK = dict(width=32, height=32, spp=2, max_depth=4)
 PIXEL_TOL, PIXEL_SHARE = 1e-4, 0.01
+# Multi-GPU (phase 35): the forest through the sharded step, the bound of
+# a sharded frame against the single-device one where two single-device
+# runs on the card already differ (tests/test_dist.py:55), and the 4K
+# radiance that the spp group all-reduces (tools/bench_dist_torch.py).
+DIST_FOREST = dict(WHITTED_BENCH, width=256, height=256, spp=2)
+DIST_TOL = 1e-5
+DIST_RADIANCE = (3840 * 2160, 3)
 
 
 def say(phase: str, msg: str) -> None:
@@ -1533,14 +1549,14 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
 
 
 @functools.cache
-def _incoherent_tool():
-    """tools/bench_incoherent_torch.py, loaded by its path."""
+def _tool(name: str):
+    """tools/<name>.py, loaded by its path."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "bench_incoherent_torch", REPO / "tools" / "bench_incoherent_torch.py")
-    inc = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(inc)
-    return inc
+        name, REPO / "tools" / f"{name}.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
 
 
 def phase_incoherent(device, smi, big):
@@ -1549,7 +1565,7 @@ def phase_incoherent(device, smi, big):
     (the tool raises otherwise), device times in interleaved pairs.
     Returns the launches per kernel."""
     _zero_counters()
-    out = _incoherent_tool().run(big, INCOHERENT["n"], INCOHERENT["reps"],
+    out = _tool("bench_incoherent_torch").run(big, INCOHERENT["n"], INCOHERENT["reps"],
                                  True, device, smi=smi)
     counts = _read_counters()
     for p in out:
@@ -1580,12 +1596,8 @@ def phase_bf16(device, smi, records):
     counted), kernel and plain timed; then the tool's bench (200 chained
     calls of each) with the launch counters zeroed just before and read
     just after. Returns the launches per kernel."""
-    import importlib.util
     import torch
-    spec = importlib.util.spec_from_file_location(
-        "microbench_bf16_torch", REPO / "tools" / "microbench_bf16_torch.py")
-    mb = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mb)
+    mb = _tool("microbench_bf16_torch")
     rates = mb.op_rates()
     rows, cols = mb.shape()
     for name, dtype in (("chain_f32", torch.float32),
@@ -2940,6 +2952,163 @@ def phase_entry_points(device, smi):
         f"max |diff| {worst:.3e}")
 
 
+def _progressive(step, cam, accum, frames):
+    """``frames`` steps of ``step(cam, frame, accum)``; per frame (a copy
+    of the accumulator, seconds, stats)."""
+    import torch
+    out = []
+    for f in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accum, _, stats = step(cam, f, accum)
+        torch.cuda.synchronize()
+        out.append((accum.clone(), time.perf_counter() - t0, stats))
+    return out
+
+
+def _same_counts(tag, a, b):
+    for k in ("rays_traced", "shadow_rays", "done_histogram"):
+        if not bool((getattr(a, k) == getattr(b, k)).all()):
+            raise AssertionError(f"{tag}: {k} {getattr(a, k)} against "
+                                 f"{getattr(b, k)}")
+
+
+def phase_multi_gpu(device, smi):
+    """A one-rank NCCL world through tpu_pt_torch.dist: bench.py's frame
+    and the forest through the sharded step against the single-device
+    entry points, tools/bench_dist_torch.py's 4K frame, and the time of
+    the 4K radiance's all_reduce. Returns the launches summed per kernel
+    over the sharded runs (counters zeroed before each, read after)."""
+    import socket
+    import torch
+    import torch.distributed as tdist
+    import tpu_pt_torch as tp
+    from tpu_pt_torch import dist
+    from tpu_pt_torch.render import CameraArrays, init_accum, render_frame
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_multihost(f"127.0.0.1:{port}", 1, 0)
+    mesh = dist.device_mesh()
+    if tuple(mesh.shape) != (1, 1) or tdist.get_backend() != "nccl":
+        raise AssertionError(f"a one-rank {tdist.get_backend()} world gave "
+                             f"a {tuple(mesh.shape)} mesh")
+    say("multi-gpu", f"{tdist.get_backend()} world of "
+        f"{tdist.get_world_size()}, mesh {tuple(mesh.shape)} (tile, spp), "
+        f"NCCL {torch.cuda.nccl.version()}")
+    launches = dict.fromkeys(KERNELS, 0)
+
+    # bench.py's frame: two render_frame runs, then the sharded step.
+    _, scene_file, _, _, kw, _ = next(r for r in MAIN_RUNS
+                                      if r[0] == BENCH_TAG)
+    scene = tp.load_scene(str(ASSETS / scene_file), device=device)
+    cfg = tp.RenderConfig(use_direct_lighting=True,
+                          use_importance_sampling=True, **kw)
+    cam = CameraArrays.from_camera(tp.cornell_default_camera(), device=device)
+    plain = [_progressive(
+        lambda c, f, a: render_frame(scene, c, cfg, f, a), cam,
+        init_accum(cfg, device=device), 2) for _ in range(2)]
+    _zero_counters()
+    sharded = _progressive(dist.make_sharded_renderer(scene, cfg, mesh), cam,
+                           dist.init_accum_sharded(cfg, mesh), 2)
+    counts = _read_counters()
+    rounds = sum(int(st.wavefront_iterations) for _, _, st in sharded)
+    for k in ("closest_lean_tree", "occluded"):
+        if counts[k] != rounds:
+            raise AssertionError(f"sharded {BENCH_TAG}: {k} launched "
+                                 f"{counts[k]} times in {rounds} rounds")
+    for k in _LEAN_BANNED:
+        if counts[k]:
+            raise AssertionError(f"sharded {BENCH_TAG}: {k} launched")
+    for k, n in counts.items():
+        launches[k] += n
+    for (a, _, sa), (b, _, sb), (c, _, sc) in zip(*plain, sharded):
+        _same_counts(f"sharded {BENCH_TAG}", sc, sa)
+        _same_counts(f"{BENCH_TAG}, a second run", sb, sa)
+    repeat = [int((a != b).any(-1).sum())
+              for (a, _, _), (b, _, _) in zip(*plain)]
+    worst = max(float((c - a).abs().max())
+                for (a, _, _), (c, _, _) in zip(plain[0], sharded))
+    if not any(repeat):
+        held = "bitwise"
+        bad = [int((c != a).any(-1).sum())
+               for (a, _, _), (c, _, _) in zip(plain[0], sharded)]
+        if any(bad):
+            raise AssertionError(f"sharded {BENCH_TAG}: {bad} pixels differ "
+                                 "from render_frame's, which repeats "
+                                 "bitwise")
+    else:
+        held = (f"within {DIST_TOL} (two render_frame runs differ in "
+                f"{repeat} pixels: pixelq's index_add_ is atomic on the "
+                "card)")
+        for (a, _, _), (c, _, _) in zip(plain[0], sharded):
+            if not torch.allclose(c, a, rtol=DIST_TOL, atol=DIST_TOL):
+                raise AssertionError(f"sharded {BENCH_TAG}: max |diff| "
+                                     f"{worst} against render_frame")
+    say("multi-gpu", f"{BENCH_TAG} through the sharded step, frames 0-1: "
+        f"accumulators {held} against render_frame (max |diff| "
+        f"{worst:.3e}), counts equal; frame 1 "
+        f"{sharded[1][1] * 1e3:.1f} ms sharded, "
+        f"{plain[0][1][1] * 1e3:.1f} / {plain[1][1][1] * 1e3:.1f} ms "
+        f"render_frame; {rounds} rounds, launches "
+        f"{ {k: n for k, n in counts.items() if n} }; {smi}")
+
+    # The forest (instanced: K9 / K10) through the sharded step.
+    ws = tp.load_gltf(str(ASSETS / FOREST), instancing="auto", device=device)
+    wcam = _whitted_camera(WHITTED_VIEW, device)
+    wcfg = tp.RenderConfig(**DIST_FOREST)
+    (ref, _, ref_stats), = _progressive(
+        lambda c, f, a: tp.render_whitted_frame(ws, c, wcfg, f, a), wcam,
+        init_accum(wcfg, device=device), 1)
+    _zero_counters()
+    (out, sec, stats), = _progressive(
+        dist.make_sharded_renderer(ws, wcfg, mesh), wcam,
+        dist.init_accum_sharded(wcfg, mesh), 1)
+    counts = _read_counters()
+    for k in ("closest_inst", "occluded_inst"):
+        if counts[k] <= 0:
+            raise AssertionError(f"sharded forest: {k} never launched")
+    for k, n in counts.items():
+        launches[k] += n
+    _same_counts("sharded forest", stats, ref_stats)
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, rtol=DIST_TOL, atol=DIST_TOL):
+        raise AssertionError(f"sharded forest: max |diff| {err}")
+    say("multi-gpu", f"forest {DIST_FOREST['width']}^2 x "
+        f"{DIST_FOREST['spp']} spp through the sharded step: within "
+        f"{DIST_TOL} of render_whitted_frame (max |diff| {err:.3e}), counts "
+        f"equal, {sec * 1e3:.1f} ms; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+
+    # tools/bench_dist_torch.py's 4K frame in this world.
+    _zero_counters()
+    payload = _tool("bench_dist_torch").run(smi)
+    counts = _read_counters()
+    for k in ("closest_lean_tree", "occluded"):
+        if counts[k] <= 0:
+            raise AssertionError(f"bench_dist_torch: {k} never launched")
+    if not payload["value"] > 0 or payload["mesh"] != [1, 1]:
+        raise AssertionError(f"bench_dist_torch: {payload}")
+    for k, n in counts.items():
+        launches[k] += n
+    say("multi-gpu", f"tools/bench_dist_torch.py: {json.dumps(payload)}")
+
+    # The spp group's all_reduce of the 4K radiance.
+    rad = torch.rand(DIST_RADIANCE, device=device)
+    group = mesh.get_group("spp")
+    ms = gpu_ms(lambda: tdist.all_reduce(rad, group=group), 20)
+    nbytes = rad.numel() * rad.element_size()
+    say("multi-gpu", f"all_reduce of the 4K radiance {list(rad.shape)} f32 "
+        f"({nbytes / 1e6:.1f} MB) over the spp group of one rank: "
+        f"{ms:.4f} ms (CUDA events, mean of 20; read and write at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s: {2 * nbytes / PEAK_BYTES * 1e3:.4f} "
+        f"ms); {smi}")
+    tdist.destroy_process_group()
+    say("multi-gpu", "kernel launches of the sharded runs: "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
+
+
 # --------------------------------------------------------------------------
 # The glTF / Whitted pipeline and the instanced kernels K9 / K10
 # --------------------------------------------------------------------------
@@ -3678,6 +3847,7 @@ def main() -> int:
     i_launches = phase_incoherent(device, smi, big)
     p_launches = phase_bf16(device, smi, records)
     phase_entry_points(device, smi)
+    d_launches = phase_multi_gpu(device, smi)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     import torch
@@ -3688,7 +3858,7 @@ def main() -> int:
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=sum(part.get(kname, 0) for part in (
                 launches, w_launches, f_launches, b_launches, h_launches,
-                i_launches, p_launches)),
+                i_launches, p_launches, d_launches)),
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
