@@ -90,14 +90,16 @@ and the entry points around the path tracer:
    BENCH_* setting, and ``debug.trace_pixel`` under ``fused_nee``, whose
    per-bounce contributions sum to that pixel in a 1-spp frame.
 
-The rest of the clustered kernels (K6f: the full carry; K7 lean and full
-and K8b: a thread block builds and sweeps a shared work list) and the rest
-of the geometry (LBVH, scene-JSON and glTF-extras primitives and curves):
+The rest of the clustered kernels (K6f: the full carry; K7 lean and full:
+a thread block builds and sweeps a shared work list; K8b: a group of lanes
+a ray tests every box and sweeps each one its ray pierces) and the rest of
+the geometry (LBVH, scene-JSON and glTF-extras primitives and curves):
 
 15. kernels (in phase 4): K6f, K7 lean, K7 full and K8b on the big mesh at
    32,768 rays with every eighth lane parked, bitwise against their plain
    versions (u and v included) and against K6 / K8 on the same rays, timed
-   there and at 262,144 rays;
+   there and at 262,144 rays; K8b at every width it is built for, each
+   bitwise against K8, and the widths the package picks;
 16. big-mesh variants: tools/bench_big.py's frame three more times, under
    ``TPT_LEAN_BIG=0`` (K6f + K8, K6 never), ``TPT_INKB=1`` (K7 lean + K8b,
    K6 and K8 never) and both (K7 full + K8b), each accumulator equal to
@@ -125,20 +127,31 @@ K12 streamed, K13 cluster-binned: ``tpu_pt_torch/intersect/ablations.py``):
    ``occluded_streamed``, ``closest_cbin`` and ``occluded_cbin`` on the big
    mesh at 32,768 rays with every eighth lane parked, bitwise against
    their plain versions and (through their whole paths) against K6 / K8,
-   also at 1,000 and 77 rays; K12 with the guard on and off, K13 at
+   also at 1,000 and 77 rays; K12 with the guard on and off (its any-hit
+   at its own tile and at every width it is built for), K13 at
    ``CBIN_GROUP`` 1 and 8 and with starved caps, K11 under an unknown, the
-   oracle and a cycled wrong prediction; the kernels and their schedule
-   builds (``stream_candidates``, ``cbin_pairs``) timed apart;
+   oracle and a cycled wrong prediction; the list build on the card
+   (``stream_lists``) bitwise against its plain version
+   ``stream_candidates`` (cand, keys, cnt, far) at the any-hit's, the
+   closest side's and K15's tiles, at 32,768 parked rays, 262,144, 1,000
+   and 77, on every box tied ten ways and with boxes entered beyond
+   T_FAR; the kernels and their schedule builds (``stream_lists``,
+   ``cbin_pairs``) timed apart;
 21. big-mesh variants (in phase 16): the frame under ``TPT_SEED=1``,
    ``TPT_STREAM=1`` and ``TPT_CBIN=1``, accumulators bitwise equal to the
    lean frame's, the selected wrappers launched once per round (K13's
    frame also K12 and K8, its completion passes), the replaced ones
-   never; the lean frame again under ``TPT_PRED=0``, bitwise equal; one
-   call of each wrapper recorded from a warm-up frame, bitwise;
+   never, the list build once per list a round (LIST_BUILDS); the lean
+   frame again under ``TPT_PRED=0``, bitwise equal; one call of each
+   wrapper recorded from a warm-up frame (of the list build, one at each
+   tile), bitwise; the default frames (phase 6) launch none of K8b, K12's
+   any-hit and the list build;
 22. incoherent rays: ``tools/bench_incoherent_torch.py``'s 262,144 random
    rays on the big mesh through every scheduler (K6, K7, K11, K12, K13,
    K14, K15 serial and bundled; K8, K8b, K12, K13, K14, K15 both), all
-   results equal, device times in interleaved pairs against K6 / K8.
+   results equal, device times in interleaved pairs against K6 / K8; the
+   list build bitwise against ``stream_candidates`` on those rays at
+   each of its three tiles.
 
 The rest of pallas_ablations.py (K14 pair-binned, K15 8-lane groups:
 ``tpu_pt_torch/csrc/ablations_binned.cu``) and the bf16 probe K16:
@@ -335,6 +348,9 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
                         "tpu_pt/intersect/pallas_ablations.py:1365"),
     "closest_grp": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1760"),
     "occluded_grp": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1791"),
+    # K12's lists (and K15's), which the JAX package builds in XLA outside
+    # its kernels: part of K12's path, built on the card.
+    "stream_lists": (_ABLATIONS, "tpu_pt/intersect/pallas_ablations.py:408"),
     "chain_f32": (_BF16, "tools/microbench_bf16.py:37"),
     "chain_bf16": (_BF16, "tools/microbench_bf16.py:37"),
     # K3 and K2 as walks of kd copies (the sphere box's table and occluder
@@ -504,7 +520,17 @@ NEW_WRAPPERS = ("closest_clustered_full", "closest_clustered_b",
                 "closest_clustered_full_b", "occluded_clustered_b",
                 "closest_rotated", "closest_streamed", "occluded_streamed",
                 "closest_cbin", "occluded_cbin", "closest_binned",
-                "occluded_binned", "closest_grp", "occluded_grp")
+                "occluded_binned", "closest_grp", "occluded_grp",
+                "stream_lists")
+# List builds per round of the big-mesh variants (the closest and the
+# any-hit call each build one under TPT_STREAM and TPT_GRP; K13's closest
+# completion pass one); every other variant and every default frame none.
+LIST_BUILDS = {"streamed": 2, "cluster-binned": 1,
+               "8-lane groups, serial": 2, "8-lane groups, bundled": 2}
+# The any-hit kernels that go down a list (K8b, K12) and the list build:
+# no default frame launches them.
+SHADOW_LIST_KERNELS = ("occluded_clustered_b", "occluded_streamed",
+                       "stream_lists")
 # The wrappers the incoherent phase must launch (its lean closest path
 # takes no full carry).
 INCOHERENT_WRAPPERS = NEW_WRAPPERS[4:]
@@ -766,6 +792,21 @@ def _compare_fused(name, kernel_out, plain_out):
                  f"{miss_diff} of {int((~hit).sum())} miss lanes differ")
 
 
+def _compare_lists(name, kernel_out, plain_out):
+    """The list build against stream_candidates: cand, keys, cnt and far
+    equal (torch.equal: a key of -0.0 equals one of +0.0, as torch.sort
+    compares them)."""
+    import torch
+    for what, k, p in zip(("cand", "keys", "cnt", "far"), kernel_out,
+                          plain_out):
+        if not torch.equal(k, p):
+            raise AssertionError(f"{name}: {what} differs on "
+                                 f"{int((k != p).sum())} values")
+    return 0.0, (f"{float(kernel_out[2].float().mean()):.1f} of "
+                 f"{kernel_out[0].shape[1]} boxes listed a tile, "
+                 "bitwise equal")
+
+
 def _park(rays, shadow, every: int):
     """Park every ``every``-th lane as the wavefront parks retired lanes
     and ineligible shadow rays (render.py): origin PARK_COORD, direction
@@ -800,7 +841,8 @@ class _Tap:
     ``picked[(name, tables)]`` is (args, parked share), where
     ``tables`` are the data pointers of the call's 2-D table arguments (a
     wrapper swept over two tables, such as K9 over an instanced scene's
-    main and alpha-subset tables, is kept once for each)."""
+    main and alpha-subset tables, is kept once for each), and for the list
+    build its tile too (one call at each tile)."""
 
     def __init__(self, names):
         self.names, self.picked = tuple(names), {}
@@ -822,7 +864,8 @@ class _Tap:
             def call(*args):
                 parked = float((args[0][:, 0] == PARK_COORD).float().mean())
                 key = (name, tuple(a.data_ptr() for a in args[2:]
-                                   if torch.is_tensor(a) and a.dim() == 2))
+                                   if torch.is_tensor(a) and a.dim() == 2)
+                       + ((args[3],) if name == "stream_lists" else ()))
                 old = self.picked.get(key)
                 if old is None or rank(old[1]) < rank(parked):
                     self.picked[key] = (tuple(keep(a) for a in args), parked)
@@ -869,6 +912,8 @@ def _plain(name: str, args):
         rays, tris, boxes, scale, lists, rt, tmin, guard = args
         return ablations._streamed_plain(rays, tris, boxes, scale, lists, rt,
                                          tmin, 1e16, guard, occluded=True)
+    if name == "stream_lists":
+        return ablations.stream_candidates(*args)
     if name in ("closest_cbin", "occluded_cbin"):
         return ablations._cbin_sweep_plain(*args,
                                            occluded=name == "occluded_cbin")
@@ -953,6 +998,7 @@ def _hold_recorded(records, picked, what: str, all_parked_ok=()):
         out_p = _plain(name, args)
         torch.cuda.synchronize()
         compare = (_compare_fused if name.startswith("closest_nee")
+                   else _compare_lists if name == "stream_lists"
                    else _compare_exact)
         err, extra = compare(name, out_k, out_p)
         # The tables follow the rays: (o, d, rows, ...), or (rays, rows,
@@ -1038,6 +1084,19 @@ def _clustered_work(o, d, bound, rows, boxes, scale, out_bytes: int,
     flops = tests * BOX_FLOPS + pierced * cluster * PAIR_FLOPS
     return flops, n * (24 + (4 if occluded is not None else 0)) \
         + rows.shape[0] * 64 + c * 32 + n * out_bytes + list_bytes
+
+
+def _list_work(rays8, boxes, lists, rt: int, occluded: bool):
+    """The list build's own work (``stream_lists``): a slab test of every
+    (ray, box) pair, and a comparison sort of each tile's listed boxes
+    (cnt log2 cnt comparisons, one operation each). Bytes: the packed
+    rays (and their tmax for the any-hit) and the boxes in; cand and keys
+    (8 bytes a tile and box), cnt and far out."""
+    import math
+    n, c = rays8.shape[0], boxes.shape[0]
+    sort_ops = sum(k * math.log2(k) for k in lists[2].tolist() if k > 1)
+    return n * c * BOX_FLOPS + sort_ops, \
+        n * (32 + (4 if occluded else 0) + 4) + c * 32 + n // rt * (c * 8 + 4)
 
 
 def _cbin_work(pair_rays, rows, jtab, cluster: int, rt: int, occluded: bool):
@@ -1289,6 +1348,7 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     from tpu_pt_torch.intersect import ablations, clustered
     rows, boxes, scale = tb.rows, tb.boxes, tb.scale
     rt, cluster = ablations.RAY_TILE_C, rows.shape[0] // boxes.shape[0]
+    occ_rt = ablations.STREAM_OCC_TILE
     (o, d), (oW, dW) = rays, rays_wide
     t6, row6 = k6_out
     srows = clustered._clustered_slab_rows(rows.shape[0])
@@ -1360,21 +1420,91 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
         f"per call under each prediction "
         f"{ {w: round(records['closest_rotated'][-1]['ms_' + w], 4) for w in preds} }")
 
-    # K12: lists built once, the kernel timed alone.
+    # K12: lists built once (on the card, held against their plain
+    # version), the kernel timed alone; the closest side at tiles of rt
+    # lanes, the any-hit at its own tile.
     r8 = ablations.pack_rays(o, d, 1e16, n)
     s8 = ablations.pack_rays(*shadow, n)
     rW = ablations.pack_rays(oW, dW, 1e16, oW.shape[0])
     sW = ablations.pack_rays(*shadow_wide, oW.shape[0])
 
-    def lists_of(r, closest, lanes=rt):
-        return ablations.stream_candidates(r, boxes, scale, lanes, 0.01,
-                                           1e16 if closest else r[:, 6])
-    lc, lo, lcW, loW = (lists_of(r8, True), lists_of(s8, False),
-                        lists_of(rW, True), lists_of(sW, False))
-    say("kernels", f"stream_candidates: tiles of {rt} lanes list "
-        f"{float(lc[2].float().mean()):.1f} (closest) and "
+    def lists_of(r, closest, lanes=rt, build=ablations.stream_lists):
+        return build(r, boxes, scale, lanes, 0.01,
+                     1e16 if closest else r[:, 6])
+
+    def plain_lists(r, closest, lanes=rt):
+        return lists_of(r, closest, lanes, ablations.stream_candidates)
+    _check_kernel(records, "stream_lists", lambda: lists_of(s8, False, occ_rt),
+                  lambda: plain_lists(s8, False, occ_rt), boxes.shape[0],
+                  _compare_lists,
+                  lambda out: _list_work(s8, boxes, out, occ_rt, True), n=n,
+                  reps=10, plain_reps=1,
+                  at_n_rays=lambda: lists_of(sW, False, occ_rt),
+                  label=f"stream_lists (any-hit, tiles of {occ_rt})")
+    rec = records["stream_lists"][-1]
+    grp = ablations.GRP_LANES
+    # The build at the closest side's tile and at K15's, each timed (the
+    # any-hit's at N_RAYS is ms_at_n_rays; the closest side's there is
+    # ms_closest_at_n_rays).
+    for key, what, r, closest, lanes in (
+            ("ms_closest", f"closest, tiles of {rt}", r8, True, rt),
+            ("ms_grp_closest", f"K15 closest, tiles of {grp}", r8, True, grp),
+            ("ms_grp_any", f"K15 any-hit, tiles of {grp}", s8, False, grp),
+            ("ms_closest_at_n_rays", f"closest, tiles of {rt}", rW, True,
+             rt)):
+        _, extra = _compare_lists("stream_lists", lists_of(r, closest, lanes),
+                                  plain_lists(r, closest, lanes))
+        rec[key] = gpu_ms(lambda: lists_of(r, closest, lanes), 10)
+        say("kernels", f"stream_lists ({what}): {rec[key]:.4f} ms at "
+            f"{r.shape[0]} rays; {extra}")
+    _compare_lists("stream_lists", lists_of(sW, False, occ_rt),
+                   plain_lists(sW, False, occ_rt))
+    for m in N_RAGGED:
+        for lanes in (occ_rt, rt, grp):
+            for r, closest in ((ablations.pack_rays(
+                    o[:m], d[:m], 1e16, ablations._pad_tile(m, lanes)), True),
+                    (ablations.pack_rays(
+                        *(x[:m] for x in shadow),
+                        ablations._pad_tile(m, lanes)), False)):
+                _compare_lists(f"stream_lists at {m} rays, tiles of {lanes}",
+                               lists_of(r, closest, lanes),
+                               plain_lists(r, closest, lanes))
+    say("kernels", f"stream_lists at {N_RAGGED} rays, tiles of "
+        f"{(occ_rt, rt, grp)}, closest and any-hit: bitwise equal to "
+        "stream_candidates")
+    # Ties and keys at and beyond T_FAR: the boxes ten times over (every
+    # key tied ten ways; above 48 KB of shared memory), and boxes entered
+    # beyond T_FAR (1e16) at a tmax of 1e30, after the table and before it.
+    slabs = torch.tensor([[1e16, -1e17, -1e17, 3e16, 1e17, 1e17, 0, 0],
+                          [2e16, -1e17, -1e17, 4e16, 1e17, 1e17, 0, 0],
+                          [-3e16, -1e17, -1e17, -1e16, 1e17, 1e17, 0, 0]],
+                         device=boxes.device).repeat(4, 1)
+    beyond = 0
+    for what, table2, tmx in (
+            ("the boxes ten times over", boxes.repeat(10, 1), 1e16),
+            ("far boxes after", torch.cat([boxes, slabs]), 1e30),
+            ("far boxes before", torch.cat([slabs, boxes]), 1e30)):
+        r = ablations.pack_rays(o, d, tmx, n)
+        for lanes in (grp, occ_rt, rt):
+            args = (r, table2.contiguous(), scale, lanes, 0.01, tmx)
+            got = ablations.stream_lists(*args)
+            _compare_lists(f"stream_lists, {what}, tiles of {lanes}", got,
+                           ablations.stream_candidates(*args))
+            beyond += int((got[1] > 1e16).sum())
+    if not beyond:
+        raise AssertionError("no listed key lay beyond T_FAR")
+    say("kernels", f"stream_lists with every box tied ten ways "
+        f"({10 * boxes.shape[0]} boxes) and with boxes entered beyond T_FAR "
+        f"({beyond} keys above it), tiles of {(grp, occ_rt, rt)}: bitwise "
+        "equal to stream_candidates")
+    lc, lo, lcW, loW = (lists_of(r8, True), lists_of(s8, False, occ_rt),
+                        lists_of(rW, True), lists_of(sW, False, occ_rt))
+    say("kernels", f"stream_lists: tiles of {rt} lanes list "
+        f"{float(lc[2].float().mean()):.1f} (closest), tiles of {occ_rt} "
         f"{float(lo[2].float().mean()):.1f} (any-hit) of {boxes.shape[0]} "
-        f"boxes at {n} rays")
+        f"boxes at {n} rays; the any-hit's lanes a ray "
+        f"{ablations.stream_occ_group(n)} at {n} rays, "
+        f"{ablations.stream_occ_group(oW.shape[0])} at {oW.shape[0]}")
     run("closest_streamed",
         lambda: ablations.closest_streamed(r8, *table, lc, rt, 0.01),
         lambda: ablations._streamed_plain(r8, *table, lc, rt, 0.01, 1e16,
@@ -1385,14 +1515,25 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
         path=lambda: ablations.closest_stream_path(o, d, *table, 0.01),
         path_work=closest_work)
     run("occluded_streamed",
-        lambda: ablations.occluded_streamed(s8, *table, lo, rt, 0.01),
-        lambda: ablations._streamed_plain(s8, *table, lo, rt, 0.01, 1e16,
+        lambda: ablations.occluded_streamed(s8, *table, lo, occ_rt, 0.01),
+        lambda: ablations._streamed_plain(s8, *table, lo, occ_rt, 0.01, 1e16,
                                           True, True),
-        streamed_work(lo, occluded_work),
-        lambda: ablations.occluded_streamed(sW, *table, loW, rt, 0.01),
-        build=lambda: lists_of(s8, False),
+        streamed_work(lo, occluded_work, occ_rt),
+        lambda: ablations.occluded_streamed(sW, *table, loW, occ_rt, 0.01),
+        build=lambda: lists_of(s8, False, occ_rt),
         path=lambda: ablations.occluded_stream_path(*shadow, *table, 0.01),
         path_work=occluded_work)
+    # The any-hit at every width it is built for, with the guard on and off.
+    for g in clustered.GROUPS:
+        for guard in (True, False):
+            got = ablations.occluded_streamed(s8, *table, lo, occ_rt, 0.01,
+                                              guard, group=g)
+            torch.cuda.synchronize()
+            if not torch.equal(got, k8_out):
+                raise AssertionError(f"occluded_streamed at {g} lanes a ray,"
+                                     f" guard {guard}: differs from K8")
+    say("kernels", f"occluded_streamed at {clustered.GROUPS} lanes a ray, "
+        f"guard on and off: bitwise equal to K8 on {n} rays")
 
     # K13: the job table built once, the per-pair kernel timed alone.
     pc, po = (ablations.cbin_pairs(r, boxes, scale, 0.01) for r in (r8, s8))
@@ -1638,6 +1779,25 @@ def phase_incoherent(device, smi, big):
     for k in INCOHERENT_WRAPPERS:
         if counts[k] <= 0:
             raise AssertionError(f"incoherent: {k} never launched")
+    # The list build on the same rays, at each of its three tiles, against
+    # its plain version (after the counters were read: not the paths'
+    # launches).
+    from tpu_pt_torch.intersect import ablations, clustered
+    tb = clustered.prepare(big)
+    o, d, tmax = _tool("bench_incoherent_torch").make_rays(
+        big, INCOHERENT["n"], device)
+    for lanes, closest in ((ablations.STREAM_OCC_TILE, False),
+                           (ablations.RAY_TILE_C, True),
+                           (ablations.GRP_LANES, True),
+                           (ablations.GRP_LANES, False)):
+        r8 = ablations.pack_rays(o, d, 1e16 if closest else tmax,
+                                 ablations._pad_tile(o.shape[0], lanes))
+        args = (r8, tb.boxes, tb.scale, lanes, 0.01,
+                1e16 if closest else r8[:, 6])
+        _, extra = _compare_lists("stream_lists", ablations.stream_lists(*args),
+                                  ablations.stream_candidates(*args))
+        say("incoherent", f"stream_lists ({'closest' if closest else 'any-hit'}"
+            f", tiles of {lanes}) on {o.shape[0]} rays: {extra}")
     return counts
 
 
@@ -1862,6 +2022,18 @@ def phase_kernels(device, big):
                                     boxes, scale, 1, occluded=out),
         n=N_PLAIN_BIG, reps=10, plain_reps=1,
         at_n_rays=lambda: k8b(*shadow_B))
+    # K8b at every width it is built for, against K8.
+    want8 = k8(*shadow)
+    for g in clustered.GROUPS:
+        got = clustered.occluded_clustered_b(*shadow, rows, boxes, scale,
+                                             0.01, group=g)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want8):
+            raise AssertionError(f"K8b at {g} lanes a ray differs from K8")
+    say("kernels", f"K8b at {clustered.GROUPS} lanes a ray: bitwise equal to "
+        f"K8 on {N_PLAIN_BIG} rays; the package picks "
+        f"{clustered.occluded_b_group(N_PLAIN_BIG)} lanes at {N_PLAIN_BIG} "
+        f"rays, {clustered.occluded_b_group(N_RAYS)} at {N_RAYS}")
     t6, row6 = k6(ob, db)
     f6 = full(clustered.closest_clustered_full, ob, db)
     ids = torch.where(t6 < 1e15, rows[row6.long(), 15], 0.0).to(torch.int32)
@@ -2029,7 +2201,7 @@ def phase_main_path(device, smi, big, records):
             if counts[k] != rounds:
                 raise AssertionError(f"{tag}: {k} launched {counts[k]} "
                                      f"times in {rounds} rounds")
-        for k in banned:
+        for k in banned + SHADOW_LIST_KERNELS:
             if counts[k]:
                 raise AssertionError(f"{tag}: {k} launched {counts[k]} "
                                      "times")
@@ -2161,13 +2333,18 @@ def phase_big_variants(device, smi, big, lean, records):
         for k in banned:
             if counts[k]:
                 raise AssertionError(f"{tag}: {k} launched")
+        builds = LIST_BUILDS.get(what, 0) * rounds
+        if counts["stream_lists"] != builds:
+            raise AssertionError(f"{tag}: stream_lists launched "
+                                 f"{counts['stream_lists']} times, not "
+                                 f"{builds}")
         if not same:
             raise AssertionError(f"{tag}: the frame differs from the lean "
                                  "one (bound: bitwise)")
         for k, n in counts.items():
             launches[k] += n
         _hold_recorded(records, tap.picked, f"bench_big ({what})",
-                       all_parked_ok=("closest_streamed",)
+                       all_parked_ok=("closest_streamed", "stream_lists")
                        if "TPT_CBIN" in variables else ())
         for k in expect:
             if k in NEW_WRAPPERS and not any(n == k for n, _ in tap.picked):
@@ -4257,7 +4434,9 @@ def main() -> int:
             library_ms=None, rays=first["rays"],
             # K12-K15: the schedule build and the whole path (build,
             # kernel, reduce, completion) beside the whole function's
-            # bound; K16: ms per call over its 200 chained calls.
+            # bound; the list build (stream_lists, timed at the any-hit's
+            # tile): also at the closest side's and at K15's tiles;
+            # K16: ms per call over its 200 chained calls.
             # K6, K8: a call on the huge mesh (ms_huge). K5: the dense
             # count of its work beside the walk's (bound_ms). K9, K10:
             # foliage's calls (ms_foliage, K10's bound there too), K10
@@ -4268,6 +4447,8 @@ def main() -> int:
             # the monkey box, _reference: a recorded call of the
             # reference launch).
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
+                                     "ms_closest", "ms_closest_at_n_rays",
+                                     "ms_grp_closest", "ms_grp_any",
                                      "path_bound_by", "bench_ms",
                                      "ms_at_n_rays", "ms_huge", "ms_foliage",
                                      "ms_edge", "foliage_bound_ms",

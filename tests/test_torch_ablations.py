@@ -130,8 +130,13 @@ def _jax_stream_lists(rays8, boxes, rt, tmax):
     return tab[:, 0], tab[:, 1:1 + ns], keys[:, 1:1 + ns]
 
 
+@pytest.mark.parametrize("rt", [64, ablations.STREAM_OCC_TILE])
 @pytest.mark.parametrize("margin", [0.0, None])
-def test_stream_candidates_match_reference(mixed_scenes, monkeypatch, margin):
+def test_stream_candidates_match_reference(mixed_scenes, monkeypatch, margin,
+                                           rt):
+    """At tiles of 64 lanes and of K12's any-hit tile: the plain lists
+    (``stream_lists`` builds the same on the card) against the JAX
+    function."""
     jscene, tscene = mixed_scenes
     monkeypatch.setattr(clustered, "CLUSTER", 16)
     if margin is not None:
@@ -139,14 +144,15 @@ def test_stream_candidates_match_reference(mixed_scenes, monkeypatch, margin):
     rows, boxes = clustered.pack_tris_clustered(tscene)
     scale = clustered.box_scale(boxes)
     o, d, so, sd, st = _test_rays(jscene, 256, seed=21)
+    tiles = 512 // rt
     for rays8, tmax_j, tmax_t in (
             (_rays8(o, d, 1e16), 1e16, 1e16),
             (_rays8(so, sd, st), jnp.asarray(st), _t(st))):
         cand, keys, cnt, far = ablations.stream_candidates(
-            rays8, boxes, scale, 64, 0.01, tmax_t)
-        jcnt, jorder, jkeys = _jax_stream_lists(rays8, boxes, 64, tmax_j)
-        assert cnt.shape == (8,) and 0 < int(cnt.sum()) < 8 * 32
-        for tile in range(8):
+            rays8, boxes, scale, rt, 0.01, tmax_t)
+        jcnt, jorder, jkeys = _jax_stream_lists(rays8, boxes, rt, tmax_j)
+        assert cnt.shape == (tiles,) and 0 < int(cnt.sum()) < tiles * 32
+        for tile in range(tiles):
             ours = set(cand[tile, :cnt[tile]].tolist())
             ref = set(jorder[tile, :jcnt[tile]].tolist())
             if margin == 0.0:
@@ -164,7 +170,7 @@ def test_stream_candidates_match_reference(mixed_scenes, monkeypatch, margin):
         assert bool((keys[:, 1:] >= keys[:, :-1]).all())
         listed = torch.arange(32)[None] < cnt[:, None]
         assert bool((keys[~listed] == 1e16).all())
-        assert bool((far.view(8, 64).amax(1) <= 1e16).all())
+        assert bool((far.view(tiles, rt).amax(1) <= 1e16).all())
         assert bool((far[::8] < -1e38).all())           # parked lanes
 
 
@@ -421,8 +427,18 @@ def test_wrappers_take_cpu_or_cuda_only(mixed_scenes, monkeypatch):
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ablations.closest_rotated(meta[:, :3], meta[:, :3], rows, boxes, 1.0,
                                   None, 64, 0.01)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ablations.stream_lists(meta, boxes, 1.0, 64, 0.01, 1e16)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ablations.occluded_streamed(meta, rows, boxes, 1.0, None, 64, 0.01)
+    # On CPU tensors the list build is its plain version, whatever tmax.
+    rays8 = ablations.pack_rays(rows[:64, 0:3], rows[:64, 4:7], 1e16, 64)
+    for tmax in (1e16, rays8[:, 6]):
+        got = ablations.stream_lists(rays8, boxes, 1.0, 32, 0.01, tmax)
+        want = ablations.stream_candidates(rays8, boxes, 1.0, 32, 0.01, tmax)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert set(ablations.LAUNCHES) == {
         "closest_rotated", "closest_streamed", "occluded_streamed",
         "closest_cbin", "occluded_cbin", "closest_binned", "occluded_binned",
-        "closest_grp", "occluded_grp"}
+        "closest_grp", "occluded_grp", "stream_lists"}
     assert not any(ablations.LAUNCHES.values())

@@ -54,12 +54,16 @@ def _jax_paths(jscene, o, d, so, sd, st):
     return j, np.asarray(jocc)
 
 
+@pytest.mark.parametrize("occ_tile", [64, ablations.STREAM_OCC_TILE])
 @pytest.mark.parametrize("guard", ["1", "0"])
 def test_streamed_matches_dense_and_reference(mixed_scenes, monkeypatch,
-                                              guard):
+                                              guard, occ_tile):
+    """The closest side at tiles of 64 lanes, the any-hit at 64 and at its
+    own tile (``STREAM_OCC_TILE``)."""
     jscene, tscene = mixed_scenes
     _shrink(monkeypatch)
     monkeypatch.setattr(ablations, "RAY_TILE_C", 64)
+    monkeypatch.setattr(ablations, "STREAM_OCC_TILE", occ_tile)
     monkeypatch.setenv("TPT_STREAM", "1")
     monkeypatch.setenv("TPT_STREAM_GUARD", guard)
     tables = clustered.prepare(tscene)

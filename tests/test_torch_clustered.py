@@ -478,6 +478,34 @@ def test_inkb_dispatch_matches_pallas(mixed_scenes, monkeypatch, lean_big):
     assert set(names) == set(clustered.LAUNCHES)
 
 
+@pytest.mark.parametrize("n_rays", [77, 1000])
+def test_inkb_shadow_rays_take_k8b(mixed_scenes, monkeypatch, n_rays):
+    """``TPT_INKB=1`` sends every shadow call to ``occluded_clustered_b``
+    (once a call, K8 never), with the launch counts of
+    ``test_inkb_dispatch_matches_pallas`` (0 on CPU tensors: its plain
+    version), at ray counts that leave a ragged last group; the flags
+    equal K8's and the dense sweep's."""
+    jscene, tscene = mixed_scenes
+    _shrink(monkeypatch)
+    monkeypatch.setattr(dense, "TRI_SLAB", 16)      # shadow rays take K8(b)
+    names = ("occluded_clustered", "occluded_clustered_b")
+    o, d, p, ld, tmax = _rays(jscene, n_rays, seed=19)
+    tables = clustered.prepare(tscene)
+    assert tables.occ_rows is None
+    k8 = clustered.occluded_hit(tables, _t(p), _t(ld), _t(tmax))
+    monkeypatch.setenv("TPT_INKB", "1")
+    calls = _spy(monkeypatch, clustered, names)
+    before = dict(clustered.LAUNCHES)
+    for _ in range(2):
+        occ = clustered.occluded_hit(tables, _t(p), _t(ld), _t(tmax))
+        assert torch.equal(occ, k8)
+    assert calls == {"occluded_clustered": 0, "occluded_clustered_b": 2}
+    assert clustered.LAUNCHES == before         # CPU tensors: plain versions
+    assert torch.equal(occ, dense._occluded_plain(_t(p), _t(ld), _t(tmax),
+                                                  tables.rows, 0.01))
+    assert 0.0 < float(occ.float().mean()) < 1.0
+
+
 def test_variables_are_read_at_call_time(mixed_scenes, monkeypatch):
     """The intersectors made once switch kernels when a variable changes
     between two calls."""

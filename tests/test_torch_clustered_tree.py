@@ -349,8 +349,9 @@ def test_entry_points_hand_the_tree_to_the_kernels(mixed_scenes, monkeypatch,
 def test_wrapper_tables(mixed_scenes, monkeypatch):
     """The launch arguments: K6 / K6f / K8 get the node table, built from
     the boxes when the caller hands none, and the walk's lanes a ray
-    (``walk_group`` of the ray count unless given); the flat scans and
-    K7 / K8b get neither; a table of the wrong shape is refused."""
+    (``walk_group`` of the ray count unless given); K7 gets neither, K8b
+    no node table and its lanes a ray (``occluded_b_group`` unless
+    given); a table of the wrong shape is refused."""
     _, tscene = mixed_scenes
     _shrink(monkeypatch)
     tables = clustered.prepare(tscene)
@@ -364,10 +365,15 @@ def test_wrapper_tables(mixed_scenes, monkeypatch):
     handed, _, _, walk = clustered._tables("occluded_clustered", rows, boxes,
                                            None, 16, 5, cpu)
     assert len(handed) == 3 and walk == (16,)
-    for name in ("closest_clustered_b", "occluded_clustered_b"):
-        handed, _, _, walk = clustered._tables(name, rows, boxes, None, None,
-                                               5, cpu)
-        assert len(handed) == 2 and walk == ()
+    handed, _, _, walk = clustered._tables("closest_clustered_b", rows,
+                                           boxes, None, None, 5, cpu)
+    assert len(handed) == 2 and walk == ()
+    handed, _, _, walk = clustered._tables("occluded_clustered_b", rows,
+                                           boxes, None, None, 5, cpu)
+    assert len(handed) == 2 and walk == (clustered.occluded_b_group(5),)
+    handed, _, _, walk = clustered._tables("occluded_clustered_b", rows,
+                                           boxes, None, 32, 5, cpu)
+    assert len(handed) == 2 and walk == (32,)
     with pytest.raises(ValueError):
         clustered._tables("closest_clustered_full", rows, boxes,
                           tables.nodes[:-1].contiguous(), None, 5, cpu)
@@ -379,3 +385,20 @@ def test_walk_group_is_a_built_width(n_rays):
     """The walk's lanes a ray is one of the widths the kernels are built
     for (csrc/clustered_intersect.cu, with_group), whatever the ray count."""
     assert clustered.walk_group(n_rays) in (4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("n_rays", [1, 77, 1000, 4096, 32768, 65536, 65537,
+                                    131072, 262144, 1 << 20])
+def test_shadow_list_pickers_are_built(n_rays):
+    """K8b's and K12's any-hit lanes a ray are widths their kernels are
+    built for (csrc/walk.cuh, with_group), whatever the ray count; K12's
+    any-hit tile is one the list build takes (1 to LIST_MAX_TILE rays)."""
+    from tpu_pt_torch.intersect import ablations
+    assert clustered.GROUPS == (4, 8, 16, 32)
+    assert clustered.occluded_b_group(n_rays) in clustered.GROUPS
+    assert ablations.stream_occ_group(n_rays) in clustered.GROUPS
+    assert 1 <= ablations.STREAM_OCC_TILE <= ablations.LIST_MAX_TILE
+    assert 1 <= ablations.GRP_LANES <= ablations.LIST_MAX_TILE
+    assert 1 <= ablations.RAY_TILE_C <= ablations.LIST_MAX_TILE
+    assert ablations._pad_tile(n_rays, ablations.STREAM_OCC_TILE) \
+        % ablations.STREAM_OCC_TILE == 0

@@ -19,8 +19,9 @@ from the same distributions, so the two tools' rays differ ray by ray.
 Times are device times from CUDA events, not the host clock. Each path is
 timed in turn with the default one (default, path, path, default), since
 the host's speed drifts within a run; the schedule builds of K12-K15
-(``stream_candidates``, ``cbin_pairs``, ``_pair_schedule``, the group
-lists) and their kernels are also timed apart.
+(``stream_lists``, on the card, for K12's and K15's lists;
+``cbin_pairs``, ``_pair_schedule``) and their kernels are also timed
+apart.
 Every path's result must equal the default path's, bit for bit.
 
 Knobs: INC_RAYS (262144), INC_SCENE (assets/big_mesh.obj, written by

@@ -3,10 +3,13 @@
 trial that sets ``clustered.walk_group`` (K6, K6f, K8),
 ``dense.NEE_WALK_GROUP`` (the fused K5), ``dense.full_walk_group`` (K3,
 K1 and K4), ``dense.occ_walk_group`` (K2), ``instanced.walk_group`` (K9)
-and ``instanced.occluded_walk_group`` (K10).
+and ``instanced.occluded_walk_group`` (K10); and of the two any-hit
+kernels that go down a list with one ray to a group of lanes,
+``clustered.occluded_b_group`` (K8b) and ``ablations.stream_occ_group``
+with ``ablations.STREAM_OCC_TILE`` (K12's any-hit and its tile lists).
 
 Each walk is built at every group width G of GROUPS (a template
-parameter; its entry points take G as ``group``). Eight parts, each
+parameter; its entry points take G as ``group``). Ten parts, each
 timing every width, every result held bitwise against the width the
 package picks (and that one, at the first ray count of a part, against
 the plain version); the parts of K1-K4 also time the dense body, which
@@ -45,7 +48,16 @@ stays on the path of the tables without a kd copy:
   ``closest_nee_lean``; then every call of one bench frame (frame 0 of
   chip_smoke.py's bench.py frame, unfused for K1, ``fused_nee`` for K4),
   recorded and replayed at each width and through the dense body: the
-  frame's summed device time.
+  frame's summed device time;
+- ``inkb_occ``: K8b on the big mesh at every width, on chip_smoke.py's
+  shadow rays at 32,768 (one lane in eight parked) and 262,144, then on
+  every K8b call of one ``TPT_INKB=1`` big-mesh frame (frame 0 of
+  chip_smoke.py's run), recorded and replayed: the frame's summed device
+  time;
+- ``stream_occ``: K12's any-hit on the same rays and on every any-hit
+  call of one ``TPT_STREAM=1`` frame, at every tile of STREAM_TILES (the
+  lanes that share a list; its list build, ``ablations.stream_lists``,
+  timed beside the kernel as ``build``) and at every width.
 
 Every width (and the dense body, where there is one) is timed in turns
 (CUDA events), twice over. Prints one JSON line per (kernel, scene, ray
@@ -54,8 +66,8 @@ package picks there, and the card's name and power limit.
 
 Run on a machine with a CUDA card, from the repository root:
 ``python3 tools/clustered_group_trial.py [big] [fused] [inst] [inst_occ]
-[closest_full] [occluded] [lean] [lean_nee]`` (all eight when none is
-named; ~2 minutes with the build).
+[closest_full] [occluded] [lean] [lean_nee] [inkb_occ] [stream_occ]``
+(all ten when none is named).
 """
 
 from __future__ import annotations
@@ -76,6 +88,8 @@ INST_WIDTHS = (("16384 parked", 16384, True), ("262144", 262144, False))
 DENSE_WIDTHS = (("65536 parked", 65536, True), ("262144", 262144, False))
 LEAN_WIDTHS = (("65536 parked", 65536, True), ("262144 parked", 262144, True),
                ("262144", 262144, False))
+SHADOW_WIDTHS = (("32768 parked", 32768, True), ("262144", 262144, False))
+STREAM_TILES = (16, 32, 64, 128, 256)
 
 
 def _time(call, smi, what: dict, picked: int, dense: str | None = None,
@@ -367,7 +381,8 @@ def main() -> int:
     import chip_smoke as cs
     from tpu_pt_torch import _kernels
     parts = sys.argv[1:] or ["big", "fused", "inst", "inst_occ",
-                             "closest_full", "occluded", "lean", "lean_nee"]
+                             "closest_full", "occluded", "lean", "lean_nee",
+                             "inkb_occ", "stream_occ"]
     device, smi = cs.phase_device()
     _kernels.build()
     if "fused" in parts:
@@ -384,7 +399,129 @@ def main() -> int:
             lean_walk_part(device, smi, which)
     if "big" in parts:
         big_part(device, smi)
+    if "inkb_occ" in parts or "stream_occ" in parts:
+        shadow_list_parts(device, smi, parts)
     return 0
+
+
+def shadow_list_parts(device, smi, parts) -> None:
+    """``inkb_occ`` (K8b) and ``stream_occ`` (K12's any-hit at every tile
+    of STREAM_TILES) on the big mesh at every width of GROUPS: on
+    SHADOW_WIDTHS' shadow rays, then on every call of one big-mesh frame
+    under the variable that selects the kernel, recorded and replayed.
+    Every result is held bitwise against K8's at the shipped width and
+    tile (and, at the first ray count, against the plain version)."""
+    import chip_smoke as cs
+    from tpu_pt_torch.intersect import ablations, clustered
+    big = cs.phase_assets(device)
+    tb = clustered.prepare(big)
+    table = (tb.rows, tb.boxes, tb.scale)
+    tmin = 0.01
+
+    def k6(o, d):
+        return clustered.closest_clustered(o, d, *table, tmin, nodes=tb.nodes)
+
+    def k8b(shadow, g):
+        return (clustered.occluded_clustered_b(*shadow, *table, tmin,
+                                               group=g),)
+
+    def k12(shadow, rt):
+        """(build, kernel(lists, g)) of K12's any-hit at a tile of rt."""
+        rays8 = ablations.pack_rays(*shadow,
+                                    ablations._pad_tile(shadow[0].shape[0], rt))
+
+        def build():
+            return ablations.stream_lists(rays8, tb.boxes, tb.scale, rt, tmin,
+                                          rays8[:, 6])
+
+        def kernel(lists, g):
+            return (ablations.occluded_streamed(
+                rays8, *table, lists, rt, tmin, group=g)[:shadow[0].shape[0]],)
+        return build, kernel
+
+    def held(out, want, what):
+        _same(out, want, what)
+
+    shipped_tile = ablations.STREAM_OCC_TILE
+    for label, n, park in SHADOW_WIDTHS:
+        rays = cs._phase3_rays(big, device, 3, tb.rows, k6, n)
+        shadow = (cs._park(rays[:2], rays[2], cs.PARK_EVERY)[1] if park
+                  else rays[2])
+        want = (clustered.occluded_clustered(*shadow, *table, tmin,
+                                             nodes=tb.nodes),)
+        if n == SHADOW_WIDTHS[0][1]:
+            held(want, (clustered._occluded_clustered_plain(
+                *shadow, tb.rows, tmin),), "K8 against the plain version")
+        if "inkb_occ" in parts:
+            for g in GROUPS:
+                held(k8b(shadow, g), want, f"K8b G{g} at {label}")
+            _time(lambda g, shadow=shadow: k8b(shadow, g), smi,
+                  {"kernel": "K8b", "scene": "big mesh", "rays": label},
+                  clustered.occluded_b_group(n))
+        if "stream_occ" in parts:
+            for rt in STREAM_TILES:
+                build, kernel = k12(shadow, rt)
+                lists = build()
+                for g in GROUPS:
+                    held(kernel(lists, g), want,
+                         f"K12 any-hit tile {rt} G{g} at {label}")
+
+                def call(g, build=build, kernel=kernel, lists=lists):
+                    return build() if g == "build" else kernel(lists, g)
+                _time(call, smi, {"kernel": "K12 any-hit", "tile": rt,
+                                  "shipped_tile": shipped_tile,
+                                  "scene": "big mesh", "rays": label,
+                                  "listed_per_tile":
+                                      float(lists[2].float().mean())},
+                      ablations.stream_occ_group(n),
+                      extra=(("build", "build"),))
+    # Every call of one frame under the variable, replayed.
+    frame_kw = dict(cs.BENCH_BIG, use_direct_lighting=True,
+                    use_importance_sampling=True)
+    if "inkb_occ" in parts:
+        with cs._env(TPT_INKB="1"):
+            calls = _record_calls(clustered, "occluded_clustered_b",
+                                  lambda: cs._render(big, device, [0],
+                                                     **frame_kw))
+        wants = [(clustered.occluded_clustered(*a[:7], nodes=tb.nodes),)
+                 for a in calls]
+
+        def frame(g):
+            return [(clustered.occluded_clustered_b(*a[:7], group=g),)
+                    for a in calls]
+        for g in GROUPS:
+            for out, want in zip(frame(g), wants):
+                held(out, want, f"K8b G{g} on a TPT_INKB=1 frame call")
+        _time(frame, smi, {"kernel": "K8b", "scene": "big mesh",
+                           "rays": f"TPT_INKB=1 frame, {len(calls)} calls"},
+              clustered.occluded_b_group(calls[0][0].shape[0]))
+    if "stream_occ" in parts:
+        with cs._env(TPT_STREAM="1"):
+            calls = _record_calls(ablations, "occluded_stream_path",
+                                  lambda: cs._render(big, device, [0],
+                                                     **frame_kw))
+        wants = [(clustered.occluded_clustered(*a[:7], nodes=tb.nodes),)
+                 for a in calls]
+        for rt in STREAM_TILES:
+            steps = [k12(a[:3], rt) for a in calls]
+            lists = [build() for build, _ in steps]
+            for g in GROUPS:
+                for (_, kernel), lst, want in zip(steps, lists, wants):
+                    held(kernel(lst, g), want,
+                         f"K12 any-hit tile {rt} G{g} on a frame call")
+
+            def frame(g, steps=steps, lists=lists):
+                if g == "build":
+                    return [build() for build, _ in steps]
+                return [kernel(lst, g) for (_, kernel), lst in zip(steps,
+                                                                   lists)]
+            _time(frame, smi, {"kernel": "K12 any-hit", "tile": rt,
+                               "shipped_tile": shipped_tile,
+                               "scene": "big mesh",
+                               "rays": f"TPT_STREAM=1 frame, {len(calls)} "
+                                       "calls"},
+                  ablations.stream_occ_group(calls[0][0].shape[0]),
+                  extra=(("build", "build"),))
 
 
 def big_part(device, smi) -> None:

@@ -73,7 +73,7 @@ _SIGNATURES = {
                                          _F, _F, _I, _P, _P, _P, _P, _P, _P,
                                          _P),
         "tpt_occluded_clustered_b": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                                     _F, _P, _P),
+                                     _F, _P, _I, _P),
     },
     "ablations_intersect": {
         "tpt_closest_rotated": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
@@ -81,7 +81,9 @@ _SIGNATURES = {
         "tpt_closest_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _F, _F, _F, _F, _I, _P, _P, _P),
         "tpt_occluded_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _F, _F, _F, _I, _P, _P),
+                                  _I, _I, _F, _F, _F, _I, _P, _I, _P),
+        "tpt_stream_candidates": (_P, _P, _F, _P, _I, _I, _I, _F, _F, _F, _P,
+                                  _P, _P, _P, _P),
         "tpt_closest_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
         "tpt_occluded_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
     },

@@ -14,14 +14,19 @@
 //                             slabs in its own order, the predicted landing
 //                             slab first, the rest ascending.
 //   tpt_closest_streamed   <- _closest_kernel_streamed_lean (:210) via
-//                             _closest_call_streamed (:490),
-//   tpt_occluded_streamed  <- _occluded_kernel_streamed (:275) via
-//                             _occluded_call_streamed (:529): one launch; a
+//                             _closest_call_streamed (:490): one launch; a
 //                             tile of rays shares a list of the boxes any of
 //                             them pierces, sorted by the tile's least entry
 //                             distance, sweeps it through a ring of row
 //                             buffers filled ahead of the sweep, and stops
 //                             at the first key no lane can still use.
+//   tpt_occluded_streamed  <- _occluded_kernel_streamed (:275) via
+//                             _occluded_call_streamed (:529): the any-hit
+//                             over the same kind of list, one ray to a
+//                             group of lanes (below).
+//   tpt_stream_candidates  <- stream_candidates (:408), which the JAX
+//                             package builds in XLA outside its kernels:
+//                             the tile lists of both, built on the card.
 //   tpt_closest_cbin       <- _closest_kernel_cbin (:905) via
 //                             _closest_call_cbin (:948),
 //   tpt_occluded_cbin      <- _occluded_kernel_cbin (:1014) via
@@ -38,13 +43,42 @@
 //   tpt_closest_clustered does, bounded by its best hit so far. A warp
 //   (the unit that diverges) agrees on one first slab by a vote: the most
 //   frequent prediction of its lanes, ties to the lowest slab.
-// - streamed: the list, the keys, the ring (STREAM_BUF = 4 slots of one
-//   cluster, 8 KB each at 128 rows, filled with cp.async), the exact early
-//   break and the per-candidate guard are all kept. The 128-lane widening
-//   of the table is a Mosaic DMA constraint and has no twin. The break is
-//   tightened by one term the list build knows: `far`, a lane's last entry
-//   distance over the boxes it pierces; beyond it the lane takes part in no
-//   candidate, so a lane that misses everything does not hold its tile.
+// - streamed, closest: the list, the keys, the ring (STREAM_BUF = 4 slots
+//   of one cluster, 8 KB each at 128 rows, filled with cp.async), the exact
+//   early break and the per-candidate guard are all kept. The 128-lane
+//   widening of the table is a Mosaic DMA constraint and has no twin. The
+//   break is tightened by one term the list build knows: `far`, a lane's
+//   last entry distance over the boxes it pierces; beyond it the lane takes
+//   part in no candidate, so a lane that misses everything does not hold
+//   its tile.
+// - streamed, any-hit: the tile's list, its near-first key order and the
+//   exact break (key > the lane's min(far, tmax)) are kept; the tile's
+//   lockstep is not. One ray goes to a group of G lanes (walk.cuh), and
+//   each group goes down its tile's list on its own: G candidates at a
+//   time, each lane reading one (key, box) through L2 and, with the guard
+//   on, testing its ray's own grown box against it; a ballot gives the
+//   candidates before the break that pass, and the group sweeps each with
+//   cluster_blocked (rows split over its lanes, read through L2), nearest
+//   first, until one blocks. No block vote, no barrier and no ring of
+//   shared row buffers: a ray that reaches the light no longer keeps a
+//   block of 256 running, and no lane sweeps a cluster its own box test
+//   fails. Guard off (TPT_STREAM_GUARD=0): every candidate up to the
+//   break is swept. Its tile (ablations.STREAM_OCC_TILE) and G
+//   (ablations.stream_occ_group) come from tools/clustered_group_trial.py.
+// - the list build: one block a tile. Each warp takes 32 of the tile's
+//   rays, one a lane, and a slice of the boxes; per box it slab-tests its
+//   rays against the box grown by their margins, within their tmax, and a
+//   ballot says whether any passes; only then does it fold their least
+//   entry distance (a warp min, then a shared-memory atomicMin) and count
+//   them. A lane keeps its ray's last entry (`far`) itself. The block then
+//   sorts (key, box id) in shared memory: a bitonic sort, the key's bits
+//   made order-preserving, -0.0 taken as +0.0 (torch.sort compares the two
+//   equal), so ties go to the lower id, as the stable sort of
+//   stream_candidates has them. Only the boxes whose key is not T_FAR
+//   (the listed ones, near first) are sorted; the rest, every unlisted box
+//   among them, keep their id order between the keys below T_FAR and any
+//   above it. It writes cand, keys, cnt and far, bitwise equal to
+//   stream_candidates.
 // - cbin: the job table and the per-pair layout are kept (cbin_pairs builds
 //   them in plain PyTorch); blocks run in any order, so the one-job-ahead
 //   row prefetch across grid steps has no twin: a block stages its cluster
@@ -67,8 +101,10 @@
 //
 // Barriers: every thread of a block, live, parked or past n_rays, reaches
 // every barrier; trip counts and break conditions come from block votes.
+// The any-hit's groups reach no barrier: a group's branches are uniform
+// over its lanes, which hold the same ray.
 
-#include "pe_block.cuh"
+#include "walk.cuh"
 
 #include <cuda_pipeline.h>
 
@@ -229,7 +265,9 @@ closest_streamed_kernel(const float* __restrict__ orig,
   row_out[i] = best < kTFar ? best_row : 0;
 }
 
-__global__ void __launch_bounds__(kMaxTile)
+// Ray i's list is its tile's, tile i / rt. One ray to a group of G lanes.
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
 occluded_streamed_kernel(const float* __restrict__ orig,
                          const float* __restrict__ dir,
                          const float* __restrict__ tmax,
@@ -239,59 +277,224 @@ occluded_streamed_kernel(const float* __restrict__ orig,
                          const float* __restrict__ keys,
                          const int* __restrict__ cnt,
                          const float* __restrict__ last_key, int n_rays,
-                         int n_boxes, int cluster, float scale, float margin,
-                         float tmin, int guard,
+                         int n_boxes, int cluster, int rt, float scale,
+                         float margin, float tmin, int guard,
                          uint8_t* __restrict__ occ_out) {
-  __shared__ float4 s_rows[kRing][kMaxCluster * 4];
-  const int tile = blockIdx.x;
-  const int i = tile * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  const Ray r = live ? load_ray(orig, dir, i) : Ray{0, 0, 0, 0, 0, 0};
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;  // whole groups leave together
+  const float tm = tmax[i];
+  bool blocked = false;
+  // Nothing can block when (tmin, tm) is empty (parked lanes carry tm = 0).
+  if (tm > tmin) {
+    const Ray r = load_ray(orig, dir, i);
+    const Slab s = tpt::make_slab(r);
+    const float m = margin * (scale + max_abs_origin(r));
+    const float lane_far = fminf(__ldg(last_key + i), tm);
+    const float4* bx = reinterpret_cast<const float4*>(boxes);
+    const float4* rows = reinterpret_cast<const float4*>(tris);
+    const int tile = i / rt;
+    const int* list = cand + (size_t)tile * n_boxes;
+    const float* key = keys + (size_t)tile * n_boxes;
+    const int ncand = min(max(__ldg(cnt + tile), 0), n_boxes);
+    const unsigned all = G == 32 ? 0xffffffffu : (1u << (G & 31)) - 1u;
+    for (int k0 = 0; k0 < ncand && !blocked; k0 += G) {
+      // Keys ascend, and the ray enters no box before its key: the
+      // candidates it can still use are the chunk's first ones, up to the
+      // first key beyond its last entry or its tmax.
+      const int k = k0 + g.lane;
+      const bool live = k < ncand && __ldg(key + k) <= lane_far;
+      const int c = live ? __ldg(list + k) : 0;
+      const unsigned usable = tpt::group_ballot(g, live);
+      unsigned pass = guard ? tpt::group_ballot(
+                                  g, live && tpt::box_passes(r, s, m, bx, c,
+                                                             tmin, tm))
+                            : usable;
+      while (pass != 0u && !blocked) {
+        const int j = __ffs(pass) - 1;
+        pass &= pass - 1u;
+        const int cj = __shfl_sync(g.mask, c, j, G);
+        blocked = tpt::cluster_blocked(r, rows, cj * cluster, cluster, G, g,
+                                       tmin, tm);
+      }
+      if (usable != all) break;  // the break, or the list's end
+    }
+  }
+  if (g.lane == 0) occ_out[i] = blocked ? 1 : 0;
+}
+
+// ------------------------------------------------------------- list build
+
+constexpr int kListThreads = 1024;  // threads a block (a tile)
+constexpr int kListMaxTile = 256;   // ablations.LIST_MAX_TILE
+constexpr int kListMaxBoxes = 8192;  // ablations.LIST_MAX_BOXES
+
+// Float bits whose signed-integer order is the float order (no NaN here):
+// an atomicMax / atomicMin on them is a max / min of the floats.
+__device__ __forceinline__ int ordered(float f) {
+  const int b = __float_as_int(f);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float from_ordered(int e) {
+  return __int_as_float(e >= 0 ? e : e ^ 0x7fffffff);
+}
+
+// The sort key of a float: unsigned order = float order, -0.0 as +0.0
+// (torch.sort compares the two equal, so a stable sort keeps their ids in
+// order).
+__device__ __forceinline__ unsigned sort_bits(float f) {
+  const unsigned b = __float_as_uint(f == 0.0f ? 0.0f : f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Tile blockIdx.x: rays [tile * rt, ...) of the packed rays [n_pad, 8];
+// each ray's bound is tmax[i], or tmax_all when tmax is null. Dynamic
+// shared memory: sort_cap u64 sort keys (the next power of two of
+// n_boxes), then n_boxes i32 minima (later the keys as floats), n_boxes
+// i32 counts and rt i32 last entries.
+__global__ void __launch_bounds__(kListThreads)
+stream_candidates_kernel(const float* __restrict__ rays,
+                         const float* __restrict__ tmax, float tmax_all,
+                         const float* __restrict__ boxes, int n_boxes,
+                         int rt, int sort_cap, float scale, float margin,
+                         float tmin, int* __restrict__ cand,
+                         float* __restrict__ keys, int* __restrict__ cnt,
+                         float* __restrict__ last_key) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_warp[kListThreads / 32];
+  unsigned long long* s_sort = reinterpret_cast<unsigned long long*>(smem);
+  int* s_min = reinterpret_cast<int*>(s_sort + sort_cap);
+  int* s_nok = s_min + n_boxes;
+  int* s_far = s_nok + n_boxes;
+  const int tile = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid >> 5, warps = blockDim.x >> 5;
+  const int ray_warps = (rt + 31) >> 5;
+  const int slice = warp / ray_warps, slices = warps / ray_warps;
+  for (int b = tid; b < n_boxes; b += blockDim.x) {
+    s_min[b] = ordered(__int_as_float(0x7f800000));  // +inf
+    s_nok[b] = 0;
+  }
+  for (int q = tid; q < rt; q += blockDim.x) s_far[q] = ordered(-3e38f);
+  __syncthreads();
+
+  // This lane's ray; lanes past the tile's rays (rt < 32) and warps past
+  // the last slice pass no box.
+  const int q = (warp % ray_warps) * 32 + lane;
+  const bool real = q < rt && slice < slices;
+  float tm = 0.0f;
+  Ray r{0, 0, 0, 0, 0, 0};
+  if (real) {
+    r = tpt::load_ray8(rays, tile * rt + q, &tm);
+    tm = tmax != nullptr ? tmax[tile * rt + q] : tmax_all;
+  }
   const Slab s = tpt::make_slab(r);
   const float m = margin * (scale + max_abs_origin(r));
-  const float tm = live ? tmax[i] : 0.0f;
-  const float lane_far = live ? fminf(last_key[i], tm) : -3e38f;
   const float4* bx = reinterpret_cast<const float4*>(boxes);
-  const int* list = cand + (size_t)tile * n_boxes;
-  const float* key = keys + (size_t)tile * n_boxes;
-  const int ncand = min(max(cnt[tile], 0), n_boxes);
-
-  for (int j = 0; j < kRing - 1; ++j) {
-    if (j < ncand) ring_fill(s_rows[j], tris, list[j], cluster);
-    __pipeline_commit();
-  }
-  // Nothing can block when (tmin, tm) is empty (parked lanes carry tm = 0).
-  bool open = live && tm > tmin;
-  bool blocked = false;
-  for (int k = 0; k < ncand; ++k) {
-    // Stop once every lane is blocked, closed, or entered by no later box
-    // before its own tmax.
-    const float kk = key[k];
-    if (!__syncthreads_or(open && kk <= lane_far)) break;
-    const int ahead = k + kRing - 1;
-    if (ahead < ncand)
-      ring_fill(s_rows[ahead % kRing], tris, list[ahead], cluster);
-    __pipeline_commit();
-    __pipeline_wait_prior(kRing - 1);
-    const int c = list[k];
-    bool useful = true;
-    if (guard)
-      useful = __syncthreads_or(open && box_passes(r, s, m, bx, c, tmin, tm));
-    else
-      __syncthreads();
-    if (!useful) continue;
-    const float4* rows = s_rows[k % kRing];
-    for (int j = 0; j < cluster && open; ++j) {
-      if (!(rows[4 * j + 3].y < 0.5f)) continue;  // refractive: light passes
-      if (pe_test(r, rows[4 * j], rows[4 * j + 1], rows[4 * j + 2], tmin) <
-          tm) {
-        blocked = true;
-        open = false;
+  float far = -3e38f;
+  if (slice < slices) {
+    for (int b = slice; b < n_boxes; b += slices) {
+      float tn;
+      const bool ok = real &&
+                      tpt::slab_enter(r, s, __ldg(bx + 2 * (size_t)b),
+                                      __ldg(bx + 2 * (size_t)b + 1), m, tmin,
+                                      &tn) &&
+                      tn <= tm;
+      const unsigned vote = __ballot_sync(0xffffffffu, ok);
+      if (vote == 0u) continue;  // warp-uniform
+      far = fmaxf(far, ok ? tn : -3e38f);
+      const int least = __reduce_min_sync(
+          0xffffffffu, ok ? ordered(tn) : ordered(__int_as_float(0x7f800000)));
+      if (lane == 0) {
+        atomicMin(s_min + b, least);
+        atomicAdd(s_nok + b, __popc(vote));
       }
     }
   }
-  __pipeline_wait_prior(0);
-  if (live) occ_out[i] = blocked ? 1 : 0;
+  if (real) atomicMax(s_far + q, ordered(far));
+  __syncthreads();
+
+  // A box's key is the least over the tile's rays of (its entry distance
+  // where it passes, T_FAR where it does not), T_FAR where none passes.
+  // The sorted order puts the keys below T_FAR first, then the boxes whose
+  // key is T_FAR in id order (every unlisted box among them), then the
+  // keys above it (only with a tmax above T_FAR): only the first and the
+  // last kind are sorted.
+  float* key_of = reinterpret_cast<float*>(s_min);
+  int listed = 0, below = 0, sorted = 0;
+  for (int b0 = 0; b0 < n_boxes; b0 += blockDim.x) {
+    const int b = b0 + tid;
+    int nok = 0;
+    float key = kTFar;
+    if (b < n_boxes) {
+      nok = s_nok[b];
+      if (nok > 0)
+        key = fminf(from_ordered(s_min[b]),
+                    nok < rt ? kTFar : __int_as_float(0x7f800000));
+      key_of[b] = key;
+    }
+    listed += __syncthreads_count(nok > 0);
+    below += __syncthreads_count(key < kTFar);
+    sorted += __syncthreads_count(key != kTFar);
+  }
+  const size_t row = (size_t)tile * n_boxes;
+  const int n_far = n_boxes - sorted;  // keys equal to T_FAR
+  // Compact the sorted kind into s_sort in id order (a block-wide prefix
+  // count per chunk); write the T_FAR kind straight to its place.
+  int done = 0;  // sorted-kind boxes with a lower id than this chunk's
+  for (int b0 = 0; b0 < n_boxes; b0 += blockDim.x) {
+    const int b = b0 + tid;
+    const bool in_sort = b < n_boxes && key_of[b] != kTFar;
+    const unsigned vote = __ballot_sync(0xffffffffu, in_sort);
+    if (lane == 0) s_warp[warp] = __popc(vote);
+    __syncthreads();
+    int before = done, chunk = 0;
+    for (int w = 0; w < warps; ++w) {
+      const int c = s_warp[w];
+      if (w < warp) before += c;
+      chunk += c;
+    }
+    before += __popc(vote & ((1u << lane) - 1u));
+    if (in_sort) {
+      s_sort[before] =
+          ((unsigned long long)sort_bits(key_of[b]) << 32) | (unsigned)b;
+    } else if (b < n_boxes) {
+      const size_t at = row + below + (b - before);
+      cand[at] = b;
+      keys[at] = key_of[b];
+    }
+    done += chunk;
+    __syncthreads();  // s_warp is rewritten next chunk
+  }
+  int n_sort = 1;
+  while (n_sort < sorted) n_sort <<= 1;
+  for (int p = sorted + tid; p < n_sort; p += blockDim.x) s_sort[p] = ~0ull;
+  __syncthreads();
+
+  // Bitonic sort of (key, id), ascending; the ids make every entry unique.
+  for (int k = 2; k <= n_sort; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = tid; p < (n_sort >> 1); p += blockDim.x) {
+        const int a = 2 * p - (p & (j - 1));
+        const unsigned long long x = s_sort[a], y = s_sort[a + j];
+        if ((x > y) == ((a & k) == 0)) {
+          s_sort[a] = y;
+          s_sort[a + j] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int p = tid; p < sorted; p += blockDim.x) {
+    const int id = (int)(unsigned)(s_sort[p] & 0xffffffffu);
+    const size_t at = row + (p < below ? p : p + n_far);
+    cand[at] = id;
+    keys[at] = key_of[id];
+  }
+  if (tid == 0) cnt[tile] = listed;
+  for (int q2 = tid; q2 < rt; q2 += blockDim.x)
+    last_key[(size_t)tile * rt + q2] = from_ordered(s_far[q2]);
 }
 
 // ----------------------------------------------------------------- binned
@@ -352,7 +555,9 @@ extern "C" {
 // Each entry point launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() as an int (0 = success), or
 // cudaErrorInvalidValue for a tile width that is not a multiple of 32 up to
-// 256 or a cluster outside 1..128. Tables as tpt_closest_clustered.
+// 256 or a cluster outside 1..128 (the any-hit: a tile below 1, or a
+// `group` that is not a width built here, 4, 8, 16, 32). Tables as
+// tpt_closest_clustered.
 
 int tpt_closest_rotated(const float* orig, const float* dir,
                         const float* tris, const float* boxes,
@@ -390,12 +595,47 @@ int tpt_occluded_streamed(const float* orig, const float* dir,
                           const float* keys, const int* cnt, const float* last_key,
                           int n_rays, int n_boxes, int cluster, int rt,
                           float scale, float margin, float tmin, int guard,
-                          uint8_t* occ_out, void* stream) {
-  if (bad_tile(rt, cluster)) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((n_rays + rt - 1) / rt);
-  occluded_streamed_kernel<<<grid, rt, 0, (cudaStream_t)stream>>>(
-      orig, dir, tmax, tris, boxes, cand, keys, cnt, last_key, n_rays, n_boxes,
-      cluster, scale, margin, tmin, guard, occ_out);
+                          uint8_t* occ_out, int group, void* stream) {
+  if (rt < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
+  const bool ok = tpt::with_group(group, [&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+    occluded_streamed_kernel<G>
+        <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
+           (cudaStream_t)stream>>>(orig, dir, tmax, tris, boxes, cand, keys,
+                                   cnt, last_key, n_rays, n_boxes, cluster,
+                                   rt, scale, margin, tmin, guard, occ_out);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// The tile lists of stream_candidates for `rays` [n_rays, 8] (n_rays a
+// multiple of rt): cand [tiles, n_boxes] i32, keys [tiles, n_boxes] f32,
+// cnt [tiles] i32, last_key [n_rays] f32. `tmax` [n_rays] f32 is each
+// ray's bound, or null for tmax_all on every ray. Needs 1 <= rt <= 256
+// and 1 <= n_boxes <= 8,192 (the shared-memory sort).
+int tpt_stream_candidates(const float* rays, const float* tmax,
+                          float tmax_all, const float* boxes, int n_rays,
+                          int n_boxes, int rt, float scale, float margin,
+                          float tmin, int* cand, float* keys, int* cnt,
+                          float* last_key, void* stream) {
+  if (rt < 1 || rt > kListMaxTile || n_rays % rt || n_boxes < 1 ||
+      n_boxes > kListMaxBoxes)
+    return (int)cudaErrorInvalidValue;
+  int sort_cap = 1;
+  while (sort_cap < n_boxes) sort_cap <<= 1;
+  const size_t smem = (size_t)sort_cap * 8 + (size_t)n_boxes * 8 + rt * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stream_candidates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned tiles = (unsigned)(n_rays / rt);
+  if (tiles == 0) return (int)cudaSuccess;
+  stream_candidates_kernel<<<tiles, kListThreads, smem,
+                             (cudaStream_t)stream>>>(
+      rays, tmax, tmax_all, boxes, n_boxes, rt, sort_cap, scale, margin, tmin,
+      cand, keys, cnt, last_key);
   return (int)cudaGetLastError();
 }
 

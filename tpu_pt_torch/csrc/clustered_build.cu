@@ -1,5 +1,5 @@
-// Clustered ray-triangle kernels whose thread block builds one shared work
-// list and sweeps it in lockstep, for Hopper (sm_90a).
+// Clustered ray-triangle kernels that build their candidate list inside
+// the kernel, for Hopper (sm_90a).
 //
 // They replace the Pallas TPU kernels that build their candidate list
 // inside the kernel (tpu_pt/intersect/pallas_bf.py, TPT_INKB=1):
@@ -14,28 +14,27 @@
 //   tpt_occluded_clustered_b      <- _occluded_kernel_clustered_b (:1182):
 //                                    any-hit, the list bounded by each ray's
 //                                    own tmax.
-//   The list is what _build_cand_table (:618) builds: the boxes that any
-//   ray of the tile pierces within its bound. Each pair of TPU bodies
-//   (clustered / chained) is one entry point here: the chained bodies exist
-//   because a TPU table is cut into VMEM slabs, and these kernels sweep the
-//   whole table in one launch.
+//   The list is what _build_cand_table (:618) builds: the boxes a ray
+//   pierces within its bound. Each pair of TPU bodies (clustered / chained)
+//   is one entry point here: the chained bodies exist because a TPU table
+//   is cut into VMEM slabs, and these kernels sweep the whole table in one
+//   launch.
 //
-// The design (clustered_intersect.cu holds the other one, a traversal per
-// thread). A block is kThreads consecutive lanes, one thread per ray. It
-// walks the cluster boxes in chunks of kThreads:
+// K7 (lean and full): a thread block of kThreads consecutive lanes, one
+// thread per ray, builds one shared work list and sweeps it in lockstep.
+// It walks the cluster boxes in chunks of kThreads:
 //
 //   build  The chunk's boxes are staged into shared memory. Every thread
 //          slab-tests its own ray against each of them (bound: the ray's
-//          best hit so far or tmax for the closest hit, as the chained TPU
-//          bodies bound a slab's list by the prior t; the ray's own tmax,
-//          or nothing once it is blocked, for the any-hit), and keeps the
-//          passes as bits. A warp ORs its lanes' bits (__reduce_or_sync)
-//          and one lane ORs them into the chunk's mask in shared memory: a
-//          box is listed if any ray of the block passes. The TPU compacts
-//          with a triangular matmul and a one-hot; here thread j takes box j
-//          and its slot is a prefix population count of the mask. The list
-//          (at most kThreads entries) is in box order, and shared memory
-//          does not grow with the scene.
+//          best hit so far or tmax, as the chained TPU bodies bound a
+//          slab's list by the prior t), and keeps the passes as bits. A
+//          warp ORs its lanes' bits (__reduce_or_sync) and one lane ORs
+//          them into the chunk's mask in shared memory: a box is listed if
+//          any ray of the block passes. The TPU compacts with a triangular
+//          matmul and a one-hot; here thread j takes box j and its slot is
+//          a prefix population count of the mask. The list (at most
+//          kThreads entries) is in box order, and shared memory does not
+//          grow with the scene.
 //   sweep  For each listed cluster the block holds its rows (8 KB at 128
 //          rows) in one of two shared buffers. Each thread loads its share
 //          of the next listed cluster into registers, runs pe_test on every
@@ -47,18 +46,36 @@
 // changes its result, which is that of a dense sweep over every row.
 // Chunks, the list and the rows are visited in ascending order and the best
 // hit is replaced on a strictly smaller t only, so ties go to the lowest
-// packed row. Built with --fmad=false like every kernel here: the results
-// equal tpt_closest_clustered(_full) / tpt_occluded_clustered and the plain
-// dense sweeps bit for bit.
+// packed row.
 //
-// Barriers: every loop that holds a __syncthreads has a trip count that is
-// the same for every thread of the block (the box chunks; the list's length
-// read from shared memory; __syncthreads_and for the any-hit's early exit).
-// Lanes past n_rays and parked lanes (origin 3e7, tmax 0) pass no box, so a
-// block of such lanes leaves with empty lists; they still reach every
-// barrier and help stage.
+// K8b: one ray to a group of G lanes (walk.cuh's Group), and nothing shared
+// across rays. The group builds its own ray's list as it goes: its lanes
+// slab-test the boxes G at a time in box order (lane l the box base + l,
+// against the ray's own tmax, with the grown boxes of clustered.BOX_MARGIN),
+// a ballot gives the ones that pass, and the group sweeps each passing
+// cluster at once, lowest box first, with cluster_blocked (the rows split
+// over its lanes, read through L2: the big mesh's 6.4 MB table fits the
+// H100's 50 MB). It stops at its first blocked cluster. No barrier, no
+// shared list, and no lane sweeps a cluster its own ray's box test fails.
+// What bounds it is the same as before: every ray slab-tests every box
+// (the TPU schedule, no tree: walking the tree is K8's), 24 flops a test;
+// G lanes share one ray's tests, so a ray costs C / G steps of one test a
+// lane. G is a template parameter (4, 8, 16, 32), picked by
+// clustered.occluded_b_group from the ray count as
+// tools/clustered_group_trial.py measured (PERF.md).
+//
+// Built with --fmad=false like every kernel here: the results equal
+// tpt_closest_clustered(_full) / tpt_occluded_clustered and the plain
+// dense sweeps bit for bit (refractive rows pass light; parked lanes, tmax
+// 0, are never blocked).
+//
+// K7's barriers: every loop that holds a __syncthreads has a trip count
+// that is the same for every thread of the block (the box chunks; the
+// list's length read from shared memory). Lanes past n_rays and parked
+// lanes (origin 3e7, tmax 0) pass no box, so a block of such lanes leaves
+// with empty lists; they still reach every barrier and help stage.
 
-#include "pe_block.cuh"
+#include "walk.cuh"
 
 namespace {
 
@@ -223,7 +240,10 @@ closest_clustered_b_kernel(const float* __restrict__ orig,
     row_out[i] = best < kTFar ? best_row : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K8b: one ray to a group of G lanes, which tests the boxes G at a time
+// and sweeps each one that passes at once (see the note at the top).
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
 occluded_clustered_b_kernel(const float* __restrict__ orig,
                             const float* __restrict__ dir,
                             const float* __restrict__ tmax,
@@ -232,35 +252,33 @@ occluded_clustered_b_kernel(const float* __restrict__ orig,
                             int n_boxes, int cluster, float scale,
                             float margin, float tmin,
                             uint8_t* __restrict__ occ_out) {
-  __shared__ Shared sh;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n_rays;
-  const Ray r = live ? load_ray(orig, dir, i) : Ray{0, 0, 0, 0, 0, 0};
-  const Slab s = tpt::make_slab(r);
-  const float m = margin * (scale + max_abs_origin(r));
-  const float tm = live ? tmax[i] : 0.0f;
-  // Nothing can block when (tmin, tm) is empty (parked and ineligible
-  // shadow rays carry tm = 0): such a thread votes for no box.
-  bool open = live && tm > tmin;
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;  // whole groups leave together
+  const float tm = tmax[i];
   bool blocked = false;
-  for (int base = 0; base < n_boxes; base += kThreads) {
-    // The block stops once every one of its rays is blocked or closed.
-    if (__syncthreads_and(!open)) break;
-    const int nb = min(kThreads, n_boxes - base);
-    const int count = build_list(sh, r, s, m, open, boxes, base, nb, tmin, tm);
-    sweep_list(sh, tris, count, cluster, [&](const float4* rows, int) {
-      // A blocked thread stops testing and goes on to the barriers.
-      for (int j = 0; j < cluster && open; ++j) {
-        if (!(rows[4 * j + 3].y < 0.5f)) continue;  // refractive: light passes
-        if (pe_test(r, rows[4 * j], rows[4 * j + 1], rows[4 * j + 2], tmin) <
-            tm) {
-          blocked = true;
-          open = false;
-        }
+  // Nothing can block when (tmin, tm) is empty (parked and ineligible
+  // shadow rays carry tm = 0).
+  if (tm > tmin) {
+    const Ray r = load_ray(orig, dir, i);
+    const Slab s = tpt::make_slab(r);
+    const float m = margin * (scale + max_abs_origin(r));
+    const float4* bx = reinterpret_cast<const float4*>(boxes);
+    const float4* rows = reinterpret_cast<const float4*>(tris);
+    for (int base = 0; base < n_boxes && !blocked; base += G) {
+      const int b = base + g.lane;
+      // A box entered at tn >= tm holds no blocking hit (t > tn).
+      unsigned pass = tpt::group_ballot(
+          g, b < n_boxes && tpt::box_passes(r, s, m, bx, b, tmin, tm));
+      while (pass != 0u && !blocked) {
+        const int c = base + __ffs(pass) - 1;
+        pass &= pass - 1u;
+        blocked = tpt::cluster_blocked(r, rows, c * cluster, cluster, G, g,
+                                       tmin, tm);
       }
-    });
+    }
   }
-  if (live) occ_out[i] = blocked ? 1 : 0;
+  if (g.lane == 0) occ_out[i] = blocked ? 1 : 0;
 }
 
 inline unsigned grid_for(int n_rays) {
@@ -273,7 +291,8 @@ extern "C" {
 
 // Each entry point launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() as an int (0 = success), or
-// cudaErrorInvalidValue when `cluster` is outside 1..128 (the row buffers).
+// cudaErrorInvalidValue when K7's `cluster` is outside 1..128 (the row
+// buffers) or K8b's `group` is not a width built here (4, 8, 16, 32).
 // Arguments as the entry points of clustered_intersect.cu.
 
 int tpt_closest_clustered_b(const float* orig, const float* dir,
@@ -308,13 +327,17 @@ int tpt_occluded_clustered_b(const float* orig, const float* dir,
                              const float* tmax, const float* tris,
                              const float* boxes, int n_rays, int n_boxes,
                              int cluster, float scale, float margin,
-                             float tmin, uint8_t* occ_out, void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
-  occluded_clustered_b_kernel<<<grid_for(n_rays), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-      orig, dir, tmax, tris, boxes, n_rays, n_boxes, cluster, scale, margin,
-      tmin, occ_out);
-  return (int)cudaGetLastError();
+                             float tmin, uint8_t* occ_out, int group,
+                             void* stream) {
+  const bool ok = tpt::with_group(group, [&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+    occluded_clustered_b_kernel<G>
+        <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
+           (cudaStream_t)stream>>>(orig, dir, tmax, tris, boxes, n_rays,
+                                   n_boxes, cluster, scale, margin, tmin,
+                                   occ_out);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // The near-first walk of a box tree by a group of lanes, shared by the
 // clustered kernels (K6, K6f, K8: a kd tree over the clusters of a big
 // table), the dense kernels' walks (K1-K5: a kd copy of the dense table)
-// and the instanced kernels K9 and K10 (a tree over the instances).
+// and the instanced kernels K9 and K10 (a tree over the instances). The
+// group machinery (Group, group_ballot, cluster_blocked, walk_grid,
+// with_group) also serves K8b and K12's any-hit, which go down a list.
 //
 // One ray goes to a group of G lanes (a part of a warp). The group walks
 // the tree together, depth first and near first: it tests both children
@@ -172,6 +174,11 @@ __device__ __forceinline__ void walk_tree(const Ray& r, const Slab& s,
       }
     }
   }
+}
+
+// The group's votes as its low G bits, the group's lane l at bit l.
+__device__ __forceinline__ unsigned group_ballot(const Group& g, bool vote) {
+  return (__ballot_sync(g.mask, vote) & g.mask) >> (__ffs(g.mask) - 1);
 }
 
 // Any-hit leaf sweep of one cluster: the group's lanes split its rows

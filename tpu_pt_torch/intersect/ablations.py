@@ -13,13 +13,19 @@ the JAX package's variables, read at every call:
   (``rotated_slab_order``), each slab culled against its best hit so far.
   Any prediction gives the same hits.
 - ``TPT_STREAM=1``: the STREAMED path, ``closest_streamed`` /
-  ``occluded_streamed`` (K12). A tile of ``RAY_TILE_C`` consecutive lanes
-  shares one list of the boxes any of its rays pierces, sorted by the
-  tile's least entry distance (``stream_candidates``, plain PyTorch); the
-  kernel sweeps the list through a ``STREAM_BUF``-slot ring of row
-  buffers, stops at the first key no lane can still use, and with the
-  guard on (``TPT_STREAM_GUARD``, default 1) skips a candidate no lane
-  can improve on.
+  ``occluded_streamed`` (K12). A tile of consecutive lanes (``RAY_TILE_C``
+  for the closest hit, ``STREAM_OCC_TILE`` for the any-hit) shares one
+  list of the boxes any of its rays pierces, sorted by the tile's least
+  entry distance (``stream_lists``: built on the card by its own kernel;
+  ``stream_candidates`` is its plain version). The closest kernel sweeps
+  the list through a ``STREAM_BUF``-slot ring of row buffers, stops at
+  the first key no lane can still use, and with the guard on
+  (``TPT_STREAM_GUARD``, default 1) skips a candidate no lane can improve
+  on. The any-hit kernel gives each ray a group of lanes
+  (``stream_occ_group``) that goes down its tile's list on its own, up to
+  its own break (the first key beyond its last entry or its tmax) or its
+  first blocked cluster; with the guard on it skips a candidate its own
+  grown box test fails.
 - ``TPT_CBIN=1``: the CLUSTER-BINNED path, ``closest_cbin`` /
   ``occluded_cbin`` (K13). Per-group lists of pierced clusters are
   regrouped by cluster into jobs of ``RAY_TILE_C`` (ray, cluster) pair
@@ -42,13 +48,15 @@ the JAX package's variables, read at every call:
   with every other lane parked.
 - ``TPT_GRP=1`` / ``2``: the 8-LANE GROUPS, ``closest_grp`` /
   ``occluded_grp`` (K15), serial or bundled. Eight consecutive lanes share
-  ``stream_candidates``' near-first list at a tile of ``GRP_LANES``; each
+  ``stream_lists``' near-first list at a tile of ``GRP_LANES``; each
   lane culls the listed clusters by its own grown-box test, and the group
-  stops at the first key no lane can still use.
+  stops at the first key no lane can still use. Its lists come from
+  ``stream_lists`` too.
 
 Every wrapper launches its kernel (``csrc/ablations_intersect.cu`` for
-K11-K13, ``csrc/ablations_binned.cu`` for K14 / K15) for CUDA tensors, runs
-its plain version for CPU tensors and raises otherwise.
+K11-K13 and the list build, ``csrc/ablations_binned.cu`` for K14 / K15)
+for CUDA tensors, runs its plain version for CPU tensors and raises
+otherwise.
 The plain versions follow the schedules step by step over the same lists,
 so the CPU tests hold the schedules, not only the answers, against the
 dense sweep. Results are bitwise those of ``dense._closest_plain`` /
@@ -69,6 +77,16 @@ from .moller import T_FAR, Hit
 
 RAY_TILE_C = int(os.environ.get("TPT_RT_C", 256))   # lanes per tile / job
 STREAM_BUF = 4                                       # ring slots
+# K12's any-hit: the lanes that share a list, and the lanes a ray
+# (stream_occ_group: STREAM_OCC_GROUP up to STREAM_OCC_NARROW_RAYS rays,
+# STREAM_OCC_GROUP_WIDE above), from tools/clustered_group_trial.py
+# (stream_occ).
+STREAM_OCC_TILE = 128
+STREAM_OCC_GROUP, STREAM_OCC_GROUP_WIDE, STREAM_OCC_NARROW_RAYS = 32, 4, 65536
+# The list build kernel (stream_lists): rays a tile, and boxes its
+# shared-memory sort holds.
+LIST_MAX_TILE = 256
+LIST_MAX_BOXES = 8192
 CBIN_PAIR_MULT = int(os.environ.get("TPT_CBIN_PAIRS", 12))   # P_cap = mult*N
 CBIN_K_OUT = int(os.environ.get("TPT_CBIN_K", 32))           # per-group cap
 CBIN_GROUP = int(os.environ.get("TPT_CBIN_GROUP", 1))        # lanes/work list
@@ -87,7 +105,7 @@ _BIG_IDX = 2 ** 30
 LAUNCHES = {"closest_rotated": 0, "closest_streamed": 0,
             "occluded_streamed": 0, "closest_cbin": 0, "occluded_cbin": 0,
             "closest_binned": 0, "occluded_binned": 0, "closest_grp": 0,
-            "occluded_grp": 0}
+            "occluded_grp": 0, "stream_lists": 0}
 
 
 def _stream_guard() -> bool:
@@ -268,7 +286,8 @@ def closest_rotated(origins: torch.Tensor, dirs: torch.Tensor,
 def stream_candidates(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
                       rt: int, tmin: float, tmax):
     """Whole-table per-tile work lists for the streamed kernels
-    (``pallas_ablations.stream_candidates``).
+    (``pallas_ablations.stream_candidates``): the plain version of
+    ``stream_lists``.
 
     ``rays`` [n_pad, 8] with n_pad a multiple of ``rt``; ``tmax`` a float
     or [n_pad]. Returns (cand [tiles, C] i32, keys [tiles, C] f32, cnt
@@ -307,6 +326,60 @@ def stream_candidates(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
     keys, order = torch.sort(key, dim=1, stable=True)
     return (order.to(torch.int32).contiguous(), keys.contiguous(),
             any_.sum(1).to(torch.int32), torch.cat(far_parts))
+
+
+def stream_lists(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
+                 rt: int, tmin: float, tmax):
+    """``stream_candidates``' tile lists (its arguments and outputs), built
+    for CUDA tensors by ``tpt_stream_candidates`` (one thread block a tile:
+    the slab tests, then a sort of (key, box id) in shared memory), bit
+    for bit the same; for CPU tensors ``stream_candidates`` itself.
+    Needs 1 <= rt <= LIST_MAX_TILE and at most LIST_MAX_BOXES boxes."""
+    if dense._on_cpu(rays):
+        return stream_candidates(rays, boxes, scale, rt, tmin, tmax)
+    from .. import _kernels
+    dev, n_pad = rays.device, rays.shape[0]
+    dense._check("rays", rays, torch.float32, (n_pad, 8), dev)
+    n_boxes = boxes.shape[0]
+    dense._check("boxes", boxes, torch.float32, (n_boxes, 8), dev)
+    if rays.data_ptr() % 16 or boxes.data_ptr() % 16:
+        raise ValueError("rays and boxes must be 16-byte aligned")
+    if not 1 <= rt <= LIST_MAX_TILE or n_pad % rt:
+        raise ValueError(f"{n_pad} rays do not split into tiles of {rt} "
+                         f"(at most {LIST_MAX_TILE})")
+    if not 1 <= n_boxes <= LIST_MAX_BOXES:
+        raise ValueError(f"the list build sorts 1 to {LIST_MAX_BOXES} boxes, "
+                         f"not {n_boxes}")
+    tm, tm_all = None, 0.0
+    if torch.is_tensor(tmax):
+        tm = tmax.contiguous()
+        dense._check("tmax", tm, torch.float32, (n_pad,), dev)
+    else:
+        tm_all = float(tmax)
+    tiles = n_pad // rt
+    cand = torch.empty((tiles, n_boxes), dtype=torch.int32, device=dev)
+    keys = torch.empty((tiles, n_boxes), dtype=torch.float32, device=dev)
+    cnt = torch.empty(tiles, dtype=torch.int32, device=dev)
+    far = torch.empty(n_pad, dtype=torch.float32, device=dev)
+    if tiles:
+        _kernels.launch("tpt_stream_candidates", rays.data_ptr(),
+                        None if tm is None else tm.data_ptr(), tm_all,
+                        boxes.data_ptr(), n_pad, n_boxes, rt, float(scale),
+                        clustered.BOX_MARGIN, float(tmin), cand.data_ptr(),
+                        keys.data_ptr(), cnt.data_ptr(), far.data_ptr(),
+                        dense._stream(dev))
+        LAUNCHES["stream_lists"] += 1
+    return cand, keys, cnt, far
+
+
+def stream_occ_group(n_rays: int) -> int:
+    """Lanes a ray of K12's any-hit for a call of ``n_rays`` rays: the
+    width tools/clustered_group_trial.py (``stream_occ``) measured fastest
+    (PERF.md), 32 on a ``TPT_STREAM=1`` big-mesh frame's calls, 4 at
+    262,144 rays."""
+    if n_rays <= STREAM_OCC_NARROW_RAYS:
+        return STREAM_OCC_GROUP
+    return STREAM_OCC_GROUP_WIDE
 
 
 def _pe_rows(o, d, rows, tmin: float):
@@ -453,10 +526,12 @@ def closest_streamed(rays: torch.Tensor, tris: torch.Tensor,
 
 def occluded_streamed(rays: torch.Tensor, tris: torch.Tensor,
                       boxes: torch.Tensor, scale: float, lists, rt: int,
-                      tmin: float, guard: bool = True) -> torch.Tensor:
+                      tmin: float, guard: bool = True, *,
+                      group: int | None = None) -> torch.Tensor:
     """K12 any-hit: K8's flag for ``rays`` [n_pad, 8] (column 6: the
     ray's tmax) over the tile lists of ``stream_candidates(rays, boxes,
-    scale, rt, tmin, rays[:, 6])``. Returns bool [n_pad]."""
+    scale, rt, tmin, rays[:, 6])``, ``group`` lanes a ray
+    (``stream_occ_group`` when None). Returns bool [n_pad]."""
     if dense._on_cpu(rays):
         return _streamed_plain(rays, tris, boxes, scale, lists, rt, tmin,
                                T_FAR, guard, occluded=True)
@@ -471,12 +546,14 @@ def occluded_streamed(rays: torch.Tensor, tris: torch.Tensor,
     out = torch.empty(n_pad, dtype=torch.bool, device=dev)
     if n_pad:
         cand, keys, cnt, far = lists
+        width = stream_occ_group(n_pad) if group is None else int(group)
         _kernels.launch("tpt_occluded_streamed", o.data_ptr(), d.data_ptr(),
                         tmax.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
                         cand.data_ptr(), keys.data_ptr(), cnt.data_ptr(),
                         far.data_ptr(), n_pad, n_boxes, cluster, rt,
                         float(scale), clustered.BOX_MARGIN, float(tmin),
-                        int(bool(guard)), out.data_ptr(), dense._stream(dev))
+                        int(bool(guard)), out.data_ptr(), width,
+                        dense._stream(dev))
         LAUNCHES["occluded_streamed"] += 1
     return out
 
@@ -826,29 +903,33 @@ def occluded_cbin(pair_rays: torch.Tensor, tris: torch.Tensor,
 # The three paths as clustered.closest_hit / occluded_hit take them
 # --------------------------------------------------------------------------
 
-def _pad_tile(n: int) -> int:
-    return -(-n // RAY_TILE_C) * RAY_TILE_C
+def _pad_tile(n: int, rt: int | None = None) -> int:
+    rt = RAY_TILE_C if rt is None else rt
+    return -(-n // rt) * rt
 
 
 def stream_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
                  occluded: bool):
     """The streamed path in its two steps, (rays, build, kernel):
-    ``build()`` gives the tile lists of the packed ``rays``,
-    ``kernel(lists)`` the padded result of K12. The paths below run one
-    after the other; a bench times them apart. ``tmax`` is a float for
-    the closest hit and [N] for the any-hit."""
-    rays = pack_rays(origins, dirs, tmax, _pad_tile(origins.shape[0]))
+    ``build()`` gives the tile lists of the packed ``rays``
+    (``stream_lists``: tiles of ``RAY_TILE_C`` lanes for the closest hit,
+    ``STREAM_OCC_TILE`` for the any-hit), ``kernel(lists)`` the padded
+    result of K12. The paths below run one after the other; a bench times
+    them apart. ``tmax`` is a float for the closest hit and [N] for the
+    any-hit."""
+    rt = STREAM_OCC_TILE if occluded else RAY_TILE_C
+    rays = pack_rays(origins, dirs, tmax, _pad_tile(origins.shape[0], rt))
 
     def build():
-        return stream_candidates(rays, boxes, scale, RAY_TILE_C, tmin,
-                                 rays[:, 6] if occluded else tmax)
+        return stream_lists(rays, boxes, scale, rt, tmin,
+                            rays[:, 6] if occluded else tmax)
 
     def kernel(lists):
         if occluded:
-            return occluded_streamed(rays, tris, boxes, scale, lists,
-                                     RAY_TILE_C, tmin, _stream_guard())
-        return closest_streamed(rays, tris, boxes, scale, lists, RAY_TILE_C,
-                                tmin, tmax, _stream_guard())
+            return occluded_streamed(rays, tris, boxes, scale, lists, rt,
+                                     tmin, _stream_guard())
+        return closest_streamed(rays, tris, boxes, scale, lists, rt, tmin,
+                                tmax, _stream_guard())
     return rays, build, kernel
 
 
@@ -907,7 +988,7 @@ def closest_cbin_path(origins, dirs, tris, boxes, scale, tmin: float,
         best_t = torch.where(best_t < tmax, best_t, T_FAR)
         best_row = torch.where(best_t < T_FAR, best_row, 0)
     rays_c = _park_rays(rays, ~incomplete)
-    lists = stream_candidates(rays_c, boxes, scale, RAY_TILE_C, tmin, tmax)
+    lists = stream_lists(rays_c, boxes, scale, RAY_TILE_C, tmin, tmax)
     ct, ci = closest_streamed(rays_c, tris, boxes, scale, lists, RAY_TILE_C,
                               tmin, tmax, _stream_guard())
     best_t = torch.where(incomplete, ct, best_t)
@@ -1340,8 +1421,8 @@ def grp_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
     rays = pack_rays(origins, dirs, tmax, -(-n // GRP_LANES) * GRP_LANES)
 
     def build():
-        return stream_candidates(rays, boxes, scale, GRP_LANES, tmin,
-                                 rays[:, 6] if occluded else tmax)
+        return stream_lists(rays, boxes, scale, GRP_LANES, tmin,
+                            rays[:, 6] if occluded else tmax)
 
     def kernel(lists):
         if occluded:

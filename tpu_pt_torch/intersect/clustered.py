@@ -26,13 +26,16 @@ call site; plain version):
 - ``occluded_clustered_b`` (K8b): ``_occluded_kernel_clustered_b`` via
   ``_occluded_call_clustered(build=True)``; K8's plain version.
 
-Two designs. In ``csrc/clustered_intersect.cu`` (K6, K6f, K8) a group of
-16 or 8 lanes (``walk_group``) walks the cluster tree for one ray, near
+Three designs. In ``csrc/clustered_intersect.cu`` (K6, K6f, K8) a group
+of 16 or 8 lanes (``walk_group``) walks the cluster tree for one ray, near
 first, and sweeps the clusters it reaches together. In
-``csrc/clustered_build.cu`` (K7, K8b) a thread block of 128 consecutive
-lanes builds one shared work list, the boxes any of its rays pierces
+``csrc/clustered_build.cu`` K7 runs a thread block of 128 consecutive
+lanes that builds one shared work list, the boxes any of its rays pierces
 within its bound, and sweeps the listed clusters in lockstep from shared
-memory, as the TPU kernels with the in-kernel candidate build do. Either way one launch covers the table:
+memory, as the TPU kernels with the in-kernel candidate build do; K8b
+gives one ray to a group of lanes (``occluded_b_group``), which tests
+every box G at a time against its own ray's tmax and sweeps each one that
+passes at once, until one blocks. Either way one launch covers the table:
 the TPU path's chained slabs and ray sort exist only because its table
 had to fit in VMEM. The results are those of a dense sweep over every
 row, which is what the plain versions compute. A wrapper runs the plain
@@ -93,6 +96,11 @@ LAUNCHES = {"closest_clustered": 0, "occluded_clustered": 0,
             "closest_clustered_full_b": 0, "occluded_clustered_b": 0}
 # Ray counts up to which the walk runs 16 lanes a ray, not 8 (walk_group).
 WALK_NARROW_RAYS = 65536
+# The lanes a ray of K8b (occluded_b_group): OCC_B_GROUP up to
+# OCC_B_NARROW_RAYS rays, OCC_B_GROUP_WIDE above.
+OCC_B_GROUP, OCC_B_GROUP_WIDE, OCC_B_NARROW_RAYS = 32, 4, 65536
+# The widths the group kernels are built at (csrc/walk.cuh, with_group).
+GROUPS = (4, 8, 16, 32)
 # Stack entries of the tree walk (csrc/clustered_intersect.cu, kStack): a
 # tree deeper than this is refused.
 TREE_MAX_DEPTH = 32
@@ -352,15 +360,27 @@ def walk_group(n_rays: int) -> int:
     return 16 if n_rays <= WALK_NARROW_RAYS else 8
 
 
+def occluded_b_group(n_rays: int) -> int:
+    """Lanes a ray of K8b for a call of ``n_rays`` rays: the width
+    tools/clustered_group_trial.py (``inkb_occ``) measured fastest
+    (PERF.md), 32 on a ``TPT_INKB=1`` big-mesh frame's calls (32,768
+    lanes, more of them parked round by round), where few live rays must
+    fill the card, and 4 at 262,144 rays."""
+    return OCC_B_GROUP if n_rays <= OCC_B_NARROW_RAYS else OCC_B_GROUP_WIDE
+
+
 def _tables(name: str, tris, boxes, nodes, group, n: int, dev):
     """(the tables, n_boxes, cluster, the walk's group) of a clustered
     launch: the rows and boxes; for the walking kernels (K6, K6f, K8) the
     node table (built from the boxes when the caller has none) and the
-    lanes a ray (``walk_group`` when None), else an empty tuple. The
-    caller holds the tables until the launch is queued."""
+    lanes a ray (``walk_group`` when None); for K8b the lanes a ray
+    (``occluded_b_group`` when None); for K7 an empty tuple. The caller
+    holds the tables until the launch is queued."""
     n_boxes, cluster = _check_tables(tris, boxes, dev)
     tables, walk = (tris, boxes), ()
-    if name.endswith("_b"):
+    if name == "occluded_clustered_b":
+        walk = (occluded_b_group(n) if group is None else int(group),)
+    elif name.endswith("_b"):
         _check_build(cluster)
     else:
         if nodes is None:
@@ -506,14 +526,16 @@ def occluded_clustered(origins: torch.Tensor, dirs: torch.Tensor,
 
 def occluded_clustered_b(origins: torch.Tensor, dirs: torch.Tensor,
                          tmax: torch.Tensor, tris: torch.Tensor,
-                         boxes: torch.Tensor, scale: float,
-                         tmin: float) -> torch.Tensor:
-    """K8b: K8's function through the list-building kernel, each block's
-    list bounded by its rays' own tmax."""
+                         boxes: torch.Tensor, scale: float, tmin: float,
+                         *, group: int | None = None) -> torch.Tensor:
+    """K8b: K8's function with no tree, each ray's list of boxes built in
+    the kernel within its own tmax: ``group`` lanes a ray
+    (``occluded_b_group`` when None) test every box and sweep each one
+    that passes, until one blocks."""
     if dense._on_cpu(origins):
         return _occluded_clustered_plain(origins, dirs, tmax, tris, tmin)
     return _launch_occluded("occluded_clustered_b", origins, dirs, tmax, tris,
-                            boxes, scale, tmin)
+                            boxes, scale, tmin, group=group)
 
 
 # --------------------------------------------------------------------------
