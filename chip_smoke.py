@@ -160,15 +160,28 @@ The rest of pallas_ablations.py (K14 pair-binned, K15 8-lane groups:
    and ``closest_grp`` / ``occluded_grp`` (serial and bundled) on the big
    mesh at 32,768 rays with every eighth lane parked, bitwise against
    their plain versions, timed apart from their schedule builds
-   (``_pair_schedule``, the group lists) and at 262,144 rays; their whole
+   (``pair_schedule``, the group lists) and at 262,144 rays; their whole
    paths bitwise against K6 / K8 there and at 1,000 and 77 rays, K14 also
-   at k = 2, where the completion pass carries real lanes;
+   at k = 2, where the completion pass carries real lanes; K14's pair
+   schedule built on the card (``pair_schedule``) against its plain
+   version ``_pair_schedule`` (``tile_sid``, ``next_tn``, ``overflow``
+   bitwise, each cluster's run the same set of rays), timed, at every tile
+   width of ``BINNED_TILES`` and k = 12 and 2; K14's kernels at every
+   width bitwise equal to the chosen one's;
 24. big-mesh variants (in phase 16): the frame under ``TPT_BINNED=1``
-   (K14 and its completion passes K6 and K8 once per round), ``TPT_GRP=1``
+   (K14 and its completion passes K6 and K8 once per round, its pair
+   schedule twice), ``TPT_GRP=1``
    and ``TPT_GRP=2`` (K15 once per round, K6 / K8 never), accumulators
    bitwise equal to the lean frame's, one call of each wrapper recorded
    from a warm-up frame and held bitwise;
-25. incoherent rays (in phase 22): K14 and K15 among the paths;
+25. incoherent rays (in phase 22): K14 and K15 among the paths; then the
+   list build past its caps (``ablations.list_route``): bitwise against
+   ``stream_candidates`` at tiles of 512 rays (past LIST_MAX_TILE) on the
+   big mesh's 784 boxes, and on a table of more than 8,192 clusters (the
+   big mesh 11 times over, built on the card: 8,624 clusters, 1.1M rows)
+   at every tile, and at 8,192 and 8,193 of its boxes; the
+   ``TPT_STREAM=1`` closest and any-hit paths on that table bitwise equal
+   to K6 / K8, with the phase's seconds;
 26. bf16 probe: ``tools/microbench_bf16_torch.py``'s f32 chain bitwise
    against its plain PyTorch chain on the card, the bf16 chain within one
    bf16 ulp (the count of differing elements printed), then 200 chained
@@ -351,6 +364,9 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     # K12's lists (and K15's), which the JAX package builds in XLA outside
     # its kernels: part of K12's path, built on the card.
     "stream_lists": (_ABLATIONS, "tpu_pt/intersect/pallas_ablations.py:408"),
+    # K14's pair schedule, which the JAX package builds in XLA outside its
+    # kernels: part of K14's path, built on the card.
+    "pair_schedule": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1156"),
     "chain_f32": (_BF16, "tools/microbench_bf16.py:37"),
     "chain_bf16": (_BF16, "tools/microbench_bf16.py:37"),
     # K3 and K2 as walks of kd copies (the sphere box's table and occluder
@@ -521,12 +537,15 @@ NEW_WRAPPERS = ("closest_clustered_full", "closest_clustered_b",
                 "closest_rotated", "closest_streamed", "occluded_streamed",
                 "closest_cbin", "occluded_cbin", "closest_binned",
                 "occluded_binned", "closest_grp", "occluded_grp",
-                "stream_lists")
+                "stream_lists", "pair_schedule")
 # List builds per round of the big-mesh variants (the closest and the
 # any-hit call each build one under TPT_STREAM and TPT_GRP; K13's closest
 # completion pass one); every other variant and every default frame none.
 LIST_BUILDS = {"streamed": 2, "cluster-binned": 1,
                "8-lane groups, serial": 2, "8-lane groups, bundled": 2}
+# Pair schedules per round (K14's closest and any-hit call each build one);
+# every other variant and every default frame none.
+PAIR_SCHEDULES = {"pair-binned": 2}
 # The any-hit kernels that go down a list (K8b, K12) and the list build:
 # no default frame launches them.
 SHADOW_LIST_KERNELS = ("occluded_clustered_b", "occluded_streamed",
@@ -535,6 +554,11 @@ SHADOW_LIST_KERNELS = ("occluded_clustered_b", "occluded_streamed",
 # takes no full carry).
 INCOHERENT_WRAPPERS = NEW_WRAPPERS[4:]
 N_RAGGED = (1000, 77)    # ray counts that leave a ragged last block
+# The list build past its caps (phase_list_caps): the big mesh this many
+# times over (8,624 clusters: past LIST_MAX_BOXES), and a tile past
+# LIST_MAX_TILE.
+LIST_CAP_COPIES = 11
+LIST_CAP_TILE = 512
 INCOHERENT = dict(n=262144, reps=3)   # tools/bench_incoherent_torch.py
 WHITTED_TOL, WHITTED_SHARE = 1e-3, 0.02   # tests/test_torch_whitted.py
 HUGE_MESH = "huge_mesh.obj"
@@ -807,6 +831,34 @@ def _compare_lists(name, kernel_out, plain_out):
                  "bitwise equal")
 
 
+def _compare_schedule(name, kernel_out, plain_out):
+    """The pair schedule built on the card against ``_pair_schedule``:
+    ``tile_sid``, ``next_tn``, ``overflow`` and the used slots equal, and
+    each cluster's run the same set of rays (the kernel places a run's
+    pairs in the order of its atomics; the fold does not depend on it)."""
+    import torch
+    for what in ("tile_sid", "next_tn", "overflow"):
+        k, p = getattr(kernel_out, what), getattr(plain_out, what)
+        if not torch.equal(k, p):
+            raise AssertionError(f"{name}: {what} differs on "
+                                 f"{int((k != p).sum())} values")
+    used_k, used_p = kernel_out.pair_ray >= 0, plain_out.pair_ray >= 0
+    if not torch.equal(used_k, used_p):
+        raise AssertionError(f"{name}: the used slots differ")
+    tile = kernel_out.tile
+    run = kernel_out.tile_sid.long().repeat_interleave(tile)
+    n = kernel_out.next_tn.shape[0] + 1
+
+    def runs(s):
+        return torch.sort(run * n + s.pair_ray.long() + 1).values
+    if not torch.equal(runs(kernel_out), runs(plain_out)):
+        raise AssertionError(f"{name}: a cluster's run holds other rays")
+    return 0.0, (f"{int(used_k.sum())} pairs in "
+                 f"{int(used_k.view(-1, tile).any(1).sum())} live tiles of "
+                 f"{tile}; tile_sid, next_tn, overflow bitwise, each run "
+                 "the same set")
+
+
 def _park(rays, shadow, every: int):
     """Park every ``every``-th lane as the wavefront parks retired lanes
     and ineligible shadow rays (render.py): origin PARK_COORD, direction
@@ -914,6 +966,8 @@ def _plain(name: str, args):
                                          tmin, 1e16, guard, occluded=True)
     if name == "stream_lists":
         return ablations.stream_candidates(*args)
+    if name == "pair_schedule":
+        return ablations._pair_schedule(*args)
     if name in ("closest_cbin", "occluded_cbin"):
         return ablations._cbin_sweep_plain(*args,
                                            occluded=name == "occluded_cbin")
@@ -999,6 +1053,7 @@ def _hold_recorded(records, picked, what: str, all_parked_ok=()):
         torch.cuda.synchronize()
         compare = (_compare_fused if name.startswith("closest_nee")
                    else _compare_lists if name == "stream_lists"
+                   else _compare_schedule if name == "pair_schedule"
                    else _compare_exact)
         err, extra = compare(name, out_k, out_p)
         # The tables follow the rays: (o, d, rows, ...), or (rays, rows,
@@ -1131,23 +1186,25 @@ def _binned_work(rays, rows, schedule, cluster: int, occluded: bool):
     """K14's own work, from the wrapper's inputs: every used pair slot of
     a live tile against its tile's rows, all of them for the closest hit,
     up to the first blocking one for the any-hit; no slab test (those ran
-    in the schedule build). Bytes: the rays, the slot and tile tables in,
-    each distinct cluster's rows once, one 8-byte key or one flag per ray
+    in the schedule build). Padding slots and dead tiles are no work.
+    Bytes: the rays, the used slots and the live tiles' entries in, each
+    distinct cluster's rows once, one 8-byte key or one flag per ray
     out."""
     import torch
     from tpu_pt_torch.intersect import ablations
-    pair_ray, tile_sid = schedule.pair_ray, schedule.tile_sid
+    pair_ray, tile_sid, tile = (schedule.pair_ray, schedule.tile_sid,
+                                schedule.tile)
     ns = rows.shape[0] // cluster
-    live = ((tile_sid < ns)[:, None]
-            & (pair_ray.view(-1, ablations.PAIR_TILE) >= 0))
+    live = ((tile_sid < ns)[:, None] & (pair_ray.view(-1, tile) >= 0))
     pairs = int(live.sum()) * cluster
     if occluded:
         pairs = 0
         table = rows.view(ns, cluster, 16)
-        for j0 in range(0, tile_sid.shape[0], 64):
-            sid = tile_sid[j0:j0 + 64].long().clamp_max(ns - 1)
-            lv = live[j0:j0 + 64]
-            pr = rays[pair_ray.view(-1, ablations.PAIR_TILE)[j0:j0 + 64]
+        step = max(1, 32768 // tile)
+        for j0 in range(0, tile_sid.shape[0], step):
+            sid = tile_sid[j0:j0 + step].long().clamp_max(ns - 1)
+            lv = live[j0:j0 + step]
+            pr = rays[pair_ray.view(-1, tile)[j0:j0 + step]
                       .long().clamp_min(0)]
             blk = table[sid]
             t = ablations._pe_rows(pr[..., 0:3], pr[..., 3:6], blk, 0.01)
@@ -1156,8 +1213,8 @@ def _binned_work(rays, rows, schedule, cluster: int, occluded: bool):
             need = torch.where(block.any(2), first + 1, cluster)
             pairs += int(need[lv].sum())
     used = int(torch.unique(tile_sid[tile_sid < ns]).numel())
-    return pairs * PAIR_FLOPS, rays.numel() * 4 + pair_ray.numel() * 4 \
-        + tile_sid.numel() * 4 + used * cluster * 64 \
+    return pairs * PAIR_FLOPS, rays.numel() * 4 + int(live.sum()) * 4 \
+        + int(live.any(1).sum()) * 4 + used * cluster * 64 \
         + rays.shape[0] * (1 if occluded else 8)
 
 
@@ -1560,17 +1617,67 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
             build=lambda: ablations.cbin_pairs(r, boxes, scale, 0.01),
             path=path, path_work=work)
 
-    # K14: the pair schedule built once, the kernel (with its fused fold)
-    # timed alone; its bound from its live pairs, no slab test.
-    k14 = ablations.PAIR_K
+    # K14: the pair schedule built on the card, held against its plain
+    # version and timed (at the any-hit's and the closest side's rays, and
+    # at N_RAYS); built once at the chosen tile, the kernel (with its fused
+    # fold) timed alone, its bound from its live pairs, no slab test; the
+    # kernels at every tile width against the chosen one.
+    k14, tile = ablations.PAIR_K, ablations.BINNED_TILE
+    t_k14 = time.perf_counter()
 
-    def pairs_of(r, closest, k=k14):
-        return ablations._pair_schedule(r, boxes, scale, k, 0.01,
-                                        1e16 if closest else r[:, 6])
+    def pairs_of(r, closest, k=k14, tile=tile,
+                 build=ablations.pair_schedule):
+        return build(r, boxes, scale, k, 0.01, 1e16 if closest else r[:, 6],
+                     tile)
+
+    def schedule_work(r, occluded):
+        """The schedule's own work: a slab test of every (ray, box) pair
+        and, per ray, one insertion step per pierced box; bytes: the rays
+        (and their tmax) and the boxes in, the slot and tile tables,
+        next_tn and overflow out."""
+        def work(out):
+            pierced = int(sum(int(ok.sum()) for _, ok, _ in
+                              ablations._ray_box_test(
+                                  r, boxes, scale, 0.01,
+                                  r[:, 6] if occluded else 1e16, 1024)))
+            n_r = r.shape[0]
+            return (n_r * boxes.shape[0] * BOX_FLOPS + pierced,
+                    n_r * (32 + (4 if occluded else 0)) + boxes.numel() * 4
+                    + out.pair_ray.numel() * 4 + out.tile_sid.numel() * 4
+                    + n_r * 5)
+        return work
+    _check_kernel(records, "pair_schedule", lambda: pairs_of(s8, False),
+                  lambda: pairs_of(s8, False,
+                                   build=ablations._pair_schedule),
+                  boxes.shape[0], _compare_schedule,
+                  schedule_work(s8, True), n=n, reps=10, plain_reps=2,
+                  at_n_rays=lambda: pairs_of(sW, False),
+                  label=f"pair_schedule (any-hit, k {k14}, tiles of {tile})")
+    rec = records["pair_schedule"][-1]
+    for r, closest in ((r8, True), (rW, True), (sW, False)):
+        _, extra = _compare_schedule(
+            "pair_schedule", pairs_of(r, closest),
+            pairs_of(r, closest, build=ablations._pair_schedule))
+        say("kernels", f"pair_schedule ({'closest' if closest else 'any-hit'}"
+            f", {r.shape[0]} rays): {extra}")
+    rec["ms_closest"] = gpu_ms(lambda: pairs_of(r8, True), 10)
+    rec["ms_closest_at_n_rays"] = gpu_ms(lambda: pairs_of(rW, True), 10)
+    rec["ms_tiles"] = {}
+    for t in ablations.BINNED_TILES:
+        for k in (k14, 2):
+            _compare_schedule("pair_schedule", pairs_of(r8, True, k, t),
+                              pairs_of(r8, True, k, t,
+                                       build=ablations._pair_schedule))
+        rec["ms_tiles"][t] = gpu_ms(lambda: pairs_of(r8, True, tile=t), 10)
+    say("kernels", f"pair_schedule: closest side {rec['ms_closest']:.4f} ms "
+        f"at {n} rays, {rec['ms_closest_at_n_rays']:.4f} at {N_RAYS}; at "
+        f"tiles of {ablations.BINNED_TILES} (k {k14} and 2, each bitwise as "
+        f"above) { {t: round(v, 4) for t, v in rec['ms_tiles'].items()} } ms;"
+        f" these checks took {time.perf_counter() - t_k14:.1f} s")
     bc, bo, bcW, boW = (pairs_of(r8, True), pairs_of(s8, False),
                         pairs_of(rW, True), pairs_of(sW, False))
     ns = boxes.shape[0]
-    say("kernels", f"_pair_schedule (k {k14}): "
+    say("kernels", f"pair_schedule (k {k14}, tiles of {tile}): "
         f"{int((bc.pair_ray >= 0).sum())} (closest) and "
         f"{int((bo.pair_ray >= 0).sum())} (any-hit) pairs in "
         f"{int((bc.tile_sid < ns).sum())} / {int((bo.tile_sid < ns).sum())} "
@@ -1594,6 +1701,20 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                           0.01),
             build=lambda: pairs_of(r, not any_hit), path=path,
             path_work=work)
+        want = sweep(*args)
+        for t in ablations.BINNED_TILES:
+            sch_t = pairs_of(r, not any_hit, tile=t)
+            got = sweep(r, rows, sch_t.pair_ray, sch_t.tile_sid, cluster,
+                        0.01)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got if isinstance(got, tuple) else (got,),
+                           want if isinstance(want, tuple) else (want,))):
+                raise AssertionError(f"{name} at tiles of {t} differs from "
+                                     f"tiles of {tile}")
+        say("kernels", f"{name} at tiles of {ablations.BINNED_TILES}: "
+            f"bitwise equal to tiles of {tile}; K14's checks so far "
+            f"{time.perf_counter() - t_k14:.1f} s")
 
     # K15: the group lists (stream_candidates at 8 lanes) built once; the
     # serial and the bundled body each timed alone.
@@ -1739,6 +1860,120 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     if carried == 0 or carried_o == 0:
         raise AssertionError("K14 at k = 2 must send live lanes through its "
                              "completion passes")
+
+
+def _tiled_table(tb, copies: int):
+    """The big mesh's clustered table ``copies`` times over, copy j moved
+    along x by j times 1.25 of the mesh's width (alternately right and
+    left of it), built on the card: each row's plane and edge functions
+    rewritten for the move, each copy's triangle ids after the last's.
+    Returns (rows, boxes, nodes, scale)."""
+    import torch
+    from tpu_pt_torch.intersect import clustered
+    rows, boxes = tb.rows, tb.boxes
+    real = boxes[:, 0] < 1e30
+    width = float((boxes[real, 3] - boxes[real, 0]).max())
+    n_ids = int(rows[:, 15].max()) + 1
+    all_rows, all_boxes = [], []
+    for j in range(copies):
+        dx = 1.25 * width * ((j + 1) // 2) * (1 if j % 2 else -1)
+        r = rows.clone()
+        r[:, 3] = rows[:, 3] + rows[:, 0] * dx       # n . (p + dx) = d0'
+        r[:, 7] = rows[:, 7] - rows[:, 4] * dx       # wu . p + cu
+        r[:, 11] = rows[:, 11] - rows[:, 8] * dx     # wv . p + cv
+        r[:, 15] = torch.where(rows[:, 12] > 0.5, rows[:, 15] + j * n_ids,
+                               rows[:, 15])
+        b = boxes.clone()
+        b[:, 0] = torch.where(real, boxes[:, 0] + dx, boxes[:, 0])
+        b[:, 3] = torch.where(real, boxes[:, 3] + dx, boxes[:, 3])
+        all_rows.append(r)
+        all_boxes.append(b)
+    rows2 = torch.cat(all_rows).contiguous()
+    boxes2 = torch.cat(all_boxes).contiguous()
+    return rows2, boxes2, clustered.cluster_tree(boxes2), \
+        clustered.box_scale(boxes2)
+
+
+def phase_list_caps(device, smi, big, records):
+    """The tile-list build past the shared-memory build's caps
+    (``ablations.list_route``: more than LIST_MAX_TILE rays a tile or
+    LIST_MAX_BOXES boxes): bitwise against ``stream_candidates`` at tiles
+    of LIST_CAP_TILE on the big mesh's 784 boxes and on a table of more
+    than 8,192 clusters (the big mesh LIST_CAP_COPIES times over, built on
+    the card: 8,624 clusters, 1.1M rows), at the two sides of the box cap
+    (8,192 and 8,193 boxes of that table), on N_PLAIN_BIG rays with one in
+    PARK_EVERY parked (camera and bounce rays of that table, shadow rays
+    to the light); the build timed at the any-hit's tile. Then, counters
+    zeroed before and read after, one closest and one any-hit call of the
+    paths ``TPT_STREAM=1`` takes (the lists, then K12) on that table,
+    bitwise against K6 / K8 on the same rays. Returns the launches."""
+    import torch
+    from tpu_pt_torch.intersect import ablations, clustered
+    t0 = time.perf_counter()
+    tb = clustered.prepare(big)
+    rows, boxes, nodes, scale = _tiled_table(tb, LIST_CAP_COPIES)
+    n_c = boxes.shape[0]
+    if n_c <= ablations.LIST_MAX_BOXES:
+        raise AssertionError(f"{n_c} clusters do not pass the box cap")
+    table = (rows, boxes, scale, 0.01)
+
+    def k6(o, d):
+        return clustered.closest_clustered(o, d, *table, nodes=nodes)
+    o, d, shadow = _phase3_rays(big, device, 5, rows, k6, N_PLAIN_BIG)
+    (o, d), shadow = _park((o, d), shadow, PARK_EVERY)
+    occ_rt = ablations.STREAM_OCC_TILE
+    r8 = ablations.pack_rays(o, d, 1e16, o.shape[0])
+    s8 = ablations.pack_rays(*shadow, o.shape[0])
+    checked = []
+    for what, bx in (("784 boxes", tb.boxes), (f"{n_c} boxes", boxes),
+                     ("8,192 boxes", boxes[:8192].contiguous()),
+                     ("8,193 boxes", boxes[:8193].contiguous())):
+        for lanes in (occ_rt, ablations.RAY_TILE_C, LIST_CAP_TILE):
+            route = ablations.list_route(bx.shape[0], lanes)
+            if route == "shared" and bx.shape[0] != 8192:
+                continue
+            for r, closest in ((r8, True), (s8, False)):
+                args = (r, bx, scale, lanes, 0.01, 1e16 if closest
+                        else r[:, 6])
+                _, extra = _compare_lists(
+                    f"stream_lists ({what}, tiles of {lanes})",
+                    ablations.stream_lists(*args),
+                    ablations.stream_candidates(*args))
+            checked.append(f"{what} at tiles of {lanes} ({route}): {extra}")
+    for line in checked:
+        say("caps", f"stream_lists, {line}; closest and any-hit bitwise "
+            "equal to stream_candidates")
+    rec = records["stream_lists"][0]
+    args = (s8, boxes, scale, occ_rt, 0.01, s8[:, 6])
+    rec["ms_global"] = gpu_ms(lambda: ablations.stream_lists(*args), 5)
+    rec["plain_ms_global"] = gpu_ms(
+        lambda: ablations.stream_candidates(*args), 1)
+    say("caps", f"stream_lists past the box cap ({n_c} boxes, tiles of "
+        f"{occ_rt}, {s8.shape[0]} rays): {rec['ms_global']:.4f} ms, "
+        f"stream_candidates {rec['plain_ms_global']:.4f} ms")
+    want_t, want_row = k6(o, d)
+    want_occ = clustered.occluded_clustered(*shadow, *table, nodes=nodes)
+    _zero_counters()
+    got_t, got_row = ablations.closest_stream_path(o, d, *table)
+    got_occ = ablations.occluded_stream_path(*shadow, *table)
+    torch.cuda.synchronize()
+    counts = _read_counters()
+    if not (torch.equal(got_t, want_t) and torch.equal(got_row, want_row)
+            and torch.equal(got_occ, want_occ)):
+        raise AssertionError(f"TPT_STREAM=1 paths on {n_c} clusters differ "
+                             "from K6 / K8")
+    for k, n in (("stream_lists", 2), ("closest_streamed", 1),
+                 ("occluded_streamed", 1)):
+        if counts[k] != n:
+            raise AssertionError(f"caps: {k} launched {counts[k]} times, "
+                                 f"not {n}")
+    say("caps", f"TPT_STREAM=1 closest and any-hit paths on {n_c} clusters "
+        f"({rows.shape[0]} rows, {rows.numel() * 4 / 1e6:.1f} MB) at "
+        f"{o.shape[0]} rays: bitwise equal to K6 / K8 "
+        f"({int((want_t < 1e15).sum())} hits, {int(want_occ.sum())} "
+        f"blocked); launches { {k: n for k, n in counts.items() if n} }; "
+        f"the phase took {time.perf_counter() - t0:.1f} s; {smi}")
+    return counts
 
 
 @functools.cache
@@ -2338,6 +2573,11 @@ def phase_big_variants(device, smi, big, lean, records):
             raise AssertionError(f"{tag}: stream_lists launched "
                                  f"{counts['stream_lists']} times, not "
                                  f"{builds}")
+        schedules = PAIR_SCHEDULES.get(what, 0) * rounds
+        if counts["pair_schedule"] != schedules:
+            raise AssertionError(f"{tag}: pair_schedule launched "
+                                 f"{counts['pair_schedule']} times, not "
+                                 f"{schedules}")
         if not same:
             raise AssertionError(f"{tag}: the frame differs from the lean "
                                  "one (bound: bitwise)")
@@ -4408,6 +4648,7 @@ def main() -> int:
     phase_whitted_cross_check(device)
     h_launches = phase_huge_mesh(device, smi, records)
     i_launches = phase_incoherent(device, smi, big)
+    l_launches = phase_list_caps(device, smi, big, records)
     p_launches = phase_bf16(device, smi, records)
     phase_entry_points(device, smi)
     d_launches = phase_multi_gpu(device, smi)
@@ -4424,7 +4665,7 @@ def main() -> int:
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=sum(part.get(kname, 0) for part in (
                 launches, w_launches, f_launches, b_launches, h_launches,
-                i_launches, p_launches, d_launches, v_launches,
+                i_launches, l_launches, p_launches, d_launches, v_launches,
                 c_launches)),
             max_abs_err=max(r["max_abs_err"] for r in records[kname]),
             ms=first["ms"], plain_ms=first["plain_ms"],
@@ -4449,6 +4690,8 @@ def main() -> int:
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
                                      "ms_closest", "ms_closest_at_n_rays",
                                      "ms_grp_closest", "ms_grp_any",
+                                     "ms_global", "plain_ms_global",
+                                     "ms_tiles",
                                      "path_bound_by", "bench_ms",
                                      "ms_at_n_rays", "ms_huge", "ms_foliage",
                                      "ms_edge", "foliage_bound_ms",

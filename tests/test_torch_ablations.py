@@ -440,5 +440,53 @@ def test_wrappers_take_cpu_or_cuda_only(mixed_scenes, monkeypatch):
     assert set(ablations.LAUNCHES) == {
         "closest_rotated", "closest_streamed", "occluded_streamed",
         "closest_cbin", "occluded_cbin", "closest_binned", "occluded_binned",
-        "closest_grp", "occluded_grp", "stream_lists"}
+        "closest_grp", "occluded_grp", "stream_lists", "pair_schedule"}
     assert not any(ablations.LAUNCHES.values())
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers' card side on CPU tensors: every tensor counts as on
+    the card, and each launch is recorded as (entry point, arguments), not
+    run; the launch counters are a copy."""
+    from tpu_pt_torch import _kernels
+    calls = []
+    monkeypatch.setattr(dense, "_on_cpu", lambda x: False)
+    monkeypatch.setattr(dense, "_stream", lambda dev: None)
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(ablations, "LAUNCHES",
+                        dict.fromkeys(ablations.LAUNCHES, 0))
+    return calls
+
+
+@pytest.mark.parametrize("n_boxes,rt,route", [
+    (1, 1, "shared"), (784, 8, "shared"), (784, 128, "shared"),
+    (8192, 256, "shared"), (8193, 256, "global"), (8193, 1, "global"),
+    (784, 257, "global"), (784, 512, "global"), (8624, 512, "global"),
+    (20000, 1024, "global")])
+def test_list_route_past_the_caps(fake_card, n_boxes, rt, route):
+    """The list build keeps the shared-memory kernel up to LIST_MAX_TILE
+    rays a tile and LIST_MAX_BOXES boxes, and takes the global one past
+    either cap: it never raises for a valid shape, launches once and
+    returns lists of the shapes stream_candidates gives."""
+    assert (ablations.LIST_MAX_TILE, ablations.LIST_MAX_BOXES) == (256, 8192)
+    assert ablations.list_route(n_boxes, rt) == route
+    n = 2 * rt
+    rays, boxes = torch.zeros((n, 8)), torch.zeros((n_boxes, 8))
+    for tmax in (1e16, rays[:, 6]):
+        cand, keys, cnt, far = ablations.stream_lists(rays, boxes, 1.0, rt,
+                                                      0.01, tmax)
+        assert cand.shape == keys.shape == (2, n_boxes)
+        assert cnt.shape == (2,) and far.shape == (n,)
+    assert [c[0] for c in fake_card] == 2 * [
+        "tpt_stream_candidates" if route == "shared"
+        else "tpt_stream_candidates_global"]
+    assert all(c[1][4:7] == (n, n_boxes, rt) for c in fake_card)
+    assert ablations.LAUNCHES["stream_lists"] == 2
+    # Shapes no build takes still raise, before any launch.
+    with pytest.raises(ValueError, match="tiles of"):
+        ablations.stream_lists(rays[:n - 1], boxes, 1.0, rt + 1, 0.01, 1e16)
+    with pytest.raises(ValueError, match="at least one box"):
+        ablations.stream_lists(rays, boxes[:0], 1.0, rt, 0.01, 1e16)
+    assert len(fake_card) == 2

@@ -19,6 +19,13 @@ dispatch of ``clustered``.
 (c) 16^2 x 4 spp pixelq frames under ``TPT_BINNED=1`` / ``closest`` /
     ``occ`` bitwise equal to the lean frame; the precedence of the
     variable, read at call time.
+(d) The tile width (``BINNED_TILE``, a template parameter of the kernels):
+    ``pair_schedule`` on CPU tensors is ``_pair_schedule`` at every width
+    of ``BINNED_TILES``, each ray's pairs the same as at the reference's
+    512; the paths at every width give the dense sweep's and the JAX
+    package's answers; the card side of the wrappers (with the launch
+    recorded, not run) sizes its buffers for the width and raises on what
+    the kernels do not take.
 """
 
 import jax.numpy as jnp
@@ -45,11 +52,13 @@ def _binned_env(monkeypatch):
 
 
 def _pairs_per_ray(pair_ray, tile_sid, n):
-    """{ray: set of clusters} from a slot -> ray layout."""
+    """{ray: set of clusters} from a slot -> ray layout (at its own tile
+    width)."""
+    tile = pair_ray.shape[0] // tile_sid.shape[0]
     sets = [set() for _ in range(n)]
     for slot, r in enumerate(pair_ray.tolist()):
         if r >= 0:
-            sets[r].add(int(tile_sid[slot // ablations.PAIR_TILE]))
+            sets[r].add(int(tile_sid[slot // tile]))
     return sets
 
 
@@ -318,3 +327,168 @@ def test_binned_wrappers_take_cpu_or_cuda_only(mixed_scenes, monkeypatch):
     assert ablations.PAIR_TILE == pallas_ablations.PAIR_TILE
     assert ablations.PAIR_K == pallas_ablations.PAIR_K == 12
     assert isinstance(pallas_bf.TRI_SLAB, int)
+
+
+# --------------------------------------------------------------------------
+# (d) the tile width, and the card side of the wrappers
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tile", ablations.BINNED_TILES)
+def test_pair_schedule_at_every_tile(mixed_scenes, monkeypatch, tile):
+    """At any tile width each ray's pairs, next_tn and overflow are the
+    layout's at the reference's 512; only the runs' padding changes, and
+    the buffer holds ceil(n k / tile) + C tiles."""
+    jscene, tscene = mixed_scenes
+    monkeypatch.setattr(clustered, "CLUSTER", 16)
+    rows, boxes = clustered.pack_tris_clustered(tscene)
+    scale, ns = clustered.box_scale(boxes), boxes.shape[0]
+    o, d, so, sd, st = _test_rays(jscene, 256, seed=46)
+    for rays8, tmax in ((_rays8(o, d, 1e16), 1e16),
+                        (_rays8(so, sd, st), _t(st))):
+        n = rays8.shape[0]
+        s = ablations.pair_schedule(rays8, boxes, scale, 12, 0.01, tmax,
+                                    tile)
+        ref = ablations._pair_schedule(rays8, boxes, scale, 12, 0.01, tmax,
+                                       tile)
+        assert all(torch.equal(a, b) for a, b in zip(s, ref))
+        base = ablations._pair_schedule(rays8, boxes, scale, 12, 0.01, tmax)
+        assert s.tile == tile and base.tile == ablations.PAIR_TILE
+        assert _pairs_per_ray(s.pair_ray, s.tile_sid, n) \
+            == _pairs_per_ray(base.pair_ray, base.tile_sid, n)
+        assert torch.equal(s.next_tn, base.next_tn)
+        assert torch.equal(s.overflow, base.overflow)
+        assert s.tile_sid.shape[0] == -(-n * 12 // tile) + ns
+        assert bool((s.tile_sid[1:] >= s.tile_sid[:-1]).all())
+    assert not ablations.LAUNCHES["pair_schedule"]
+
+
+@pytest.fixture(scope="module")
+def jax_binned(mixed_scenes):
+    """The JAX package's binned paths (interpret mode, k = 12) on the rays
+    of test_binned_at_every_tile, computed once, at the shapes of
+    test_binned_matches_dense_and_reference (whose compiled calls they
+    reuse)."""
+    jscene, _ = mixed_scenes
+    o, d, so, sd, st = _test_rays(jscene, 384, seed=47)
+    with pytest.MonkeyPatch.context() as mp:
+        _shrink(mp)
+        j = pallas_ablations.intersect_closest_binned(
+            jscene, jnp.asarray(o), jnp.asarray(d), want_uv=False, k=12)
+        jocc = pallas_ablations.intersect_occluded_binned(
+            jscene, jnp.asarray(so), jnp.asarray(sd), jnp.asarray(st), k=12)
+    return (o, d, so, sd, st), j, np.asarray(jocc)
+
+
+@pytest.mark.parametrize("tile", ablations.BINNED_TILES)
+def test_binned_at_every_tile(mixed_scenes, jax_binned, monkeypatch, tile):
+    """The binned paths at every tile width give the dense sweep's answers
+    bit for bit and the JAX package's (ids and flags equal, t under
+    test_torch_clustered.py's bound), and the plain kernels' per-ray folds
+    equal those at 512."""
+    jscene, tscene = mixed_scenes
+    tables = _binned_tables(tscene, monkeypatch)
+    monkeypatch.setattr(ablations, "BINNED_TILE", tile)
+    monkeypatch.setenv("TPT_BINNED", "1")
+    (o, d, so, sd, st), j, jocc = jax_binned
+    h = clustered.closest_hit(tables, _t(o), _t(d), want_uv=False)
+    occ = clustered.occluded_hit(tables, _t(so), _t(sd), _t(st))
+    ref_t, _ = dense._closest_plain(_t(o), _t(d), tables.rows, 0.01)
+    assert torch.equal(h.t, ref_t)
+    assert torch.equal(occ, dense._occluded_plain(_t(so), _t(sd), _t(st),
+                                                  tables.rows, 0.01))
+    np.testing.assert_array_equal(h.tri.numpy(), np.asarray(j.tri))
+    _assert_same_clustered_hit(j, h, o, d, tscene)
+    np.testing.assert_array_equal(occ.numpy(), jocc)
+    for occluded, (a, b, c) in ((False, (o, d, 1e16)), (True, (so, sd, st))):
+        _, build, kernel = ablations.binned_steps(
+            _t(a), _t(b), c if np.isscalar(c) else _t(c), tables.rows,
+            tables.boxes, tables.scale, 0.01, occluded)
+        _, build512, _ = ablations.binned_steps(
+            _t(a), _t(b), c if np.isscalar(c) else _t(c), tables.rows,
+            tables.boxes, tables.scale, 0.01, occluded, tile=512)
+        got, want = kernel(build()), kernel(build512())
+        if occluded:
+            got, want = (got,), (want,)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers' card side on CPU tensors: every tensor counts as on
+    the card, and each launch is recorded as (entry point, arguments), not
+    run; the launch counters are a copy."""
+    from tpu_pt_torch import _kernels
+    calls = []
+    monkeypatch.setattr(dense, "_on_cpu", lambda x: False)
+    monkeypatch.setattr(dense, "_stream", lambda dev: None)
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(ablations, "LAUNCHES",
+                        dict.fromkeys(ablations.LAUNCHES, 0))
+    return calls
+
+
+@pytest.mark.parametrize("tile", ablations.BINNED_TILES)
+def test_binned_card_side_sizes_by_tile(fake_card, tile):
+    """On the card, pair_schedule launches tpt_pair_schedule once with k =
+    min(k, C), the tile and the select step's lanes a ray (pair_group, or
+    the caller's), into buffers of ceil(n k / tile) + C tiles; the kernels
+    take the tile width from those buffers."""
+    n, ns = 300, 40
+    rays, boxes = torch.zeros((n, 8)), torch.zeros((ns, 8))
+    s = ablations.pair_schedule(rays, boxes, 1.0, 12, 0.01, 1e16, tile)
+    (name, args), = fake_card
+    assert name == "tpt_pair_schedule"
+    assert args[4:9] == (n, ns, 12, tile, ablations.pair_group(n))
+    n_tiles = -(-n * 12 // tile) + ns
+    assert s.tile_sid.shape == (n_tiles,) and s.tile == tile
+    assert s.pair_ray.shape == (n_tiles * tile,)
+    assert s.next_tn.shape == s.overflow.shape == (n,)
+    assert ablations.LAUNCHES["pair_schedule"] == 1
+    ablations.pair_schedule(rays, boxes[:5], 1.0, 12, 0.01, 1e16, tile)
+    assert fake_card[-1][1][6] == 5                 # k = min(k, C)
+    for g in ablations.PAIR_GROUPS:
+        ablations.pair_schedule(rays, boxes, 1.0, 12, 0.01, 1e16, tile, g)
+        assert fake_card[-1][1][8] == g
+    tris = torch.zeros((ns * 64, 16))
+    ablations.closest_binned(rays, tris, s.pair_ray, s.tile_sid, 64, 0.01)
+    ablations.occluded_binned(rays, tris, s.pair_ray, s.tile_sid, 64, 0.01)
+    assert [c[0] for c in fake_card[-2:]] == ["tpt_closest_binned",
+                                              "tpt_occluded_binned"]
+    assert all(c[1][4:6] == (n_tiles, tile) for c in fake_card[-2:])
+
+
+def test_binned_wrappers_raise_on_what_the_kernels_do_not_take(fake_card):
+    """Bad shapes, dtypes, tile widths and k raise before any launch."""
+    n, ns = 64, 8
+    rays, boxes = torch.zeros((n, 8)), torch.zeros((ns, 8))
+    for bad in (dict(tile=96), dict(tile=1024), dict(k=64 + ns),
+                dict(group=3), dict(group=16)):
+        with pytest.raises(ValueError):
+            ablations.pair_schedule(rays, torch.zeros((80, 8)), 1.0,
+                                    bad.get("k", 12), 0.01, 1e16,
+                                    bad.get("tile", 64), bad.get("group"))
+    with pytest.raises(ValueError, match="dtype"):
+        ablations.pair_schedule(rays.double(), boxes, 1.0, 12, 0.01, 1e16,
+                                64)
+    with pytest.raises(ValueError, match="shape"):
+        ablations.pair_schedule(rays[:, :6], boxes, 1.0, 12, 0.01, 1e16, 64)
+    with pytest.raises(ValueError, match="shape"):
+        ablations.pair_schedule(rays, boxes, 1.0, 12, 0.01, torch.zeros(3),
+                                64)
+    s = ablations.pair_schedule(rays, boxes, 1.0, 12, 0.01, 1e16, 64)
+    tris = torch.zeros((ns * 64, 16))
+    with pytest.raises(ValueError, match="tiles of"):
+        ablations.closest_binned(rays, tris, s.pair_ray[:-32], s.tile_sid,
+                                 64, 0.01)
+    with pytest.raises(ValueError, match="dtype"):
+        ablations.occluded_binned(rays, tris, s.pair_ray.long(), s.tile_sid,
+                                  64, 0.01)
+    assert len(fake_card) == 1
+
+
+def test_pair_schedule_takes_cpu_or_cuda_only():
+    meta = torch.empty((64, 8), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ablations.pair_schedule(meta, meta[:8], 1.0, 12, 0.01, 1e16, 64)
+    assert not ablations.LAUNCHES["pair_schedule"]

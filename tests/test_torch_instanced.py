@@ -38,6 +38,12 @@ from tpu_pt_torch.render import CameraArrays  # noqa: E402
 from tpu_pt_torch.whitted import render_whitted_wavefront  # noqa: E402
 from test_instanced import (_cube, _tetra, _trs,  # noqa: E402
                             _write_gpu_instanced, _write_instanced_city)
+from test_gltf_whitted import _instanced_gltf  # noqa: E402
+
+# The JAX package's variables that pick and bound the geometry contract.
+CONTRACT_VARIABLES = ("TPT_INSTANCING", "TPT_MAX_FLAT_TRIS",
+                      "TPT_INST_AUTO_AMP", "TPT_INST_AUTO_MIN",
+                      "TPT_ALPHA_OCC_K")
 
 T_TOL = 1e-4
 ATTR_TOL = 1e-5
@@ -355,3 +361,96 @@ def test_wrappers_check_devices(fixture):
         instanced.closest_inst(o, o, tables.tris, tables.boxes, tables.scale,
                                tables.table.rows, tables.table.boxes, 0.01)
     assert dataclasses.is_dataclass(tables.table)
+
+
+@pytest.fixture
+def contract_env(monkeypatch):
+    """No contract variable set: each test sets its own."""
+    for name in CONTRACT_VARIABLES:
+        monkeypatch.delenv(name, raising=False)
+    return monkeypatch
+
+
+def test_instancing_flatten_guardrail(tmp_path, contract_env):
+    """Twin of tests/test_gltf_whitted.py's: a 500-instance scene whose
+    flattening crosses the bound raises when flattening is forced; under
+    ``auto`` the eligible asset keeps its instances instead; a higher
+    bound, passed or from TPT_MAX_FLAT_TRIS, loads it flattened."""
+    path = _instanced_gltf(tmp_path, 500)
+    with pytest.raises(ValueError, match="instance flattening"):
+        tp.load_gltf(path, max_flat_tris=100, instancing="flatten",
+                     device="cpu")
+    ws_auto = tp.load_gltf(path, max_flat_tris=100, device="cpu")
+    assert ws_auto.inst is not None and ws_auto.inst.count == 500
+    assert int(ws_auto.geom.tri_valid.sum()) == 1
+    ws = tp.load_gltf(path, max_flat_tris=1000, device="cpu")
+    assert ws.inst is None and int(ws.geom.tri_valid.sum()) == 500
+    contract_env.setenv("TPT_MAX_FLAT_TRIS", "1000")
+    ws2 = tp.load_gltf(path, device="cpu")
+    assert int(ws2.geom.tri_valid.sum()) == 500
+
+
+def test_path_tracer_load_scene_never_rescues(tmp_path, contract_env):
+    """Twin of tests/test_instanced.py's: the path tracer's loader forces
+    the flatten contract, so a glTF past TPT_MAX_FLAT_TRIS raises the
+    guardrail's error rather than handing it mesh-space geometry."""
+    path = _write_instanced_city(tmp_path)
+    contract_env.setenv("TPT_MAX_FLAT_TRIS", "10")
+    with pytest.raises(ValueError, match="instance flattening"):
+        tp.load_scene(path, device="cpu")
+
+
+@pytest.mark.parametrize("variables,instanced", [
+    ({}, False), ({"TPT_INSTANCING": "instanced"}, True),
+    ({"TPT_INSTANCING": "flatten", "TPT_INST_AUTO_AMP": "1",
+      "TPT_INST_AUTO_MIN": "1"}, False),
+    ({"TPT_INST_AUTO_AMP": "1", "TPT_INST_AUTO_MIN": "1"}, True),
+    ({"TPT_INST_AUTO_AMP": "1", "TPT_INST_AUTO_MIN": "145"}, False),
+    ({"TPT_MAX_FLAT_TRIS": "100"}, True)])
+def test_contract_variables_match_reference(tmp_path, contract_env,
+                                            variables, instanced):
+    """``load_gltf(instancing=None)`` reads the variables as the JAX
+    loader does: the same contract and the same triangle count under
+    each setting (the city: 12 instances of a 12-triangle mesh)."""
+    from tpu_pt.scene.gltf import load_gltf
+    path = _write_instanced_city(tmp_path)
+    for name, value in variables.items():
+        contract_env.setenv(name, value)
+    ours = tp.load_gltf(path, instancing=None, device="cpu")
+    ref = load_gltf(path)
+    assert (ours.inst is not None) is instanced
+    assert (ref.inst is not None) is instanced
+    assert ours.geom.num_tris == ref.geom.num_tris
+
+
+@pytest.mark.parametrize("cap", ["", "1", "3"])
+def test_alpha_march_cap_matches_reference(assets_dir, contract_env, cap):
+    """TPT_ALPHA_OCC_K caps the alpha-shadow march as in the JAX loader
+    (unset or empty: 8)."""
+    from tpu_pt.scene.gltf import load_gltf
+    path = str(assets_dir / "alpha_shadow.gltf")
+    contract_env.setenv("TPT_ALPHA_OCC_K", cap)
+    ours = tp.load_gltf(path, device="cpu")
+    assert ours.alpha_occ.max_hits == load_gltf(path).alpha_occ.max_hits
+    assert ours.alpha_occ.max_hits == min(
+        int(ours.alpha_occ.geom.num_tris), int(cap or 8))
+
+
+def test_inst_bounds_read_at_import():
+    """instanced.INST_MAX_ROWS / INST_MAX_INST are the JAX package's
+    defaults, read from TPT_INST_ROWS / TPT_INST_MAX when the module is
+    imported, as pallas_inst.py reads them."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    assert (instanced.INST_MAX_ROWS, instanced.INST_MAX_INST) \
+        == (pi.INST_MAX_ROWS, pi.INST_MAX_INST) == (8192, 16384)
+    env = dict(os.environ, TPT_INST_ROWS="1024", TPT_INST_MAX="77")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "from tpu_pt_torch.intersect import instanced as i; "
+         "print(i.INST_MAX_ROWS, i.INST_MAX_INST)"],
+        env=env, capture_output=True, text=True, check=True,
+        cwd=str(pathlib.Path(__file__).resolve().parent.parent))
+    assert out.stdout.split() == ["1024", "77"]

@@ -171,3 +171,19 @@ def test_vmath_is_exported():
         tp.vmath.lerp(torch.as_tensor(a), torch.as_tensor(b), 0.25).numpy(),
         np.asarray(tpu_pt.vmath.lerp(jnp.asarray(a), jnp.asarray(b), 0.25)),
         rtol=1e-6)
+
+
+def test_vmath_names_match_reference():
+    """Every public name of ``tpu_pt.vmath`` but its JAX imports has a twin
+    in ``tpu_pt_torch.vmath``: the functions, the ``Vec3`` alias (a
+    tensor here) and ``EPS``, the squared length below which ``normalize``
+    gives zero."""
+    import tpu_pt
+    ref = {n for n in vars(tpu_pt.vmath) if not n.startswith("_")} \
+        - {"annotations", "jnp"}
+    assert ref <= set(vars(tp.vmath)), ref - set(vars(tp.vmath))
+    assert tp.vmath.EPS == tpu_pt.vmath.EPS == 1e-12
+    assert tp.vmath.Vec3 is torch.Tensor
+    tiny = torch.tensor([[1e-7, 0.0, 0.0], [2e-6, 0.0, 0.0]])
+    assert tp.vmath.normalize(tiny).tolist() == [[0.0, 0.0, 0.0],
+                                                 [1.0, 0.0, 0.0]]

@@ -192,6 +192,20 @@ def test_auto_contract_matches_reference(assets_dir, forest60, name,
         assert ours.inst.count == 1001 and ours.geom.num_tris == 986
 
 
+def test_forest_flattens_under_tpt_instancing(assets_dir, monkeypatch):
+    """Under TPT_INSTANCING=flatten both loaders flatten the forest that
+    ``auto`` keeps instanced: 1,001 instances to 492,002 world-space
+    triangles, the same count."""
+    for name in ("TPT_MAX_FLAT_TRIS", "TPT_INST_AUTO_AMP",
+                 "TPT_INST_AUTO_MIN"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("TPT_INSTANCING", "flatten")
+    path = str(assets_dir / "forest.gltf")
+    ours, ref = tp.load_gltf(path, device="cpu"), jgltf.load_gltf(path)
+    assert ours.inst is None and ref.inst is None
+    assert ours.geom.num_tris == ref.geom.num_tris == 492002
+
+
 def test_instanced_alpha_split_matches_reference(assets_dir):
     """foliage.gltf loaded instanced: the unique meshes, the 601-instance
     table and the opaque / alpha subset instance tables are the JAX

@@ -84,12 +84,17 @@ _SIGNATURES = {
                                   _I, _I, _F, _F, _F, _I, _P, _I, _P),
         "tpt_stream_candidates": (_P, _P, _F, _P, _I, _I, _I, _F, _F, _F, _P,
                                   _P, _P, _P, _P),
+        "tpt_stream_candidates_global": (_P, _P, _F, _P, _I, _I, _I, _F, _F,
+                                         _F, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _P),
         "tpt_closest_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
         "tpt_occluded_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
     },
     "ablations_binned": {
-        "tpt_closest_binned": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
-        "tpt_occluded_binned": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
+        "tpt_pair_schedule": (_P, _P, _F, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P),
+        "tpt_closest_binned": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
+        "tpt_occluded_binned": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
         "tpt_closest_grp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _P, _P, _P),
         "tpt_occluded_grp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -136,7 +136,9 @@ def _whitted_setup(args, device):
             raise SystemExit(f"--instancing {mode} differs from the "
                              f"checkpoint's {recorded}")
         mode = mode or recorded
-    ws = load_gltf(args.scene, instancing=mode or "auto", device=device)
+    # No --instancing and no checkpoint's contract: load_gltf reads
+    # TPT_INSTANCING, as the JAX package's loader does.
+    ws = load_gltf(args.scene, instancing=mode or None, device=device)
     contract = "instanced" if ws.inst is not None else "flatten"
     if args.resume:
         accum, frame_start, cfg, camera = load_checkpoint(args.resume,

@@ -78,7 +78,13 @@
 //   (the listed ones, near first) are sorted; the rest, every unlisted box
 //   among them, keep their id order between the keys below T_FAR and any
 //   above it. It writes cand, keys, cnt and far, bitwise equal to
-//   stream_candidates.
+//   stream_candidates. That holds up to 256 rays a tile and 8,192 boxes;
+//   past either (tpt_stream_candidates_global) the same slab tests run in
+//   blocks of one tile and 2,048 boxes, looping over the tile's 32-ray
+//   chunks, with the keys, the counts and `far` in device memory, each
+//   block sorts its run of (key bits, id), every box's, in shared memory,
+//   and merge passes in device memory (each entry to its rank in the merge
+//   of two runs, by a binary search in the other) give each tile's order.
 // - cbin: the job table and the per-pair layout are kept (cbin_pairs builds
 //   them in plain PyTorch); blocks run in any order, so the one-job-ahead
 //   row prefetch across grid steps has no twin: a block stages its cluster
@@ -107,6 +113,8 @@
 #include "walk.cuh"
 
 #include <cuda_pipeline.h>
+
+#include <cstring>
 
 namespace {
 
@@ -348,6 +356,24 @@ __device__ __forceinline__ unsigned sort_bits(float f) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
+// Bitonic sort of s[0, n) ascending by the whole block (n a power of two;
+// every entry unique: the ids in the low word). Ends with a barrier.
+__device__ void bitonic_sort(unsigned long long* s, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
+        const int a = 2 * p - (p & (j - 1));
+        const unsigned long long x = s[a], y = s[a + j];
+        if ((x > y) == ((a & k) == 0)) {
+          s[a] = y;
+          s[a + j] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // Tile blockIdx.x: rays [tile * rt, ...) of the packed rays [n_pad, 8];
 // each ray's bound is tmax[i], or tmax_all when tmax is null. Dynamic
 // shared memory: sort_cap u64 sort keys (the next power of two of
@@ -471,20 +497,7 @@ stream_candidates_kernel(const float* __restrict__ rays,
   for (int p = sorted + tid; p < n_sort; p += blockDim.x) s_sort[p] = ~0ull;
   __syncthreads();
 
-  // Bitonic sort of (key, id), ascending; the ids make every entry unique.
-  for (int k = 2; k <= n_sort; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = tid; p < (n_sort >> 1); p += blockDim.x) {
-        const int a = 2 * p - (p & (j - 1));
-        const unsigned long long x = s_sort[a], y = s_sort[a + j];
-        if ((x > y) == ((a & k) == 0)) {
-          s_sort[a] = y;
-          s_sort[a + j] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_sort(s_sort, n_sort);
 
   for (int p = tid; p < sorted; p += blockDim.x) {
     const int id = (int)(unsigned)(s_sort[p] & 0xffffffffu);
@@ -495,6 +508,172 @@ stream_candidates_kernel(const float* __restrict__ rays,
   if (tid == 0) cnt[tile] = listed;
   for (int q2 = tid; q2 < rt; q2 += blockDim.x)
     last_key[(size_t)tile * rt + q2] = from_ordered(s_far[q2]);
+}
+
+// ------------------------------------------- list build past its caps
+//
+// Tiles of more than kListMaxTile rays or tables of more than kListMaxBoxes
+// boxes: the same lists, with the block's state in device memory. Step 1
+// (list_runs_kernel): block (x, y) takes tile x against boxes
+// [y * kRunBoxes, ...); its warps take 32-ray chunks and box slices as the
+// shared build's do, looping over the chunks where the tile has more than
+// 32 of them; each box's key goes to key_of [tiles, n_boxes], the listed
+// count to cnt[tile] (atomicAdd), each ray's last entry to far_bits
+// (atomicMax of ordered bits), and the block sorts its run of (sort bits,
+// id) in shared memory into runs [tiles, n_boxes]. Step 2
+// (list_merge_kernel, once per doubling of the run width): each entry of a
+// pair of adjacent sorted runs goes to its rank in their merge, its rank in
+// its own run plus the number of the other run's entries below it (a binary
+// search; every entry is unique). Step 3 (list_emit_kernel): cand, keys and
+// last_key from the sorted entries. Every box is sorted, the T_FAR ones
+// included: (sort bits, id) puts them by id between the keys below T_FAR
+// and those above it, where the shared build places them unsorted.
+
+constexpr int kRunBoxes = 2048;  // boxes a block of step 1 takes and sorts
+
+__global__ void fill_ints(int* __restrict__ out, int n, int value) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    out[i] = value;
+}
+
+__global__ void __launch_bounds__(kListThreads)
+list_runs_kernel(const float* __restrict__ rays, const float* __restrict__ tmax,
+                 float tmax_all, const float* __restrict__ boxes, int n_boxes,
+                 int rt, float scale, float margin, float tmin,
+                 float* __restrict__ key_of, int* __restrict__ cnt,
+                 int* __restrict__ far_bits,
+                 unsigned long long* __restrict__ runs) {
+  __shared__ int s_min[kRunBoxes];
+  __shared__ int s_nok[kRunBoxes];
+  __shared__ unsigned long long s_sort[kRunBoxes];
+  const int tile = blockIdx.x, b0 = blockIdx.y * kRunBoxes;
+  const int nb = min(kRunBoxes, n_boxes - b0);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid >> 5, warps = blockDim.x >> 5;
+  for (int b = tid; b < nb; b += blockDim.x) {
+    s_min[b] = ordered(__int_as_float(0x7f800000));  // +inf
+    s_nok[b] = 0;
+  }
+  __syncthreads();
+
+  const int ray_warps = (rt + 31) >> 5;
+  const int rw0 = min(ray_warps, warps);
+  const int slice = warp / rw0, slices = warps / rw0;
+  const float4* bx = reinterpret_cast<const float4*>(boxes) + 2 * (size_t)b0;
+  if (slice < slices) {
+    for (int rw = warp % rw0; rw < ray_warps; rw += rw0) {
+      const int q = rw * 32 + lane;
+      const bool real = q < rt;
+      const size_t i = (size_t)tile * rt + q;
+      float tm = 0.0f;
+      Ray r{0, 0, 0, 0, 0, 0};
+      if (real) {
+        r = tpt::load_ray8(rays, (int)i, &tm);
+        tm = tmax != nullptr ? tmax[i] : tmax_all;
+      }
+      const Slab s = tpt::make_slab(r);
+      const float m = margin * (scale + max_abs_origin(r));
+      float far = -3e38f;
+      for (int b = slice; b < nb; b += slices) {
+        float tn;
+        const bool ok = real &&
+                        tpt::slab_enter(r, s, __ldg(bx + 2 * (size_t)b),
+                                        __ldg(bx + 2 * (size_t)b + 1), m,
+                                        tmin, &tn) &&
+                        tn <= tm;
+        const unsigned vote = __ballot_sync(0xffffffffu, ok);
+        if (vote == 0u) continue;  // warp-uniform
+        far = fmaxf(far, ok ? tn : -3e38f);
+        const int least = __reduce_min_sync(
+            0xffffffffu,
+            ok ? ordered(tn) : ordered(__int_as_float(0x7f800000)));
+        if (lane == 0) {
+          atomicMin(s_min + b, least);
+          atomicAdd(s_nok + b, __popc(vote));
+        }
+      }
+      if (real) atomicMax(far_bits + i, ordered(far));
+    }
+  }
+  __syncthreads();
+
+  int n_sort = 1;
+  while (n_sort < nb) n_sort <<= 1;
+  int listed = 0;
+  for (int p0 = 0; p0 < n_sort; p0 += blockDim.x) {
+    const int b = p0 + tid;
+    int nok = 0;
+    if (b < nb) {
+      nok = s_nok[b];
+      float key = kTFar;
+      if (nok > 0)
+        key = fminf(from_ordered(s_min[b]),
+                    nok < rt ? kTFar : __int_as_float(0x7f800000));
+      key_of[(size_t)tile * n_boxes + b0 + b] = key;
+      s_sort[b] = ((unsigned long long)sort_bits(key) << 32) | (unsigned)(b0 + b);
+    } else if (b < n_sort) {
+      s_sort[b] = ~0ull;  // above every entry: no key's bits are all ones
+    }
+    listed += __syncthreads_count(nok > 0);
+  }
+  bitonic_sort(s_sort, n_sort);
+  unsigned long long* run = runs + (size_t)tile * n_boxes + b0;
+  for (int p = tid; p < nb; p += blockDim.x) run[p] = s_sort[p];
+  if (tid == 0 && listed > 0) atomicAdd(cnt + tile, listed);
+}
+
+// Runs of `width` sorted entries of each tile's row of `in` [tiles,
+// n_boxes], merged in pairs into `out`.
+__global__ void list_merge_kernel(const unsigned long long* __restrict__ in,
+                                  unsigned long long* __restrict__ out,
+                                  int n_boxes, int width, size_t total) {
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
+    const size_t tile = idx / n_boxes;
+    const int i = (int)(idx - tile * n_boxes);
+    const unsigned long long* row = in + tile * n_boxes;
+    const int base = (int)((long long)i / (2LL * width) * (2LL * width));
+    const int a_end = (int)min((long long)base + width, (long long)n_boxes);
+    const int b_end = (int)min((long long)base + 2LL * width,
+                               (long long)n_boxes);
+    const unsigned long long x = row[i];
+    const bool in_a = i < a_end;
+    int lo = in_a ? a_end : base, hi = in_a ? b_end : a_end;
+    const int start = lo;
+    while (lo < hi) {  // the other run's entries below x
+      const int mid = (lo + hi) >> 1;
+      if (row[mid] < x) lo = mid + 1;
+      else hi = mid;
+    }
+    const int pos = (in_a ? i : base + (i - a_end)) + (lo - start);
+    out[tile * n_boxes + pos] = x;
+  }
+}
+
+__global__ void list_emit_kernel(const unsigned long long* __restrict__ sorted,
+                                 const float* __restrict__ key_of,
+                                 const int* __restrict__ far_bits,
+                                 int n_boxes, size_t total, int n_rays,
+                                 int* __restrict__ cand,
+                                 float* __restrict__ keys,
+                                 float* __restrict__ last_key) {
+  const size_t end = total > (size_t)n_rays ? total : (size_t)n_rays;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < end;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    if (idx < total) {
+      const int id = (int)(unsigned)(sorted[idx] & 0xffffffffu);
+      cand[idx] = id;
+      keys[idx] = key_of[idx / n_boxes * n_boxes + id];
+    }
+    if (idx < (size_t)n_rays) last_key[idx] = from_ordered(far_bits[idx]);
+  }
+}
+
+// Blocks of a grid-stride pass over `count` items, 256 threads each.
+inline unsigned stride_grid(size_t count) {
+  const size_t blocks = (count + 255) / 256;
+  return (unsigned)(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
 }
 
 // ----------------------------------------------------------------- binned
@@ -636,6 +815,50 @@ int tpt_stream_candidates(const float* rays, const float* tmax,
                              (cudaStream_t)stream>>>(
       rays, tmax, tmax_all, boxes, n_boxes, rt, sort_cap, scale, margin, tmin,
       cand, keys, cnt, last_key);
+  return (int)cudaGetLastError();
+}
+
+// The same lists for any tile width and any number of boxes (the steps
+// above), with scratch from the caller: key_of [tiles * n_boxes] f32,
+// far_bits [n_rays] i32, sort_a and sort_b [tiles * n_boxes] u64. Needs
+// rt >= 1 dividing n_rays and n_boxes >= 1.
+int tpt_stream_candidates_global(const float* rays, const float* tmax,
+                                 float tmax_all, const float* boxes,
+                                 int n_rays, int n_boxes, int rt, float scale,
+                                 float margin, float tmin, float* key_of,
+                                 int* far_bits, unsigned long long* sort_a,
+                                 unsigned long long* sort_b, int* cand,
+                                 float* keys, int* cnt, float* last_key,
+                                 void* stream) {
+  if (rt < 1 || n_rays % rt || n_boxes < 1 ||
+      (n_boxes + kRunBoxes - 1) / kRunBoxes > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = n_rays / rt;
+  if (tiles == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t total = (size_t)tiles * n_boxes;
+  cudaMemsetAsync(cnt, 0, sizeof(int) * tiles, s);
+  const float neg = -3e38f;
+  int neg_bits;
+  std::memcpy(&neg_bits, &neg, sizeof(int));
+  neg_bits ^= 0x7fffffff;  // ordered(-3e38): the bits are negative
+  fill_ints<<<stride_grid(n_rays), 256, 0, s>>>(far_bits, n_rays, neg_bits);
+  const dim3 grid((unsigned)tiles, (unsigned)((n_boxes + kRunBoxes - 1) /
+                                              kRunBoxes));
+  list_runs_kernel<<<grid, kListThreads, 0, s>>>(
+      rays, tmax, tmax_all, boxes, n_boxes, rt, scale, margin, tmin, key_of,
+      cnt, far_bits, sort_a);
+  unsigned long long *src = sort_a, *dst = sort_b;
+  for (long long w = kRunBoxes; w < n_boxes; w *= 2) {
+    list_merge_kernel<<<stride_grid(total), 256, 0, s>>>(src, dst, n_boxes,
+                                                          (int)w, total);
+    unsigned long long* t = src;
+    src = dst;
+    dst = t;
+  }
+  list_emit_kernel<<<stride_grid(total > (size_t)n_rays ? total : n_rays),
+                     256, 0, s>>>(src, key_of, far_bits, n_boxes, total,
+                                  n_rays, cand, keys, last_key);
   return (int)cudaGetLastError();
 }
 

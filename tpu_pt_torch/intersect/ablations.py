@@ -40,9 +40,11 @@ the JAX package's variables, read at every call:
   PAIR-BINNED path, ``closest_binned`` / ``occluded_binned`` (K14), taken
   before every other scheduler. Each ray's ``PAIR_K`` nearest pierced
   clusters become (ray, cluster) pairs, laid out cluster-major in tiles of
-  ``PAIR_TILE`` pairs against one cluster (``_pair_schedule``, plain
-  PyTorch); the kernel folds each pair's hit into its ray with one 64-bit
-  ``atomicMin`` (``_reduce_pairs`` is the plain fold). Rays that pierce
+  ``BINNED_TILE`` pairs against one cluster (``pair_schedule``: built on
+  the card by its own kernels; ``_pair_schedule``, the reference's
+  counting layout at any tile width, is its plain version); the kernel
+  folds each pair's hit into its ray with one 64-bit ``atomicMin``
+  (``_reduce_pairs`` is the plain fold). Rays that pierce
   more clusters, and whose hit lies beyond the next entry distance (or,
   any-hit, that are not blocked yet), are finished by the ordinary path
   with every other lane parked.
@@ -54,7 +56,8 @@ the JAX package's variables, read at every call:
   ``stream_lists`` too.
 
 Every wrapper launches its kernel (``csrc/ablations_intersect.cu`` for
-K11-K13 and the list build, ``csrc/ablations_binned.cu`` for K14 / K15)
+K11-K13 and the list build, ``csrc/ablations_binned.cu`` for K14, its
+pair schedule and K15)
 for CUDA tensors, runs its plain version for CPU tensors and raises
 otherwise.
 The plain versions follow the schedules step by step over the same lists,
@@ -84,7 +87,8 @@ STREAM_BUF = 4                                       # ring slots
 STREAM_OCC_TILE = 128
 STREAM_OCC_GROUP, STREAM_OCC_GROUP_WIDE, STREAM_OCC_NARROW_RAYS = 32, 4, 65536
 # The list build kernel (stream_lists): rays a tile, and boxes its
-# shared-memory sort holds.
+# shared-memory sort holds; past either, the build keeps its state in
+# device memory (list_route).
 LIST_MAX_TILE = 256
 LIST_MAX_BOXES = 8192
 CBIN_PAIR_MULT = int(os.environ.get("TPT_CBIN_PAIRS", 12))   # P_cap = mult*N
@@ -105,7 +109,7 @@ _BIG_IDX = 2 ** 30
 LAUNCHES = {"closest_rotated": 0, "closest_streamed": 0,
             "occluded_streamed": 0, "closest_cbin": 0, "occluded_cbin": 0,
             "closest_binned": 0, "occluded_binned": 0, "closest_grp": 0,
-            "occluded_grp": 0, "stream_lists": 0}
+            "occluded_grp": 0, "stream_lists": 0, "pair_schedule": 0}
 
 
 def _stream_guard() -> bool:
@@ -328,13 +332,24 @@ def stream_candidates(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
             any_.sum(1).to(torch.int32), torch.cat(far_parts))
 
 
+def list_route(n_boxes: int, rt: int) -> str:
+    """The list build's kernel for tiles of ``rt`` rays over ``n_boxes``
+    boxes: ``"shared"`` (``tpt_stream_candidates``: one block a tile, its
+    state and sort in shared memory) up to LIST_MAX_TILE rays and
+    LIST_MAX_BOXES boxes, ``"global"`` (``tpt_stream_candidates_global``:
+    runs sorted in shared memory, merged in device memory) past either."""
+    if rt <= LIST_MAX_TILE and n_boxes <= LIST_MAX_BOXES:
+        return "shared"
+    return "global"
+
+
 def stream_lists(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
                  rt: int, tmin: float, tmax):
     """``stream_candidates``' tile lists (its arguments and outputs), built
-    for CUDA tensors by ``tpt_stream_candidates`` (one thread block a tile:
-    the slab tests, then a sort of (key, box id) in shared memory), bit
-    for bit the same; for CPU tensors ``stream_candidates`` itself.
-    Needs 1 <= rt <= LIST_MAX_TILE and at most LIST_MAX_BOXES boxes."""
+    for CUDA tensors by the kernel of ``list_route`` (the slab tests, then
+    a sort of (key, box id)), bit for bit the same; for CPU tensors
+    ``stream_candidates`` itself. Takes any tile width that divides the
+    rays and any number of boxes."""
     if dense._on_cpu(rays):
         return stream_candidates(rays, boxes, scale, rt, tmin, tmax)
     from .. import _kernels
@@ -344,12 +359,10 @@ def stream_lists(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
     dense._check("boxes", boxes, torch.float32, (n_boxes, 8), dev)
     if rays.data_ptr() % 16 or boxes.data_ptr() % 16:
         raise ValueError("rays and boxes must be 16-byte aligned")
-    if not 1 <= rt <= LIST_MAX_TILE or n_pad % rt:
-        raise ValueError(f"{n_pad} rays do not split into tiles of {rt} "
-                         f"(at most {LIST_MAX_TILE})")
-    if not 1 <= n_boxes <= LIST_MAX_BOXES:
-        raise ValueError(f"the list build sorts 1 to {LIST_MAX_BOXES} boxes, "
-                         f"not {n_boxes}")
+    if rt < 1 or n_pad % rt:
+        raise ValueError(f"{n_pad} rays do not split into tiles of {rt}")
+    if n_boxes < 1:
+        raise ValueError("the list build needs at least one box")
     tm, tm_all = None, 0.0
     if torch.is_tensor(tmax):
         tm = tmax.contiguous()
@@ -361,14 +374,24 @@ def stream_lists(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
     keys = torch.empty((tiles, n_boxes), dtype=torch.float32, device=dev)
     cnt = torch.empty(tiles, dtype=torch.int32, device=dev)
     far = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    if tiles:
-        _kernels.launch("tpt_stream_candidates", rays.data_ptr(),
-                        None if tm is None else tm.data_ptr(), tm_all,
-                        boxes.data_ptr(), n_pad, n_boxes, rt, float(scale),
-                        clustered.BOX_MARGIN, float(tmin), cand.data_ptr(),
-                        keys.data_ptr(), cnt.data_ptr(), far.data_ptr(),
-                        dense._stream(dev))
-        LAUNCHES["stream_lists"] += 1
+    if not tiles:
+        return cand, keys, cnt, far
+    head = (rays.data_ptr(), None if tm is None else tm.data_ptr(), tm_all,
+            boxes.data_ptr(), n_pad, n_boxes, rt, float(scale),
+            clustered.BOX_MARGIN, float(tmin))
+    outs = (cand.data_ptr(), keys.data_ptr(), cnt.data_ptr(), far.data_ptr(),
+            dense._stream(dev))
+    if list_route(n_boxes, rt) == "shared":
+        _kernels.launch("tpt_stream_candidates", *head, *outs)
+    else:
+        key_of = torch.empty(tiles * n_boxes, dtype=torch.float32, device=dev)
+        far_bits = torch.empty(n_pad, dtype=torch.int32, device=dev)
+        sort_a, sort_b = (torch.empty(tiles * n_boxes, dtype=torch.int64,
+                                      device=dev) for _ in range(2))
+        _kernels.launch("tpt_stream_candidates_global", *head,
+                        key_of.data_ptr(), far_bits.data_ptr(),
+                        sort_a.data_ptr(), sort_b.data_ptr(), *outs)
+    LAUNCHES["stream_lists"] += 1
     return cand, keys, cnt, far
 
 
@@ -1025,9 +1048,27 @@ def occluded_cbin_path(origins, dirs, tmax, tris, boxes, scale, tmin: float,
 # K14: the pair-binned path
 # --------------------------------------------------------------------------
 
-PAIR_TILE = 512                                      # pairs per tile
+PAIR_TILE = 512                                      # the reference's tile
 PAIR_K = int(os.environ.get("TPT_PAIR_K", 12))       # clusters per ray
 _KEY_MISS = 0x7FFFFFFF                               # high word: not pierced
+# The binned kernels' tile widths (a template parameter of
+# csrc/ablations_binned.cu) and the one binned_steps takes, from
+# tools/binned_ab_torch.py's trial on a TPT_BINNED=1 frame's calls.
+BINNED_TILES = (64, 128, 256, 512)
+BINNED_TILE = 64
+# The on-card schedule keeps each ray's k + 1 nearest in registers; its
+# select step gives a ray a group of lanes (pair_group: PAIR_GROUP up to
+# PAIR_NARROW_RAYS rays, PAIR_GROUP_WIDE above), from
+# tools/binned_ab_torch.py's trial.
+PAIR_K_MAX = 63
+PAIR_GROUPS = (1, 2, 4, 8)
+PAIR_GROUP, PAIR_GROUP_WIDE, PAIR_NARROW_RAYS = 4, 2, 65536
+
+
+def pair_group(n_rays: int) -> int:
+    """Lanes a ray of the pair schedule's select step for ``n_rays``
+    rays."""
+    return PAIR_GROUP if n_rays <= PAIR_NARROW_RAYS else PAIR_GROUP_WIDE
 
 
 def binned_sides() -> tuple[bool, bool]:
@@ -1039,8 +1080,8 @@ def binned_sides() -> tuple[bool, bool]:
 
 
 class PairSchedule(NamedTuple):
-    """The pair-binned work of ``_pair_schedule``. Slot p of ``pair_ray``
-    ([tiles * PAIR_TILE] i32) holds its pair's ray, -1 for an unused slot;
+    """The pair-binned work of ``pair_schedule``. Slot p of ``pair_ray``
+    ([tiles * tile] i32) holds its pair's ray, -1 for an unused slot;
     tile j's pairs all go against cluster ``tile_sid[j]`` (the number of
     clusters for the dead tail). ``next_tn`` [n] is the entry distance of
     each ray's (k+1)-th nearest pierced cluster (3e38: none); ``overflow``
@@ -1050,6 +1091,17 @@ class PairSchedule(NamedTuple):
     next_tn: torch.Tensor
     overflow: torch.Tensor
 
+    @property
+    def tile(self) -> int:
+        """Pair slots a tile."""
+        return _tile_of(self.pair_ray, self.tile_sid)
+
+
+def _tile_of(pair_ray: torch.Tensor, tile_sid: torch.Tensor) -> int:
+    """The tile width of a slot table (there is always a tile: at least
+    one a cluster)."""
+    return pair_ray.shape[0] // max(tile_sid.shape[0], 1)
+
 
 def _order_bits(t: torch.Tensor) -> torch.Tensor:
     """float32 -> int32 with the same order (no NaN comes here)."""
@@ -1058,19 +1110,22 @@ def _order_bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def _pair_schedule(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
-                   k: int, tmin: float, tmax) -> PairSchedule:
+                   k: int, tmin: float, tmax,
+                   tile: int = PAIR_TILE) -> PairSchedule:
     """The cluster-major pair layout of the binned kernels
-    (``pallas_ablations._pair_schedule``).
+    (``pallas_ablations._pair_schedule``): the plain version of
+    ``pair_schedule``.
 
     ``rays`` [n, 8] (``pack_rays``); ``tmax`` a float or [n]. Each ray's
-    k (at most C, the number of clusters) nearest clusters by the entry distance into its grown box (the exact
-    test of ``_ray_box_test``; equal distances to the lowest id) become
-    pairs, in chunks of 32,768 rays. Pairs are laid out by a counting
-    layout: per-cluster counts, each cluster's run padded to whole
-    ``PAIR_TILE`` tiles, a pair's slot = its cluster's first tile x
-    PAIR_TILE + its rank among the cluster's pairs in (ray, rank) order,
-    as the reference's sorts place it. The buffer holds ceil(n k /
-    PAIR_TILE) + C tiles, enough for any data; no host sync."""
+    k (at most C, the number of clusters) nearest clusters by the entry
+    distance into its grown box (the exact test of ``_ray_box_test``;
+    equal distances to the lowest id) become pairs, in chunks of 32,768
+    rays. Pairs are laid out by a counting layout: per-cluster counts,
+    each cluster's run padded to whole tiles of ``tile`` slots, a pair's
+    slot = its cluster's first tile x tile + its rank among the cluster's
+    pairs in (ray, rank) order, as the reference's sorts place it. The
+    buffer holds ceil(n k / tile) + C tiles, enough for any data; no host
+    sync."""
     n, ns, dev = rays.shape[0], boxes.shape[0], rays.device
     k = min(k, ns)
     kk = min(k + 1, ns)
@@ -1101,17 +1156,17 @@ def _pair_schedule(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
     e = flat.shape[0]
     per_c = torch.zeros(ns + 1, dtype=torch.int64, device=dev).scatter_add_(
         0, flat, torch.ones_like(flat))[:ns]
-    tiles_c = (per_c + PAIR_TILE - 1) // PAIR_TILE
+    tiles_c = (per_c + tile - 1) // tile
     tile_end = torch.cumsum(tiles_c, 0)
-    n_tiles = -(-e // PAIR_TILE) + ns
+    n_tiles = -(-e // tile) + ns
     # Rank among the cluster's pairs, in (ray, rank) order.
     sid_s, order = torch.sort(flat, stable=True)
     start = torch.cumsum(per_c, 0) - per_c
     valid = sid_s < ns
     c = sid_s.clamp_max(ns - 1)
-    slot = (tile_end[c] - tiles_c[c]) * PAIR_TILE \
+    slot = (tile_end[c] - tiles_c[c]) * tile \
         + torch.arange(e, device=dev) - start[c]
-    cap = n_tiles * PAIR_TILE
+    cap = n_tiles * tile
     pair_ray = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
     pair_ray.scatter_(0, torch.where(valid, slot, cap),
                       torch.where(valid, order // k, -1).to(torch.int32))
@@ -1122,20 +1177,82 @@ def _pair_schedule(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
                         torch.cat(next_tn), torch.cat(count) > k)
 
 
+def pair_schedule(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
+                  k: int, tmin: float, tmax, tile: int = PAIR_TILE,
+                  group: int | None = None) -> PairSchedule:
+    """``_pair_schedule``'s layout (its arguments and result), built for
+    CUDA tensors by ``tpt_pair_schedule`` with no host sync: a group of
+    ``group`` (``pair_group``) lanes a ray keeps its k + 1 nearest pierced
+    clusters in registers and counts its pairs per cluster, one block lays
+    the runs out, and each pair takes the next slot of its cluster's run
+    (an atomic), so the order within a run may differ from
+    ``_pair_schedule``'s; ``tile_sid``, ``next_tn`` and ``overflow`` are
+    bitwise the same. For CPU tensors ``_pair_schedule`` itself. On the
+    card k is at most PAIR_K_MAX, ``tile`` one of BINNED_TILES and
+    ``group`` one of PAIR_GROUPS."""
+    if dense._on_cpu(rays):
+        return _pair_schedule(rays, boxes, scale, k, tmin, tmax, tile)
+    from .. import _kernels
+    dev, n = rays.device, rays.shape[0]
+    dense._check("rays", rays, torch.float32, (n, 8), dev)
+    ns = boxes.shape[0]
+    dense._check("boxes", boxes, torch.float32, (ns, 8), dev)
+    if rays.data_ptr() % 16 or boxes.data_ptr() % 16:
+        raise ValueError("rays and boxes must be 16-byte aligned")
+    if ns < 1:
+        raise ValueError("the pair schedule needs at least one box")
+    k = min(k, ns)
+    if not 0 <= k <= PAIR_K_MAX:
+        raise ValueError(f"the pair schedule on the card keeps at most "
+                         f"{PAIR_K_MAX} clusters a ray, not {k}")
+    if tile not in BINNED_TILES:
+        raise ValueError(f"tiles of {tile} slots: the kernels take "
+                         f"{BINNED_TILES}")
+    group = pair_group(n) if group is None else group
+    if group not in PAIR_GROUPS:
+        raise ValueError(f"{group} lanes a ray: the select step takes "
+                         f"{PAIR_GROUPS}")
+    tm, tm_all = None, 0.0
+    if torch.is_tensor(tmax):
+        tm = tmax.contiguous()
+        dense._check("tmax", tm, torch.float32, (n,), dev)
+    else:
+        tm_all = float(tmax)
+    n_tiles = -(-n * k // tile) + ns
+
+    def ints(m):
+        return torch.empty(m, dtype=torch.int32, device=dev)
+    near, per_c, tile_end, cursor = ints(n * k), ints(ns), ints(ns), ints(ns)
+    out = PairSchedule(ints(n_tiles * tile), ints(n_tiles),
+                       torch.empty(n, dtype=torch.float32, device=dev),
+                       torch.empty(n, dtype=torch.bool, device=dev))
+    _kernels.launch("tpt_pair_schedule", rays.data_ptr(),
+                    None if tm is None else tm.data_ptr(), tm_all,
+                    boxes.data_ptr(), n, ns, k, tile, group, float(scale),
+                    clustered.BOX_MARGIN, float(tmin), near.data_ptr(),
+                    per_c.data_ptr(), tile_end.data_ptr(), cursor.data_ptr(),
+                    *(x.data_ptr() for x in out), dense._stream(dev))
+    LAUNCHES["pair_schedule"] += 1
+    return out
+
+
 def _binned_sweep_plain(rays, tris, pair_ray, tile_sid, cluster: int,
                         tmin: float, occluded: bool):
-    """The binned kernels' per-pair work in plain PyTorch, 64 tiles at a
-    time: every used slot of a live tile against the tile's cluster.
+    """The binned kernels' per-pair work in plain PyTorch, 32,768 slots at
+    a time: every used slot of a live tile against the tile's cluster.
     Returns (ray [P] i64, -1 for no pair; and t [P], row [P] i32 of the
     closest row of the cluster, or the blocked flags [P])."""
     n_boxes = tris.shape[0] // cluster
     table = tris.view(n_boxes, cluster, 16)
-    live = (tile_sid < n_boxes)[:, None] & (pair_ray.view(-1, PAIR_TILE) >= 0)
-    ray = torch.where(live, pair_ray.view(-1, PAIR_TILE).long(), -1)
+    tile = _tile_of(pair_ray, tile_sid)
+    slots = pair_ray.view(-1, tile)
+    live = (tile_sid < n_boxes)[:, None] & (slots >= 0)
+    ray = torch.where(live, slots.long(), -1)
     out_t, out_row, out_occ = [], [], []
-    for j0 in range(0, tile_sid.shape[0], 64):
-        sid = tile_sid[j0:j0 + 64].long().clamp_max(n_boxes - 1)
-        pr = rays[ray[j0:j0 + 64].clamp_min(0)]             # [J, 512, 8]
+    step = max(1, 32768 // tile)
+    for j0 in range(0, tile_sid.shape[0], step):
+        sid = tile_sid[j0:j0 + step].long().clamp_max(n_boxes - 1)
+        pr = rays[ray[j0:j0 + step].clamp_min(0)]           # [J, tile, 8]
         rows = table[sid]
         t = _pe_rows(pr[..., 0:3], pr[..., 3:6], rows, tmin)
         if occluded:
@@ -1184,20 +1301,25 @@ def _reduce_pairs_occ(ray, blocked, n: int) -> torch.Tensor:
     return out[:n] > 0
 
 
-def _check_pairs(rays, tris, pair_ray, tile_sid, cluster: int) -> int:
+def _check_pairs(rays, tris, pair_ray, tile_sid, cluster: int):
+    """The checks of the binned kernels' inputs; returns (tiles, tile
+    width)."""
     dev, n = rays.device, rays.shape[0]
     n_tiles = tile_sid.shape[0]
+    tile = _tile_of(pair_ray, tile_sid)
+    if tile not in BINNED_TILES:
+        raise ValueError(f"{pair_ray.shape[0]} pair slots over {n_tiles} "
+                         f"tiles: the kernels take tiles of {BINNED_TILES}")
     dense._check("rays", rays, torch.float32, (n, 8), dev)
     dense._check("tris", tris, torch.float32, (tris.shape[0], 16), dev)
-    dense._check("pair_ray", pair_ray, torch.int32, (n_tiles * PAIR_TILE,),
-                 dev)
+    dense._check("pair_ray", pair_ray, torch.int32, (n_tiles * tile,), dev)
     dense._check("tile_sid", tile_sid, torch.int32, (n_tiles,), dev)
     if rays.data_ptr() % 16 or tris.data_ptr() % 16:
         raise ValueError("rays and tris must be 16-byte aligned")
     if tris.shape[0] % cluster:
         raise ValueError(f"{tris.shape[0]} rows are no whole number of "
                          f"clusters of {cluster}")
-    return n_tiles
+    return n_tiles, tile
 
 
 def closest_binned(rays: torch.Tensor, tris: torch.Tensor,
@@ -1212,11 +1334,11 @@ def closest_binned(rays: torch.Tensor, tris: torch.Tensor,
                                           cluster, tmin, occluded=False)
         return _reduce_pairs(ray, t, row, rays.shape[0])
     from .. import _kernels
-    n_tiles = _check_pairs(rays, tris, pair_ray, tile_sid, cluster)
+    n_tiles, tile = _check_pairs(rays, tris, pair_ray, tile_sid, cluster)
     key = torch.full((rays.shape[0],), _KEY_FAR, dtype=torch.int64,
                      device=rays.device)
     _kernels.launch("tpt_closest_binned", rays.data_ptr(), tris.data_ptr(),
-                    pair_ray.data_ptr(), tile_sid.data_ptr(), n_tiles,
+                    pair_ray.data_ptr(), tile_sid.data_ptr(), n_tiles, tile,
                     tris.shape[0] // cluster, cluster, float(tmin),
                     key.data_ptr(), dense._stream(rays.device))
     LAUNCHES["closest_binned"] += 1
@@ -1234,10 +1356,10 @@ def occluded_binned(rays: torch.Tensor, tris: torch.Tensor,
                                            cluster, tmin, occluded=True)
         return _reduce_pairs_occ(ray, blocked, rays.shape[0])
     from .. import _kernels
-    n_tiles = _check_pairs(rays, tris, pair_ray, tile_sid, cluster)
+    n_tiles, tile = _check_pairs(rays, tris, pair_ray, tile_sid, cluster)
     occ = torch.zeros(rays.shape[0], dtype=torch.bool, device=rays.device)
     _kernels.launch("tpt_occluded_binned", rays.data_ptr(), tris.data_ptr(),
-                    pair_ray.data_ptr(), tile_sid.data_ptr(), n_tiles,
+                    pair_ray.data_ptr(), tile_sid.data_ptr(), n_tiles, tile,
                     tris.shape[0] // cluster, cluster, float(tmin),
                     occ.data_ptr(), dense._stream(rays.device))
     LAUNCHES["occluded_binned"] += 1
@@ -1245,19 +1367,22 @@ def occluded_binned(rays: torch.Tensor, tris: torch.Tensor,
 
 
 def binned_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
-                 occluded: bool, k: int | None = None):
+                 occluded: bool, k: int | None = None,
+                 tile: int | None = None):
     """The pair-binned sweep in its two steps, (rays, build, kernel):
-    ``build()`` is ``_pair_schedule`` on the packed ``rays`` for the
-    ray's ``k`` (``PAIR_K``) nearest clusters, ``kernel(schedule)`` the
-    per-ray result of K14 (the completion pass follows in the paths)."""
+    ``build()`` is ``pair_schedule`` on the packed ``rays`` for the ray's
+    ``k`` (``PAIR_K``) nearest clusters at tiles of ``tile``
+    (``BINNED_TILE``) slots, ``kernel(schedule)`` the per-ray result of
+    K14 (the completion pass follows in the paths)."""
     rays = pack_rays(origins, dirs, tmax, origins.shape[0])
     cluster = tris.shape[0] // boxes.shape[0]
     k = min(PAIR_K if k is None else k, boxes.shape[0])
+    tile = BINNED_TILE if tile is None else tile
     sweep = occluded_binned if occluded else closest_binned
 
     def build():
-        return _pair_schedule(rays, boxes, scale, k, tmin,
-                              rays[:, 6] if occluded else tmax)
+        return pair_schedule(rays, boxes, scale, k, tmin,
+                             rays[:, 6] if occluded else tmax, tile)
 
     def kernel(schedule):
         return sweep(rays, tris, schedule.pair_ray, schedule.tile_sid,

@@ -33,6 +33,7 @@ the kernel, and for anything else it raises.
 from __future__ import annotations
 
 import dataclasses
+import os
 from functools import partial
 
 import numpy as np
@@ -44,13 +45,14 @@ from . import clustered, dense
 from .moller import T_FAR, Hit
 
 # Eligibility bounds of the instanced contract, kept at the JAX package's
-# values so that ``load_gltf(instancing="auto")`` picks the same contract
-# for the same asset. They come from the TPU kernels keeping the whole
-# mesh table (8,192 rows = 512 KB) and instance table (16,384 rows = 1 MB)
-# in VMEM; the CUDA kernels read both from device memory and are bound by
-# neither.
-INST_MAX_ROWS = 8192
-INST_MAX_INST = 16384
+# values and read from its variables when this module is imported
+# (``TPT_INST_ROWS``, ``TPT_INST_MAX``), so that
+# ``load_gltf(instancing="auto")`` picks the same contract for the same
+# asset. They come from the TPU kernels keeping the whole mesh table
+# (8,192 rows = 512 KB) and instance table (16,384 rows = 1 MB) in VMEM;
+# the CUDA kernels read both from device memory and are bound by neither.
+INST_MAX_ROWS = int(os.environ.get("TPT_INST_ROWS", 8192))
+INST_MAX_INST = int(os.environ.get("TPT_INST_MAX", 16384))
 # The mesh table pads to whole groups of this many clusters
 # (``pallas_inst.pack_tris_instanced``), and the eligibility bound counts
 # the padding too.

@@ -22,8 +22,15 @@ Geometry contracts (``instancing``):
 - ``"auto"`` (default): instanced for an eligible asset whose flatten
   would pass ``max_flat_tris``, or whose instancing amplifies the unique
   triangles at least ``INST_AUTO_AMP`` times at ``INST_AUTO_MIN`` or
-  more flattened triangles; flatten otherwise. The thresholds are the
-  JAX package's defaults, so both packages pick the same contract.
+  more flattened triangles; flatten otherwise.
+
+The JAX package's variables pick and bound the contract, read at every
+call as it reads them: ``TPT_INSTANCING`` (the contract when
+``instancing`` is None), ``TPT_MAX_FLAT_TRIS`` (``max_flat_tris`` when
+None), ``TPT_INST_AUTO_AMP`` / ``TPT_INST_AUTO_MIN`` (the "auto"
+thresholds) and ``TPT_ALPHA_OCC_K`` (the alpha-shadow march's cap); the
+constants below are their defaults, the JAX package's, so both packages
+load the same tables under the same variables.
 
 The flattened tables carry their LBVH (``intersect.lbvh``), as the JAX
 loader's do. Textures are PNG, JPEG or PPM images.
@@ -64,13 +71,16 @@ ALPHA_MASK = 1
 ALPHA_BLEND = 2
 
 # Flattened-triangle bound of the "flatten" contract (~1.3 GB of tables in
-# the JAX package); a scene whose instancing expands past it raises.
+# the JAX package); a scene whose instancing expands past it raises
+# (default of TPT_MAX_FLAT_TRIS).
 MAX_FLAT_TRIS = 4_000_000
 # "auto" picks the instanced contract at this instancing amplification
-# and at least this many flattened triangles.
+# and at least this many flattened triangles (TPT_INST_AUTO_AMP,
+# TPT_INST_AUTO_MIN).
 INST_AUTO_AMP = 8.0
 INST_AUTO_MIN = 32768
-# Most closest-hit steps of the fractional alpha-shadow march.
+# Most closest-hit steps of the fractional alpha-shadow march
+# (TPT_ALPHA_OCC_K).
 ALPHA_MARCH_MAX = 8
 
 _PRIM_KINDS = {"sphere": 0, "parallelogram": 1, "sphere_shell": 2}
@@ -431,12 +441,20 @@ def _instancing_eligible(doc, inst_records, mesh_tris):
 
 
 def load_gltf(path: str, default_lights: bool = True,
-              max_flat_tris: int = MAX_FLAT_TRIS, instancing: str = "auto",
+              max_flat_tris: int | None = None,
+              instancing: str | None = None,
               device="cuda") -> WhittedScene:
     """Load a .gltf / .glb file into a WhittedScene on ``device`` (the
     card unless the caller asks for the CPU). ``instancing`` is
-    ``"auto"``, ``"flatten"`` or ``"instanced"`` (module docstring);
-    ``max_flat_tris`` bounds the flattened triangle count."""
+    ``"auto"``, ``"flatten"`` or ``"instanced"`` (module docstring; None:
+    ``TPT_INSTANCING``, else "auto"); ``max_flat_tris`` bounds the
+    flattened triangle count (None: ``TPT_MAX_FLAT_TRIS``, else
+    ``MAX_FLAT_TRIS``)."""
+    if max_flat_tris is None:
+        max_flat_tris = int(os.environ.get("TPT_MAX_FLAT_TRIS",
+                                           MAX_FLAT_TRIS))
+    if instancing is None:
+        instancing = os.environ.get("TPT_INSTANCING", "auto")
     if instancing not in ("auto", "flatten", "instanced"):
         raise ValueError(f"instancing must be auto|flatten|instanced, "
                          f"got {instancing!r}")
@@ -515,9 +533,12 @@ def load_gltf(path: str, default_lights: bool = True,
             unique_total = sum(mesh_tris(m) for m in {m for m, _ in
                                                       inst_records})
             amp = flat_total / max(unique_total, 1)
+            auto_amp = float(os.environ.get("TPT_INST_AUTO_AMP",
+                                            INST_AUTO_AMP))
+            auto_min = int(os.environ.get("TPT_INST_AUTO_MIN",
+                                          INST_AUTO_MIN))
             use_inst = (flat_total > max_flat_tris
-                        or (amp >= INST_AUTO_AMP
-                            and flat_total >= INST_AUTO_MIN))
+                        or (amp >= auto_amp and flat_total >= auto_min))
         if instancing == "instanced" and not use_inst:
             raise ValueError(f"{os.path.basename(path)}: instancing "
                              f"requested but the asset is ineligible: "
@@ -730,9 +751,10 @@ def load_gltf(path: str, default_lights: bool = True,
             alpha_inst = _subset_instance_table(slot_records, mesh_ranges,
                                                 tri_alpha, tv)
         # Each alpha triangle is hit at most once per segment, per
-        # instance on instanced scenes.
+        # instance on instanced scenes; hits past the cap go unaccounted.
         max_hits = min(n_a * (len(inst_records) if use_inst else 1),
-                       ALPHA_MARCH_MAX)
+                       int(os.environ.get("TPT_ALPHA_OCC_K", "")
+                           or ALPHA_MARCH_MAX))
         alpha_occ = AlphaOccluders(
             occ_geom=with_bvh(scene_arrays(~tri_alpha, extra)),
             geom=alpha_geom,

@@ -13,6 +13,11 @@ from __future__ import annotations
 
 import torch
 
+Vec3 = torch.Tensor  # [..., 3]
+
+# Squared lengths at or below this normalise to zero (``tpu_pt.vmath.EPS``).
+EPS = 1e-12
+
 
 def vec3(x, y, z) -> torch.Tensor:
     """Stack three broadcastable tensors into a [..., 3] vector."""
@@ -34,9 +39,9 @@ def length(a: torch.Tensor) -> torch.Tensor:
 
 
 def normalize(a: torch.Tensor) -> torch.Tensor:
-    """Normalise; vectors with squared length <= 1e-12 map to zero."""
+    """Normalise; vectors with squared length <= EPS map to zero."""
     n2 = dot(a, a)
-    inv = torch.where(n2 > 1e-12, torch.rsqrt(torch.clamp_min(n2, 1e-30)),
+    inv = torch.where(n2 > EPS, torch.rsqrt(torch.clamp_min(n2, 1e-30)),
                       torch.zeros_like(n2))
     return a * inv[..., None]
 

@@ -212,8 +212,8 @@ def run_viewer(scene_path: str, args) -> int:
         from .scene.gltf import load_gltf
         from .whitted import render_whitted_frame
         scene = load_gltf(scene_path,
-                          instancing=getattr(args, "instancing", None)
-                          or "auto", device=device)
+                          instancing=getattr(args, "instancing", None),
+                          device=device)
         camera, move_step = gltf_view(scene, aspect)
         render_fn = render_whitted_frame
     else:
