@@ -127,21 +127,28 @@ K12 streamed, K13 cluster-binned: ``tpu_pt_torch/intersect/ablations.py``):
    ``occluded_streamed``, ``closest_cbin`` and ``occluded_cbin`` on the big
    mesh at 32,768 rays with every eighth lane parked, bitwise against
    their plain versions and (through their whole paths) against K6 / K8,
-   also at 1,000 and 77 rays; K12 with the guard on and off (its any-hit
-   at its own tile and at every width it is built for), K13 at
-   ``CBIN_GROUP`` 1 and 8 and with starved caps, K11 under an unknown, the
-   oracle and a cycled wrong prediction; the list build on the card
-   (``stream_lists``) bitwise against its plain version
-   ``stream_candidates`` (cand, keys, cnt, far) at the any-hit's, the
-   closest side's and K15's tiles, at 32,768 parked rays, 262,144, 1,000
-   and 77, on every box tied ten ways and with boxes entered beyond
-   T_FAR; the kernels and their schedule builds (``stream_lists``,
-   ``cbin_pairs``) timed apart;
+   also at 1,000 and 77 rays; K12 with the guard on and off (each side at
+   its own tile and at every width it is built for; the closest side at
+   262,144 rays against its plain version and K6 too), K13 under six cap
+   settings (``CBIN_GROUP`` 1 and 8, starved caps, ``TPT_CBIN_LVL=1`` /
+   ``2``, ``TPT_CBIN_EXACT=0``), K11 under an unknown, the oracle and a
+   cycled wrong prediction; the list build on the card (``stream_lists``)
+   bitwise against its plain version ``stream_candidates`` (cand, keys,
+   cnt, far) at the any-hit's, the closest side's and K15's tiles, at
+   32,768 parked rays, 262,144, 1,000 and 77, on every box tied ten ways
+   and with boxes entered beyond T_FAR; K13's schedule on the card
+   (``cbin_schedule``) against its plain version ``_cbin_schedule``
+   (``jtab``, ``incomplete``, the meta bitwise, each cluster's run the
+   same set of groups) under every cap setting, and its folded kernels
+   against the reference's reduces over ``cbin_pairs``' per-pair results
+   on every lane that is not incomplete; the kernels and their schedule
+   builds (``stream_lists``, ``cbin_schedule``) timed apart;
 21. big-mesh variants (in phase 16): the frame under ``TPT_SEED=1``,
    ``TPT_STREAM=1`` and ``TPT_CBIN=1``, accumulators bitwise equal to the
    lean frame's, the selected wrappers launched once per round (K13's
    frame also K12 and K8, its completion passes), the replaced ones
-   never, the list build once per list a round (LIST_BUILDS); the lean
+   never, the list build once per list a round (LIST_BUILDS), K13's
+   schedule twice a round (CBIN_SCHEDULES); the lean
    frame again under ``TPT_PRED=0``, bitwise equal; one call of each
    wrapper recorded from a warm-up frame (of the list build, one at each
    tile), bitwise; the default frames (phase 6) launch none of K8b, K12's
@@ -181,7 +188,9 @@ The rest of pallas_ablations.py (K14 pair-binned, K15 8-lane groups:
    big mesh 11 times over, built on the card: 8,624 clusters, 1.1M rows)
    at every tile, and at 8,192 and 8,193 of its boxes; the
    ``TPT_STREAM=1`` closest and any-hit paths on that table bitwise equal
-   to K6 / K8, with the phase's seconds;
+   to K6 / K8, and K12's closest kernel there at tiles of 512, guard on
+   and off, bitwise equal to its plain version and K6, with the phase's
+   seconds;
 26. bf16 probe: ``tools/microbench_bf16_torch.py``'s f32 chain bitwise
    against its plain PyTorch chain on the card, the bf16 chain within one
    bf16 ulp (the count of differing elements printed), then 200 chained
@@ -367,6 +376,9 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     # K14's pair schedule, which the JAX package builds in XLA outside its
     # kernels: part of K14's path, built on the card.
     "pair_schedule": (_BINNED, "tpu_pt/intersect/pallas_ablations.py:1156"),
+    # K13's schedule (cbin_pairs), which the JAX package builds in XLA
+    # outside its kernels: part of K13's path, built on the card.
+    "cbin_schedule": (_ABLATIONS, "tpu_pt/intersect/pallas_ablations.py:814"),
     "chain_f32": (_BF16, "tools/microbench_bf16.py:37"),
     "chain_bf16": (_BF16, "tools/microbench_bf16.py:37"),
     # K3 and K2 as walks of kd copies (the sphere box's table and occluder
@@ -537,15 +549,17 @@ NEW_WRAPPERS = ("closest_clustered_full", "closest_clustered_b",
                 "closest_rotated", "closest_streamed", "occluded_streamed",
                 "closest_cbin", "occluded_cbin", "closest_binned",
                 "occluded_binned", "closest_grp", "occluded_grp",
-                "stream_lists", "pair_schedule")
+                "stream_lists", "pair_schedule", "cbin_schedule")
 # List builds per round of the big-mesh variants (the closest and the
 # any-hit call each build one under TPT_STREAM and TPT_GRP; K13's closest
 # completion pass one); every other variant and every default frame none.
 LIST_BUILDS = {"streamed": 2, "cluster-binned": 1,
                "8-lane groups, serial": 2, "8-lane groups, bundled": 2}
 # Pair schedules per round (K14's closest and any-hit call each build one);
-# every other variant and every default frame none.
+# every other variant and every default frame none. The same for K13's
+# schedule.
 PAIR_SCHEDULES = {"pair-binned": 2}
+CBIN_SCHEDULES = {"cluster-binned": 2}
 # The any-hit kernels that go down a list (K8b, K12) and the list build:
 # no default frame launches them.
 SHADOW_LIST_KERNELS = ("occluded_clustered_b", "occluded_streamed",
@@ -859,6 +873,56 @@ def _compare_schedule(name, kernel_out, plain_out):
                  "the same set")
 
 
+def _compare_cbin_schedule(name, kernel_out, plain_out):
+    """K13's schedule built on the card against ``_cbin_schedule``:
+    ``jtab``, ``incomplete`` and the meta equal, the used slots the same,
+    and each cluster's run the same set of groups (the kernel places a
+    run's groups in the order of its atomics; the fold does not depend on
+    it); but for the last job's cluster, whose run the pair budget may cut:
+    which of its groups keep a slot is not defined, so there the sets may
+    differ only if every group in either is incomplete."""
+    import torch
+    if (kernel_out.meta, kernel_out.rt) != (plain_out.meta, plain_out.rt):
+        raise AssertionError(f"{name}: meta {kernel_out.meta} / jobs of "
+                             f"{kernel_out.rt}, not {plain_out.meta} / "
+                             f"{plain_out.rt}")
+    for what in ("jtab", "incomplete"):
+        k, p = getattr(kernel_out, what), getattr(plain_out, what)
+        if not torch.equal(k, p):
+            raise AssertionError(f"{name}: {what} differs on "
+                                 f"{int((k != p).sum())} values")
+    used = kernel_out.slot_group >= 0
+    if not torch.equal(used, plain_out.slot_group >= 0):
+        raise AssertionError(f"{name}: the used slots differ")
+    ng, g, _ = kernel_out.meta
+    jtab = kernel_out.jtab.long()
+    run = jtab.repeat_interleave(kernel_out.rt // g)
+    last = int(jtab[-1]) if jtab.numel() else -1
+
+    def groups(s, where):
+        return torch.sort(run[where] * (ng + 1)
+                          + s.slot_group.long()[where] + 1).values
+    if not torch.equal(groups(kernel_out, run != last),
+                       groups(plain_out, run != last)):
+        raise AssertionError(f"{name}: a cluster's run holds other groups")
+    cut = ""
+    if last >= 0 and not torch.equal(groups(kernel_out, run == last),
+                                     groups(plain_out, run == last)):
+        held = torch.cat([s.slot_group[run == last]
+                          for s in (kernel_out, plain_out)]).long()
+        held = held[held >= 0]
+        if not bool(kernel_out.incomplete.view(ng, g)[held, 0].all()):
+            raise AssertionError(f"{name}: the cut run of cluster {last} "
+                                 "holds complete groups the two place "
+                                 "apart")
+        cut = f"; the budget's cut run (cluster {last}) differs, all incomplete"
+    return 0.0, (f"{int(used.sum())} group-pairs in "
+                 f"{int((jtab >= 0).sum())} jobs of {kernel_out.rt}, "
+                 f"{float(kernel_out.incomplete.float().mean()):.4f} of lanes "
+                 f"incomplete; jtab, incomplete bitwise, each run the same "
+                 f"set{cut}")
+
+
 def _park(rays, shadow, every: int):
     """Park every ``every``-th lane as the wavefront parks retired lanes
     and ineligible shadow rays (render.py): origin PARK_COORD, direction
@@ -908,8 +972,9 @@ class _Tap:
             return (parked < 1.0) + (1.0 / PARK_EVERY <= parked < 1.0)
 
         def keep(a):
-            if isinstance(a, tuple):        # K12's lists
-                return tuple(keep(x) for x in a)
+            if isinstance(a, tuple):        # K12's lists, K13's schedule
+                out = [keep(x) for x in a]
+                return type(a)(*out) if hasattr(a, "_fields") else tuple(out)
             return a.clone() if torch.is_tensor(a) else a
 
         def tap(name, wrapper):
@@ -968,9 +1033,11 @@ def _plain(name: str, args):
         return ablations.stream_candidates(*args)
     if name == "pair_schedule":
         return ablations._pair_schedule(*args)
+    if name == "cbin_schedule":
+        return ablations._cbin_schedule(*args)
     if name in ("closest_cbin", "occluded_cbin"):
-        return ablations._cbin_sweep_plain(*args,
-                                           occluded=name == "occluded_cbin")
+        return ablations._cbin_fold_plain(*args,
+                                          occluded=name == "occluded_cbin")
     if name == "closest_binned":
         return ablations._reduce_pairs(
             *ablations._binned_sweep_plain(*args, occluded=False),
@@ -1054,6 +1121,7 @@ def _hold_recorded(records, picked, what: str, all_parked_ok=()):
         compare = (_compare_fused if name.startswith("closest_nee")
                    else _compare_lists if name == "stream_lists"
                    else _compare_schedule if name == "pair_schedule"
+                   else _compare_cbin_schedule if name == "cbin_schedule"
                    else _compare_exact)
         err, extra = compare(name, out_k, out_p)
         # The tables follow the rays: (o, d, rows, ...), or (rays, rows,
@@ -1154,17 +1222,20 @@ def _list_work(rays8, boxes, lists, rt: int, occluded: bool):
         n * (32 + (4 if occluded else 0) + 4) + c * 32 + n // rt * (c * 8 + 4)
 
 
-def _cbin_work(pair_rays, rows, jtab, cluster: int, rt: int, occluded: bool):
-    """K13's own work, from the wrapper's inputs: every live pair lane (a
-    job with a cluster, a ray that is not the parked sentinel) against its
+def _cbin_work(rays, rows, schedule, cluster: int, occluded: bool):
+    """K13's own work, from the wrappers' inputs: every live pair lane (a
+    used slot of a job with a cluster, its ray not parked) against its
     job's rows, all of them for the closest hit, up to the first blocking
-    one for the any-hit. Bytes: the pair rays and the job table in, each
-    distinct cluster's rows once, 8 (t, row) or 4 bytes per lane out."""
+    one for the any-hit; no slab test (those ran in the schedule). Bytes:
+    the used slots, the job table and the live lanes' rays in, each
+    distinct cluster's rows once, 8 (t, row) or 1 byte per ray out."""
     import torch
     from tpu_pt_torch.intersect import ablations
+    jtab, rt = schedule.jtab, schedule.rt
     j_cap = jtab.shape[0]
-    live = ((jtab >= 0)[:, None]
-            & (pair_rays.view(j_cap, rt, 8)[:, :, 0] < 1e7)).view(-1)
+    ray, pair_rays = ablations._cbin_pair_rays(rays, schedule)
+    live = (((jtab >= 0)[:, None] & (ray.view(j_cap, rt) >= 0)).view(-1)
+            & (pair_rays[:, 0] < 1e7))
     pairs = int(live.sum()) * cluster
     if occluded:
         pairs = 0
@@ -1178,8 +1249,42 @@ def _cbin_work(pair_rays, rows, jtab, cluster: int, rt: int, occluded: bool):
             need = torch.where(block.any(2), first + 1, cluster)
             pairs += int(need.view(-1)[live[j0 * rt:(j0 + 256) * rt]].sum())
     used = int(torch.unique(jtab[jtab >= 0]).numel())
-    return pairs * PAIR_FLOPS, pair_rays.numel() * 4 + j_cap * 4 \
-        + used * cluster * 64 + j_cap * rt * (4 if occluded else 8)
+    return pairs * PAIR_FLOPS, int((schedule.slot_group >= 0).sum()) * 4 \
+        + j_cap * 4 + int(live.sum()) * 32 + used * cluster * 64 \
+        + rays.shape[0] * (1 if occluded else 8)
+
+
+def _cbin_schedule_work(rays, boxes, scale, schedule):
+    """K13's schedule's own work: its lists' group tests, one slab test's
+    operations each (every (group, box) for the flat interval lists, every
+    (ray, box) for the exact union; every (group, parent), then the kept
+    parents' children, for the two-level lists, the kept ones counted by
+    the plain parent test on these rays). Bytes: the rays and boxes in;
+    jtab, the slots and the incomplete flags out."""
+    import torch
+    from tpu_pt_torch.intersect import ablations
+    ng, g, _ = schedule.meta
+    ns = boxes.shape[0]
+    if ablations._cbin_two_level(g, ns):
+        fan = ablations.CBIN_FAN
+        n_par = -(-ns // fan)
+        k1 = min(ablations.CBIN_K1, max(1, n_par))
+        pad = n_par * fan - ns
+        lo = torch.nn.functional.pad(boxes[:, 0:3], (0, 0, 0, pad),
+                                     value=3e38).view(n_par, fan, 3).amin(1)
+        hi = torch.nn.functional.pad(boxes[:, 3:6], (0, 0, 0, pad),
+                                     value=-3e38).view(n_par, fan, 3).amax(1)
+        bounds = ablations._cbin_ray_bounds(rays, scale, g)
+        kept = ablations._interval_slab(bounds, lo[None], hi[None], 0.01).sum(
+            1).clamp_max(k1)
+        tests = ng * n_par + int(kept.sum()) * fan
+    elif g > 1 and ablations._cbin_exact():
+        tests = rays.shape[0] * ns
+    else:
+        tests = ng * ns
+    return tests * BOX_FLOPS, rays.numel() * 4 + boxes.numel() * 4 \
+        + schedule.jtab.numel() * 4 + schedule.slot_group.numel() * 4 \
+        + rays.shape[0]
 
 
 def _binned_work(rays, rows, schedule, cluster: int, occluded: bool):
@@ -1397,14 +1502,20 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     function and per-ray work are theirs; for K12 the slab tests of the
     listed boxes only; for K13 its live pair lanes against their clusters
     and no slab test, since those ran in the build. The whole path (build,
-    kernel, reduce, completion pass) is timed too, beside K6's / K8's
-    bound (``path_ms``, ``path_bound_ms``). Then each whole path bitwise
+    kernel, fold, completion pass) is timed too, beside K6's / K8's
+    bound (``path_ms``, ``path_bound_ms``). K12's closest hit at every
+    width it is built for, guard on and off, against K6, and against its
+    plain version at N_RAYS too; K13's schedule built on the card against
+    its plain version and its folded kernels against the reference's
+    reduce over ``cbin_pairs``' per-pair results (the lanes that are not
+    incomplete) under every cap setting. Then each whole path bitwise
     against K6 / K8 (``k6_out``, ``k8_out``) under every knob setting,
     there and at N_RAGGED rays."""
     import torch
     from tpu_pt_torch.intersect import ablations, clustered
     rows, boxes, scale = tb.rows, tb.boxes, tb.scale
-    rt, cluster = ablations.RAY_TILE_C, rows.shape[0] // boxes.shape[0]
+    rt, cluster = (ablations.STREAM_CLOSEST_TILE,
+                   rows.shape[0] // boxes.shape[0])
     occ_rt = ablations.STREAM_OCC_TILE
     (o, d), (oW, dW) = rays, rays_wide
     t6, row6 = k6_out
@@ -1591,31 +1702,75 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                                      f" guard {guard}: differs from K8")
     say("kernels", f"occluded_streamed at {clustered.GROUPS} lanes a ray, "
         f"guard on and off: bitwise equal to K8 on {n} rays")
+    # The closest hit the same way, and at N_RAYS against K6 and its plain
+    # version, guard on and off.
+    t0 = time.perf_counter()
+    for g in clustered.GROUPS:
+        for guard in (True, False):
+            got = ablations.closest_streamed(r8, *table, lc, rt, 0.01, 1e16,
+                                             guard, group=g)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], t6) and torch.equal(got[1], row6)):
+                raise AssertionError(f"closest_streamed at {g} lanes a ray,"
+                                     f" guard {guard}: differs from K6")
+    t6W, row6W = clustered.closest_clustered(oW, dW, *table, 0.01,
+                                             nodes=tb.nodes)
+    for guard in (True, False):
+        got = ablations.closest_streamed(rW, *table, lcW, rt, 0.01, 1e16,
+                                         guard)
+        plain = ablations._streamed_plain(rW, *table, lcW, rt, 0.01, 1e16,
+                                          guard, False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, plain)) \
+                or not (torch.equal(got[0], t6W) and torch.equal(got[1], row6W)):
+            raise AssertionError(f"closest_streamed at {oW.shape[0]} rays, "
+                                 f"guard {guard}: differs from its plain "
+                                 "version or K6")
+    say("kernels", f"closest_streamed at {clustered.GROUPS} lanes a ray, "
+        f"guard on and off: bitwise equal to K6 on {n} rays; at "
+        f"{oW.shape[0]} rays ({ablations.stream_closest_group(oW.shape[0])} "
+        f"lanes a ray), guard on and off, to its plain version and K6 "
+        f"({time.perf_counter() - t0:.1f} s)")
 
-    # K13: the job table built once, the per-pair kernel timed alone.
-    pc, po = (ablations.cbin_pairs(r, boxes, scale, 0.01) for r in (r8, s8))
-    pcW, poW = (ablations.cbin_pairs(r, boxes, scale, 0.01)
-                for r in (rW, sW))
-    say("kernels", f"cbin_pairs: {int((pc[1] >= 0).sum())} (closest) and "
-        f"{int((po[1] >= 0).sum())} (any-hit) of {pc[1].shape[0]} jobs of "
-        f"{rt} pair lanes used at {n} rays; "
-        f"{float(pc[3].float().mean()):.4f} / {float(po[3].float().mean()):.4f}"
-        f" of lanes incomplete")
-    for name, sweep, p, pW, work, r, path in (
-            ("closest_cbin", ablations.closest_cbin, pc, pcW, closest_work,
-             r8, lambda: ablations.closest_cbin_path(o, d, *table, 0.01)),
-            ("occluded_cbin", ablations.occluded_cbin, po, poW,
-             occluded_work, s8,
+    # K13: the schedule built on the card, held against its plain version
+    # and timed (at the any-hit's and the closest side's rays, and at
+    # N_RAYS); built once, the folded kernels timed alone and held against
+    # their plain version on the same schedule (every lane).
+    job = ablations.CBIN_JOB_TILE
+
+    def sched(r, build=ablations.cbin_schedule):
+        return build(r, boxes, scale, 0.01, job)
+    _check_kernel(records, "cbin_schedule", lambda: sched(s8),
+                  lambda: sched(s8, ablations._cbin_schedule), boxes.shape[0],
+                  _compare_cbin_schedule,
+                  lambda out: _cbin_schedule_work(s8, boxes, scale, out), n=n,
+                  reps=10, plain_reps=1, at_n_rays=lambda: sched(sW),
+                  label=f"cbin_schedule (any-hit, jobs of {job})")
+    rec = records["cbin_schedule"][-1]
+    for key, r in (("ms_closest", r8), ("ms_closest_at_n_rays", rW)):
+        _, extra = _compare_cbin_schedule("cbin_schedule", sched(r),
+                                          sched(r, ablations._cbin_schedule))
+        rec[key] = gpu_ms(lambda: sched(r), 10)
+        say("kernels", f"cbin_schedule (closest): {rec[key]:.4f} ms at "
+            f"{r.shape[0]} rays; {extra}")
+    _, extra = _compare_cbin_schedule("cbin_schedule", sched(sW),
+                                      sched(sW, ablations._cbin_schedule))
+    say("kernels", f"cbin_schedule (any-hit) at {sW.shape[0]} rays: {extra}")
+    sc, so, scW, soW = (sched(r) for r in (r8, s8, rW, sW))
+    for name, sweep, sch, schW, work, r, rw, path in (
+            ("closest_cbin", ablations.closest_cbin, sc, scW, closest_work,
+             r8, rW, lambda: ablations.closest_cbin_path(o, d, *table, 0.01)),
+            ("occluded_cbin", ablations.occluded_cbin, so, soW,
+             occluded_work, s8, sW,
              lambda: ablations.occluded_cbin_path(*shadow, *table, 0.01,
                                                   finish=k8_finish))):
         any_hit = name == "occluded_cbin"
-        run(name, lambda: sweep(p[0], rows, p[1], cluster, rt, 0.01),
-            lambda: ablations._cbin_sweep_plain(
-                p[0], rows, p[1], cluster, rt, 0.01, occluded=any_hit),
-            lambda out: _cbin_work(p[0], rows, p[1], cluster, rt, any_hit),
-            lambda: sweep(pW[0], rows, pW[1], cluster, rt, 0.01),
-            build=lambda: ablations.cbin_pairs(r, boxes, scale, 0.01),
-            path=path, path_work=work)
+        run(name, lambda: sweep(r, rows, sch, cluster, 0.01),
+            lambda: ablations._cbin_fold_plain(r, rows, sch, cluster, 0.01,
+                                               any_hit),
+            lambda out: _cbin_work(r, rows, sch, cluster, any_hit),
+            lambda: sweep(rw, rows, schW, cluster, 0.01),
+            build=lambda: sched(r), path=path, path_work=work)
 
     # K14: the pair schedule built on the card, held against its plain
     # version and timed (at the any-hit's and the closest side's rays, and
@@ -1759,18 +1914,64 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     # The whole paths against K6 / K8 under every knob, at n and at ragged
     # ray counts.
     def with_caps(caps, fn):
-        """fn() under (CBIN_GROUP, CBIN_PAIR_MULT, CBIN_K_OUT) = caps."""
-        names = ("CBIN_GROUP", "CBIN_PAIR_MULT", "CBIN_K_OUT")
+        """fn() under (CBIN_GROUP, CBIN_PAIR_MULT, CBIN_K_OUT, CBIN_LVL,
+        TPT_CBIN_EXACT) = caps."""
+        names = ("CBIN_GROUP", "CBIN_PAIR_MULT", "CBIN_K_OUT", "CBIN_LVL")
         saved = [getattr(ablations, k) for k in names]
         for k, v in zip(names, caps):
             setattr(ablations, k, v)
         try:
-            return fn()
+            with _env(TPT_CBIN_EXACT=caps[4]):
+                return fn()
         finally:
             for k, v in zip(names, saved):
                 setattr(ablations, k, v)
 
-    starved = (1, 1, 2)
+    # K13's cap settings: the default (two-level lists at g = 1), groups of
+    # 8 (the exact union), starved caps, the flat interval lists
+    # (TPT_CBIN_LVL=1), the two-level ones at g = 8 (TPT_CBIN_LVL=2) and
+    # the flat interval test at g = 8 (TPT_CBIN_EXACT=0). At each, the
+    # schedule on the card against its plain version, and the folded
+    # kernels against the reference's reduce over cbin_pairs' per-pair
+    # results on the lanes that are not incomplete.
+    starved = (1, 1, 2, 0, "1")
+    cbin_caps = ((1, 12, 32, 0, "1"), (8, 12, 32, 0, "1"), starved,
+                 (1, 12, 32, 1, "1"), (8, 12, 32, 2, "1"),
+                 (8, 12, 32, 1, "0"))
+    t0 = time.perf_counter()
+    for caps in cbin_caps:
+        for r, any_hit in ((r8, False), (s8, True)):
+            def layout(r=r, any_hit=any_hit):
+                got = sched(r)
+                _, extra = _compare_cbin_schedule(
+                    f"cbin_schedule under {caps}", got,
+                    sched(r, ablations._cbin_schedule))
+                fold = (ablations.occluded_cbin if any_hit
+                        else ablations.closest_cbin)(r, rows, got, cluster,
+                                                     0.01)
+                pr, jt, tgt, inc, (ng, g, k) = ablations.cbin_pairs(
+                    r, boxes, scale, 0.01, job)
+                res = ablations._cbin_sweep_plain(pr, rows, jt, cluster, job,
+                                                  0.01, any_hit)
+                ref = ((ablations._cbin_reduce_occ(res, tgt, n, ng, g, k),)
+                       if any_hit else
+                       ablations._cbin_reduce(*res, tgt, n, ng, g, k))
+                fold = (fold,) if any_hit else fold
+                torch.cuda.synchronize()
+                if not all(torch.equal(a[~inc], b[~inc])
+                           for a, b in zip(fold, ref)):
+                    raise AssertionError(
+                        f"K13 under {caps}: the folded kernel differs from "
+                        "the reference's reduce on a complete lane")
+                return extra
+            extra = with_caps(caps, layout)
+            say("kernels", f"K13 {'any-hit' if any_hit else 'closest'} under"
+                f" group / pair mult / k / lvl / exact {caps}: schedule "
+                f"{extra}; the fold bitwise equal to _cbin_reduce"
+                f"{'_occ' if any_hit else ''} over cbin_pairs on every "
+                "complete lane")
+    say("kernels", f"K13's schedule and fold under {len(cbin_caps)} cap "
+        f"settings: {time.perf_counter() - t0:.1f} s")
     ids6 = torch.where(t6 < 1e15, rows[row6.long(), 15], 0.0).to(torch.int32)
     for m in (n,) + N_RAGGED:
         oo, dd = o[:m].contiguous(), d[:m].contiguous()
@@ -1808,10 +2009,11 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                     with _env(TPT_STREAM_GUARD=guard):
                         return fn()
                 checks.append((f"K12 {what}, guard {guard}", guarded, want))
-        for caps in ((1, 12, 32), (8, 12, 32), starved):
+        for caps in cbin_caps:
             for what, fn, want in (("closest", cbin_c, want_c),
                                    ("any-hit", cbin_o, want_o)):
-                checks.append((f"K13 {what}, group / pair mult / k {caps}",
+                checks.append((f"K13 {what}, group / pair mult / k / lvl / "
+                               f"exact {caps}",
                                lambda fn=fn, caps=caps: with_caps(caps, fn),
                                want))
         for k in (k14, 2):
@@ -1835,11 +2037,12 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
                 raise AssertionError(f"{what} at {m} rays differs from "
                                      "K6 / K8")
         say("kernels", f"K11 ({len(preds)} predictions), K12 (guard on and "
-            f"off), K13 (3 cap settings, one starved), K14 (k {k14} and 2) "
+            f"off), K13 ({len(cbin_caps)} cap settings, one starved), K14 "
+            f"(k {k14} and 2) "
             f"and K15 (serial, bundled), closest and any-hit paths: "
             f"{len(checks)} results bitwise equal to K6 / K8 on {m} rays")
-    share = float(with_caps(starved, lambda: ablations.cbin_pairs(
-        r8, boxes, scale, 0.01))[3].float().mean())
+    share = float(with_caps(starved, lambda: sched(r8)).incomplete.float()
+                  .mean())
     say("kernels", f"K13 with starved caps (pair mult 1, k 2): "
         f"{share:.4f} of lanes go through the completion pass")
     if share < 0.5:
@@ -1928,7 +2131,8 @@ def phase_list_caps(device, smi, big, records):
     for what, bx in (("784 boxes", tb.boxes), (f"{n_c} boxes", boxes),
                      ("8,192 boxes", boxes[:8192].contiguous()),
                      ("8,193 boxes", boxes[:8193].contiguous())):
-        for lanes in (occ_rt, ablations.RAY_TILE_C, LIST_CAP_TILE):
+        for lanes in sorted({occ_rt, ablations.STREAM_CLOSEST_TILE,
+                             LIST_CAP_TILE}):
             route = ablations.list_route(bx.shape[0], lanes)
             if route == "shared" and bx.shape[0] != 8192:
                 continue
@@ -1953,6 +2157,26 @@ def phase_list_caps(device, smi, big, records):
         f"stream_candidates {rec['plain_ms_global']:.4f} ms")
     want_t, want_row = k6(o, d)
     want_occ = clustered.occluded_clustered(*shadow, *table, nodes=nodes)
+    # K12's closest hit at tiles of LIST_CAP_TILE on that table, guard on
+    # and off, against K6 and its plain version (the lists past both caps).
+    lists = ablations.stream_lists(r8, boxes, scale, LIST_CAP_TILE, 0.01,
+                                   1e16)
+    for guard in (True, False):
+        got = ablations.closest_streamed(r8, rows, boxes, scale, lists,
+                                         LIST_CAP_TILE, 0.01, 1e16, guard)
+        plain = ablations._streamed_plain(r8, rows, boxes, scale, lists,
+                                          LIST_CAP_TILE, 0.01, 1e16, guard,
+                                          False)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(got, plain))
+                and torch.equal(got[0], want_t)
+                and torch.equal(got[1], want_row)):
+            raise AssertionError(f"closest_streamed on {n_c} clusters at "
+                                 f"tiles of {LIST_CAP_TILE}, guard {guard}:"
+                                 " differs from its plain version or K6")
+    say("caps", f"closest_streamed on {n_c} clusters at tiles of "
+        f"{LIST_CAP_TILE} (lists past both caps), guard on and off: bitwise "
+        "equal to its plain version and K6")
     _zero_counters()
     got_t, got_row = ablations.closest_stream_path(o, d, *table)
     got_occ = ablations.occluded_stream_path(*shadow, *table)
@@ -2022,7 +2246,7 @@ def phase_incoherent(device, smi, big):
     o, d, tmax = _tool("bench_incoherent_torch").make_rays(
         big, INCOHERENT["n"], device)
     for lanes, closest in ((ablations.STREAM_OCC_TILE, False),
-                           (ablations.RAY_TILE_C, True),
+                           (ablations.STREAM_CLOSEST_TILE, True),
                            (ablations.GRP_LANES, True),
                            (ablations.GRP_LANES, False)):
         r8 = ablations.pack_rays(o, d, 1e16 if closest else tmax,
@@ -2573,11 +2797,12 @@ def phase_big_variants(device, smi, big, lean, records):
             raise AssertionError(f"{tag}: stream_lists launched "
                                  f"{counts['stream_lists']} times, not "
                                  f"{builds}")
-        schedules = PAIR_SCHEDULES.get(what, 0) * rounds
-        if counts["pair_schedule"] != schedules:
-            raise AssertionError(f"{tag}: pair_schedule launched "
-                                 f"{counts['pair_schedule']} times, not "
-                                 f"{schedules}")
+        for k, per_round in (("pair_schedule", PAIR_SCHEDULES),
+                             ("cbin_schedule", CBIN_SCHEDULES)):
+            schedules = per_round.get(what, 0) * rounds
+            if counts[k] != schedules:
+                raise AssertionError(f"{tag}: {k} launched {counts[k]} "
+                                     f"times, not {schedules}")
         if not same:
             raise AssertionError(f"{tag}: the frame differs from the lean "
                                  "one (bound: bitwise)")

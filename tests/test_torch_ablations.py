@@ -423,7 +423,11 @@ def test_wrappers_take_cpu_or_cuda_only(mixed_scenes, monkeypatch):
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ablations.closest_streamed(meta, rows, boxes, 1.0, None, 64, 0.01)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        ablations.occluded_cbin(meta, rows, None, 64, 64, 0.01)
+        ablations.occluded_cbin(meta, rows, None, 64, 0.01)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ablations.closest_cbin(meta, rows, None, 64, 0.01)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ablations.cbin_schedule(meta, boxes, 1.0, 0.01)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ablations.closest_rotated(meta[:, :3], meta[:, :3], rows, boxes, 1.0,
                                   None, 64, 0.01)
@@ -440,7 +444,8 @@ def test_wrappers_take_cpu_or_cuda_only(mixed_scenes, monkeypatch):
     assert set(ablations.LAUNCHES) == {
         "closest_rotated", "closest_streamed", "occluded_streamed",
         "closest_cbin", "occluded_cbin", "closest_binned", "occluded_binned",
-        "closest_grp", "occluded_grp", "stream_lists", "pair_schedule"}
+        "closest_grp", "occluded_grp", "stream_lists", "pair_schedule",
+        "cbin_schedule"}
     assert not any(ablations.LAUNCHES.values())
 
 

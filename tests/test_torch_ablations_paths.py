@@ -62,7 +62,7 @@ def test_streamed_matches_dense_and_reference(mixed_scenes, monkeypatch,
     own tile (``STREAM_OCC_TILE``)."""
     jscene, tscene = mixed_scenes
     _shrink(monkeypatch)
-    monkeypatch.setattr(ablations, "RAY_TILE_C", 64)
+    monkeypatch.setattr(ablations, "STREAM_CLOSEST_TILE", 64)
     monkeypatch.setattr(ablations, "STREAM_OCC_TILE", occ_tile)
     monkeypatch.setenv("TPT_STREAM", "1")
     monkeypatch.setenv("TPT_STREAM_GUARD", guard)

@@ -20,7 +20,7 @@ Times are device times from CUDA events, not the host clock. Each path is
 timed in turn with the default one (default, path, path, default), since
 the host's speed drifts within a run; the schedule builds of K12-K15
 (``stream_lists``, on the card, for K12's and K15's lists;
-``cbin_pairs``, ``_pair_schedule``) and their kernels are also timed
+``cbin_schedule``, ``pair_schedule``) and their kernels are also timed
 apart.
 Every path's result must equal the default path's, bit for bit.
 
@@ -127,9 +127,10 @@ def _parts(tables, o, d, tmax, name: str, occluded: bool, reps: int) -> dict:
         _, build, kernel = ablations.cbin_steps(o, d, bound, *table, 0.01,
                                                 occluded)
         schedule = build()
-        _, jtab, _, incomplete, _ = schedule
+        jtab = schedule.jtab
         extra = dict(jobs=int((jtab >= 0).sum()), job_cap=int(jtab.shape[0]),
-                     incomplete_share=float(incomplete.float().mean()))
+                     incomplete_share=float(
+                         schedule.incomplete.float().mean()))
     elif name == "K14":
         _, build, kernel = ablations.binned_steps(o, d, bound, *table, 0.01,
                                                   occluded)

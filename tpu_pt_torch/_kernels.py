@@ -78,8 +78,8 @@ _SIGNATURES = {
     "ablations_intersect": {
         "tpt_closest_rotated": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                 _F, _F, _P, _P, _P),
-        "tpt_closest_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _F, _F, _F, _F, _I, _P, _P, _P),
+        "tpt_closest_streamed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _F, _F, _F, _F, _I, _P, _P, _I, _P),
         "tpt_occluded_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _F, _F, _F, _I, _P, _I, _P),
         "tpt_stream_candidates": (_P, _P, _F, _P, _I, _I, _I, _F, _F, _F, _P,
@@ -87,8 +87,13 @@ _SIGNATURES = {
         "tpt_stream_candidates_global": (_P, _P, _F, _P, _I, _I, _I, _F, _F,
                                          _F, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P),
-        "tpt_closest_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P),
-        "tpt_occluded_cbin": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
+        "tpt_cbin_schedule": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P),
+        "tpt_closest_cbin": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
+                             _P, _P),
+        "tpt_occluded_cbin": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+                              _P),
     },
     "ablations_binned": {
         "tpt_pair_schedule": (_P, _P, _F, _P, _I, _I, _I, _I, _I, _F, _F, _F,

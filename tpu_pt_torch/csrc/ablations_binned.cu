@@ -96,6 +96,7 @@
 // trip count is a block vote.
 
 #include "pe_block.cuh"
+#include "runs.cuh"
 
 #include <cuda_pipeline.h>
 
@@ -118,7 +119,6 @@ using tpt::box_passes;
 
 constexpr int kSelThreads = 128;   // rays a block of the select step
 constexpr int kSelBoxes = 1024;    // boxes it stages at a time (32 KB)
-constexpr int kLayoutThreads = 1024;
 
 // The order-preserving bits of a float as ablations._order_bits forms
 // them (a signed int; -0.0 below +0.0), offset so that unsigned order is
@@ -229,58 +229,11 @@ pair_select_kernel(const float* __restrict__ rays,
   overflow[i] = count > k ? 1 : 0;
 }
 
-// Step 2, layout: one block scans the clusters' tile counts
-// ceil(per_c / tile) into tile_end (inclusive) and each run's first slot
-// into cursor.
-__global__ void __launch_bounds__(kLayoutThreads)
-pair_layout_kernel(const int* __restrict__ per_c, int n_boxes, int tile,
-                   int* __restrict__ tile_end, int* __restrict__ cursor) {
-  __shared__ int s_warp[kLayoutThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int carry = 0;
-  for (int c0 = 0; c0 < n_boxes; c0 += blockDim.x) {
-    const int c = c0 + tid;
-    const int v = c < n_boxes ? (per_c[c] + tile - 1) / tile : 0;
-    int incl = v;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += up;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    int before = 0, chunk = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-      if (w < warp) before += s_warp[w];
-      chunk += s_warp[w];
-    }
-    incl += carry + before;
-    if (c < n_boxes) {
-      tile_end[c] = incl;
-      cursor[c] = (incl - v) * tile;
-    }
-    carry += chunk;
-    __syncthreads();  // s_warp is rewritten next chunk
-  }
-}
-
-// Step 2, tiles: tile j goes against the first cluster whose runs end
-// past it (searchsorted(tile_end, j, right=True)); the tail, past every
-// run, gets n_boxes.
-__global__ void pair_tiles_kernel(const int* __restrict__ tile_end,
-                                  int n_boxes, int n_tiles,
-                                  int* __restrict__ tile_sid) {
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n_tiles;
-       j += gridDim.x * blockDim.x) {
-    int lo = 0, hi = n_boxes;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (tile_end[mid] <= j) lo = mid + 1;
-      else hi = mid;
-    }
-    tile_sid[j] = lo;
-  }
-}
+// Step 2, layout and tiles: tpt::run_layout_kernel scans the clusters'
+// tile counts ceil(per_c / tile) into tile_end (inclusive) and each run's
+// first slot into cursor; tpt::run_owner_kernel gives tile j the first
+// cluster whose runs end past it (searchsorted(tile_end, j, right=True)),
+// the tail past every run n_boxes.
 
 // Step 3, place: pair p (ray p / k) takes the next slot of its cluster's
 // run. The order within a run is the order of the atomics; the kernels
@@ -294,11 +247,6 @@ __global__ void pair_place_kernel(const int* __restrict__ near, int n_pairs,
     const int c = near[p];
     if (c < n_boxes) pair_ray[atomicAdd(cursor + c, 1)] = p / k;
   }
-}
-
-inline unsigned stride_grid(long long count) {
-  const long long blocks = (count + 255) / 256;
-  return (unsigned)(blocks < 1 ? 1 : (blocks < 132 * 16 ? blocks : 132 * 16));
 }
 
 // ------------------------------------------------------------------ binned
@@ -604,12 +552,12 @@ int tpt_pair_schedule(const float* rays, const float* tmax, float tmax_all,
                                     next_tn, overflow, per_c);
       });
     });
-  pair_layout_kernel<<<1, kLayoutThreads, 0, s>>>(per_c, n_boxes, tile,
-                                                  tile_end, cursor);
-  pair_tiles_kernel<<<stride_grid(n_tiles), 256, 0, s>>>(
-      tile_end, n_boxes, (int)n_tiles, tile_sid);
+  tpt::run_layout_kernel<<<1, tpt::kRunLayoutThreads, 0, s>>>(
+      per_c, n_boxes, tile, tile_end, cursor);
+  tpt::run_owner_kernel<<<tpt::run_grid(n_tiles), 256, 0, s>>>(
+      tile_end, n_boxes, (int)n_tiles, n_boxes, tile_sid);
   if (n_pairs > 0)
-    pair_place_kernel<<<stride_grid(n_pairs), 256, 0, s>>>(
+    pair_place_kernel<<<tpt::run_grid(n_pairs), 256, 0, s>>>(
         near, (int)n_pairs, k, n_boxes, cursor, pair_ray);
   return (int)cudaGetLastError();
 }

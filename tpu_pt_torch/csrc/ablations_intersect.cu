@@ -17,9 +17,8 @@
 //                             _closest_call_streamed (:490): one launch; a
 //                             tile of rays shares a list of the boxes any of
 //                             them pierces, sorted by the tile's least entry
-//                             distance, sweeps it through a ring of row
-//                             buffers filled ahead of the sweep, and stops
-//                             at the first key no lane can still use.
+//                             distance, and each ray, a group of lanes, goes
+//                             down it on its own (below).
 //   tpt_occluded_streamed  <- _occluded_kernel_streamed (:275) via
 //                             _occluded_call_streamed (:529): the any-hit
 //                             over the same kind of list, one ray to a
@@ -27,13 +26,18 @@
 //   tpt_stream_candidates  <- stream_candidates (:408), which the JAX
 //                             package builds in XLA outside its kernels:
 //                             the tile lists of both, built on the card.
+//   tpt_cbin_schedule      <- cbin_pairs (:814), which the JAX package
+//                             builds in XLA outside its kernels: the job
+//                             table of both sweeps, built on the card.
 //   tpt_closest_cbin       <- _closest_kernel_cbin (:905) via
-//                             _closest_call_cbin (:948),
+//                             _closest_call_cbin (:948), and the reduce
+//                             _cbin_reduce (:988),
 //   tpt_occluded_cbin      <- _occluded_kernel_cbin (:1014) via
-//                             _occluded_call_cbin (:1054): the grid is a
-//                             list of jobs, each a run of (ray, cluster)
-//                             pair lanes against one cluster; results are
-//                             per pair and reduced per ray outside.
+//                             _occluded_call_cbin (:1054), and
+//                             _cbin_reduce_occ (:1089): the grid is a list
+//                             of jobs, each a run of (ray, cluster) pair
+//                             lanes against one cluster; each lane folds
+//                             its result into its ray's.
 //
 // What was kept of each TPU schedule, and what was not:
 // - rotated: the S chained launches, needed there because a slab had to
@@ -43,17 +47,30 @@
 //   tpt_closest_clustered does, bounded by its best hit so far. A warp
 //   (the unit that diverges) agrees on one first slab by a vote: the most
 //   frequent prediction of its lanes, ties to the lowest slab.
-// - streamed, closest: the list, the keys, the ring (STREAM_BUF = 4 slots
-//   of one cluster, 8 KB each at 128 rows, filled with cp.async), the exact
-//   early break and the per-candidate guard are all kept. The 128-lane
-//   widening of the table is a Mosaic DMA constraint and has no twin. The
-//   break is tightened by one term the list build knows: `far`, a lane's
-//   last entry distance over the boxes it pierces; beyond it the lane takes
-//   part in no candidate, so a lane that misses everything does not hold
-//   its tile.
+// - streamed, closest: the tile's list, its near-first key order, the
+//   exact early break and the per-candidate guard are kept; the tile's
+//   lockstep (a ring of shared row buffers, one block vote for the break
+//   and one for the guard per candidate) is not. One ray goes to a group of
+//   G lanes (walk.cuh) and goes down its tile's list on its own, G
+//   candidates at a time: each lane reads one (key, box) and, with the
+//   guard on, tests its ray's own grown box against it at min(best, tmax);
+//   the group sweeps each candidate that passes, nearest first, its rows
+//   split over the lanes, and folds (t, row) by xor shuffles, ties to the
+//   lowest row (K6's leaf). The break is per ray: the first key beyond
+//   min(best, far), checked again after every swept candidate, as best
+//   shrinks within a chunk; `far` is the ray's last entry distance over the
+//   boxes it pierces, a term the list build knows, so a ray that misses
+//   everything stops at once. Guard off (TPT_STREAM_GUARD=0): every
+//   candidate up to the break is swept. One lane that still needs a far
+//   cluster no longer holds 255 others; any tile width is taken, past the
+//   list build's caps too. Its tile (ablations.STREAM_CLOSEST_TILE) and G
+//   (ablations.stream_closest_group) come from tools/cbin_ab_torch.py's
+//   trial on a frame's calls. The 128-lane widening of the table is a
+//   Mosaic DMA constraint and has no twin.
 // - streamed, any-hit: the tile's list, its near-first key order and the
 //   exact break (key > the lane's min(far, tmax)) are kept; the tile's
-//   lockstep is not. One ray goes to a group of G lanes (walk.cuh), and
+//   lockstep is not. As the closest side, one ray goes to a group of G
+//   lanes, and
 //   each group goes down its tile's list on its own: G candidates at a
 //   time, each lane reading one (key, box) through L2 and, with the guard
 //   on, testing its ray's own grown box against it; a ballot gives the
@@ -85,15 +102,32 @@
 //   block sorts its run of (key bits, id), every box's, in shared memory,
 //   and merge passes in device memory (each entry to its rank in the merge
 //   of two runs, by a binary search in the other) give each tile's order.
-// - cbin: the job table and the per-pair layout are kept (cbin_pairs builds
-//   them in plain PyTorch); blocks run in any order, so the one-job-ahead
-//   row prefetch across grid steps has no twin: a block stages its cluster
-//   once and every thread sweeps it for its pair ray.
+// - cbin: the per-group lists, the cluster-major jobs, the job table, the
+//   pair budget and the incomplete lanes are kept, built on the card
+//   (tpt_cbin_schedule; ablations.cbin_pairs, the reference's eager build,
+//   is its plain version): a group of W lanes builds a group's list with a
+//   ballot and a popcount per chunk of candidates, in ascending id order,
+//   with no sort; the per-cluster counts are atomics; one block lays out the
+//   runs of jobs (runs.cuh, as K14's schedule); each (group, cluster) pair
+//   takes the next slot of its run by an atomic. A slot holds its group's
+//   index, and the sweep gathers the ray from the packed rays: the
+//   [P_cap, 8] copy of pair rays and the reduce targets are gone. The
+//   reference's reduce (a scatter to (group, rank) cells, then a min over
+//   the ranks) becomes the fold inside the sweep: one 64-bit atomicMin a
+//   pair lane with a hit, on (float bits of t) << 32 | row, the order-free
+//   lexicographic minimum (K14's fold); the any-hit's OR a store of 1, and
+//   a lane whose ray is already blocked skips its sweep. The job width RT
+//   is a template parameter (64, 128, 256; ablations.CBIN_JOB_TILE from
+//   tools/cbin_ab_torch.py's trial on a frame's calls): RAY_TILE_C = 256 is
+//   a TPU lane layout, and coherent rays give most clusters fewer pairs.
+//   Blocks run in any order, so the one-job-ahead row prefetch across grid
+//   steps has no twin: a block stages its cluster once and every thread
+//   sweeps it for its pair's ray.
 //
 // What bounds them on this card: FP32 ALU, as the other clustered kernels.
-// The streamed and binned kernels sweep rows from shared memory without
-// divergence inside a block, but a streamed block sweeps the union of its
-// lanes' boxes, and a binned launch sweeps every padded pair lane.
+// The binned sweeps run rows from shared memory without divergence inside
+// a block, but a launch sweeps every padded pair lane; the streamed
+// groups diverge where rays' lists part, and read rows through L1 / L2.
 //
 // Correctness: results are bitwise those of a dense sweep over every row
 // with ties to the lowest packed row. The three closest kernels replace the
@@ -105,22 +139,21 @@
 // tied hit on a lower row. Built with --fmad=false; the per-pair test is
 // pe_test of pe_block.cuh.
 //
-// Barriers: every thread of a block, live, parked or past n_rays, reaches
-// every barrier; trip counts and break conditions come from block votes.
-// The any-hit's groups reach no barrier: a group's branches are uniform
-// over its lanes, which hold the same ray.
+// Barriers: in the list build every thread of a block, live, parked or
+// past n_rays, reaches every barrier; trip counts come from block votes.
+// The streamed groups and the cbin list groups reach no barrier: a group's
+// branches are uniform over its lanes, which hold the same ray (or ray
+// group). A cbin sweep's empty job leaves before its only barrier, as a
+// whole block.
 
+#include "runs.cuh"
 #include "walk.cuh"
-
-#include <cuda_pipeline.h>
 
 #include <cstring>
 
 namespace {
 
-constexpr int kMaxTile = 256;     // lanes per streamed tile / binned job
-constexpr int kMaxCluster = 128;  // rows per cluster the row buffers hold
-constexpr int kRing = 4;          // ablations.STREAM_BUF
+constexpr int kMaxCluster = 128;  // rows per cluster K13 stages
 constexpr int kRotThreads = 128;
 using tpt::kTFar;
 using tpt::load_ray;
@@ -185,90 +218,100 @@ closest_rotated_kernel(const float* __restrict__ orig,
 
 // --------------------------------------------------------------- streamed
 
-// Start the copy of cluster c's rows into a ring slot (16 bytes a request,
-// the block's threads side by side).
-__device__ __forceinline__ void ring_fill(float4* slot,
-                                           const float* __restrict__ tris,
-                                           int c, int cluster) {
-  const float4* src =
-      reinterpret_cast<const float4*>(tris) + 4 * (size_t)c * cluster;
-  for (int k = threadIdx.x; k < cluster * 4; k += blockDim.x)
-    __pipeline_memcpy_async(slot + k, src + k, sizeof(float4));
-}
-
-// Tile `blockIdx.x` holds lanes [tile * blockDim.x, ...). `cand` and `keys`
-// are [tiles, n_boxes]: the tile's boxes in ascending key order and their
-// keys, of which the first cnt[tile] are listed; `last_key` [>= tiles *
-// blockDim.x] is each lane's last entry distance over the boxes it pierces
-// (-3e38: none).
-__global__ void __launch_bounds__(kMaxTile)
-closest_streamed_kernel(const float* __restrict__ orig,
-                        const float* __restrict__ dir,
+// Ray i of the packed rays [n_rays, 8]; its list is its tile's, tile
+// i / rt: `cand` and `keys` are [tiles, n_boxes], the tile's boxes in
+// ascending key order and their keys, of which the first cnt[tile] are
+// listed; `last_key` [n_rays] is each ray's last entry distance over the
+// boxes it pierces (-3e38: none). One ray to a group of G lanes.
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
+closest_streamed_kernel(const float* __restrict__ rays,
                         const float* __restrict__ tris,
                         const float* __restrict__ boxes,
                         const int* __restrict__ cand,
                         const float* __restrict__ keys,
                         const int* __restrict__ cnt,
                         const float* __restrict__ last_key, int n_rays,
-                        int n_boxes, int cluster, float scale, float margin,
-                        float tmin, float tmax, int guard,
+                        int n_boxes, int cluster, int rt, float scale,
+                        float margin, float tmin, float tmax, int guard,
                         float* __restrict__ t_out, int* __restrict__ row_out) {
-  __shared__ float4 s_rows[kRing][kMaxCluster * 4];
-  const int tile = blockIdx.x;
-  const int i = tile * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  const Ray r = live ? load_ray(orig, dir, i) : Ray{0, 0, 0, 0, 0, 0};
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;  // whole groups leave together
+  float tm_unused;
+  const Ray r = tpt::load_ray8(rays, i, &tm_unused);
   const Slab s = tpt::make_slab(r);
   const float m = margin * (scale + max_abs_origin(r));
-  const float lane_far = live ? last_key[i] : -3e38f;
+  const float lane_far = __ldg(last_key + i);
   const float4* bx = reinterpret_cast<const float4*>(boxes);
+  const float4* rows = reinterpret_cast<const float4*>(tris);
+  const int tile = i / rt;
   const int* list = cand + (size_t)tile * n_boxes;
   const float* key = keys + (size_t)tile * n_boxes;
-  const int ncand = min(max(cnt[tile], 0), n_boxes);
-
-  for (int j = 0; j < kRing - 1; ++j) {
-    if (j < ncand) ring_fill(s_rows[j], tris, list[j], cluster);
-    __pipeline_commit();
-  }
+  const int ncand = min(max(__ldg(cnt + tile), 0), n_boxes);
+  const unsigned all = G == 32 ? 0xffffffffu : (1u << (G & 31)) - 1u;
   float best = kTFar;
   int best_row = 0;
-  for (int k = 0; k < ncand; ++k) {
-    // Keys ascend, and a lane enters no later box before its key: once the
-    // key is beyond every lane's best t (or its last entry), nothing left
-    // can improve or tie. The vote is also the barrier that ends every
-    // read of the slot refilled below.
-    const float kk = key[k];
-    if (!__syncthreads_or(live && kk <= fminf(best, lane_far))) break;
-    const int ahead = k + kRing - 1;
-    if (ahead < ncand)
-      ring_fill(s_rows[ahead % kRing], tris, list[ahead], cluster);
-    __pipeline_commit();
-    __pipeline_wait_prior(kRing - 1);  // this thread's share of candidate k
-    const int c = list[k];
-    // The barrier that makes every thread's share visible; with the guard
-    // it also asks whether any lane can still find something in this box.
-    bool useful = true;
-    if (guard)
-      useful = __syncthreads_or(
-          live && box_passes(r, s, m, bx, c, tmin, fminf(best, tmax)));
-    else
-      __syncthreads();
-    if (!useful || !live) continue;
-    const float4* rows = s_rows[k % kRing];
-    const int row0 = c * cluster;
-    for (int j = 0; j < cluster; ++j) {
-      float t = pe_test(r, rows[4 * j], rows[4 * j + 1], rows[4 * j + 2],
-                        tmin);
-      if (!(t < tmax)) t = kTFar;
-      const int row = row0 + j;
-      if (t < best || (t == best && row < best_row)) {
-        best = t;
-        best_row = row;
+  bool done = false;
+  for (int k0 = 0; k0 < ncand && !done; k0 += G) {
+    // Keys ascend, and the ray enters no box before its key: the
+    // candidates it can still use are the chunk's first ones, up to the
+    // first key beyond min(best, last entry). A key equal to best is
+    // still swept: its box may hold a tied hit on a lower row.
+    const int k = k0 + g.lane;
+    const float kk = k < ncand ? __ldg(key + k) : 0.0f;
+    const bool live = k < ncand && kk <= fminf(best, lane_far);
+    const int c = live ? __ldg(list + k) : 0;
+    // The guard: this lane's test of its ray's grown box against its
+    // candidate; the entry is held against the bound again below, since
+    // best shrinks within the chunk.
+    float tn = 0.0f;
+    const bool enters =
+        live && (!guard || tpt::slab_enter(r, s, __ldg(bx + 2 * (size_t)c),
+                                           __ldg(bx + 2 * (size_t)c + 1), m,
+                                           tmin, &tn));
+    const unsigned usable = tpt::group_ballot(g, live);
+    unsigned pass = tpt::group_ballot(
+        g, enters && (!guard || tn <= fminf(best, tmax)));
+    while (pass != 0u) {
+      const int j = __ffs(pass) - 1;
+      pass &= pass - 1u;
+      if (__shfl_sync(g.mask, kk, j, G) > fminf(best, lane_far)) {
+        done = true;  // the break, checked after every swept candidate
+        break;
       }
+      if (guard && !(__shfl_sync(g.mask, tn, j, G) <= fminf(best, tmax)))
+        continue;
+      // The group sweeps the cluster, every G-th row a lane, and folds its
+      // (t, row) by xor shuffles, ties to the lowest row (K6's leaf).
+      const int base = __shfl_sync(g.mask, c, j, G) * cluster;
+      float tl = best;
+      int rl = best_row;
+      for (int q = g.lane; q < cluster; q += G) {
+        const int row = base + q;
+        const float4* p = rows + 4 * (size_t)row;
+        float t = pe_test(r, __ldg(p), __ldg(p + 1), __ldg(p + 2), tmin);
+        if (!(t < tmax)) t = kTFar;
+        if (t < tl || (t == tl && row < rl)) {
+          tl = t;
+          rl = row;
+        }
+      }
+#pragma unroll
+      for (int off = G / 2; off >= 1; off >>= 1) {
+        const float to = __shfl_xor_sync(g.mask, tl, off, G);
+        const int ro = __shfl_xor_sync(g.mask, rl, off, G);
+        if (to < tl || (to == tl && ro < rl)) {
+          tl = to;
+          rl = ro;
+        }
+      }
+      best = tl;
+      best_row = rl;
     }
+    if (usable != all) break;  // the break, or the list's end
   }
-  __pipeline_wait_prior(0);
-  if (!live) return;
+  if (g.lane != 0) return;
   t_out[i] = best;
   row_out[i] = best < kTFar ? best_row : 0;
 }
@@ -670,62 +713,335 @@ __global__ void list_emit_kernel(const unsigned long long* __restrict__ sorted,
   }
 }
 
-// Blocks of a grid-stride pass over `count` items, 256 threads each.
-inline unsigned stride_grid(size_t count) {
-  const size_t blocks = (count + 255) / 256;
-  return (unsigned)(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
+
+// ---------------------------------------------------------- cbin schedule
+//
+// ablations.cbin_pairs' work, built on the card: each group of g rays that
+// shares a work list gets the ascending ids of the first k clusters its
+// group test passes (cbin_lists), the per-cluster counts become runs of
+// whole jobs of RT / g group-pairs laid out cluster after cluster
+// (runs.cuh), and each (group, cluster) pair takes the next slot of its
+// cluster's run (cbin_place). jtab and incomplete are bitwise cbin_pairs';
+// a slot holds its group (-1: padding), not a copy of its rays, and the
+// order within a run is the atomics'.
+
+constexpr int kCbinThreads = 256;
+constexpr int kCbinK1Max = 64;  // ablations.CBIN_K1_MAX
+constexpr float kBig = 3e38f;   // ablations._BIG
+
+// A group's interval bounds (ablations._cbin_ray_bounds): per axis the
+// least and largest origin and reciprocal direction over its live members
+// (origin x < 1e7), their largest tmax and margin, and whether any lives.
+struct GroupBounds {
+  float olo[3], ohi[3], ilo[3], ihi[3];
+  float tmax, m;
+  bool live;
+};
+
+template <int W>
+__device__ __forceinline__ float group_min(const tpt::Group& g, float v) {
+#pragma unroll
+  for (int off = W / 2; off >= 1; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(g.mask, v, off, W));
+  return v;
 }
 
-// ----------------------------------------------------------------- binned
+template <int W>
+__device__ __forceinline__ float group_max(const tpt::Group& g, float v) {
+#pragma unroll
+  for (int off = W / 2; off >= 1; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(g.mask, v, off, W));
+  return v;
+}
 
-// Job `blockIdx.x` is pair lanes [job * blockDim.x, ...) against cluster
-// jtab[job]; -1 marks an empty job.
-__global__ void __launch_bounds__(kMaxTile)
-closest_cbin_kernel(const float* __restrict__ pair_rays,
-                    const float* __restrict__ tris,
-                    const int* __restrict__ jtab, int cluster, float tmin,
-                    float* __restrict__ t_out, int* __restrict__ row_out) {
+// Every lane of the group holds one member (several lanes may hold the
+// same one: a minimum or maximum does not mind).
+template <int W>
+__device__ __forceinline__ GroupBounds group_bounds(const tpt::Group& g,
+                                                    const Ray& r,
+                                                    const Slab& s, float tm,
+                                                    float m) {
+  const bool parked = r.ox >= 1.0e7f;
+  const float o[3] = {r.ox, r.oy, r.oz}, inv[3] = {s.ix, s.iy, s.iz};
+  GroupBounds b;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b.olo[a] = group_min<W>(g, parked ? kBig : o[a]);
+    b.ohi[a] = group_max<W>(g, parked ? -kBig : o[a]);
+    b.ilo[a] = group_min<W>(g, parked ? kBig : inv[a]);
+    b.ihi[a] = group_max<W>(g, parked ? -kBig : inv[a]);
+  }
+  b.tmax = group_max<W>(g, parked ? -kBig : tm);
+  b.m = group_max<W>(g, parked ? 0.0f : m);
+  b.live = tpt::group_ballot(g, !parked) != 0u;
+  return b;
+}
+
+// ablations._interval_slab of a group against the box (lo, hi), grown by
+// the group's margin: per axis the eight endpoint products of (face - o) x
+// inv bound every member's entry from below and exit from above.
+__device__ __forceinline__ bool interval_passes(const GroupBounds& b,
+                                                const float lo[3],
+                                                const float hi[3],
+                                                float tmin) {
+  float tn = 0.0f, tf = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float lo_a = lo[a] - b.m, hi_a = hi[a] + b.m;
+    const float f[4] = {lo_a - b.ohi[a], lo_a - b.olo[a], hi_a - b.ohi[a],
+                        hi_a - b.olo[a]};
+    float pmin = f[0] * b.ilo[a], pmax = pmin;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float p0 = f[q] * b.ilo[a], p1 = f[q] * b.ihi[a];
+      pmin = fminf(pmin, fminf(p0, p1));
+      pmax = fmaxf(pmax, fmaxf(p0, p1));
+    }
+    tn = a == 0 ? pmin : fmaxf(tn, pmin);
+    tf = a == 0 ? pmax : fminf(tf, pmax);
+  }
+  return tn <= tf && tf > tmin && tn <= b.tmax && b.live;
+}
+
+__device__ __forceinline__ void load_box(const float* __restrict__ boxes,
+                                         int id, float lo[3], float hi[3]) {
+  const float4* q = reinterpret_cast<const float4*>(boxes) + 2 * (size_t)id;
+  const float4 a = __ldg(q), b = __ldg(q + 1);
+  lo[0] = a.x;
+  lo[1] = a.y;
+  lo[2] = a.z;
+  hi[0] = a.w;
+  hi[1] = b.x;
+  hi[2] = b.y;
+}
+
+// The parent boxes of the two-level lists: parent p spans boxes
+// [p * fan, p * fan + fan), the missing ones past n_boxes padded with
+// lo = 3e38 and hi = -3e38 (an exact min / max).
+__global__ void cbin_parents_kernel(const float* __restrict__ boxes,
+                                    int n_boxes, int fan, int n_parents,
+                                    float* __restrict__ parents) {
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_parents;
+       p += gridDim.x * blockDim.x) {
+    float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
+    for (int j = 0; j < fan; ++j) {
+      const int c = p * fan + j;
+      if (c >= n_boxes) break;
+      float bl[3], bh[3];
+      load_box(boxes, c, bl, bh);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = fminf(lo[a], bl[a]);
+        hi[a] = fmaxf(hi[a], bh[a]);
+      }
+    }
+    float* out = parents + 8 * (size_t)p;
+    for (int a = 0; a < 3; ++a) {
+      out[a] = lo[a];
+      out[3 + a] = hi[a];
+    }
+    out[6] = out[7] = 0.0f;
+  }
+}
+
+// The group tests of ablations._cbin_lists.
+enum CbinMode { kFlatInterval = 0, kFlatExact = 1, kTwoLevel = 2 };
+
+// Step 1, lists: W lanes (a part of a warp, W >= g) a group of g rays,
+// lane l holding member l % g. The group walks its candidates (boxes,
+// parents, the kept parents' children) in ascending order, W / seg at a
+// time: with the interval test (seg = 1) each lane tests one candidate
+// against the group's bounds; with the exact union (seg = g) g lanes test
+// one candidate, each for its own member (ablations._ray_box_test, the
+// list build's slab_enter). A ballot gives the candidates that pass, and
+// the passing ones take the next ranks in ascending order (a popcount of
+// the passing ones before them): the first `cap` are kept, the rest only
+// counted. Writes the group's list (c_list [n_groups, k], ascending ids;
+// in the two-level mode ids past n_boxes may appear, as the reference's
+// padded children pass the interval test), its length min(count, k) to
+// n_list, whether a cap cut it to inc_out, and counts each kept id below
+// n_boxes into per_c (atomicAdd). Groups leave whole; no block barrier.
+template <int W>
+__global__ void __launch_bounds__(kCbinThreads)
+cbin_lists_kernel(const float* __restrict__ rays,
+                  const float* __restrict__ boxes,
+                  const float* __restrict__ parents, int n_groups, int g,
+                  int n_boxes, int k, int mode, int fan, int n_parents,
+                  int k1, float scale, float margin, float tmin,
+                  int* __restrict__ c_list, int* __restrict__ n_list,
+                  uint8_t* __restrict__ inc_out, int* __restrict__ per_c) {
+  __shared__ int s_par[kCbinThreads / W][kCbinK1Max];
+  const tpt::Group grp = tpt::group_of_thread<W>();
+  const int q = (int)(((size_t)blockIdx.x * kCbinThreads + threadIdx.x) / W);
+  if (q >= n_groups) return;  // whole groups leave together
+  float tm;
+  const Ray r = tpt::load_ray8(rays, q * g + grp.lane % g, &tm);
+  const Slab s = tpt::make_slab(r);
+  const float m = margin * (scale + max_abs_origin(r));
+  GroupBounds b{};
+  if (mode != kFlatExact) b = group_bounds<W>(grp, r, s, tm, m);
+
+  // The ballot-and-popcount compaction of n_items candidates, seg lanes a
+  // candidate; returns how many pass.
+  auto compact = [&](int n_items, int seg, auto test, auto emit) {
+    const int per_chunk = W / seg, lead = grp.lane / seg * seg;
+    const unsigned seg_mask = seg == 32 ? 0xffffffffu : (1u << seg) - 1u;
+    int base = 0;
+    for (int x0 = 0; x0 < n_items; x0 += per_chunk) {
+      const int x = x0 + grp.lane / seg;
+      const bool ok = x < n_items && test(x);
+      const unsigned votes = tpt::group_ballot(grp, ok);
+      const bool head =
+          grp.lane == lead && ((votes >> lead) & seg_mask) != 0u;
+      const unsigned heads = tpt::group_ballot(grp, head);
+      if (head) emit(base + __popc(heads & ((1u << grp.lane) - 1u)), x);
+      base += __popc(heads);
+    }
+    return base;
+  };
+  auto keep = [&](int rank, int id) {
+    if (rank >= k) return;
+    c_list[(size_t)q * k + rank] = id;
+    if (id < n_boxes) atomicAdd(per_c + id, 1);
+  };
+
+  int count;
+  bool cut;
+  if (mode != kTwoLevel) {
+    const bool exact = mode == kFlatExact;
+    count = compact(n_boxes, exact ? g : 1, [&](int x) {
+      float lo[3], hi[3];
+      if (!exact) {
+        load_box(boxes, x, lo, hi);
+        return interval_passes(b, lo, hi, tmin);
+      }
+      const float4* bq = reinterpret_cast<const float4*>(boxes) + 2 * (size_t)x;
+      float tn;
+      return tpt::slab_enter(r, s, __ldg(bq), __ldg(bq + 1), m, tmin, &tn) &&
+             tn <= tm;
+    }, keep);
+    cut = count > k;
+  } else {
+    int* kept = s_par[grp.slot];
+    const int count1 = compact(n_parents, 1, [&](int x) {
+      float lo[3], hi[3];
+      load_box(parents, x, lo, hi);
+      return interval_passes(b, lo, hi, tmin);
+    }, [&](int rank, int x) {
+      if (rank < k1) kept[rank] = x;
+    });
+    __syncwarp(grp.mask);
+    const int n_kept = min(count1, k1);
+    auto child = [&](int x) { return kept[x / fan] * fan + x % fan; };
+    count = compact(n_kept * fan, 1, [&](int x) {
+      const int id = child(x);
+      float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
+      if (id < n_boxes) load_box(boxes, id, lo, hi);
+      return interval_passes(b, lo, hi, tmin);
+    }, [&](int rank, int x) { keep(rank, child(x)); });
+    cut = count1 > k1 || count > k;
+  }
+  if (grp.lane != 0) return;
+  n_list[q] = min(count, k);
+  inc_out[q] = cut ? 1 : 0;
+}
+
+// Step 3, place: one thread a group. Each listed cluster below n_boxes
+// takes the next slot of its run (cursor, an atomic); a slot past the
+// budget (the jobs past j_cap) is dropped. The group's lanes are
+// incomplete when a cap cut its list or one of its clusters' runs ends
+// past j_cap (an id past n_boxes counts as cluster n_boxes - 1, as
+// cbin_pairs' clamp has it).
+__global__ void cbin_place_kernel(const int* __restrict__ c_list,
+                                  const int* __restrict__ n_list,
+                                  const uint8_t* __restrict__ inc_lists,
+                                  const int* __restrict__ job_end,
+                                  int* __restrict__ cursor, int n_groups,
+                                  int g, int k, int n_boxes, int j_cap,
+                                  int n_slots, int* __restrict__ slot_group,
+                                  uint8_t* __restrict__ incomplete) {
+  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < n_groups;
+       q += gridDim.x * blockDim.x) {
+    bool bad = inc_lists[q] != 0;
+    const int n = n_list[q];
+    for (int e = 0; e < n; ++e) {
+      const int c = c_list[(size_t)q * k + e];
+      if (job_end[min(c, n_boxes - 1)] > j_cap) bad = true;
+      if (c >= n_boxes) continue;
+      const int slot = atomicAdd(cursor + c, 1);
+      if (slot < n_slots) slot_group[slot] = q;
+    }
+    for (int j = 0; j < g; ++j) incomplete[(size_t)q * g + j] = bad ? 1 : 0;
+  }
+}
+
+// ------------------------------------------------------------- cbin sweep
+
+// Job `blockIdx.x` is RT pair lanes against cluster jtab[job] (-1: an empty
+// job); slot `job * (RT / g) + lane / g` holds its group (-1: padding), and
+// the lane sweeps ray group * g + lane % g of the packed rays. Closest:
+// the lane folds its (t, row) into its ray's key (float bits of t) << 32 |
+// row with one 64-bit atomicMin (every hit has t > tmin > 0, so the key
+// orders as (t, row) does); `key` starts at all ones (a miss). Any-hit:
+// the lane stores 1 into its ray's flag, and skips the sweep when the flag
+// is already set.
+template <int RT, bool kAny>
+__global__ void __launch_bounds__(RT)
+cbin_sweep_kernel(const float* __restrict__ rays,
+                  const float* __restrict__ tris,
+                  const int* __restrict__ jtab,
+                  const int* __restrict__ slot_group, int g, int cluster,
+                  float tmin, unsigned long long* __restrict__ key,
+                  uint8_t* __restrict__ occ) {
   __shared__ float4 s_rows[kMaxCluster * 4];
   const int c = jtab[blockIdx.x];
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < 0) {  // the whole block leaves: no barrier follows
-    t_out[p] = kTFar;
-    row_out[p] = 0;
-    return;
-  }
+  if (c < 0) return;  // the whole block leaves: no barrier follows
   tpt::stage_rows(s_rows, tris, c * cluster, cluster);
   __syncthreads();
+  const int q = slot_group[(size_t)blockIdx.x * (RT / g) + threadIdx.x / g];
+  if (q < 0) return;
+  const int i = q * g + threadIdx.x % g;
   float tm;
-  const Ray r = tpt::load_ray8(pair_rays, p, &tm);
+  const Ray r = tpt::load_ray8(rays, i, &tm);
+  if (kAny) {
+    if (occ[i] != 0) return;
+    if (tpt::blocked_staged(r, s_rows, cluster, tmin, tm)) occ[i] = 1;
+    return;
+  }
   int sub;
   const float best = tpt::sweep_staged(r, s_rows, cluster, tmin, &sub);
-  t_out[p] = best;
-  row_out[p] = c * cluster + sub;
+  if (best < kTFar)
+    atomicMin(key + i, ((unsigned long long)__float_as_uint(best) << 32) |
+                           (unsigned)(c * cluster + sub));
 }
 
-__global__ void __launch_bounds__(kMaxTile)
-occluded_cbin_kernel(const float* __restrict__ pair_rays,
-                     const float* __restrict__ tris,
-                     const int* __restrict__ jtab, int cluster, float tmin,
-                     int* __restrict__ occ_out) {
-  __shared__ float4 s_rows[kMaxCluster * 4];
-  const int c = jtab[blockIdx.x];
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < 0) {
-    occ_out[p] = 0;
-    return;
+// The per-ray (t, row) of the folded keys: all ones is a miss (T_FAR,
+// row 0).
+__global__ void cbin_unpack_kernel(const unsigned long long* __restrict__ key,
+                                   int n_rays, float* __restrict__ t_out,
+                                   int* __restrict__ row_out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_rays;
+       i += gridDim.x * blockDim.x) {
+    const unsigned long long x = key[i];
+    const bool hit = x != ~0ull;
+    t_out[i] = hit ? __uint_as_float((unsigned)(x >> 32)) : kTFar;
+    row_out[i] = hit ? (int)(unsigned)(x & 0xffffffffu) : 0;
   }
-  tpt::stage_rows(s_rows, tris, c * cluster, cluster);
-  __syncthreads();
-  float tm;
-  const Ray r = tpt::load_ray8(pair_rays, p, &tm);
-  occ_out[p] = tpt::blocked_staged(r, s_rows, cluster, tmin, tm) ? 1 : 0;
 }
 
-inline bool bad_tile(int rt, int cluster) {
-  return rt < 32 || rt > kMaxTile || rt % 32 || cluster < 1 ||
-         cluster > kMaxCluster;
+// Calls launch(std::integral_constant<int, RT>()) for a job width built
+// here (ablations.CBIN_JOB_TILES); false for any other.
+template <class Launch>
+bool with_job(int rt, Launch launch) {
+  switch (rt) {
+    case 64: launch(std::integral_constant<int, 64>()); return true;
+    case 128: launch(std::integral_constant<int, 128>()); return true;
+    case 256: launch(std::integral_constant<int, 256>()); return true;
+    default: return false;
+  }
 }
+
+inline bool power_of_two(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
 }  // namespace
 
@@ -733,10 +1049,9 @@ extern "C" {
 
 // Each entry point launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() as an int (0 = success), or
-// cudaErrorInvalidValue for a tile width that is not a multiple of 32 up to
-// 256 or a cluster outside 1..128 (the any-hit: a tile below 1, or a
-// `group` that is not a width built here, 4, 8, 16, 32). Tables as
-// tpt_closest_clustered.
+// cudaErrorInvalidValue for arguments its kernels do not take (below each).
+// Tables as tpt_closest_clustered; packed rays [n, 8] as
+// ablations.pack_rays builds them.
 
 int tpt_closest_rotated(const float* orig, const float* dir,
                         const float* tris, const float* boxes,
@@ -753,21 +1068,31 @@ int tpt_closest_rotated(const float* orig, const float* dir,
   return (int)cudaGetLastError();
 }
 
-int tpt_closest_streamed(const float* orig, const float* dir,
-                         const float* tris, const float* boxes,
-                         const int* cand, const float* keys, const int* cnt,
+// K12 closest over the tile lists of tpt_stream_candidates, `rays`
+// packed [n_rays, 8]: any tile width rt >= 1 (each ray's tile is i / rt),
+// `group` lanes a ray, a width of with_group (4, 8, 16, 32).
+int tpt_closest_streamed(const float* rays, const float* tris,
+                         const float* boxes, const int* cand,
+                         const float* keys, const int* cnt,
                          const float* last_key, int n_rays, int n_boxes,
                          int cluster, int rt, float scale, float margin,
                          float tmin, float tmax, int guard, float* t_out,
-                         int* row_out, void* stream) {
-  if (bad_tile(rt, cluster)) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((n_rays + rt - 1) / rt);
-  closest_streamed_kernel<<<grid, rt, 0, (cudaStream_t)stream>>>(
-      orig, dir, tris, boxes, cand, keys, cnt, last_key, n_rays, n_boxes, cluster,
-      scale, margin, tmin, tmax, guard, t_out, row_out);
-  return (int)cudaGetLastError();
+                         int* row_out, int group, void* stream) {
+  if (rt < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
+  const bool ok = tpt::with_group(group, [&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+    if (n_rays > 0)
+      closest_streamed_kernel<G>
+          <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
+             (cudaStream_t)stream>>>(rays, tris, boxes, cand, keys, cnt,
+                                     last_key, n_rays, n_boxes, cluster, rt,
+                                     scale, margin, tmin, tmax, guard, t_out,
+                                     row_out);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
+// K12 any-hit: a tile width rt >= 1, `group` as above.
 int tpt_occluded_streamed(const float* orig, const float* dir,
                           const float* tmax, const float* tris,
                           const float* boxes, const int* cand,
@@ -842,7 +1167,7 @@ int tpt_stream_candidates_global(const float* rays, const float* tmax,
   int neg_bits;
   std::memcpy(&neg_bits, &neg, sizeof(int));
   neg_bits ^= 0x7fffffff;  // ordered(-3e38): the bits are negative
-  fill_ints<<<stride_grid(n_rays), 256, 0, s>>>(far_bits, n_rays, neg_bits);
+  fill_ints<<<tpt::run_grid(n_rays), 256, 0, s>>>(far_bits, n_rays, neg_bits);
   const dim3 grid((unsigned)tiles, (unsigned)((n_boxes + kRunBoxes - 1) /
                                               kRunBoxes));
   list_runs_kernel<<<grid, kListThreads, 0, s>>>(
@@ -850,34 +1175,118 @@ int tpt_stream_candidates_global(const float* rays, const float* tmax,
       cnt, far_bits, sort_a);
   unsigned long long *src = sort_a, *dst = sort_b;
   for (long long w = kRunBoxes; w < n_boxes; w *= 2) {
-    list_merge_kernel<<<stride_grid(total), 256, 0, s>>>(src, dst, n_boxes,
+    list_merge_kernel<<<tpt::run_grid((long long)total), 256, 0, s>>>(src, dst, n_boxes,
                                                           (int)w, total);
     unsigned long long* t = src;
     src = dst;
     dst = t;
   }
-  list_emit_kernel<<<stride_grid(total > (size_t)n_rays ? total : n_rays),
+  list_emit_kernel<<<tpt::run_grid((long long)(total > (size_t)n_rays ? total : n_rays)),
                      256, 0, s>>>(src, key_of, far_bits, n_boxes, total,
                                   n_rays, cand, keys, last_key);
   return (int)cudaGetLastError();
 }
 
-int tpt_closest_cbin(const float* pair_rays, const float* tris,
-                     const int* jtab, int n_jobs, int cluster, int rt,
-                     float tmin, float* t_out, int* row_out, void* stream) {
-  if (bad_tile(rt, cluster)) return (int)cudaErrorInvalidValue;
-  closest_cbin_kernel<<<(unsigned)n_jobs, rt, 0, (cudaStream_t)stream>>>(
-      pair_rays, tris, jtab, cluster, tmin, t_out, row_out);
+// K13's schedule (ablations.cbin_schedule) for packed `rays` [n_rays, 8]
+// (each ray's bound in column 6) and `boxes` [n_boxes, 8]: groups of g
+// rays, lists of at most k clusters, jobs of rt pair lanes (a width of
+// with_job, n_rays a multiple of it, g a power of two up to 32 dividing
+// rt and `lanes`), a budget of j_cap jobs; `mode` a CbinMode (two-level:
+// parents of `fan` boxes, at most k1 <= 64 kept); `lanes` lanes a group in
+// the list step, a width of with_group. Writes jtab [j_cap] i32 (-1: an
+// empty job), slot_group [j_cap * rt / g] i32 (-1: padding) and
+// incomplete [n_rays] u8. Scratch: parents [ceil(n_boxes / fan) * 8] f32,
+// c_list [n_rays / g * k], n_list [n_rays / g] i32, inc_lists
+// [n_rays / g] u8, per_c, job_end, cursor [n_boxes] i32.
+int tpt_cbin_schedule(const float* rays, const float* boxes, int n_rays,
+                      int n_boxes, int g, int k, int rt, int j_cap, int mode,
+                      int fan, int k1, int lanes, float scale, float margin,
+                      float tmin, float* parents, int* c_list, int* n_list,
+                      uint8_t* inc_lists, int* per_c, int* job_end,
+                      int* cursor, int* jtab, int* slot_group,
+                      uint8_t* incomplete, void* stream) {
+  if (n_rays < 0 || n_boxes < 1 || k < 1 || !with_job(rt, [](auto) {}) ||
+      n_rays % rt || !power_of_two(g) || g > 32 || rt % g || lanes % g ||
+      j_cap < 0 || mode < kFlatInterval || mode > kTwoLevel ||
+      (mode == kTwoLevel && (fan < 1 || k1 < 1 || k1 > kCbinK1Max)) ||
+      !tpt::with_group(lanes, [](auto) {}))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int n_groups = n_rays / g;
+  const long long n_slots = (long long)j_cap * (rt / g);
+  const int n_parents = (n_boxes + fan - 1) / fan;
+  cudaMemsetAsync(per_c, 0, sizeof(int) * n_boxes, s);
+  if (n_slots > 0) cudaMemsetAsync(slot_group, 0xff, sizeof(int) * n_slots, s);
+  if (mode == kTwoLevel)
+    cbin_parents_kernel<<<tpt::run_grid(n_parents), 256, 0, s>>>(
+        boxes, n_boxes, fan, n_parents, parents);
+  if (n_groups > 0)
+    tpt::with_group(lanes, [&](auto wc) {
+      constexpr int W = decltype(wc)::value;
+      const long long threads = (long long)n_groups * W;
+      cbin_lists_kernel<W>
+          <<<(unsigned)((threads + kCbinThreads - 1) / kCbinThreads),
+             kCbinThreads, 0, s>>>(rays, boxes, parents, n_groups, g,
+                                   n_boxes, k, mode, fan, n_parents, k1,
+                                   scale, margin, tmin, c_list, n_list,
+                                   inc_lists, per_c);
+    });
+  tpt::run_layout_kernel<<<1, tpt::kRunLayoutThreads, 0, s>>>(
+      per_c, n_boxes, rt / g, job_end, cursor);
+  if (j_cap > 0)
+    tpt::run_owner_kernel<<<tpt::run_grid(j_cap), 256, 0, s>>>(
+        job_end, n_boxes, j_cap, -1, jtab);
+  if (n_groups > 0)
+    cbin_place_kernel<<<tpt::run_grid(n_groups), 256, 0, s>>>(
+        c_list, n_list, inc_lists, job_end, cursor, n_groups, g, k, n_boxes,
+        j_cap, (int)n_slots, slot_group, incomplete);
   return (int)cudaGetLastError();
 }
 
-int tpt_occluded_cbin(const float* pair_rays, const float* tris,
-                      const int* jtab, int n_jobs, int cluster, int rt,
-                      float tmin, int* occ_out, void* stream) {
-  if (bad_tile(rt, cluster)) return (int)cudaErrorInvalidValue;
-  occluded_cbin_kernel<<<(unsigned)n_jobs, rt, 0, (cudaStream_t)stream>>>(
-      pair_rays, tris, jtab, cluster, tmin, occ_out);
+// K13's sweeps over that schedule (n_jobs = j_cap jobs of rt lanes, groups
+// of g rays, packed `rays` [n_rays, 8]; rt a width of with_job, a cluster
+// of 1..128 rows). Closest: t_out, row_out [n_rays], each ray's closest
+// (t, packed row) over its pairs' clusters, T_FAR and row 0 where it has
+// none; scratch key [n_rays] u64. No tmax: the path clips.
+int tpt_closest_cbin(const float* rays, const float* tris, const int* jtab,
+                     const int* slot_group, int n_jobs, int rt, int g,
+                     int n_rays, int cluster, float tmin,
+                     unsigned long long* key, float* t_out, int* row_out,
+                     void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || !power_of_two(g) || rt % g)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n_rays > 0) cudaMemsetAsync(key, 0xff, sizeof(*key) * n_rays, s);
+  const bool ok = with_job(rt, [&](auto rc) {
+    constexpr int RT = decltype(rc)::value;
+    if (n_jobs > 0)
+      cbin_sweep_kernel<RT, false><<<(unsigned)n_jobs, RT, 0, s>>>(
+          rays, tris, jtab, slot_group, g, cluster, tmin, key, nullptr);
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (n_rays > 0)
+    cbin_unpack_kernel<<<tpt::run_grid(n_rays), 256, 0, s>>>(key, n_rays,
+                                                             t_out, row_out);
   return (int)cudaGetLastError();
+}
+
+// Any-hit: occ [n_rays] u8, is a non-refractive row of one of the ray's
+// pairs' clusters hit with tmin < t < its tmax (column 6)?
+int tpt_occluded_cbin(const float* rays, const float* tris, const int* jtab,
+                      const int* slot_group, int n_jobs, int rt, int g,
+                      int n_rays, int cluster, float tmin, uint8_t* occ,
+                      void* stream) {
+  if (cluster < 1 || cluster > kMaxCluster || !power_of_two(g) || rt % g)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n_rays > 0) cudaMemsetAsync(occ, 0, n_rays, s);
+  const bool ok = with_job(rt, [&](auto rc) {
+    constexpr int RT = decltype(rc)::value;
+    if (n_jobs > 0)
+      cbin_sweep_kernel<RT, true><<<(unsigned)n_jobs, RT, 0, s>>>(
+          rays, tris, jtab, slot_group, g, cluster, tmin, nullptr, occ);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -13,29 +13,28 @@ the JAX package's variables, read at every call:
   (``rotated_slab_order``), each slab culled against its best hit so far.
   Any prediction gives the same hits.
 - ``TPT_STREAM=1``: the STREAMED path, ``closest_streamed`` /
-  ``occluded_streamed`` (K12). A tile of consecutive lanes (``RAY_TILE_C``
-  for the closest hit, ``STREAM_OCC_TILE`` for the any-hit) shares one
-  list of the boxes any of its rays pierces, sorted by the tile's least
-  entry distance (``stream_lists``: built on the card by its own kernel;
-  ``stream_candidates`` is its plain version). The closest kernel sweeps
-  the list through a ``STREAM_BUF``-slot ring of row buffers, stops at
-  the first key no lane can still use, and with the guard on
-  (``TPT_STREAM_GUARD``, default 1) skips a candidate no lane can improve
-  on. The any-hit kernel gives each ray a group of lanes
-  (``stream_occ_group``) that goes down its tile's list on its own, up to
-  its own break (the first key beyond its last entry or its tmax) or its
-  first blocked cluster; with the guard on it skips a candidate its own
-  grown box test fails.
+  ``occluded_streamed`` (K12). A tile of consecutive lanes
+  (``STREAM_CLOSEST_TILE`` for the closest hit, ``STREAM_OCC_TILE`` for
+  the any-hit) shares one list of the boxes any of its rays pierces,
+  sorted by the tile's least entry distance (``stream_lists``: built on
+  the card by its own kernel; ``stream_candidates`` is its plain
+  version). Each kernel gives each ray a group of lanes
+  (``stream_closest_group``, ``stream_occ_group``) that goes down its
+  tile's list on its own, up to its own break (the first key beyond its
+  best t or its tmax, and its last entry) or, any-hit, its first blocked
+  cluster; with the guard on (``TPT_STREAM_GUARD``, default 1) it skips a
+  candidate its own grown box test fails.
 - ``TPT_CBIN=1``: the CLUSTER-BINNED path, ``closest_cbin`` /
   ``occluded_cbin`` (K13). Per-group lists of pierced clusters are
-  regrouped by cluster into jobs of ``RAY_TILE_C`` (ray, cluster) pair
-  lanes (``cbin_pairs``, plain PyTorch); the kernel sweeps each job
-  against its one cluster and writes per-pair results, which
-  ``_cbin_reduce`` / ``_cbin_reduce_occ`` fold per ray (the per-pair
-  layout and the plain reduce are kept as they are; a fused atomic reduce
-  is left to later work). Lanes whose group overflowed a static cap are
-  ``incomplete`` and finished by the streamed pass with every other lane
-  parked.
+  regrouped by cluster into jobs of ``CBIN_JOB_TILE`` (ray, cluster) pair
+  lanes (``cbin_schedule``: built on the card by its own kernels;
+  ``_cbin_schedule``, derived from the reference's ``cbin_pairs``, is its
+  plain version); the kernel sweeps each job against its one cluster and
+  folds each pair lane's result into its ray (``_cbin_fold_plain`` is the
+  plain fold; the reference's reduces ``_cbin_reduce`` /
+  ``_cbin_reduce_occ`` give the same). Lanes whose group overflowed a
+  static cap are ``incomplete`` and finished by the streamed pass with
+  every other lane parked.
 - ``TPT_BINNED`` (``1``, or ``closest`` / ``occ`` for one side): the
   PAIR-BINNED path, ``closest_binned`` / ``occluded_binned`` (K14), taken
   before every other scheduler. Each ray's ``PAIR_K`` nearest pierced
@@ -56,8 +55,8 @@ the JAX package's variables, read at every call:
   ``stream_lists`` too.
 
 Every wrapper launches its kernel (``csrc/ablations_intersect.cu`` for
-K11-K13 and the list build, ``csrc/ablations_binned.cu`` for K14, its
-pair schedule and K15)
+K11-K13, the list build and K13's schedule, ``csrc/ablations_binned.cu``
+for K14, its pair schedule and K15)
 for CUDA tensors, runs its plain version for CPU tensors and raises
 otherwise.
 The plain versions follow the schedules step by step over the same lists,
@@ -70,6 +69,7 @@ margin ``clustered.BOX_MARGIN * (scale + max|o|)``.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import NamedTuple
 
@@ -78,8 +78,16 @@ import torch
 from . import clustered, dense
 from .moller import T_FAR, Hit
 
-RAY_TILE_C = int(os.environ.get("TPT_RT_C", 256))   # lanes per tile / job
-STREAM_BUF = 4                                       # ring slots
+# The reference's lanes per tile / job (pallas_ablations.RAY_TILE_C): the
+# width cbin_pairs lays its jobs out at by default.
+RAY_TILE_C = int(os.environ.get("TPT_RT_C", 256))
+# K12's closest hit: the lanes that share a list, and the lanes a ray
+# (stream_closest_group: STREAM_CLOSEST_GROUP up to
+# STREAM_CLOSEST_NARROW_RAYS rays, STREAM_CLOSEST_GROUP_WIDE above), from
+# tools/cbin_ab_torch.py --widths on a TPT_STREAM=1 frame's calls.
+STREAM_CLOSEST_TILE = 128
+STREAM_CLOSEST_GROUP, STREAM_CLOSEST_GROUP_WIDE = 32, 4
+STREAM_CLOSEST_NARROW_RAYS = 65536
 # K12's any-hit: the lanes that share a list, and the lanes a ray
 # (stream_occ_group: STREAM_OCC_GROUP up to STREAM_OCC_NARROW_RAYS rays,
 # STREAM_OCC_GROUP_WIDE above), from tools/clustered_group_trial.py
@@ -98,6 +106,20 @@ CBIN_FAN = int(os.environ.get("TPT_CBIN_FAN", 8))            # parents: children
 CBIN_K1 = int(os.environ.get("TPT_CBIN_K1", 16))             # parent-list cap
 CBIN_LVL = int(os.environ.get("TPT_CBIN_LVL", 0))            # 0 auto, 1, 2
 CBIN_LVL2_MIN = int(os.environ.get("TPT_CBIN_LVL2_MIN", 192))
+# K13's job width (pair lanes a job: a template parameter of
+# csrc/ablations_intersect.cu) and the one cbin_steps takes, from
+# tools/cbin_ab_torch.py --widths on a TPT_CBIN=1 frame's calls.
+CBIN_JOB_TILES = (64, 128, 256)
+CBIN_JOB_TILE = 64
+# The schedule on the card: a group's list build takes max(g,
+# CBIN_LIST_LANES) lanes (a part of a warp, so g <= CBIN_G_MAX; the width
+# from the same trial), and keeps
+# a two-level list's parents in shared memory (CBIN_K1 <= CBIN_K1_MAX);
+# the sweep stages a cluster of at most CBIN_MAX_CLUSTER rows.
+CBIN_LIST_LANES = 16
+CBIN_G_MAX = 32
+CBIN_K1_MAX = 64
+CBIN_MAX_CLUSTER = 128
 
 PARK_COORD = 3.0e7       # render.PARK_COORD / PARK_DIR: a parked lane
 PARK_DIR = 0.5773503
@@ -109,7 +131,8 @@ _BIG_IDX = 2 ** 30
 LAUNCHES = {"closest_rotated": 0, "closest_streamed": 0,
             "occluded_streamed": 0, "closest_cbin": 0, "occluded_cbin": 0,
             "closest_binned": 0, "occluded_binned": 0, "closest_grp": 0,
-            "occluded_grp": 0, "stream_lists": 0, "pair_schedule": 0}
+            "occluded_grp": 0, "stream_lists": 0, "pair_schedule": 0,
+            "cbin_schedule": 0}
 
 
 def _stream_guard() -> bool:
@@ -395,6 +418,15 @@ def stream_lists(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
     return cand, keys, cnt, far
 
 
+def stream_closest_group(n_rays: int) -> int:
+    """Lanes a ray of K12's closest hit for a call of ``n_rays`` rays: the
+    width tools/cbin_ab_torch.py --widths measured fastest (PERF.md), 32
+    on a ``TPT_STREAM=1`` big-mesh frame's calls, 4 at 262,144 rays."""
+    if n_rays <= STREAM_CLOSEST_NARROW_RAYS:
+        return STREAM_CLOSEST_GROUP
+    return STREAM_CLOSEST_GROUP_WIDE
+
+
 def stream_occ_group(n_rays: int) -> int:
     """Lanes a ray of K12's any-hit for a call of ``n_rays`` rays: the
     width tools/clustered_group_trial.py (``stream_occ``) measured fastest
@@ -518,31 +550,41 @@ def _check_lists(lists, n_pad: int, rt: int, n_boxes: int, dev) -> None:
 
 def closest_streamed(rays: torch.Tensor, tris: torch.Tensor,
                      boxes: torch.Tensor, scale: float, lists, rt: int,
-                     tmin: float, tmax: float = T_FAR, guard: bool = True):
+                     tmin: float, tmax: float = T_FAR, guard: bool = True, *,
+                     group: int | None = None):
     """K12 closest: K6's (t, packed row) for ``rays`` [n_pad, 8]
-    (``pack_rays``; n_pad a multiple of ``rt``) over the tile lists of
-    ``stream_candidates(rays, boxes, scale, rt, tmin, tmax)``."""
+    (``pack_rays``; n_pad a multiple of ``rt``, any tile width) over the
+    tile lists of ``stream_candidates(rays, boxes, scale, rt, tmin,
+    tmax)``, ``group`` lanes a ray (``stream_closest_group`` when
+    None)."""
     if dense._on_cpu(rays):
         return _streamed_plain(rays, tris, boxes, scale, lists, rt, tmin,
                                tmax, guard, occluded=False)
     from .. import _kernels
     dev, n_pad = rays.device, rays.shape[0]
     dense._check("rays", rays, torch.float32, (n_pad, 8), dev)
-    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
-    dense._check_inputs(o, d, tris)
+    dense._check("tris", tris, torch.float32, (tris.shape[0], 16), dev)
+    if rays.data_ptr() % 16 or tris.data_ptr() % 16:
+        raise ValueError("rays and tris must be 16-byte aligned")
+    if rt < 1 or n_pad % rt:
+        raise ValueError(f"{n_pad} rays do not split into tiles of {rt}")
     n_boxes, cluster = clustered._check_tables(tris, boxes, dev)
     _check_lists(lists, n_pad, rt, n_boxes, dev)
+    width = stream_closest_group(n_pad) if group is None else int(group)
+    if width not in clustered.GROUPS:
+        raise ValueError(f"{width} lanes a ray: K12 is built for "
+                         f"{clustered.GROUPS}")
     t = torch.empty(n_pad, dtype=torch.float32, device=dev)
     row = torch.empty(n_pad, dtype=torch.int32, device=dev)
     if n_pad:
         cand, keys, cnt, far = lists
-        _kernels.launch("tpt_closest_streamed", o.data_ptr(), d.data_ptr(),
+        _kernels.launch("tpt_closest_streamed", rays.data_ptr(),
                         tris.data_ptr(), boxes.data_ptr(), cand.data_ptr(),
                         keys.data_ptr(), cnt.data_ptr(), far.data_ptr(),
                         n_pad, n_boxes, cluster, rt, float(scale),
                         clustered.BOX_MARGIN, float(tmin), float(tmax),
                         int(bool(guard)), t.data_ptr(), row.data_ptr(),
-                        dense._stream(dev))
+                        width, dense._stream(dev))
         LAUNCHES["closest_streamed"] += 1
     return t, row
 
@@ -693,6 +735,15 @@ def _extract_lists(okt: torch.Tensor, ids: torch.Tensor, k: int):
     return c_list, c_list >= 0, cnt
 
 
+def _cbin_two_level(g: int, ns: int) -> bool:
+    """Does ``_cbin_lists`` take the two-level lists for groups of ``g``
+    over ``ns`` boxes? (``CBIN_LVL`` 2, or 0 with the interval test and at
+    least ``CBIN_LVL2_MIN`` boxes.)"""
+    exact_g = g > 1 and _cbin_exact()
+    return CBIN_LVL == 2 or (CBIN_LVL == 0 and not exact_g
+                             and ns >= CBIN_LVL2_MIN)
+
+
 def _cbin_lists(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
                 tmin: float, g: int, k: int):
     """Per-group compact cluster work lists, ascending cluster ids
@@ -706,10 +757,8 @@ def _cbin_lists(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
     parents' children only."""
     ns, dev = boxes.shape[0], rays.device
     ng = rays.shape[0] // g
-    fan, lvl = CBIN_FAN, CBIN_LVL
-    exact_g = g > 1 and _cbin_exact()
-    two = lvl == 2 or (lvl == 0 and not exact_g and ns >= CBIN_LVL2_MIN)
-    if not two:
+    fan = CBIN_FAN
+    if not _cbin_two_level(g, ns):
         okt = _cbin_group_test(rays, boxes, scale, tmin, g)
         c_list, valid, cnt = _extract_lists(
             okt, torch.arange(ns, dtype=torch.int32, device=dev), k)
@@ -750,10 +799,11 @@ def _cbin_group(n: int, rt: int) -> int:
 
 
 def cbin_pairs(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
-               tmin: float):
+               tmin: float, rt: int | None = None):
     """Cluster-major padded work lists for the binned sweep
-    (``pallas_ablations.cbin_pairs``). ``rays`` [n, 8], n a multiple of
-    ``RAY_TILE_C``, each ray's bound in column 6.
+    (``pallas_ablations.cbin_pairs``) at jobs of ``rt`` pair lanes
+    (``RAY_TILE_C``, the reference's, when None). ``rays`` [n, 8], n a
+    multiple of ``rt``, each ray's bound in column 6.
 
     Returns (pair_rays [P_cap, 8], job_cluster [J_cap] i32 with -1 for an
     empty job, row_tgt [P_cap // g] i64, incomplete [n] bool, (ng, g, k)).
@@ -764,7 +814,7 @@ def cbin_pairs(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
     group overflowed the per-group cap ``CBIN_K_OUT`` or the pair budget
     ``CBIN_PAIR_MULT * n``: the caller finishes them another way."""
     ns, n, dev = boxes.shape[0], rays.shape[0], rays.device
-    rt = RAY_TILE_C
+    rt = RAY_TILE_C if rt is None else rt
     g = _cbin_group(n, rt)
     ng, k = n // g, CBIN_K_OUT
     qpj = rt // g                                   # group-pairs per job
@@ -867,67 +917,213 @@ def _cbin_sweep_plain(pair_rays, tris, jtab, cluster: int, rt: int,
             torch.where(live[:, None], row, 0).to(torch.int32).view(-1))
 
 
-def _check_jobs(pair_rays, tris, jtab, rt: int) -> int:
-    dev = pair_rays.device
-    j_cap = jtab.shape[0]
-    dense._check("pair_rays", pair_rays, torch.float32, (j_cap * rt, 8), dev)
-    dense._check("tris", tris, torch.float32, (tris.shape[0], 16), dev)
-    dense._check("jtab", jtab, torch.int32, (j_cap,), dev)
-    if pair_rays.data_ptr() % 16 or tris.data_ptr() % 16:
-        raise ValueError("pair_rays and tris must be 16-byte aligned")
-    return j_cap
+class CbinSchedule(NamedTuple):
+    """K13's work (``cbin_schedule``). Job j of ``jtab`` ([j_cap] i32, -1:
+    an empty job) sweeps cluster ``jtab[j]`` for the groups in slots
+    [j rt / g, (j + 1) rt / g) of ``slot_group`` ([j_cap rt / g] i32, -1:
+    padding); group q's lanes are rays [q g, q g + g). ``incomplete`` [n]
+    marks the lanes whose group a cap cut (the caller finishes them
+    another way); ``meta`` is (ng, g, k), ``rt`` the job width."""
+    slot_group: torch.Tensor
+    jtab: torch.Tensor
+    incomplete: torch.Tensor
+    meta: tuple
+    rt: int
 
 
-def closest_cbin(pair_rays: torch.Tensor, tris: torch.Tensor,
-                 jtab: torch.Tensor, cluster: int, rt: int, tmin: float):
-    """K13 closest: for every pair lane of ``cbin_pairs`` the closest
-    (t, packed row) within its job's cluster, (T_FAR, the cluster's first
-    row) on a miss, (T_FAR, 0) in an empty job. Returns ([P_cap] f32,
-    [P_cap] i32)."""
-    if dense._on_cpu(pair_rays):
-        return _cbin_sweep_plain(pair_rays, tris, jtab, cluster, rt, tmin,
-                                 occluded=False)
+def _cbin_schedule(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
+                   tmin: float, rt: int | None = None) -> CbinSchedule:
+    """The plain version of ``cbin_schedule``: ``cbin_pairs``' layout at
+    jobs of ``rt`` (``CBIN_JOB_TILE``) lanes, each slot's group read off
+    its reduce target (``row_tgt // k``; ``ng k`` is padding)."""
+    rt = CBIN_JOB_TILE if rt is None else rt
+    _, jtab, row_tgt, incomplete, (ng, g, k) = cbin_pairs(rays, boxes, scale,
+                                                          tmin, rt)
+    slot_group = torch.where(row_tgt < ng * k, row_tgt // k, -1)
+    return CbinSchedule(slot_group.to(torch.int32).contiguous(), jtab,
+                        incomplete, (ng, g, k), rt)
+
+
+def cbin_schedule(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
+                  tmin: float, rt: int | None = None,
+                  lanes: int | None = None) -> CbinSchedule:
+    """``_cbin_schedule``'s layout (its arguments and result), built for
+    CUDA tensors by ``tpt_cbin_schedule`` with no host sync: a group of
+    ``lanes`` (max(g, ``CBIN_LIST_LANES``)) lanes builds each group's list
+    with a ballot and a popcount, one block lays the runs of jobs out, and
+    each (group, cluster) pair takes the next slot of its cluster's run
+    (an atomic), so the order within a run may differ; ``jtab``,
+    ``incomplete`` and ``meta`` are bitwise the same. For the last cluster
+    whose run passes the pair budget, which of its groups keep a slot is
+    not defined: their lanes are incomplete either way. For CPU tensors
+    ``_cbin_schedule`` itself. On the card the job width is one of
+    CBIN_JOB_TILES, g at most CBIN_G_MAX and a two-level list's parents at
+    most CBIN_K1_MAX."""
+    rt = CBIN_JOB_TILE if rt is None else rt
+    if dense._on_cpu(rays):
+        return _cbin_schedule(rays, boxes, scale, tmin, rt)
     from .. import _kernels
-    j_cap = _check_jobs(pair_rays, tris, jtab, rt)
-    dev = pair_rays.device
-    t = torch.empty(j_cap * rt, dtype=torch.float32, device=dev)
-    row = torch.empty(j_cap * rt, dtype=torch.int32, device=dev)
-    if j_cap:
-        _kernels.launch("tpt_closest_cbin", pair_rays.data_ptr(),
-                        tris.data_ptr(), jtab.data_ptr(), j_cap, cluster, rt,
-                        float(tmin), t.data_ptr(), row.data_ptr(),
-                        dense._stream(dev))
+    dev, n = rays.device, rays.shape[0]
+    dense._check("rays", rays, torch.float32, (n, 8), dev)
+    ns = boxes.shape[0]
+    dense._check("boxes", boxes, torch.float32, (ns, 8), dev)
+    if rays.data_ptr() % 16 or boxes.data_ptr() % 16:
+        raise ValueError("rays and boxes must be 16-byte aligned")
+    if ns < 1:
+        raise ValueError("the cluster-binned schedule needs at least one box")
+    if rt not in CBIN_JOB_TILES:
+        raise ValueError(f"jobs of {rt} pair lanes: the kernels take "
+                         f"{CBIN_JOB_TILES}")
+    if n % rt:
+        raise ValueError(f"{n} rays do not split into jobs of {rt}")
+    g, k = _cbin_group(n, rt), CBIN_K_OUT
+    if g > CBIN_G_MAX:
+        raise ValueError(f"the schedule on the card takes groups of at most "
+                         f"{CBIN_G_MAX} rays, not {g}")
+    if k < 1:
+        raise ValueError(f"a group's list keeps at least one cluster, not "
+                         f"{k}")
+    two = _cbin_two_level(g, ns)
+    n_par = -(-ns // CBIN_FAN) if CBIN_FAN >= 1 else 0
+    k1 = min(CBIN_K1, max(1, n_par))
+    if two and not (CBIN_FAN >= 1 and k1 <= CBIN_K1_MAX):
+        raise ValueError(f"the two-level lists on the card keep at most "
+                         f"{CBIN_K1_MAX} parents of at least one box, not "
+                         f"{k1} of {CBIN_FAN}")
+    lanes = max(g, CBIN_LIST_LANES) if lanes is None else lanes
+    if lanes not in clustered.GROUPS or lanes < g:
+        raise ValueError(f"{lanes} lanes a group of {g}: the list step takes "
+                         f"{clustered.GROUPS}, at least g")
+    mode = 2 if two else (1 if g > 1 and _cbin_exact() else 0)
+    ng, j_cap = n // g, CBIN_PAIR_MULT * n // rt
+
+    def ints(m):
+        return torch.empty(m, dtype=torch.int32, device=dev)
+    parents = (torch.empty(n_par * 8, dtype=torch.float32, device=dev)
+               if two else None)
+    c_list, n_list = ints(ng * k), ints(ng)
+    inc_lists = torch.empty(ng, dtype=torch.uint8, device=dev)
+    per_c, job_end, cursor = ints(ns), ints(ns), ints(ns)
+    out = CbinSchedule(ints(j_cap * (rt // g)), ints(j_cap),
+                       torch.empty(n, dtype=torch.bool, device=dev),
+                       (ng, g, k), rt)
+    _kernels.launch("tpt_cbin_schedule", rays.data_ptr(), boxes.data_ptr(),
+                    n, ns, g, k, rt, j_cap, mode, CBIN_FAN, k1, lanes,
+                    float(scale), clustered.BOX_MARGIN, float(tmin),
+                    None if parents is None else parents.data_ptr(),
+                    c_list.data_ptr(), n_list.data_ptr(),
+                    inc_lists.data_ptr(), per_c.data_ptr(),
+                    job_end.data_ptr(), cursor.data_ptr(),
+                    out.jtab.data_ptr(), out.slot_group.data_ptr(),
+                    out.incomplete.data_ptr(), dense._stream(dev))
+    LAUNCHES["cbin_schedule"] += 1
+    return out
+
+
+def _cbin_pair_rays(rays: torch.Tensor, schedule: CbinSchedule):
+    """Each pair lane's ray index ([j_cap rt] i64, -1 for padding) and
+    its ray ([j_cap rt, 8]; padding a parked ray, which hits nothing)."""
+    ng, g, _ = schedule.meta
+    sg = schedule.slot_group.long().repeat_interleave(g)
+    lane = torch.arange(g, device=rays.device).repeat(
+        schedule.slot_group.shape[0])
+    ray = torch.where(sg >= 0, sg * g + lane, -1)
+    park = rays.new_tensor([PARK_COORD] * 3 + [PARK_DIR] * 3 + [0.0, 0.0])
+    return ray, torch.cat([rays, park[None]])[
+        torch.where(ray >= 0, ray, rays.shape[0])]
+
+
+def _cbin_fold_plain(rays, tris, schedule: CbinSchedule, cluster: int,
+                     tmin: float, occluded: bool):
+    """The folded K13 kernels in plain PyTorch: every pair lane of the
+    schedule swept by ``_cbin_sweep_plain``, then its result folded into
+    its ray, the (t, row)-lexicographic minimum (``_reduce_pairs``) or the
+    OR. On the layout of ``cbin_pairs`` this is ``_cbin_reduce`` /
+    ``_cbin_reduce_occ`` over the per-pair results."""
+    ray, pair_rays = _cbin_pair_rays(rays, schedule)
+    out = _cbin_sweep_plain(pair_rays, tris, schedule.jtab, cluster,
+                            schedule.rt, tmin, occluded)
+    if occluded:
+        return _reduce_pairs_occ(ray, out > 0, rays.shape[0])
+    return _reduce_pairs(ray, *out, rays.shape[0])
+
+
+def _check_jobs(rays, tris, schedule: CbinSchedule, cluster: int):
+    """The checks of the folded kernels' inputs; returns (jobs, g)."""
+    dev, n = rays.device, rays.shape[0]
+    ng, g, _ = schedule.meta
+    j_cap, rt = schedule.jtab.shape[0], schedule.rt
+    if rt not in CBIN_JOB_TILES or rt % g:
+        raise ValueError(f"jobs of {rt} pair lanes, groups of {g}: the "
+                         f"kernels take jobs of {CBIN_JOB_TILES}")
+    if not 1 <= cluster <= CBIN_MAX_CLUSTER:
+        raise ValueError(f"clusters of {cluster} rows: the kernels stage at "
+                         f"most {CBIN_MAX_CLUSTER}")
+    dense._check("rays", rays, torch.float32, (n, 8), dev)
+    dense._check("tris", tris, torch.float32, (tris.shape[0], 16), dev)
+    dense._check("jtab", schedule.jtab, torch.int32, (j_cap,), dev)
+    dense._check("slot_group", schedule.slot_group, torch.int32,
+                 (j_cap * (rt // g),), dev)
+    if ng * g != n:
+        raise ValueError(f"{ng} groups of {g} are not {n} rays")
+    if rays.data_ptr() % 16 or tris.data_ptr() % 16:
+        raise ValueError("rays and tris must be 16-byte aligned")
+    return j_cap, g
+
+
+def closest_cbin(rays: torch.Tensor, tris: torch.Tensor,
+                 schedule: CbinSchedule, cluster: int, tmin: float):
+    """K13 closest: for every ray of ``rays`` [n, 8] the closest (t,
+    packed row) over the clusters of its group's pairs in ``schedule``
+    (``cbin_schedule``), T_FAR and row 0 where it has none or misses them
+    (no tmax: the path clips). Returns (t [n], row [n] i32)."""
+    if dense._on_cpu(rays):
+        return _cbin_fold_plain(rays, tris, schedule, cluster, tmin,
+                                occluded=False)
+    from .. import _kernels
+    j_cap, g = _check_jobs(rays, tris, schedule, cluster)
+    dev, n = rays.device, rays.shape[0]
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _kernels.launch("tpt_closest_cbin", rays.data_ptr(), tris.data_ptr(),
+                        schedule.jtab.data_ptr(),
+                        schedule.slot_group.data_ptr(), j_cap, schedule.rt,
+                        g, n, cluster, float(tmin), key.data_ptr(),
+                        t.data_ptr(), row.data_ptr(), dense._stream(dev))
         LAUNCHES["closest_cbin"] += 1
     return t, row
 
 
-def occluded_cbin(pair_rays: torch.Tensor, tris: torch.Tensor,
-                  jtab: torch.Tensor, cluster: int, rt: int,
+def occluded_cbin(rays: torch.Tensor, tris: torch.Tensor,
+                  schedule: CbinSchedule, cluster: int,
                   tmin: float) -> torch.Tensor:
-    """K13 any-hit: for every pair lane, is a non-refractive row of its
-    job's cluster hit with tmin < t < the lane's tmax (column 6)? Returns
-    [P_cap] i32."""
-    if dense._on_cpu(pair_rays):
-        return _cbin_sweep_plain(pair_rays, tris, jtab, cluster, rt, tmin,
-                                 occluded=True)
+    """K13 any-hit: for every ray of ``rays`` [n, 8] (column 6: its tmax),
+    is a non-refractive row of one of its group's pairs' clusters hit with
+    tmin < t < tmax? Returns bool [n]."""
+    if dense._on_cpu(rays):
+        return _cbin_fold_plain(rays, tris, schedule, cluster, tmin,
+                                occluded=True)
     from .. import _kernels
-    j_cap = _check_jobs(pair_rays, tris, jtab, rt)
-    dev = pair_rays.device
-    out = torch.empty(j_cap * rt, dtype=torch.int32, device=dev)
-    if j_cap:
-        _kernels.launch("tpt_occluded_cbin", pair_rays.data_ptr(),
-                        tris.data_ptr(), jtab.data_ptr(), j_cap, cluster, rt,
-                        float(tmin), out.data_ptr(), dense._stream(dev))
+    j_cap, g = _check_jobs(rays, tris, schedule, cluster)
+    dev, n = rays.device, rays.shape[0]
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _kernels.launch("tpt_occluded_cbin", rays.data_ptr(),
+                        tris.data_ptr(), schedule.jtab.data_ptr(),
+                        schedule.slot_group.data_ptr(), j_cap, schedule.rt,
+                        g, n, cluster, float(tmin), occ.data_ptr(),
+                        dense._stream(dev))
         LAUNCHES["occluded_cbin"] += 1
-    return out
+    return occ
 
 
 # --------------------------------------------------------------------------
 # The three paths as clustered.closest_hit / occluded_hit take them
 # --------------------------------------------------------------------------
 
-def _pad_tile(n: int, rt: int | None = None) -> int:
-    rt = RAY_TILE_C if rt is None else rt
+def _pad_tile(n: int, rt: int) -> int:
     return -(-n // rt) * rt
 
 
@@ -935,12 +1131,12 @@ def stream_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
                  occluded: bool):
     """The streamed path in its two steps, (rays, build, kernel):
     ``build()`` gives the tile lists of the packed ``rays``
-    (``stream_lists``: tiles of ``RAY_TILE_C`` lanes for the closest hit,
-    ``STREAM_OCC_TILE`` for the any-hit), ``kernel(lists)`` the padded
-    result of K12. The paths below run one after the other; a bench times
-    them apart. ``tmax`` is a float for the closest hit and [N] for the
-    any-hit."""
-    rt = STREAM_OCC_TILE if occluded else RAY_TILE_C
+    (``stream_lists``: tiles of ``STREAM_CLOSEST_TILE`` lanes for the
+    closest hit, ``STREAM_OCC_TILE`` for the any-hit), ``kernel(lists)``
+    the padded result of K12. The paths below run one after the other; a
+    bench times them apart. ``tmax`` is a float for the closest hit and
+    [N] for the any-hit."""
+    rt = STREAM_OCC_TILE if occluded else STREAM_CLOSEST_TILE
     rays = pack_rays(origins, dirs, tmax, _pad_tile(origins.shape[0], rt))
 
     def build():
@@ -957,21 +1153,24 @@ def stream_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
 
 
 def cbin_steps(origins, dirs, tmax, tris, boxes, scale, tmin: float,
-               occluded: bool):
+               occluded: bool, rt: int | None = None):
     """The binned sweep in its two steps, (rays, build, kernel):
-    ``build()`` is ``cbin_pairs`` on the packed ``rays``,
-    ``kernel(schedule)`` the per-pair results of K13 (the reduce and the
-    completion pass follow in the paths below)."""
-    rays = pack_rays(origins, dirs, tmax, _pad_tile(origins.shape[0]))
+    ``build()`` is ``cbin_schedule`` on the packed ``rays`` at jobs of
+    ``rt`` (``CBIN_JOB_TILE``) lanes, ``kernel(schedule)`` the per-ray
+    result of K13, folded (the completion pass follows in the paths below).
+    The rays are padded to whole jobs and whole tiles of the closest
+    completion pass's lists."""
+    rt = CBIN_JOB_TILE if rt is None else rt
+    rays = pack_rays(origins, dirs, tmax, _pad_tile(
+        origins.shape[0], math.lcm(rt, STREAM_CLOSEST_TILE)))
     cluster = tris.shape[0] // boxes.shape[0]
     sweep = occluded_cbin if occluded else closest_cbin
 
     def build():
-        return cbin_pairs(rays, boxes, scale, tmin)
+        return cbin_schedule(rays, boxes, scale, tmin, rt)
 
     def kernel(schedule):
-        return sweep(schedule[0], tris, schedule[1], cluster, RAY_TILE_C,
-                     tmin)
+        return sweep(rays, tris, schedule, cluster, tmin)
     return rays, build, kernel
 
 
@@ -995,25 +1194,24 @@ def occluded_stream_path(origins, dirs, tmax, tris, boxes, scale,
 
 def closest_cbin_path(origins, dirs, tris, boxes, scale, tmin: float,
                       tmax: float = T_FAR):
-    """``TPT_CBIN=1``: the binned sweep and its reduce, then the lanes a
+    """``TPT_CBIN=1``: the binned sweep and its fold, then the lanes a
     cap left incomplete through K12 with every other lane parked
     (``pallas_bf.py:2444-2465``). Returns (t [N], row [N])."""
     n = origins.shape[0]
     rays, build, kernel = cbin_steps(origins, dirs, tmax, tris, boxes, scale,
                                      tmin, occluded=False)
     schedule = build()
-    _, _, row_tgt, incomplete, (ng, g, k) = schedule
-    res_t, res_i = kernel(schedule)
-    best_t, best_row = _cbin_reduce(res_t, res_i, row_tgt, rays.shape[0], ng,
-                                    g, k)
+    incomplete = schedule.incomplete
+    best_t, best_row = kernel(schedule)
     if tmax < T_FAR:
-        # The pair jobs carry no tmax: clip after the reduce.
+        # The pair jobs carry no tmax: clip after the fold.
         best_t = torch.where(best_t < tmax, best_t, T_FAR)
         best_row = torch.where(best_t < T_FAR, best_row, 0)
     rays_c = _park_rays(rays, ~incomplete)
-    lists = stream_lists(rays_c, boxes, scale, RAY_TILE_C, tmin, tmax)
-    ct, ci = closest_streamed(rays_c, tris, boxes, scale, lists, RAY_TILE_C,
-                              tmin, tmax, _stream_guard())
+    rt = STREAM_CLOSEST_TILE
+    lists = stream_lists(rays_c, boxes, scale, rt, tmin, tmax)
+    ct, ci = closest_streamed(rays_c, tris, boxes, scale, lists, rt, tmin,
+                              tmax, _stream_guard())
     best_t = torch.where(incomplete, ct, best_t)
     best_row = torch.where(incomplete, ci, best_row)
     return best_t[:n].contiguous(), best_row[:n].contiguous()
@@ -1032,13 +1230,11 @@ def occluded_cbin_path(origins, dirs, tmax, tris, boxes, scale, tmin: float,
     through ``finish(o, d, tmax)``, the ordinary path, every other lane
     parked. Returns bool [N]."""
     n = origins.shape[0]
-    rays, build, kernel = cbin_steps(origins, dirs, tmax, tris, boxes, scale,
-                                     tmin, occluded=True)
+    _, build, kernel = cbin_steps(origins, dirs, tmax, tris, boxes, scale,
+                                  tmin, occluded=True)
     schedule = build()
-    _, _, row_tgt, incomplete, (ng, g, k) = schedule
-    occ = _cbin_reduce_occ(kernel(schedule), row_tgt, rays.shape[0], ng, g,
-                           k)[:n]
-    ovf = incomplete[:n] & ~occ
+    occ = kernel(schedule)[:n]
+    ovf = schedule.incomplete[:n] & ~occ
     fb = finish(*_parked(origins, dirs, ovf),
                 torch.where(ovf, tmax, 0.0).contiguous())
     return torch.where(ovf, fb, occ)
