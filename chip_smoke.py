@@ -132,7 +132,9 @@ K12 streamed, K13 cluster-binned: ``tpu_pt_torch/intersect/ablations.py``):
    262,144 rays against its plain version and K6 too), K13 under six cap
    settings (``CBIN_GROUP`` 1 and 8, starved caps, ``TPT_CBIN_LVL=1`` /
    ``2``, ``TPT_CBIN_EXACT=0``), K11 under an unknown, the oracle and a
-   cycled wrong prediction; the list build on the card (``stream_lists``)
+   cycled wrong prediction, at every width it is built for (against its
+   plain version per prediction and K6; at 262,144 rays against K6); the
+   list build on the card (``stream_lists``)
    bitwise against its plain version ``stream_candidates`` (cand, keys,
    cnt, far) at the any-hit's, the closest side's and K15's tiles, at
    32,768 parked rays, 262,144, 1,000 and 77, on every box tied ten ways
@@ -166,7 +168,9 @@ The rest of pallas_ablations.py (K14 pair-binned, K15 8-lane groups:
 23. kernels (in phase 4): ``closest_binned`` / ``occluded_binned`` (k = 12)
    and ``closest_grp`` / ``occluded_grp`` (serial and bundled) on the big
    mesh at 32,768 rays with every eighth lane parked, bitwise against
-   their plain versions, timed apart from their schedule builds
+   their plain versions (K15 at every width, serial and bundled, against
+   its plain version and K6 / K8 there and at 262,144 rays), timed apart
+   from their schedule builds
    (``pair_schedule``, the group lists) and at 262,144 rays; their whole
    paths bitwise against K6 / K8 there and at 1,000 and 77 rays, K14 also
    at k = 2, where the completion pass carries real lanes; K14's pair
@@ -181,12 +185,15 @@ The rest of pallas_ablations.py (K14 pair-binned, K15 8-lane groups:
    and ``TPT_GRP=2`` (K15 once per round, K6 / K8 never), accumulators
    bitwise equal to the lean frame's, one call of each wrapper recorded
    from a warm-up frame and held bitwise;
-25. incoherent rays (in phase 22): K14 and K15 among the paths; then the
+25. incoherent rays (in phase 22): K14 and K15 among the paths, K11 and
+   K15 at every width (``_incoherent_widths``: against K6 / K8, K15 also
+   against its plain version, K11 at its shipped width); then the
    list build past its caps (``ablations.list_route``): bitwise against
    ``stream_candidates`` at tiles of 512 rays (past LIST_MAX_TILE) on the
    big mesh's 784 boxes, and on a table of more than 8,192 clusters (the
    big mesh 11 times over, built on the card: 8,624 clusters, 1.1M rows)
-   at every tile, and at 8,192 and 8,193 of its boxes; the
+   at every tile (K15's tiles of 8, the small-tile route, on
+   SMALL_CAP_RAYS of its rays), and at 8,192 and 8,193 of its boxes; the
    ``TPT_STREAM=1`` closest and any-hit paths on that table bitwise equal
    to K6 / K8, and K12's closest kernel there at tiles of 512, guard on
    and off, bitwise equal to its plain version and K6, with the phase's
@@ -568,6 +575,7 @@ SHADOW_LIST_KERNELS = ("occluded_clustered_b", "occluded_streamed",
 # takes no full carry).
 INCOHERENT_WRAPPERS = NEW_WRAPPERS[4:]
 N_RAGGED = (1000, 77)    # ray counts that leave a ragged last block
+SMALL_CAP_RAYS = 4096    # rays of the small-tile lists past the box cap
 # The list build past its caps (phase_list_caps): the big mesh this many
 # times over (8,624 clusters: past LIST_MAX_BOXES), and a tile past
 # LIST_MAX_TILE.
@@ -1575,8 +1583,9 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     unknown_w = torch.full((oW.shape[0],), clustered.SLAB_UNKNOWN,
                            dtype=torch.int32, device=o.device)
 
-    def k11(o, d, pred):
-        return ablations.closest_rotated(o, d, *table, pred, srows, 0.01)
+    def k11(o, d, pred, **kw):
+        return ablations.closest_rotated(o, d, *table, pred, srows, 0.01,
+                                         **kw)
     run("closest_rotated", lambda: k11(o, d, preds["oracle"]),
         lambda: ablations._closest_rotated_plain(o, d, rows, preds["oracle"],
                                                  srows, 0.01),
@@ -1587,6 +1596,39 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
     say("kernels", f"closest_rotated: {s_count} slabs of {srows} rows; ms "
         f"per call under each prediction "
         f"{ {w: round(records['closest_rotated'][-1]['ms_' + w], 4) for w in preds} }")
+    # K11 at every width under each prediction: against its plain version
+    # (per prediction) and K6; at N_RAYS against K6 (the plain version at
+    # that count: phase 22's incoherent rays).
+    t_k = time.perf_counter()
+    t6W, row6W = clustered.closest_clustered(oW, dW, *table, 0.01,
+                                             nodes=tb.nodes)
+    cycled_w = (torch.arange(oW.shape[0], device=o.device) % s_count).to(
+        torch.int32)
+    for what, pred in preds.items():
+        plain = ablations._closest_rotated_plain(o, d, rows, pred, srows,
+                                                 0.01)
+        for g in clustered.GROUPS:
+            got = k11(o, d, pred, group=g)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, plain)) \
+                    or not (torch.equal(got[0], t6)
+                            and torch.equal(got[1], row6)):
+                raise AssertionError(
+                    f"closest_rotated at {g} lanes a ray, {what} prediction:"
+                    " differs from its plain version or K6")
+    for pred in (unknown_w, cycled_w):
+        for g in clustered.GROUPS:
+            got = k11(oW, dW, pred, group=g)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], t6W) and torch.equal(got[1], row6W)):
+                raise AssertionError(
+                    f"closest_rotated at {oW.shape[0]} rays, {g} lanes a "
+                    "ray: differs from K6")
+    say("kernels", f"closest_rotated at {clustered.GROUPS} lanes a ray: "
+        f"bitwise equal to its plain version and K6 under the {len(preds)} "
+        f"predictions at {n} rays, to K6 under the unknown and the cycled "
+        f"one at {oW.shape[0]} ({ablations.rotated_group(n)} lanes a ray "
+        f"shipped; {time.perf_counter() - t_k:.1f} s)")
 
     # K12: lists built once (on the card, held against their plain
     # version), the kernel timed alone; the closest side at tiles of rt
@@ -1713,8 +1755,6 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
             if not (torch.equal(got[0], t6) and torch.equal(got[1], row6)):
                 raise AssertionError(f"closest_streamed at {g} lanes a ray,"
                                      f" guard {guard}: differs from K6")
-    t6W, row6W = clustered.closest_clustered(oW, dW, *table, 0.01,
-                                             nodes=tb.nodes)
     for guard in (True, False):
         got = ablations.closest_streamed(rW, *table, lcW, rt, 0.01, 1e16,
                                          guard)
@@ -1910,6 +1950,36 @@ def _check_ablations(records, tb, rays, shadow, rays_wide, shadow_wide,
             path=lambda: grp_path(ablations.occluded_grp_path, mode,
                                   *shadow, *table, 0.01),
             path_work=occluded_work, label=f"occluded_grp ({body})")
+    # K15 at every width, serial and bundled, against its plain version
+    # and K6 / K8, at n rays (one in PARK_EVERY parked) and at N_RAYS.
+    t_k = time.perf_counter()
+    k8W = clustered.occluded_clustered(*shadow_wide, *table, 0.01, tb.nodes)
+    for what, rc, rs, l_c, l_o, want_c, want_o in (
+            (f"{n} rays", r8, s8, gc, go, (t6, row6), k8_out),
+            (f"{oW.shape[0]} rays", rW, sW, gcW, goW, (t6W, row6W), k8W)):
+        plain_c = ablations._grp_plain(rc, *table, l_c, 0.01, 1e16, False)
+        plain_o = ablations._grp_plain(rs, *table, l_o, 0.01, 1e16, True)
+        for g in clustered.GROUPS:
+            for bundled in (False, True):
+                got_c = ablations.closest_grp(rc, *table, l_c, 0.01,
+                                              bundled=bundled, group=g)
+                got_o = ablations.occluded_grp(rs, *table, l_o, 0.01,
+                                               bundled=bundled, group=g)
+                torch.cuda.synchronize()
+                if not (all(torch.equal(a, b) for a, b in
+                            zip(got_c, plain_c))
+                        and all(torch.equal(a, b) for a, b in
+                                zip(got_c, want_c))
+                        and torch.equal(got_o, plain_o)
+                        and torch.equal(got_o, want_o)):
+                    raise AssertionError(
+                        f"K15 at {what}, {g} lanes a ray, bundled {bundled}:"
+                        " differs from its plain version or K6 / K8")
+    say("kernels", f"closest_grp / occluded_grp at {clustered.GROUPS} lanes "
+        f"a ray, serial and bundled: bitwise equal to their plain versions "
+        f"and K6 / K8 at {n} and {oW.shape[0]} rays "
+        f"({ablations.grp_group(n)} / {ablations.grp_occ_group(n)} lanes a "
+        f"ray shipped at {n}; {time.perf_counter() - t_k:.1f} s)")
 
     # The whole paths against K6 / K8 under every knob, at n and at ragged
     # ray counts.
@@ -2128,6 +2198,18 @@ def phase_list_caps(device, smi, big, records):
     r8 = ablations.pack_rays(o, d, 1e16, o.shape[0])
     s8 = ablations.pack_rays(*shadow, o.shape[0])
     checked = []
+    # K15's tiles (the small-tile route) on the table past the box cap, on
+    # the first SMALL_CAP_RAYS rays.
+    m = SMALL_CAP_RAYS
+    for r, closest in ((r8[:m], True), (s8[:m], False)):
+        args = (r, boxes, scale, ablations.GRP_LANES, 0.01,
+                1e16 if closest else r[:, 6])
+        _, extra = _compare_lists(
+            f"stream_lists ({n_c} boxes, tiles of {ablations.GRP_LANES})",
+            ablations.stream_lists(*args), ablations.stream_candidates(*args))
+    checked.append(f"{n_c} boxes at tiles of {ablations.GRP_LANES} "
+                   f"({ablations.list_route(n_c, ablations.GRP_LANES)}, {m} "
+                   f"rays): {extra}")
     for what, bx in (("784 boxes", tb.boxes), (f"{n_c} boxes", boxes),
                      ("8,192 boxes", boxes[:8192].contiguous()),
                      ("8,193 boxes", boxes[:8193].contiguous())):
@@ -2257,7 +2339,73 @@ def phase_incoherent(device, smi, big):
                                   ablations.stream_candidates(*args))
         say("incoherent", f"stream_lists ({'closest' if closest else 'any-hit'}"
             f", tiles of {lanes}) on {o.shape[0]} rays: {extra}")
+    _incoherent_widths(tb, o, d, tmax)
     return counts
+
+
+def _incoherent_widths(tb, o, d, tmax):
+    """K11 and K15 at every width on the incoherent rays: K11 (the unknown
+    and a cycled prediction) against K6 and, at the shipped width, its
+    plain version; K15 (serial and bundled)
+    against its plain version and K6 / K8. Closest rays unbounded, shadow
+    rays at the tool's tmax."""
+    import torch
+    from tpu_pt_torch.intersect import ablations, clustered
+    t0 = time.perf_counter()
+    table = (tb.rows, tb.boxes, tb.scale)
+    n = o.shape[0]
+    want_c = clustered.closest_clustered(o, d, *table, 0.01, nodes=tb.nodes)
+    want_o = clustered.occluded_clustered(o, d, tmax, *table, 0.01, tb.nodes)
+    srows = clustered._clustered_slab_rows(tb.rows.shape[0])
+    s_count = -(-tb.rows.shape[0] // srows)
+    preds = (torch.full((n,), clustered.SLAB_UNKNOWN, dtype=torch.int32,
+                        device=o.device),
+             (torch.arange(n, device=o.device) % s_count).to(torch.int32))
+    plain = ablations._closest_rotated_plain(o, d, tb.rows, preds[0], srows,
+                                             0.01)
+    t_plain = time.perf_counter() - t0
+    for pred in preds:
+        for g in clustered.GROUPS:
+            got = ablations.closest_rotated(o, d, *table, pred, srows, 0.01,
+                                            group=g)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want_c)):
+                raise AssertionError(f"incoherent: closest_rotated at {g} "
+                                     "lanes a ray differs from K6")
+    got = ablations.closest_rotated(o, d, *table, preds[0], srows, 0.01)
+    if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+        raise AssertionError("incoherent: closest_rotated differs from its "
+                             "plain version")
+    n_pad = ablations._pad_tile(n, ablations.GRP_LANES)
+    rc = ablations.pack_rays(o, d, 1e16, n_pad)
+    rs = ablations.pack_rays(o, d, tmax, n_pad)
+    lc = ablations.stream_lists(rc, *table[1:], ablations.GRP_LANES, 0.01,
+                                1e16)
+    lo = ablations.stream_lists(rs, *table[1:], ablations.GRP_LANES, 0.01,
+                                rs[:, 6])
+    plain_c = ablations._grp_plain(rc, *table, lc, 0.01, 1e16, False)
+    plain_o = ablations._grp_plain(rs, *table, lo, 0.01, 1e16, True)
+    for g in clustered.GROUPS:
+        for bundled in (False, True):
+            got_c = ablations.closest_grp(rc, *table, lc, 0.01,
+                                          bundled=bundled, group=g)
+            got_o = ablations.occluded_grp(rs, *table, lo, 0.01,
+                                           bundled=bundled, group=g)
+            torch.cuda.synchronize()
+            if not (all(torch.equal(a, b) for a, b in zip(got_c, plain_c))
+                    and all(torch.equal(a[:n], b) for a, b in
+                            zip(got_c, want_c))
+                    and torch.equal(got_o, plain_o)
+                    and torch.equal(got_o[:n], want_o)):
+                raise AssertionError(f"incoherent: K15 at {g} lanes a ray, "
+                                     f"bundled {bundled}: differs from its "
+                                     "plain version or K6 / K8")
+    say("incoherent", f"closest_rotated at {clustered.GROUPS} lanes a ray, "
+        f"two predictions: bitwise equal to K6 (and its plain "
+        f"version, {t_plain:.1f} s, at the shipped width); closest_grp / "
+        f"occluded_grp at every width, serial and bundled: bitwise equal to "
+        f"their plain versions and K6 / K8 on {n} rays "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_bf16(device, smi, records):

@@ -130,13 +130,14 @@ def _jax_stream_lists(rays8, boxes, rt, tmax):
     return tab[:, 0], tab[:, 1:1 + ns], keys[:, 1:1 + ns]
 
 
-@pytest.mark.parametrize("rt", [64, ablations.STREAM_OCC_TILE])
+@pytest.mark.parametrize("rt", [64, ablations.STREAM_OCC_TILE,
+                                ablations.GRP_LANES])
 @pytest.mark.parametrize("margin", [0.0, None])
 def test_stream_candidates_match_reference(mixed_scenes, monkeypatch, margin,
                                            rt):
-    """At tiles of 64 lanes and of K12's any-hit tile: the plain lists
-    (``stream_lists`` builds the same on the card) against the JAX
-    function."""
+    """At tiles of 64 lanes, of K12's any-hit tile and of K15's 8 rays
+    (the small-tile route on the card): the plain lists (``stream_lists``
+    builds the same on the card) against the JAX function."""
     jscene, tscene = mixed_scenes
     monkeypatch.setattr(clustered, "CLUSTER", 16)
     if margin is not None:
@@ -466,16 +467,21 @@ def fake_card(monkeypatch):
 
 
 @pytest.mark.parametrize("n_boxes,rt,route", [
-    (1, 1, "shared"), (784, 8, "shared"), (784, 128, "shared"),
-    (8192, 256, "shared"), (8193, 256, "global"), (8193, 1, "global"),
-    (784, 257, "global"), (784, 512, "global"), (8624, 512, "global"),
-    (20000, 1024, "global")])
+    (1, 1, "small"), (784, 8, "small"), (784, 32, "small"),
+    (8624, 8, "small"), (16384, 32, "small"), (784, 33, "shared"),
+    (784, 128, "shared"), (8192, 256, "shared"), (8193, 256, "global"),
+    (16385, 1, "global"), (784, 257, "global"), (784, 512, "global"),
+    (8624, 512, "global"), (20000, 1024, "global")])
 def test_list_route_past_the_caps(fake_card, n_boxes, rt, route):
-    """The list build keeps the shared-memory kernel up to LIST_MAX_TILE
-    rays a tile and LIST_MAX_BOXES boxes, and takes the global one past
-    either cap: it never raises for a valid shape, launches once and
-    returns lists of the shapes stream_candidates gives."""
+    """The list build takes the small-tile kernel (a warp a tile) up to
+    LIST_SMALL_MAX_TILE rays a tile and LIST_SMALL_MAX_BOXES boxes, else
+    the shared-memory kernel up to LIST_MAX_TILE rays and LIST_MAX_BOXES
+    boxes, and the global one past either cap: it never raises for a valid
+    shape, launches once and returns lists of the shapes stream_candidates
+    gives."""
     assert (ablations.LIST_MAX_TILE, ablations.LIST_MAX_BOXES) == (256, 8192)
+    assert (ablations.LIST_SMALL_MAX_TILE,
+            ablations.LIST_SMALL_MAX_BOXES) == (32, 16384)
     assert ablations.list_route(n_boxes, rt) == route
     n = 2 * rt
     rays, boxes = torch.zeros((n, 8)), torch.zeros((n_boxes, 8))
@@ -485,8 +491,9 @@ def test_list_route_past_the_caps(fake_card, n_boxes, rt, route):
         assert cand.shape == keys.shape == (2, n_boxes)
         assert cnt.shape == (2,) and far.shape == (n,)
     assert [c[0] for c in fake_card] == 2 * [
-        "tpt_stream_candidates" if route == "shared"
-        else "tpt_stream_candidates_global"]
+        {"small": "tpt_stream_candidates_small",
+         "shared": "tpt_stream_candidates",
+         "global": "tpt_stream_candidates_global"}[route]]
     assert all(c[1][4:7] == (n, n_boxes, rt) for c in fake_card)
     assert ablations.LAUNCHES["stream_lists"] == 2
     # Shapes no build takes still raise, before any launch.
@@ -495,3 +502,35 @@ def test_list_route_past_the_caps(fake_card, n_boxes, rt, route):
     with pytest.raises(ValueError, match="at least one box"):
         ablations.stream_lists(rays, boxes[:0], 1.0, rt, 0.01, 1e16)
     assert len(fake_card) == 2
+
+
+def _tables(n_boxes=4, cluster=8):
+    """Zero rows and boxes of ``n_boxes`` clusters (what a wrapper checks,
+    not what a kernel would read)."""
+    return (torch.zeros((n_boxes * cluster, 16)), torch.zeros((n_boxes, 8)))
+
+
+@pytest.mark.parametrize("group", [None, 4, 8, 16, 32])
+def test_rotated_launch_takes_width(fake_card, group):
+    """K11's wrapper passes its lanes a ray (``rotated_group`` when None)
+    to the kernel, and raises before any launch on a width it is not built
+    for or a slab that is not whole clusters."""
+    rows, boxes = _tables()
+    n = 96
+    o, d = torch.zeros((n, 3)), torch.ones((n, 3))
+    pred = torch.zeros(n, dtype=torch.int32)
+    ablations.closest_rotated(o, d, rows, boxes, 1.0, pred, 16, 0.01,
+                              group=group)
+    (name, args), = fake_card
+    assert name == "tpt_closest_rotated"
+    assert args[5:9] == (n, 4, 8, 2)
+    assert args[-2] == (ablations.rotated_group(n) if group is None
+                        else group)
+    assert ablations.LAUNCHES["closest_rotated"] == 1
+    for bad in (0, 2, 64):
+        with pytest.raises(ValueError, match="lanes a ray"):
+            ablations.closest_rotated(o, d, rows, boxes, 1.0, pred, 16, 0.01,
+                                      group=bad)
+    with pytest.raises(ValueError, match="cluster size"):
+        ablations.closest_rotated(o, d, rows, boxes, 1.0, pred, 12, 0.01)
+    assert len(fake_card) == 1

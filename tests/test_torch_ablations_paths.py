@@ -175,3 +175,40 @@ def test_rotated_matches_dense_and_reference(mixed_scenes, monkeypatch,
     assert (np.asarray(slab_j)[~hit] == SLAB_UNKNOWN).all()
 
 
+
+
+def test_rotated_warp_of_distinct_predictions(mixed_scenes, monkeypatch):
+    """Every lane of each ROT_TILE-lane tile predicts another slab (64
+    slabs of one cluster): the plain K11, whose tiles then start at their
+    lowest prediction, equals K6's plain version and the JAX package's
+    rotated chain under the same predictions (on the card each ray starts
+    at its own)."""
+    jscene, tscene = mixed_scenes
+    _shrink(monkeypatch, cluster=8, slab=8)
+    monkeypatch.setattr(pallas_bf, "TRI_SLAB", 128)
+    monkeypatch.setattr(pallas_bf, "CLUSTERED_SLAB", 16)
+    monkeypatch.setenv("TPT_SEED", "1")
+    tables = clustered.prepare(tscene)
+    s_count = tables.rows.shape[0] // 8
+    assert s_count >= 2 * ablations.ROT_TILE
+    o, d, *_ = _test_rays(jscene, 256, seed=34)
+    n = o.shape[0]
+    pred = (np.arange(n) * 5 % s_count).astype(np.int32)
+    tiles = pred.reshape(-1, ablations.ROT_TILE)
+    assert all(len(set(t.tolist())) == ablations.ROT_TILE for t in tiles)
+    np.testing.assert_array_equal(
+        ablations._tile_pred(torch.as_tensor(pred), s_count,
+                             ablations.ROT_TILE).numpy(), tiles.min(1))
+    t, row = ablations.closest_rotated(
+        _t(o), _t(d), tables.rows, tables.boxes, tables.scale,
+        torch.as_tensor(pred), 8, 0.01)
+    t6, row6 = clustered.closest_clustered(_t(o), _t(d), tables.rows,
+                                           tables.boxes, tables.scale, 0.01)
+    assert torch.equal(t, t6) and torch.equal(row, row6)
+    assert 0.2 < float((t < 1e15).float().mean()) < 1.0
+    h = clustered.closest_hit(tables, _t(o), _t(d), want_uv=False,
+                              pred=torch.as_tensor(pred))
+    assert torch.equal(h.t, t)
+    j = pallas_bf.intersect_closest(jscene, jnp.asarray(o), jnp.asarray(d),
+                                    want_uv=False, pred=jnp.asarray(pred))
+    _assert_same_clustered_hit(j, h, o, d, tscene)

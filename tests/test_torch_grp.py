@@ -26,7 +26,8 @@ from tpu_pt.intersect import pallas_ablations, pallas_bf  # noqa: E402
 from tpu_pt_torch.intersect import ablations, clustered, dense  # noqa: E402
 from test_torch_ablations import (_clean_env, _frame,  # noqa: E402,F401
                                   _jax_stream_lists, _rays8, _shrink,
-                                  _test_rays, mixed_scenes, one_torch_thread)
+                                  _tables, _test_rays, fake_card,
+                                  mixed_scenes, one_torch_thread)
 from test_torch_clustered import _assert_same_clustered_hit  # noqa: E402
 from test_torch_intersect import _t  # noqa: E402
 
@@ -179,8 +180,11 @@ def test_grp_precedence(monkeypatch):
     monkeypatch.setenv("TPT_SEED", "0")
     monkeypatch.setenv("TPT_LEAN_BIG", "0")
     assert pick(False, True, rows) == "chain" and occ() == "grp"
-    assert ablations.GRP_BUNDLE == pallas_ablations.GRP_BUNDLE
-    assert ablations.GRP_RT == pallas_ablations.GRP_RT
+    # The reference's 8 rays a list (its GRP_RT // 8 lists a program);
+    # its block shapes (GRP_RT lanes a program, GRP_BUNDLE groups a bundle)
+    # have no twin on the card.
+    assert ablations.GRP_LANES == 8
+    assert pallas_ablations.GRP_RT % ablations.GRP_LANES == 0
 
 
 def test_grp_wrappers_take_cpu_or_cuda_only(mixed_scenes, monkeypatch):
@@ -199,3 +203,49 @@ def test_grp_wrappers_take_cpu_or_cuda_only(mixed_scenes, monkeypatch):
                                    bundled=bundled)
     assert not ablations.LAUNCHES["closest_grp"]
     assert not ablations.LAUNCHES["occluded_grp"]
+
+
+@pytest.mark.parametrize("picker", ["grp_group", "grp_occ_group",
+                                    "rotated_group",
+                                    "stream_closest_group",
+                                    "stream_occ_group"])
+def test_group_pickers_return_built_widths(picker):
+    """Every width a picker returns, at any ray count, is one the group
+    kernels are built for (``clustered.GROUPS``: csrc/walk.cuh's
+    with_group)."""
+    pick = getattr(ablations, picker)
+    counts = (0, 1, 8, 1000, 32768, 65536, 65537, 262144, 1 << 24)
+    assert {pick(n) for n in counts} <= set(clustered.GROUPS)
+    assert clustered.GROUPS == (4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("occluded", [False, True])
+@pytest.mark.parametrize("bundled", [False, True])
+@pytest.mark.parametrize("group", [None, 4, 32])
+def test_grp_launch_takes_width(fake_card, occluded, bundled, group):
+    """K15's wrappers pass their lanes a ray (``grp_group`` /
+    ``grp_occ_group`` when None) to the kernel, the same launch for either
+    body, and raise before any launch on a width the kernels are not built
+    for or rays that do not split into groups of GRP_LANES."""
+    rows, boxes = _tables()
+    n = 64
+    rays = torch.zeros((n, 8))
+    lists = (torch.zeros((n // 8, 4), dtype=torch.int32),
+             torch.zeros((n // 8, 4)), torch.zeros(n // 8, dtype=torch.int32),
+             torch.zeros(n))
+    name = "occluded_grp" if occluded else "closest_grp"
+    fn = getattr(ablations, name)
+    pick = ablations.grp_occ_group if occluded else ablations.grp_group
+    fn(rays, rows, boxes, 1.0, lists, 0.01, bundled=bundled, group=group)
+    (entry, args), = fake_card
+    assert entry == "tpt_" + name
+    assert args[7:11] == (n, 4, 8, 1.0)
+    assert args[-2] == (pick(n) if group is None else group)
+    assert ablations.LAUNCHES[name] == 1
+    for bad in (1, 12, 64):
+        with pytest.raises(ValueError, match="lanes a ray"):
+            fn(rays, rows, boxes, 1.0, lists, 0.01, bundled=bundled,
+               group=bad)
+    with pytest.raises(ValueError, match="groups of"):
+        fn(rays[:60], rows, boxes, 1.0, lists, 0.01, bundled=bundled)
+    assert len(fake_card) == 1

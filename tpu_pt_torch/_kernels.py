@@ -77,13 +77,15 @@ _SIGNATURES = {
     },
     "ablations_intersect": {
         "tpt_closest_rotated": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                                _F, _F, _P, _P, _P),
+                                _F, _F, _P, _P, _I, _P),
         "tpt_closest_streamed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _F, _F, _F, _F, _I, _P, _P, _I, _P),
-        "tpt_occluded_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _F, _F, _F, _I, _P, _I, _P),
+        "tpt_occluded_streamed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _F, _F, _F, _I, _P, _I, _P),
         "tpt_stream_candidates": (_P, _P, _F, _P, _I, _I, _I, _F, _F, _F, _P,
                                   _P, _P, _P, _P),
+        "tpt_stream_candidates_small": (_P, _P, _F, _P, _I, _I, _I, _F, _F,
+                                        _F, _P, _P, _P, _P, _P),
         "tpt_stream_candidates_global": (_P, _P, _F, _P, _I, _I, _I, _F, _F,
                                          _F, _P, _P, _P, _P, _P, _P, _P, _P,
                                          _P),
@@ -100,10 +102,10 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _P, _P, _P, _P, _P),
         "tpt_closest_binned": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
         "tpt_occluded_binned": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
-        "tpt_closest_grp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _F, _F, _F, _F, _P, _P, _P),
-        "tpt_occluded_grp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _F, _F, _F, _P, _P),
+        "tpt_closest_grp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                            _F, _F, _P, _P, _I, _P),
+        "tpt_occluded_grp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                             _F, _P, _I, _P),
     },
     "microbench_bf16": {
         "tpt_chain_f32": (_P, _P, _P, _I, _I, _P),

@@ -24,9 +24,10 @@
 //                           _closest_call_grp (:1804),
 //   tpt_occluded_grp     <- _occluded_kernel_grp (:1791) and
 //                           _occluded_kernel_grp_bundled (:1715) via
-//                           _occluded_call_grp (:1866): a group of 8 lanes
-//                           (a quarter warp) walks its own near-first list of
-//                           the clusters any of its rays pierces.
+//                           _occluded_call_grp (:1866): 8 consecutive rays
+//                           share a near-first list of the clusters any of
+//                           them pierces, and each ray, a group of G lanes,
+//                           goes down it on its own.
 //
 // What was kept of each TPU schedule, and what was not:
 // - binned: the pairs, their tiles against one cluster, the dead tail (tile
@@ -60,23 +61,28 @@
 //     row) does, and the fold is the lexicographic minimum in any order,
 //     so it is deterministic; the any-hit's fold is a store of 1.
 // - grp: the transposed [16, CLUSTER] table and the [N, 8] rays exist
-//   because rays live in a TPU vector's lanes; here a lane is a ray and the
-//   table keeps its row layout. The chained slabs exist because a slab had to
-//   fit in VMEM; one launch covers the table. The serial body (TPT_GRP=1)
-//   lets every quarter warp run free, reading rows through L1. The bundled
-//   body (TPT_GRP=2) is the TPU's lockstep made real: a block of GRP_BUNDLE
-//   groups advances every group one candidate a step, each staging its
-//   cluster in its own 8 KB of shared memory with cp.async, one block
-//   barrier a step. Both walk the same lists and give the same values.
-//   Added, exactly: a lane culls a listed cluster whose grown box it does not
-//   enter before its best t (or tmax), and a group stops at the first key
-//   beyond every lane's min(best, far) (K12's break); the reference sweeps
-//   every listed cluster for all 8 rays.
+//   because rays live in a TPU vector's lanes, and the chained slabs
+//   because a slab had to fit in VMEM; here the table keeps its row layout
+//   and one launch covers it. The function is K12's at a tile of 8 rays,
+//   and so is the kernel (list_walk.cuh, shared with K12): one ray to a
+//   group of G lanes (ablations.grp_group / grp_occ_group) that goes down
+//   its 8-ray tile's list on its own, G candidates at a time, each lane
+//   running its own guard, a ballot for the passes, a per-ray break
+//   re-checked after every swept candidate, the rows split over the lanes
+//   and (t, row) folded by xor shuffles; the any-hit stops at its first
+//   blocking cluster. The bundled body's TPU lockstep (a block barrier a
+//   step, every group staging every candidate whether or not one of its
+//   lanes passes) is not kept, and TPT_GRP=2 launches the same walk as
+//   TPT_GRP=1: staging the next passing cluster's rows in the group's own
+//   shared slot with cp.async, double-buffered, was 1.6-1.8x slower on a
+//   frame's calls at every width (PERF.md). Exact, as K12: the reference
+//   sweeps every listed cluster for all 8 rays; a culled cluster or one
+//   past the break holds no nearer hit.
 //
 // What bounds them on this card: FP32 ALU. The binned closest kernel sweeps
 // every live pair against all 128 rows of its staged cluster without
 // divergence, the schedule's select step every (ray, box) slab test; the
-// groups diverge inside a warp where the four groups' lists differ. The
+// groups diverge where rays' lists or passes part. The
 // binned path's bound is the function's with every box tested (K6's flat
 // count), and the schedule's slab tests are most of it.
 //
@@ -91,29 +97,23 @@
 //
 // Barriers: in the binned kernels a dead tile leaves before its only
 // barrier, as a whole block; in the schedule's select step every thread,
-// live or not, reaches every barrier of the staging loop; in the bundled
-// group kernels every thread, live or not, reaches every barrier, and the
-// trip count is a block vote.
+// live or not, reaches every barrier of the staging loop; the group kernels
+// reach no barrier.
 
-#include "pe_block.cuh"
+#include "list_walk.cuh"
 #include "runs.cuh"
-
-#include <cuda_pipeline.h>
 
 #include <type_traits>
 
 namespace {
 
 constexpr int kMaxCluster = 128;  // rows per cluster the row buffers hold
-constexpr int kGroup = 8;         // ablations.GRP_LANES
-constexpr int kBundle = 8;        // ablations.GRP_BUNDLE
+constexpr int kGroup = 8;         // ablations.GRP_LANES: rays a list
 using tpt::kTFar;
 using tpt::load_ray8;
 using tpt::max_abs_origin;
-using tpt::pe_test;
 using tpt::Ray;
 using tpt::Slab;
-using tpt::box_passes;
 
 // ---------------------------------------------------------- pair schedule
 
@@ -298,157 +298,6 @@ occluded_binned_kernel(const float* __restrict__ rays,
   if (tpt::blocked_staged(ray, s_rows, cluster, tmin, tm)) occ[r] = 1;
 }
 
-// ------------------------------------------------------------------- groups
-
-// The rows of cluster c as the group reads them: bundled, copied by the
-// group's 8 lanes into its own shared slot (cp.async, 16 bytes a request),
-// visible to the group after the wait and the group's sync; serial, the
-// table itself, read through L1.
-template <bool kBundled>
-__device__ __forceinline__ const float4* group_rows(
-    const float4* __restrict__ table, float4* slot, int c, int cluster,
-    int lane, unsigned gmask) {
-  const float4* src = table + 4 * (size_t)c * cluster;
-  if (!kBundled) return src;
-  for (int q = lane; q < cluster * 4; q += kGroup)
-    __pipeline_memcpy_async(slot + q, src + q, sizeof(float4));
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncwarp(gmask);
-  return slot;
-}
-
-// Lane i belongs to group i / 8; `cand` and `keys` are [groups, n_boxes]:
-// the group's boxes in ascending key order, the first cnt[group] listed;
-// `last_key` [n] is each lane's last entry distance over the boxes it
-// pierces (-3e38: none). n_rays is a multiple of 8, so a group is live or
-// dead as a whole.
-template <bool kBundled>
-__global__ void closest_grp_kernel(const float* __restrict__ rays,
-                                   const float* __restrict__ tris,
-                                   const float* __restrict__ boxes,
-                                   const int* __restrict__ cand,
-                                   const float* __restrict__ keys,
-                                   const int* __restrict__ cnt,
-                                   const float* __restrict__ last_key,
-                                   int n_rays, int n_boxes, int cluster,
-                                   float scale, float margin, float tmin,
-                                   float tmax, float* __restrict__ t_out,
-                                   int* __restrict__ row_out) {
-  extern __shared__ float4 s_slots[];  // bundled: kBundle slots of a cluster
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  if (!kBundled && !live) return;      // serial: no block barrier
-  const int g = i / kGroup, lane = threadIdx.x % kGroup;
-  const unsigned gmask = 0xffu << (threadIdx.x & 24);
-  float4* slot = s_slots + (threadIdx.x / kGroup) * cluster * 4;
-  float tm_unused;
-  const Ray r = live ? load_ray8(rays, i, &tm_unused) : Ray{0, 0, 0, 0, 0, 0};
-  const Slab s = tpt::make_slab(r);
-  const float m = margin * (scale + max_abs_origin(r));
-  const float lane_far = live ? last_key[i] : -3e38f;
-  const float4* bx = reinterpret_cast<const float4*>(boxes);
-  const float4* table = reinterpret_cast<const float4*>(tris);
-  const int ncand = live ? min(max(cnt[g], 0), n_boxes) : 0;
-  const int* list = cand + (size_t)(live ? g : 0) * n_boxes;
-  const float* key = keys + (size_t)(live ? g : 0) * n_boxes;
-
-  float best = kTFar;
-  int best_row = 0;
-  for (int k = 0;; ++k) {
-    // Keys ascend, and a lane enters no later box before its key: once the
-    // key is beyond every lane's best t (or its last entry), nothing left
-    // can improve or tie, and the group's list has ended.
-    bool on = k < ncand && key[k] <= fminf(best, lane_far);
-    on = (__ballot_sync(gmask, on) & gmask) != 0;
-    if (kBundled) {
-      // The step's barrier: also ends every read of the slots refilled below.
-      if (!__syncthreads_or(on)) break;
-      if (!on) continue;  // ended: vote no, reach every barrier
-    } else if (!on) {
-      break;
-    }
-    const int c = list[k];
-    const bool lane_ok = box_passes(r, s, m, bx, c, tmin, fminf(best, tmax));
-    if ((__ballot_sync(gmask, lane_ok) & gmask) == 0) continue;
-    const float4* rows =
-        group_rows<kBundled>(table, slot, c, cluster, lane, gmask);
-    if (!lane_ok) continue;
-    const int row0 = c * cluster;
-    for (int j = 0; j < cluster; ++j) {
-      float t = pe_test(r, rows[4 * j], rows[4 * j + 1], rows[4 * j + 2], tmin);
-      if (!(t < tmax)) t = kTFar;
-      const int row = row0 + j;
-      if (t < best || (t == best && row < best_row)) {
-        best = t;
-        best_row = row;
-      }
-    }
-  }
-  if (!live) return;
-  t_out[i] = best;
-  row_out[i] = best < kTFar ? best_row : 0;
-}
-
-// Any-hit: per-lane tmax (column 6 of the rays); a lane that is blocked
-// stops testing, and the group stops when every lane is blocked or closed,
-// its list has ended, or the key is beyond every open lane's
-// min(last entry, tmax).
-template <bool kBundled>
-__global__ void occluded_grp_kernel(const float* __restrict__ rays,
-                                    const float* __restrict__ tris,
-                                    const float* __restrict__ boxes,
-                                    const int* __restrict__ cand,
-                                    const float* __restrict__ keys,
-                                    const int* __restrict__ cnt,
-                                    const float* __restrict__ last_key,
-                                    int n_rays, int n_boxes, int cluster,
-                                    float scale, float margin, float tmin,
-                                    uint8_t* __restrict__ occ_out) {
-  extern __shared__ float4 s_slots[];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  if (!kBundled && !live) return;
-  const int g = i / kGroup, lane = threadIdx.x % kGroup;
-  const unsigned gmask = 0xffu << (threadIdx.x & 24);
-  float4* slot = s_slots + (threadIdx.x / kGroup) * cluster * 4;
-  float tm = 0.0f;
-  const Ray r = live ? load_ray8(rays, i, &tm) : Ray{0, 0, 0, 0, 0, 0};
-  const Slab s = tpt::make_slab(r);
-  const float m = margin * (scale + max_abs_origin(r));
-  const float lane_far = live ? fminf(last_key[i], tm) : -3e38f;
-  const float4* bx = reinterpret_cast<const float4*>(boxes);
-  const float4* table = reinterpret_cast<const float4*>(tris);
-  const int ncand = live ? min(max(cnt[g], 0), n_boxes) : 0;
-  const int* list = cand + (size_t)(live ? g : 0) * n_boxes;
-  const float* key = keys + (size_t)(live ? g : 0) * n_boxes;
-
-  // Nothing can block when (tmin, tm) is empty (parked lanes carry tm = 0).
-  bool open = live && tm > tmin;
-  bool blocked = false;
-  for (int k = 0;; ++k) {
-    bool on = open && k < ncand && key[k] <= lane_far;
-    on = (__ballot_sync(gmask, on) & gmask) != 0;
-    if (kBundled) {
-      if (!__syncthreads_or(on)) break;
-      if (!on) continue;
-    } else if (!on) {
-      break;
-    }
-    const int c = list[k];
-    const bool lane_ok = open && box_passes(r, s, m, bx, c, tmin, tm);
-    if ((__ballot_sync(gmask, lane_ok) & gmask) == 0) continue;
-    const float4* rows =
-        group_rows<kBundled>(table, slot, c, cluster, lane, gmask);
-    if (!lane_ok) continue;
-    if (tpt::blocked_staged(r, rows, cluster, tmin, tm)) {
-      blocked = true;
-      open = false;
-    }
-  }
-  if (live) occ_out[i] = blocked ? 1 : 0;
-}
-
 inline bool bad_cluster(int cluster) {
   return cluster < 1 || cluster > kMaxCluster;
 }
@@ -489,32 +338,15 @@ bool with_select_group(int group, Launch launch) {
   }
 }
 
-// Threads per block: bundled, GRP_BUNDLE groups; serial, `lanes` (a
-// multiple of 32 up to 1,024).
-inline int grp_block(int bundled, int lanes) {
-  return bundled ? kBundle * kGroup : lanes;
-}
-
-// Dynamic shared memory of a bundled block (8 slots of 8 KB at 128 rows:
-// above the 48 KB a block gets without asking), or -1 if refused.
-template <typename Kernel>
-inline int grp_smem(Kernel kernel, int cluster) {
-  const int bytes = kBundle * cluster * 4 * (int)sizeof(float4);
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes) != cudaSuccess)
-    return -1;
-  return bytes;
-}
-
 }  // namespace
 
 extern "C" {
 
 // Each entry point launches on `stream`, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() as an int (0 = success), or
-// cudaErrorInvalidValue for a cluster outside 1..128 or a serial group block
-// that is not a multiple of 32 up to 1,024. Rays are [n, 8] f32 (pack_rays),
-// tables as tpt_closest_clustered.
+// cudaErrorInvalidValue for a cluster outside 1..128, a width not built
+// here, or a K15 ray count that is not a multiple of 8. Rays are [n, 8]
+// f32 (pack_rays), tables as tpt_closest_clustered.
 
 // The pair schedule of ablations._pair_schedule for rays [n_rays, 8]
 // (tmax [n_rays] f32 each ray's bound, or null for tmax_all) and boxes
@@ -592,56 +424,38 @@ int tpt_occluded_binned(const float* rays, const float* tris,
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
+// K15 over the group lists of tpt_stream_candidates at tiles of kGroup
+// (8) rays, `rays` packed [n_rays, 8] (n_rays a multiple of 8), `group`
+// lanes a ray (a width of with_group: 4, 8, 16, 32). The serial and the
+// bundled body (TPT_GRP=1, 2) both launch it (see the note at the top).
 int tpt_closest_grp(const float* rays, const float* tris, const float* boxes,
                     const int* cand, const float* keys, const int* cnt,
                     const float* last_key, int n_rays, int n_boxes,
-                    int cluster, int lanes, int bundled, float scale,
-                    float margin, float tmin, float tmax, float* t_out,
-                    int* row_out, void* stream) {
-  if (bad_cluster(cluster) || n_rays % kGroup ||
-      (!bundled && (lanes < 32 || lanes > 1024 || lanes % 32)))
+                    int cluster, float scale, float margin, float tmin,
+                    float tmax, float* t_out, int* row_out, int group,
+                    void* stream) {
+  if (bad_cluster(cluster) || n_rays % kGroup)
     return (int)cudaErrorInvalidValue;
-  const int block = grp_block(bundled, lanes);
-  const unsigned grid = (unsigned)((n_rays + block - 1) / block);
-  if (grid == 0) return (int)cudaGetLastError();
-  if (bundled) {
-    const int smem = grp_smem(closest_grp_kernel<true>, cluster);
-    if (smem < 0) return (int)cudaGetLastError();
-    closest_grp_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
-        rays, tris, boxes, cand, keys, cnt, last_key, n_rays, n_boxes,
-        cluster, scale, margin, tmin, tmax, t_out, row_out);
-  } else {
-    closest_grp_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        rays, tris, boxes, cand, keys, cnt, last_key, n_rays, n_boxes,
-        cluster, scale, margin, tmin, tmax, t_out, row_out);
-  }
-  return (int)cudaGetLastError();
+  const bool ok = tpt::launch_closest_list(
+      group, n_rays, (cudaStream_t)stream, rays, tris, boxes, cand, keys,
+      cnt, last_key, n_rays, n_boxes, cluster, kGroup, scale, margin, tmin,
+      tmax, 1, t_out, row_out);
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
+// K15 any-hit: `rays` column 6 each ray's tmax; the rest as above.
 int tpt_occluded_grp(const float* rays, const float* tris,
                      const float* boxes, const int* cand, const float* keys,
                      const int* cnt, const float* last_key, int n_rays,
-                     int n_boxes, int cluster, int lanes, int bundled,
-                     float scale, float margin, float tmin, uint8_t* occ_out,
-                     void* stream) {
-  if (bad_cluster(cluster) || n_rays % kGroup ||
-      (!bundled && (lanes < 32 || lanes > 1024 || lanes % 32)))
+                     int n_boxes, int cluster, float scale, float margin,
+                     float tmin, uint8_t* occ_out, int group, void* stream) {
+  if (bad_cluster(cluster) || n_rays % kGroup)
     return (int)cudaErrorInvalidValue;
-  const int block = grp_block(bundled, lanes);
-  const unsigned grid = (unsigned)((n_rays + block - 1) / block);
-  if (grid == 0) return (int)cudaGetLastError();
-  if (bundled) {
-    const int smem = grp_smem(occluded_grp_kernel<true>, cluster);
-    if (smem < 0) return (int)cudaGetLastError();
-    occluded_grp_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
-        rays, tris, boxes, cand, keys, cnt, last_key, n_rays, n_boxes,
-        cluster, scale, margin, tmin, occ_out);
-  } else {
-    occluded_grp_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        rays, tris, boxes, cand, keys, cnt, last_key, n_rays, n_boxes,
-        cluster, scale, margin, tmin, occ_out);
-  }
-  return (int)cudaGetLastError();
+  const bool ok = tpt::launch_occluded_list(
+      group, n_rays, (cudaStream_t)stream, rays, tris, boxes, cand, keys,
+      cnt, last_key, n_rays, n_boxes, cluster, kGroup, scale, margin, tmin,
+      1, occ_out);
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

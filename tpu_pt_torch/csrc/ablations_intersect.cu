@@ -42,17 +42,24 @@
 // What was kept of each TPU schedule, and what was not:
 // - rotated: the S chained launches, needed there because a slab had to
 //   fit in VMEM, are a loop over the slabs inside one launch; the per-tile
-//   candidate tables (rotated_candidates) have no twin, since each thread
-//   culls the slab's cluster boxes for its own ray as
-//   tpt_closest_clustered does, bounded by its best hit so far. A warp
-//   (the unit that diverges) agrees on one first slab by a vote: the most
-//   frequent prediction of its lanes, ties to the lowest slab.
-// - streamed, closest: the tile's list, its near-first key order, the
-//   exact early break and the per-candidate guard are kept; the tile's
-//   lockstep (a ring of shared row buffers, one block vote for the break
-//   and one for the guard per candidate) is not. One ray goes to a group of
-//   G lanes (walk.cuh) and goes down its tile's list on its own, G
-//   candidates at a time: each lane reads one (key, box) and, with the
+//   candidate tables (rotated_candidates) have no twin. One ray goes to a
+//   group of G lanes (walk.cuh), which starts at its own predicted slab:
+//   the warp vote on a first slab (a TPU tile's shared order) is gone, as
+//   the result does not depend on the order. Within a slab the group tests
+//   the boxes G at a time, each lane its ray's grown box against one at
+//   min(best, tmax); a ballot gives the ones that pass, and the group
+//   sweeps each (held against the bound again, since best shrinks within a
+//   chunk), its rows split over the lanes and folded by xor shuffles
+//   (list_walk.cuh's sweep_cluster): K8b's shape with a closest-hit carry.
+//   G (ablations.rotated_group) comes from tools/grp_rot_ab_torch.py's
+//   trial on a frame's calls; sweeping a chunk's passes nearest entry first
+//   instead of lowest box first gained nothing there (PERF.md).
+// - streamed, closest: the tile's list, its near-first key order, the exact
+//   early break and the per-candidate guard are kept; the tile's lockstep (a
+//   ring of shared row buffers, one block vote for the break and one for the
+//   guard per candidate) is not. One ray goes to a group of G lanes
+//   (list_walk.cuh, shared with K15) and goes down its tile's list on its
+//   own, G candidates at a time: each lane reads one (key, box) and, with the
 //   guard on, tests its ray's own grown box against it at min(best, tmax);
 //   the group sweeps each candidate that passes, nearest first, its rows
 //   split over the lanes, and folds (t, row) by xor shuffles, ties to the
@@ -60,13 +67,13 @@
 //   min(best, far), checked again after every swept candidate, as best
 //   shrinks within a chunk; `far` is the ray's last entry distance over the
 //   boxes it pierces, a term the list build knows, so a ray that misses
-//   everything stops at once. Guard off (TPT_STREAM_GUARD=0): every
-//   candidate up to the break is swept. One lane that still needs a far
-//   cluster no longer holds 255 others; any tile width is taken, past the
-//   list build's caps too. Its tile (ablations.STREAM_CLOSEST_TILE) and G
-//   (ablations.stream_closest_group) come from tools/cbin_ab_torch.py's
-//   trial on a frame's calls. The 128-lane widening of the table is a
-//   Mosaic DMA constraint and has no twin.
+//   everything stops at once. Guard off (TPT_STREAM_GUARD=0): every candidate
+//   up to the break is swept. One lane that still needs a far cluster no
+//   longer holds 255 others; any tile width is taken, past the list build's
+//   caps too. Its tile (ablations.STREAM_CLOSEST_TILE) and G
+//   (ablations.stream_closest_group) come from tools/cbin_ab_torch.py's trial
+//   on a frame's calls. The 128-lane widening of the table is a Mosaic DMA
+//   constraint and has no twin.
 // - streamed, any-hit: the tile's list, its near-first key order and the
 //   exact break (key > the lane's min(far, tmax)) are kept; the tile's
 //   lockstep is not. As the closest side, one ray goes to a group of G
@@ -126,8 +133,9 @@
 //
 // What bounds them on this card: FP32 ALU, as the other clustered kernels.
 // The binned sweeps run rows from shared memory without divergence inside
-// a block, but a launch sweeps every padded pair lane; the streamed
-// groups diverge where rays' lists part, and read rows through L1 / L2.
+// a block, but a launch sweeps every padded pair lane; the streamed and
+// rotated groups diverge where rays' lists or passes part, and read rows
+// through L1 / L2. K11 tests every box of the table for every ray.
 //
 // Correctness: results are bitwise those of a dense sweep over every row
 // with ties to the lowest packed row. The three closest kernels replace the
@@ -141,20 +149,20 @@
 //
 // Barriers: in the list build every thread of a block, live, parked or
 // past n_rays, reaches every barrier; trip counts come from block votes.
-// The streamed groups and the cbin list groups reach no barrier: a group's
-// branches are uniform over its lanes, which hold the same ray (or ray
-// group). A cbin sweep's empty job leaves before its only barrier, as a
+// The rotated and streamed groups and the cbin list groups reach no
+// barrier: a group's branches are uniform over its lanes, which hold the
+// same ray (or ray group). A cbin sweep's empty job leaves before its only barrier, as a
 // whole block.
 
+#include "list_walk.cuh"
 #include "runs.cuh"
-#include "walk.cuh"
 
+#include <algorithm>
 #include <cstring>
 
 namespace {
 
 constexpr int kMaxCluster = 128;  // rows per cluster K13 stages
-constexpr int kRotThreads = 128;
 using tpt::kTFar;
 using tpt::load_ray;
 using tpt::max_abs_origin;
@@ -165,7 +173,15 @@ using tpt::box_passes;
 
 // ---------------------------------------------------------------- rotated
 
-__global__ void __launch_bounds__(kRotThreads)
+// One ray to a group of G lanes. The group visits its ray's predicted slab
+// first (pred[i]; unknown or out of range: slab 0), then the others in
+// ascending order. Within a slab it tests the boxes G at a time, a lane a
+// box, at min(best, tmax) (slab_enter); a ballot gives the ones that pass,
+// and the group sweeps each, lowest box first, held against min(best,
+// tmax) again since best shrinks within a chunk, its rows split over the
+// lanes and folded by xor shuffles (list_walk.cuh's sweep_cluster).
+template <int G>
+__global__ void __launch_bounds__(tpt::kWalkThreads)
 closest_rotated_kernel(const float* __restrict__ orig,
                        const float* __restrict__ dir,
                        const float* __restrict__ tris,
@@ -174,17 +190,11 @@ closest_rotated_kernel(const float* __restrict__ orig,
                        int cluster, int slab_boxes, int s_count, float scale,
                        float margin, float tmin, float tmax,
                        float* __restrict__ t_out, int* __restrict__ row_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays;
-  // The warp's first slab: the most frequent prediction of its lanes, ties
-  // to the lowest slab; unknown and out-of-range predictions count as 0.
-  int p = live ? pred[i] : 0;
-  if (p < 0 || p >= s_count) p = 0;
-  const unsigned peers = __match_any_sync(0xffffffffu, p);
-  unsigned vote = ((unsigned)__popc(peers) << 24) | (0xffffffu - (unsigned)p);
-  vote = __reduce_max_sync(0xffffffffu, vote);
-  const int first = (int)(0xffffffu - (vote & 0xffffffu));
-  if (!live) return;
+  const tpt::Group g = tpt::group_of_thread<G>();
+  const int i = tpt::walk_ray<G>();
+  if (i >= n_rays) return;  // whole groups leave together
+  int first = __ldg(pred + i);
+  if (first < 0 || first >= s_count) first = 0;
   const Ray r = load_ray(orig, dir, i);
   const Slab s = tpt::make_slab(r);
   const float m = margin * (scale + max_abs_origin(r));
@@ -197,181 +207,27 @@ closest_rotated_kernel(const float* __restrict__ orig,
     // Visit v: the first slab, then the others in ascending order.
     const int sid = v == 0 ? first : (v - 1 < first ? v - 1 : v);
     const int c1 = min((sid + 1) * slab_boxes, n_boxes);
-    for (int c = sid * slab_boxes; c < c1; ++c) {
-      if (!box_passes(r, s, m, bx, c, tmin, fminf(best, tmax))) continue;
-      const int base = c * cluster;
-      for (int j = 0; j < cluster; ++j) {
-        const int row = base + j;
-        const float4* q = rows + 4 * (size_t)row;
-        float t = pe_test(r, __ldg(q), __ldg(q + 1), __ldg(q + 2), tmin);
-        if (!(t < tmax)) t = kTFar;
-        if (t < best || (t == best && row < best_row)) {
-          best = t;
-          best_row = row;
-        }
+    for (int c0 = sid * slab_boxes; c0 < c1; c0 += G) {
+      const int c = c0 + g.lane;
+      float tn = 0.0f;
+      const bool ok =
+          c < c1 && tpt::slab_enter(r, s, __ldg(bx + 2 * (size_t)c),
+                                    __ldg(bx + 2 * (size_t)c + 1), m, tmin,
+                                    &tn) &&
+          tn <= fminf(best, tmax);
+      unsigned pass = tpt::group_ballot(g, ok);
+      while (pass != 0u) {
+        const int j = __ffs(pass) - 1;
+        pass &= pass - 1u;
+        if (!(__shfl_sync(g.mask, tn, j, G) <= fminf(best, tmax))) continue;
+        tpt::sweep_cluster<G>(r, rows, (c0 + j) * cluster, cluster, g, tmin,
+                              tmax, best, best_row);
       }
     }
-  }
-  t_out[i] = best;
-  row_out[i] = best < kTFar ? best_row : 0;
-}
-
-// --------------------------------------------------------------- streamed
-
-// Ray i of the packed rays [n_rays, 8]; its list is its tile's, tile
-// i / rt: `cand` and `keys` are [tiles, n_boxes], the tile's boxes in
-// ascending key order and their keys, of which the first cnt[tile] are
-// listed; `last_key` [n_rays] is each ray's last entry distance over the
-// boxes it pierces (-3e38: none). One ray to a group of G lanes.
-template <int G>
-__global__ void __launch_bounds__(tpt::kWalkThreads)
-closest_streamed_kernel(const float* __restrict__ rays,
-                        const float* __restrict__ tris,
-                        const float* __restrict__ boxes,
-                        const int* __restrict__ cand,
-                        const float* __restrict__ keys,
-                        const int* __restrict__ cnt,
-                        const float* __restrict__ last_key, int n_rays,
-                        int n_boxes, int cluster, int rt, float scale,
-                        float margin, float tmin, float tmax, int guard,
-                        float* __restrict__ t_out, int* __restrict__ row_out) {
-  const tpt::Group g = tpt::group_of_thread<G>();
-  const int i = tpt::walk_ray<G>();
-  if (i >= n_rays) return;  // whole groups leave together
-  float tm_unused;
-  const Ray r = tpt::load_ray8(rays, i, &tm_unused);
-  const Slab s = tpt::make_slab(r);
-  const float m = margin * (scale + max_abs_origin(r));
-  const float lane_far = __ldg(last_key + i);
-  const float4* bx = reinterpret_cast<const float4*>(boxes);
-  const float4* rows = reinterpret_cast<const float4*>(tris);
-  const int tile = i / rt;
-  const int* list = cand + (size_t)tile * n_boxes;
-  const float* key = keys + (size_t)tile * n_boxes;
-  const int ncand = min(max(__ldg(cnt + tile), 0), n_boxes);
-  const unsigned all = G == 32 ? 0xffffffffu : (1u << (G & 31)) - 1u;
-  float best = kTFar;
-  int best_row = 0;
-  bool done = false;
-  for (int k0 = 0; k0 < ncand && !done; k0 += G) {
-    // Keys ascend, and the ray enters no box before its key: the
-    // candidates it can still use are the chunk's first ones, up to the
-    // first key beyond min(best, last entry). A key equal to best is
-    // still swept: its box may hold a tied hit on a lower row.
-    const int k = k0 + g.lane;
-    const float kk = k < ncand ? __ldg(key + k) : 0.0f;
-    const bool live = k < ncand && kk <= fminf(best, lane_far);
-    const int c = live ? __ldg(list + k) : 0;
-    // The guard: this lane's test of its ray's grown box against its
-    // candidate; the entry is held against the bound again below, since
-    // best shrinks within the chunk.
-    float tn = 0.0f;
-    const bool enters =
-        live && (!guard || tpt::slab_enter(r, s, __ldg(bx + 2 * (size_t)c),
-                                           __ldg(bx + 2 * (size_t)c + 1), m,
-                                           tmin, &tn));
-    const unsigned usable = tpt::group_ballot(g, live);
-    unsigned pass = tpt::group_ballot(
-        g, enters && (!guard || tn <= fminf(best, tmax)));
-    while (pass != 0u) {
-      const int j = __ffs(pass) - 1;
-      pass &= pass - 1u;
-      if (__shfl_sync(g.mask, kk, j, G) > fminf(best, lane_far)) {
-        done = true;  // the break, checked after every swept candidate
-        break;
-      }
-      if (guard && !(__shfl_sync(g.mask, tn, j, G) <= fminf(best, tmax)))
-        continue;
-      // The group sweeps the cluster, every G-th row a lane, and folds its
-      // (t, row) by xor shuffles, ties to the lowest row (K6's leaf).
-      const int base = __shfl_sync(g.mask, c, j, G) * cluster;
-      float tl = best;
-      int rl = best_row;
-      for (int q = g.lane; q < cluster; q += G) {
-        const int row = base + q;
-        const float4* p = rows + 4 * (size_t)row;
-        float t = pe_test(r, __ldg(p), __ldg(p + 1), __ldg(p + 2), tmin);
-        if (!(t < tmax)) t = kTFar;
-        if (t < tl || (t == tl && row < rl)) {
-          tl = t;
-          rl = row;
-        }
-      }
-#pragma unroll
-      for (int off = G / 2; off >= 1; off >>= 1) {
-        const float to = __shfl_xor_sync(g.mask, tl, off, G);
-        const int ro = __shfl_xor_sync(g.mask, rl, off, G);
-        if (to < tl || (to == tl && ro < rl)) {
-          tl = to;
-          rl = ro;
-        }
-      }
-      best = tl;
-      best_row = rl;
-    }
-    if (usable != all) break;  // the break, or the list's end
   }
   if (g.lane != 0) return;
   t_out[i] = best;
   row_out[i] = best < kTFar ? best_row : 0;
-}
-
-// Ray i's list is its tile's, tile i / rt. One ray to a group of G lanes.
-template <int G>
-__global__ void __launch_bounds__(tpt::kWalkThreads)
-occluded_streamed_kernel(const float* __restrict__ orig,
-                         const float* __restrict__ dir,
-                         const float* __restrict__ tmax,
-                         const float* __restrict__ tris,
-                         const float* __restrict__ boxes,
-                         const int* __restrict__ cand,
-                         const float* __restrict__ keys,
-                         const int* __restrict__ cnt,
-                         const float* __restrict__ last_key, int n_rays,
-                         int n_boxes, int cluster, int rt, float scale,
-                         float margin, float tmin, int guard,
-                         uint8_t* __restrict__ occ_out) {
-  const tpt::Group g = tpt::group_of_thread<G>();
-  const int i = tpt::walk_ray<G>();
-  if (i >= n_rays) return;  // whole groups leave together
-  const float tm = tmax[i];
-  bool blocked = false;
-  // Nothing can block when (tmin, tm) is empty (parked lanes carry tm = 0).
-  if (tm > tmin) {
-    const Ray r = load_ray(orig, dir, i);
-    const Slab s = tpt::make_slab(r);
-    const float m = margin * (scale + max_abs_origin(r));
-    const float lane_far = fminf(__ldg(last_key + i), tm);
-    const float4* bx = reinterpret_cast<const float4*>(boxes);
-    const float4* rows = reinterpret_cast<const float4*>(tris);
-    const int tile = i / rt;
-    const int* list = cand + (size_t)tile * n_boxes;
-    const float* key = keys + (size_t)tile * n_boxes;
-    const int ncand = min(max(__ldg(cnt + tile), 0), n_boxes);
-    const unsigned all = G == 32 ? 0xffffffffu : (1u << (G & 31)) - 1u;
-    for (int k0 = 0; k0 < ncand && !blocked; k0 += G) {
-      // Keys ascend, and the ray enters no box before its key: the
-      // candidates it can still use are the chunk's first ones, up to the
-      // first key beyond its last entry or its tmax.
-      const int k = k0 + g.lane;
-      const bool live = k < ncand && __ldg(key + k) <= lane_far;
-      const int c = live ? __ldg(list + k) : 0;
-      const unsigned usable = tpt::group_ballot(g, live);
-      unsigned pass = guard ? tpt::group_ballot(
-                                  g, live && tpt::box_passes(r, s, m, bx, c,
-                                                             tmin, tm))
-                            : usable;
-      while (pass != 0u && !blocked) {
-        const int j = __ffs(pass) - 1;
-        pass &= pass - 1u;
-        const int cj = __shfl_sync(g.mask, c, j, G);
-        blocked = tpt::cluster_blocked(r, rows, cj * cluster, cluster, G, g,
-                                       tmin, tm);
-      }
-      if (usable != all) break;  // the break, or the list's end
-    }
-  }
-  if (g.lane == 0) occ_out[i] = blocked ? 1 : 0;
 }
 
 // ------------------------------------------------------------- list build
@@ -399,12 +255,16 @@ __device__ __forceinline__ unsigned sort_bits(float f) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// Bitonic sort of s[0, n) ascending by the whole block (n a power of two;
-// every entry unique: the ids in the low word). Ends with a barrier.
+// Bitonic sort of s[0, n) ascending (n a power of two; every entry
+// unique: the ids in the low bits), by the whole block, or with kWarp by
+// the calling warp alone. Ends with a barrier (__syncwarp with kWarp).
+template <bool kWarp = false>
 __device__ void bitonic_sort(unsigned long long* s, int n) {
+  const int first = kWarp ? (int)(threadIdx.x & 31) : (int)threadIdx.x;
+  const int step = kWarp ? 32 : (int)blockDim.x;
   for (int k = 2; k <= n; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
+      for (int p = first; p < (n >> 1); p += step) {
         const int a = 2 * p - (p & (j - 1));
         const unsigned long long x = s[a], y = s[a + j];
         if ((x > y) == ((a & k) == 0)) {
@@ -412,7 +272,10 @@ __device__ void bitonic_sort(unsigned long long* s, int n) {
           s[a + j] = x;
         }
       }
-      __syncthreads();
+      if (kWarp)
+        __syncwarp();
+      else
+        __syncthreads();
     }
   }
 }
@@ -713,6 +576,187 @@ __global__ void list_emit_kernel(const unsigned long long* __restrict__ sorted,
   }
 }
 
+
+// ------------------------------------------------ list build, small tiles
+//
+// Tiles of at most kSmallMaxTile rays (K15's 8): one warp a tile and no
+// block barrier, where the shared build gives a tile a block of 1,024
+// threads, three quarters of whose lanes hold no ray at tiles of 8, and
+// sorts every box. The warp stages its tile's rays in shared memory (origin,
+// reciprocal direction, margin, tmax); each lane then takes one box, 32 a
+// step, and slab-tests it against each of the tile's rays in turn (SEG,
+// the ray count rounded up to a power of two, unrolled: independent tests
+// in flight), within each ray's tmax (slab_enter, as the shared build),
+// keeping the box's least entry (ordered bits, the shared build's
+// atomicMin), its count of passing rays, and per ray its last entry (an
+// ordered max, folded over the warp at the end). A ballot and a popcount
+// file each step's boxes: a key other than T_FAR goes to the warp's sort
+// array in id order, as (sort bits << 32 | id << 1 | the key is -0.0),
+// which sorts as (key with -0.0 as +0.0, id) and gives the key's bits back
+// whole; the ballot of the keys equal to T_FAR is the step's word of the
+// warp's mask. The warp sorts only its array (bitonic, the listed boxes:
+// about nine a tile on the big mesh), writes it around the T_FAR run
+// (those under T_FAR before it, those above after it), then the run in id
+// order from the mask: cand, keys, cnt and far bitwise the shared build's
+// and stream_candidates'.
+
+constexpr int kSmallMaxTile = 32;       // ablations.LIST_SMALL_MAX_TILE
+constexpr int kSmallMaxBoxes = 16384;   // ablations.LIST_SMALL_MAX_BOXES
+constexpr int kSmallWarps = 8;          // tiles a block at most
+constexpr int kSmallSmem = 96 * 1024;   // shared memory a block aims at
+
+__device__ __forceinline__ float from_sort_bits(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// A warp's shared memory, each part 16-byte aligned: sort_cap u64
+// entries, the T_FAR mask, then seg staged rays of two float4.
+__host__ __device__ inline size_t small_sort_bytes(int sort_cap) {
+  return ((size_t)sort_cap * 8 + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t small_mask_bytes(int n_boxes) {
+  return (((size_t)n_boxes + 31) / 32 * 4 + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t small_warp_bytes(int n_boxes, int sort_cap,
+                                                   int seg) {
+  return small_sort_bytes(sort_cap) + small_mask_bytes(n_boxes) +
+         (size_t)seg * 32;
+}
+
+template <int SEG>
+__global__ void __launch_bounds__(kSmallWarps * 32)
+stream_candidates_small_kernel(const float* __restrict__ rays,
+                               const float* __restrict__ tmax, float tmax_all,
+                               const float* __restrict__ boxes, int n_boxes,
+                               int rt, int tiles, int sort_cap, float scale,
+                               float margin, float tmin,
+                               int* __restrict__ cand,
+                               float* __restrict__ keys,
+                               int* __restrict__ cnt,
+                               float* __restrict__ last_key) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (tile >= tiles) return;  // whole warps leave: no block barrier
+  unsigned char* mine =
+      smem + warp * small_warp_bytes(n_boxes, sort_cap, SEG);
+  unsigned long long* s_sort = reinterpret_cast<unsigned long long*>(mine);
+  const int words = (n_boxes + 31) / 32;
+  unsigned* s_mask =
+      reinterpret_cast<unsigned*>(mine + small_sort_bytes(sort_cap));
+  float4* s_ray = reinterpret_cast<float4*>(
+      mine + small_sort_bytes(sort_cap) + small_mask_bytes(n_boxes));
+  if (lane < rt) {
+    const size_t i = (size_t)tile * rt + lane;
+    float tm;
+    const Ray r = tpt::load_ray8(rays, (int)i, &tm);
+    const Slab sl = tpt::make_slab(r);
+    s_ray[2 * lane] = make_float4(r.ox, r.oy, r.oz, sl.ix);
+    s_ray[2 * lane + 1] =
+        make_float4(sl.iy, sl.iz, margin * (scale + max_abs_origin(r)),
+                    tmax != nullptr ? tmax[i] : tmax_all);
+  }
+  __syncwarp();
+
+  const int inf_bits = ordered(__int_as_float(0x7f800000));
+  const float4* bx = reinterpret_cast<const float4*>(boxes);
+  int far[SEG];
+#pragma unroll
+  for (int q = 0; q < SEG; ++q) far[q] = ordered(-3e38f);
+  int listed = 0, below = 0, n_sort = 0;
+  for (int b0 = 0; b0 < n_boxes; b0 += 32) {
+    const int b = b0 + lane;
+    const bool in = b < n_boxes;
+    const float4 lo = in ? __ldg(bx + 2 * (size_t)b) : make_float4(0, 0, 0, 0);
+    const float4 hi =
+        in ? __ldg(bx + 2 * (size_t)b + 1) : make_float4(0, 0, 0, 0);
+    int least = inf_bits, nok = 0;
+#pragma unroll
+    for (int q = 0; q < SEG; ++q) {
+      const float4 u = s_ray[2 * q], v = s_ray[2 * q + 1];
+      float tn;
+      const bool ok = in && q < rt &&
+                      tpt::slab_enter(Ray{u.x, u.y, u.z, 0, 0, 0},
+                                      Slab{u.w, v.x, v.y}, lo, hi, v.z, tmin,
+                                      &tn) &&
+                      tn <= v.w;
+      if (ok) {
+        least = min(least, ordered(tn));
+        far[q] = max(far[q], ordered(tn));
+        ++nok;
+      }
+    }
+    float key = kTFar;
+    if (nok > 0)
+      key = fminf(from_ordered(least),
+                  nok < rt ? kTFar : __int_as_float(0x7f800000));
+    listed += __popc(__ballot_sync(full, nok > 0));
+    below += __popc(__ballot_sync(full, in && key < kTFar));
+    const bool in_sort = in && key != kTFar;
+    const unsigned sv = __ballot_sync(full, in_sort);
+    if (in_sort)
+      s_sort[n_sort + __popc(sv & ((1u << lane) - 1u))] =
+          ((unsigned long long)sort_bits(key) << 32) | ((unsigned)b << 1) |
+          (__float_as_uint(key) == 0x80000000u ? 1u : 0u);
+    const unsigned fv = __ballot_sync(full, in && key == kTFar);
+    if (lane == 0) s_mask[b0 >> 5] = fv;
+    n_sort += __popc(sv);
+  }
+  // Each ray's last entry, folded over the warp; lane q keeps ray q's.
+  int my_far = ordered(-3e38f);
+#pragma unroll
+  for (int q = 0; q < SEG; ++q) {
+    int f = far[q];
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1)
+      f = max(f, __shfl_xor_sync(full, f, off));
+    if (lane == q) my_far = f;
+  }
+  int n_pow = 1;
+  while (n_pow < n_sort) n_pow <<= 1;
+  for (int p = n_sort + lane; p < n_pow; p += 32) s_sort[p] = ~0ull;
+  __syncwarp();
+  bitonic_sort<true>(s_sort, n_pow);
+
+  const size_t row = (size_t)tile * n_boxes;
+  const int n_far = n_boxes - n_sort;  // keys equal to T_FAR
+  for (int p = lane; p < n_sort; p += 32) {
+    const unsigned long long e = s_sort[p];
+    const unsigned lo = (unsigned)(e & 0xffffffffu);
+    const size_t at = row + (p < below ? p : p + n_far);
+    cand[at] = (int)(lo >> 1);
+    keys[at] = (lo & 1u) ? -0.0f : from_sort_bits((unsigned)(e >> 32));
+  }
+  int done = 0;
+  for (int w = 0; w < words; ++w) {
+    const unsigned v = s_mask[w];
+    if ((v >> lane) & 1u) {
+      const size_t at = row + below + done + __popc(v & ((1u << lane) - 1u));
+      cand[at] = w * 32 + lane;
+      keys[at] = kTFar;
+    }
+    done += __popc(v);
+  }
+  if (lane == 0) cnt[tile] = listed;
+  if (lane < rt) last_key[(size_t)tile * rt + lane] = from_ordered(my_far);
+}
+
+// Calls launch(std::integral_constant<int, SEG>()) for SEG = rt rounded up
+// to a power of two, rt in 1..kSmallMaxTile; false for any other.
+template <class Launch>
+bool with_seg(int rt, Launch launch) {
+  if (rt < 1 || rt > kSmallMaxTile) return false;
+  if (rt <= 1) launch(std::integral_constant<int, 1>());
+  else if (rt <= 2) launch(std::integral_constant<int, 2>());
+  else if (rt <= 4) launch(std::integral_constant<int, 4>());
+  else if (rt <= 8) launch(std::integral_constant<int, 8>());
+  else if (rt <= 16) launch(std::integral_constant<int, 16>());
+  else launch(std::integral_constant<int, 32>());
+  return true;
+}
 
 // ---------------------------------------------------------- cbin schedule
 //
@@ -1053,19 +1097,27 @@ extern "C" {
 // Tables as tpt_closest_clustered; packed rays [n, 8] as
 // ablations.pack_rays builds them.
 
+// K11 for rays (orig, dir) [n_rays, 3]: slabs of slab_boxes clusters,
+// `group` lanes a ray (a width of with_group).
 int tpt_closest_rotated(const float* orig, const float* dir,
                         const float* tris, const float* boxes,
                         const int* pred, int n_rays, int n_boxes, int cluster,
                         int slab_boxes, float scale, float margin, float tmin,
-                        float tmax, float* t_out, int* row_out, void* stream) {
-  if (slab_boxes < 1) return (int)cudaErrorInvalidValue;
+                        float tmax, float* t_out, int* row_out, int group,
+                        void* stream) {
+  if (slab_boxes < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
   const int s_count = (n_boxes + slab_boxes - 1) / slab_boxes;
-  if (s_count >= (1 << 24)) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((n_rays + kRotThreads - 1) / kRotThreads);
-  closest_rotated_kernel<<<grid, kRotThreads, 0, (cudaStream_t)stream>>>(
-      orig, dir, tris, boxes, pred, n_rays, n_boxes, cluster, slab_boxes,
-      s_count, scale, margin, tmin, tmax, t_out, row_out);
-  return (int)cudaGetLastError();
+  const bool ok = tpt::with_group(group, [&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+    if (n_rays > 0)
+      closest_rotated_kernel<G>
+          <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
+             (cudaStream_t)stream>>>(orig, dir, tris, boxes, pred, n_rays,
+                                     n_boxes, cluster, slab_boxes, s_count,
+                                     scale, margin, tmin, tmax, t_out,
+                                     row_out);
+  });
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 // K12 closest over the tile lists of tpt_stream_candidates, `rays`
@@ -1079,36 +1131,27 @@ int tpt_closest_streamed(const float* rays, const float* tris,
                          float tmin, float tmax, int guard, float* t_out,
                          int* row_out, int group, void* stream) {
   if (rt < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
-  const bool ok = tpt::with_group(group, [&](auto gc) {
-    constexpr int G = decltype(gc)::value;
-    if (n_rays > 0)
-      closest_streamed_kernel<G>
-          <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
-             (cudaStream_t)stream>>>(rays, tris, boxes, cand, keys, cnt,
-                                     last_key, n_rays, n_boxes, cluster, rt,
-                                     scale, margin, tmin, tmax, guard, t_out,
-                                     row_out);
-  });
+  const bool ok = tpt::launch_closest_list(
+      group, n_rays, (cudaStream_t)stream, rays, tris, boxes, cand,
+      keys, cnt, last_key, n_rays, n_boxes, cluster, rt, scale, margin, tmin,
+      tmax, guard, t_out, row_out);
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
-// K12 any-hit: a tile width rt >= 1, `group` as above.
-int tpt_occluded_streamed(const float* orig, const float* dir,
-                          const float* tmax, const float* tris,
+// K12 any-hit, `rays` packed [n_rays, 8] (column 6: each ray's tmax): a
+// tile width rt >= 1, `group` as above.
+int tpt_occluded_streamed(const float* rays, const float* tris,
                           const float* boxes, const int* cand,
-                          const float* keys, const int* cnt, const float* last_key,
-                          int n_rays, int n_boxes, int cluster, int rt,
-                          float scale, float margin, float tmin, int guard,
-                          uint8_t* occ_out, int group, void* stream) {
+                          const float* keys, const int* cnt,
+                          const float* last_key, int n_rays, int n_boxes,
+                          int cluster, int rt, float scale, float margin,
+                          float tmin, int guard, uint8_t* occ_out, int group,
+                          void* stream) {
   if (rt < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
-  const bool ok = tpt::with_group(group, [&](auto gc) {
-    constexpr int G = decltype(gc)::value;
-    occluded_streamed_kernel<G>
-        <<<tpt::walk_grid(n_rays, G), tpt::kWalkThreads, 0,
-           (cudaStream_t)stream>>>(orig, dir, tmax, tris, boxes, cand, keys,
-                                   cnt, last_key, n_rays, n_boxes, cluster,
-                                   rt, scale, margin, tmin, guard, occ_out);
-  });
+  const bool ok = tpt::launch_occluded_list(
+      group, n_rays, (cudaStream_t)stream, rays, tris, boxes, cand,
+      keys, cnt, last_key, n_rays, n_boxes, cluster, rt, scale, margin, tmin,
+      guard, occ_out);
   return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
@@ -1185,6 +1228,43 @@ int tpt_stream_candidates_global(const float* rays, const float* tmax,
                      256, 0, s>>>(src, key_of, far_bits, n_boxes, total,
                                   n_rays, cand, keys, last_key);
   return (int)cudaGetLastError();
+}
+
+// The same lists for tiles of at most 32 rays (one warp a tile, above):
+// needs 1 <= rt <= 32 dividing n_rays and 1 <= n_boxes <= 16,384.
+int tpt_stream_candidates_small(const float* rays, const float* tmax,
+                                float tmax_all, const float* boxes,
+                                int n_rays, int n_boxes, int rt, float scale,
+                                float margin, float tmin, int* cand,
+                                float* keys, int* cnt, float* last_key,
+                                void* stream) {
+  if (rt < 1 || rt > kSmallMaxTile || n_rays % rt || n_boxes < 1 ||
+      n_boxes > kSmallMaxBoxes)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = n_rays / rt;
+  if (tiles == 0) return (int)cudaSuccess;
+  int sort_cap = 1;
+  while (sort_cap < n_boxes) sort_cap <<= 1;
+  cudaError_t err = cudaSuccess;
+  with_seg(rt, [&](auto sc) {
+    constexpr int SEG = decltype(sc)::value;
+    const size_t per_warp = small_warp_bytes(n_boxes, sort_cap, SEG);
+    const int warps = (int)std::max<size_t>(
+        1, std::min<size_t>(kSmallWarps, kSmallSmem / per_warp));
+    const size_t smem = per_warp * warps;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(stream_candidates_small_kernel<SEG>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return;
+    }
+    stream_candidates_small_kernel<SEG>
+        <<<(unsigned)((tiles + warps - 1) / warps), warps * 32, smem,
+           (cudaStream_t)stream>>>(rays, tmax, tmax_all, boxes, n_boxes, rt,
+                                   tiles, sort_cap, scale, margin, tmin, cand,
+                                   keys, cnt, last_key);
+  });
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // K13's schedule (ablations.cbin_schedule) for packed `rays` [n_rays, 8]

@@ -11,7 +11,10 @@ the JAX package's variables, read at every call:
   is cut into S slabs (``clustered._clustered_slab_rows``); a ray visits
   its predicted landing slab first and the rest in ascending order
   (``rotated_slab_order``), each slab culled against its best hit so far.
-  Any prediction gives the same hits.
+  Any prediction gives the same hits. On the card each ray is a group of
+  lanes (``rotated_group``) that starts at its own prediction; the plain
+  version keeps the reference's tile order (``ROT_TILE`` lanes share the
+  most frequent prediction).
 - ``TPT_STREAM=1``: the STREAMED path, ``closest_streamed`` /
   ``occluded_streamed`` (K12). A tile of consecutive lanes
   (``STREAM_CLOSEST_TILE`` for the closest hit, ``STREAM_OCC_TILE`` for
@@ -49,10 +52,11 @@ the JAX package's variables, read at every call:
   with every other lane parked.
 - ``TPT_GRP=1`` / ``2``: the 8-LANE GROUPS, ``closest_grp`` /
   ``occluded_grp`` (K15), serial or bundled. Eight consecutive lanes share
-  ``stream_lists``' near-first list at a tile of ``GRP_LANES``; each
-  lane culls the listed clusters by its own grown-box test, and the group
-  stops at the first key no lane can still use. Its lists come from
-  ``stream_lists`` too.
+  ``stream_lists``' near-first list at a tile of ``GRP_LANES`` (built on
+  the card by a warp a tile: ``list_route``'s ``"small"``); on the card
+  each ray is a group of lanes (``grp_group``, ``grp_occ_group``) that
+  goes down it on its own as K12's do, culling each listed cluster by its
+  own grown-box test and stopping at its own break.
 
 Every wrapper launches its kernel (``csrc/ablations_intersect.cu`` for
 K11-K13, the list build and K13's schedule, ``csrc/ablations_binned.cu``
@@ -96,9 +100,12 @@ STREAM_OCC_TILE = 128
 STREAM_OCC_GROUP, STREAM_OCC_GROUP_WIDE, STREAM_OCC_NARROW_RAYS = 32, 4, 65536
 # The list build kernel (stream_lists): rays a tile, and boxes its
 # shared-memory sort holds; past either, the build keeps its state in
-# device memory (list_route).
+# device memory (list_route). Tiles of at most LIST_SMALL_MAX_TILE rays
+# (K15's) over at most LIST_SMALL_MAX_BOXES boxes take a warp a tile.
 LIST_MAX_TILE = 256
 LIST_MAX_BOXES = 8192
+LIST_SMALL_MAX_TILE = 32
+LIST_SMALL_MAX_BOXES = 16384
 CBIN_PAIR_MULT = int(os.environ.get("TPT_CBIN_PAIRS", 12))   # P_cap = mult*N
 CBIN_K_OUT = int(os.environ.get("TPT_CBIN_K", 32))           # per-group cap
 CBIN_GROUP = int(os.environ.get("TPT_CBIN_GROUP", 1))        # lanes/work list
@@ -212,11 +219,32 @@ def _ray_box_test(rays, boxes, scale, tmin: float, tmax, col_chunk: int):
         yield c0, (tn <= tf) & (tf > tmin) & (tn <= tmax_r), tn
 
 
+def _width(group: int, kernel: str) -> int:
+    """``group`` lanes a ray, checked against the widths the group
+    kernels are built for (``clustered.GROUPS``)."""
+    width = int(group)
+    if width not in clustered.GROUPS:
+        raise ValueError(f"{width} lanes a ray: {kernel} is built for "
+                         f"{clustered.GROUPS}")
+    return width
+
+
 # --------------------------------------------------------------------------
 # K11: the rotated chain
 # --------------------------------------------------------------------------
 
-ROT_TILE = 32     # lanes that agree on a first slab (a warp on the card)
+ROT_TILE = 32     # lanes that agree on a first slab (the plain version)
+# K11 on the card: lanes a ray, from tools/grp_rot_ab_torch.py --widths on
+# a TPT_SEED=1 frame's calls and at 32,768 and 262,144 rays.
+ROT_GROUP = 32
+
+
+def rotated_group(n_rays: int) -> int:
+    """Lanes a ray of K11 for a call of ``n_rays`` rays: the width
+    tools/grp_rot_ab_torch.py --widths measured fastest (PERF.md), 32 at
+    every count it timed (a frame's calls, 32,768 and 262,144 rays,
+    coherent or not)."""
+    return ROT_GROUP
 
 
 def _tile_pred(pred: torch.Tensor, s_count: int, rt: int) -> torch.Tensor:
@@ -277,11 +305,12 @@ def _closest_rotated_plain(origins, dirs, tris, pred, slab_rows: int,
 def closest_rotated(origins: torch.Tensor, dirs: torch.Tensor,
                     tris: torch.Tensor, boxes: torch.Tensor, scale: float,
                     pred: torch.Tensor, slab_rows: int, tmin: float,
-                    tmax: float = T_FAR):
+                    tmax: float = T_FAR, *, group: int | None = None):
     """K11: K6's (t, packed row) with the table's slabs of ``slab_rows``
     rows visited per ray in the order of ``pred`` [N] i32, the predicted
     landing slab (``SLAB_UNKNOWN`` or anything out of range: slab 0)
-    first. The result does not depend on ``pred``."""
+    first. The result does not depend on ``pred``. On the card ``group``
+    lanes a ray (``rotated_group`` when None)."""
     if dense._on_cpu(origins):
         return _closest_rotated_plain(origins, dirs, tris, pred, slab_rows,
                                       tmin, tmax)
@@ -293,6 +322,7 @@ def closest_rotated(origins: torch.Tensor, dirs: torch.Tensor,
     if slab_rows < cluster or slab_rows % cluster:
         raise ValueError(f"slab_rows {slab_rows} is not a multiple of the "
                          f"cluster size {cluster}")
+    width = _width(rotated_group(n) if group is None else group, "K11")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
@@ -301,7 +331,8 @@ def closest_rotated(origins: torch.Tensor, dirs: torch.Tensor,
                         pred.data_ptr(), n, n_boxes, cluster,
                         slab_rows // cluster, float(scale),
                         clustered.BOX_MARGIN, float(tmin), float(tmax),
-                        t.data_ptr(), row.data_ptr(), dense._stream(dev))
+                        t.data_ptr(), row.data_ptr(), width,
+                        dense._stream(dev))
         LAUNCHES["closest_rotated"] += 1
     return t, row
 
@@ -357,10 +388,15 @@ def stream_candidates(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
 
 def list_route(n_boxes: int, rt: int) -> str:
     """The list build's kernel for tiles of ``rt`` rays over ``n_boxes``
-    boxes: ``"shared"`` (``tpt_stream_candidates``: one block a tile, its
-    state and sort in shared memory) up to LIST_MAX_TILE rays and
-    LIST_MAX_BOXES boxes, ``"global"`` (``tpt_stream_candidates_global``:
-    runs sorted in shared memory, merged in device memory) past either."""
+    boxes: ``"small"`` (``tpt_stream_candidates_small``: one warp a tile,
+    only the listed keys sorted) up to LIST_SMALL_MAX_TILE rays and
+    LIST_SMALL_MAX_BOXES boxes; else ``"shared"``
+    (``tpt_stream_candidates``: one block a tile, its state and sort in
+    shared memory) up to LIST_MAX_TILE rays and LIST_MAX_BOXES boxes;
+    ``"global"`` (``tpt_stream_candidates_global``: runs sorted in shared
+    memory, merged in device memory) past either."""
+    if rt <= LIST_SMALL_MAX_TILE and n_boxes <= LIST_SMALL_MAX_BOXES:
+        return "small"
     if rt <= LIST_MAX_TILE and n_boxes <= LIST_MAX_BOXES:
         return "shared"
     return "global"
@@ -404,7 +440,10 @@ def stream_lists(rays: torch.Tensor, boxes: torch.Tensor, scale: float,
             clustered.BOX_MARGIN, float(tmin))
     outs = (cand.data_ptr(), keys.data_ptr(), cnt.data_ptr(), far.data_ptr(),
             dense._stream(dev))
-    if list_route(n_boxes, rt) == "shared":
+    route = list_route(n_boxes, rt)
+    if route == "small":
+        _kernels.launch("tpt_stream_candidates_small", *head, *outs)
+    elif route == "shared":
         _kernels.launch("tpt_stream_candidates", *head, *outs)
     else:
         key_of = torch.empty(tiles * n_boxes, dtype=torch.float32, device=dev)
@@ -570,10 +609,8 @@ def closest_streamed(rays: torch.Tensor, tris: torch.Tensor,
         raise ValueError(f"{n_pad} rays do not split into tiles of {rt}")
     n_boxes, cluster = clustered._check_tables(tris, boxes, dev)
     _check_lists(lists, n_pad, rt, n_boxes, dev)
-    width = stream_closest_group(n_pad) if group is None else int(group)
-    if width not in clustered.GROUPS:
-        raise ValueError(f"{width} lanes a ray: K12 is built for "
-                         f"{clustered.GROUPS}")
+    width = _width(stream_closest_group(n_pad) if group is None else group,
+                   "K12")
     t = torch.empty(n_pad, dtype=torch.float32, device=dev)
     row = torch.empty(n_pad, dtype=torch.int32, device=dev)
     if n_pad:
@@ -603,22 +640,24 @@ def occluded_streamed(rays: torch.Tensor, tris: torch.Tensor,
     from .. import _kernels
     dev, n_pad = rays.device, rays.shape[0]
     dense._check("rays", rays, torch.float32, (n_pad, 8), dev)
-    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
-    tmax = rays[:, 6].contiguous()
-    dense._check_inputs(o, d, tris)
+    dense._check("tris", tris, torch.float32, (tris.shape[0], 16), dev)
+    if rays.data_ptr() % 16 or tris.data_ptr() % 16:
+        raise ValueError("rays and tris must be 16-byte aligned")
+    if rt < 1 or n_pad % rt:
+        raise ValueError(f"{n_pad} rays do not split into tiles of {rt}")
     n_boxes, cluster = clustered._check_tables(tris, boxes, dev)
     _check_lists(lists, n_pad, rt, n_boxes, dev)
+    width = _width(stream_occ_group(n_pad) if group is None else group,
+                   "K12")
     out = torch.empty(n_pad, dtype=torch.bool, device=dev)
     if n_pad:
         cand, keys, cnt, far = lists
-        width = stream_occ_group(n_pad) if group is None else int(group)
-        _kernels.launch("tpt_occluded_streamed", o.data_ptr(), d.data_ptr(),
-                        tmax.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
-                        cand.data_ptr(), keys.data_ptr(), cnt.data_ptr(),
-                        far.data_ptr(), n_pad, n_boxes, cluster, rt,
-                        float(scale), clustered.BOX_MARGIN, float(tmin),
-                        int(bool(guard)), out.data_ptr(), width,
-                        dense._stream(dev))
+        _kernels.launch("tpt_occluded_streamed", rays.data_ptr(),
+                        tris.data_ptr(), boxes.data_ptr(), cand.data_ptr(),
+                        keys.data_ptr(), cnt.data_ptr(), far.data_ptr(),
+                        n_pad, n_boxes, cluster, rt, float(scale),
+                        clustered.BOX_MARGIN, float(tmin), int(bool(guard)),
+                        out.data_ptr(), width, dense._stream(dev))
         LAUNCHES["occluded_streamed"] += 1
     return out
 
@@ -1652,14 +1691,33 @@ def occluded_binned_path(origins, dirs, tmax, tris, boxes, scale,
 # K15: the 8-lane groups
 # --------------------------------------------------------------------------
 
-GRP_LANES = 8                                        # lanes per list
-GRP_BUNDLE = 8                                       # groups per bundle
-GRP_RT = int(os.environ.get("TPT_GRP_RT", 256))      # lanes per serial block
+GRP_LANES = 8                                        # rays a list
+# K15 on the card: lanes a ray of the closest hit (grp_group: GRP_GROUP up
+# to GRP_NARROW_RAYS rays, GRP_GROUP_WIDE above) and of the any-hit
+# (grp_occ_group), from tools/grp_rot_ab_torch.py --widths on a TPT_GRP=1
+# frame's calls.
+GRP_GROUP, GRP_GROUP_WIDE, GRP_NARROW_RAYS = 32, 4, 65536
+GRP_OCC_GROUP, GRP_OCC_GROUP_WIDE, GRP_OCC_NARROW_RAYS = 32, 4, 65536
+
+
+def grp_group(n_rays: int) -> int:
+    """Lanes a ray of K15's closest hit for a call of ``n_rays`` rays: the
+    width tools/grp_rot_ab_torch.py --widths measured fastest (PERF.md)."""
+    return GRP_GROUP if n_rays <= GRP_NARROW_RAYS else GRP_GROUP_WIDE
+
+
+def grp_occ_group(n_rays: int) -> int:
+    """Lanes a ray of K15's any-hit, picked as ``grp_group``."""
+    if n_rays <= GRP_OCC_NARROW_RAYS:
+        return GRP_OCC_GROUP
+    return GRP_OCC_GROUP_WIDE
 
 
 def _grp_bundled() -> bool:
-    """``TPT_GRP=2``: the bundled lockstep body, read at every call
-    (``pallas_ablations._grp_bundled``)."""
+    """``TPT_GRP=2``: the bundled body, read at every call
+    (``pallas_ablations._grp_bundled``). On the card both bodies launch one
+    walk (``csrc/list_walk.cuh``): staging rows in shared memory, the
+    reference's bundle, lost to it at every width (PERF.md)."""
     return os.environ.get("TPT_GRP", "0") == "2"
 
 
@@ -1674,10 +1732,10 @@ def _grp_plain(rays, tris, boxes, scale, lists, tmin, tmax, occluded):
                            tmax, True, occluded)
 
 
-def _launch_grp(name, rays, tris, boxes, scale, lists, bundled, scalars,
+def _launch_grp(name, rays, tris, boxes, scale, lists, group, scalars,
                 outs):
     """Launch ``tpt_<name>``: the checks, then (tables, lists, sizes,
-    ``scalars`` after the margin, ``outs``)."""
+    ``scalars`` after the margin, ``outs``, the width)."""
     from .. import _kernels
     dev, n_pad = rays.device, rays.shape[0]
     dense._check("rays", rays, torch.float32, (n_pad, 8), dev)
@@ -1689,46 +1747,56 @@ def _launch_grp(name, rays, tris, boxes, scale, lists, bundled, scalars,
     dense._check("tris", tris, torch.float32, (tris.shape[0], 16), dev)
     n_boxes, cluster = clustered._check_tables(tris, boxes, dev)
     _check_lists(lists, n_pad, GRP_LANES, n_boxes, dev)
+    width = _width(group, "K15")
     cand, keys, cnt, far = lists
     if n_pad:
         _kernels.launch("tpt_" + name, rays.data_ptr(), tris.data_ptr(),
                         boxes.data_ptr(), cand.data_ptr(), keys.data_ptr(),
                         cnt.data_ptr(), far.data_ptr(), n_pad, n_boxes,
-                        cluster, GRP_RT, int(bool(bundled)), float(scale),
+                        cluster, float(scale),
                         clustered.BOX_MARGIN, *(float(x) for x in scalars),
-                        *(x.data_ptr() for x in outs), dense._stream(dev))
+                        *(x.data_ptr() for x in outs), width,
+                        dense._stream(dev))
         LAUNCHES[name] += 1
 
 
 def closest_grp(rays: torch.Tensor, tris: torch.Tensor, boxes: torch.Tensor,
                 scale: float, lists, tmin: float, tmax: float = T_FAR,
-                bundled: bool = False):
+                bundled: bool = False, *, group: int | None = None):
     """K15 closest: K6's (t, packed row) for ``rays`` [n_pad, 8]
     (``pack_rays``; n_pad a multiple of ``GRP_LANES``) over the group lists
-    of ``stream_candidates(rays, boxes, scale, GRP_LANES, tmin, tmax)``;
-    ``bundled`` picks the lockstep body. Returns (t, row)."""
+    of ``stream_candidates(rays, boxes, scale, GRP_LANES, tmin, tmax)``,
+    ``group`` lanes a ray (``grp_group`` when None); ``bundled`` is the
+    bundled body, which on the card launches the serial one's walk.
+    Returns (t, row)."""
     if dense._on_cpu(rays):
         return _grp_plain(rays, tris, boxes, scale, lists, tmin, tmax,
                           occluded=False)
-    t = torch.empty(rays.shape[0], dtype=torch.float32, device=rays.device)
-    row = torch.empty(rays.shape[0], dtype=torch.int32, device=rays.device)
-    _launch_grp("closest_grp", rays, tris, boxes, scale, lists, bundled,
-                (tmin, tmax), (t, row))
+    n_pad = rays.shape[0]
+    t = torch.empty(n_pad, dtype=torch.float32, device=rays.device)
+    row = torch.empty(n_pad, dtype=torch.int32, device=rays.device)
+    _launch_grp("closest_grp", rays, tris, boxes, scale, lists,
+                grp_group(n_pad) if group is None else group, (tmin, tmax),
+                (t, row))
     return t, row
 
 
 def occluded_grp(rays: torch.Tensor, tris: torch.Tensor, boxes: torch.Tensor,
-                 scale: float, lists, tmin: float,
-                 bundled: bool = False) -> torch.Tensor:
+                 scale: float, lists, tmin: float, bundled: bool = False, *,
+                 group: int | None = None) -> torch.Tensor:
     """K15 any-hit: K8's flag for ``rays`` [n_pad, 8] (column 6: the
     ray's tmax) over the group lists of ``stream_candidates(rays, boxes,
-    scale, GRP_LANES, tmin, rays[:, 6])``. Returns bool [n_pad]."""
+    scale, GRP_LANES, tmin, rays[:, 6])``, ``group`` lanes a ray
+    (``grp_occ_group`` when None); ``bundled`` as ``closest_grp``'s.
+    Returns bool [n_pad]."""
     if dense._on_cpu(rays):
         return _grp_plain(rays, tris, boxes, scale, lists, tmin, T_FAR,
                           occluded=True)
-    out = torch.empty(rays.shape[0], dtype=torch.bool, device=rays.device)
-    _launch_grp("occluded_grp", rays, tris, boxes, scale, lists, bundled,
-                (tmin,), (out,))
+    n_pad = rays.shape[0]
+    out = torch.empty(n_pad, dtype=torch.bool, device=rays.device)
+    _launch_grp("occluded_grp", rays, tris, boxes, scale, lists,
+                grp_occ_group(n_pad) if group is None else group, (tmin,),
+                (out,))
     return out
 
 
