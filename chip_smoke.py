@@ -90,16 +90,18 @@ and the entry points around the path tracer:
    BENCH_* setting, and ``debug.trace_pixel`` under ``fused_nee``, whose
    per-bounce contributions sum to that pixel in a 1-spp frame.
 
-The rest of the clustered kernels (K6f: the full carry; K7 lean and full:
-a thread block builds and sweeps a shared work list; K8b: a group of lanes
-a ray tests every box and sweeps each one its ray pierces) and the rest of
-the geometry (LBVH, scene-JSON and glTF-extras primitives and curves):
+The rest of the clustered kernels (K6f: the full carry; K7 lean and full
+and K8b: a group of lanes a ray tests every box and sweeps each one its
+ray pierces) and the rest of the geometry (LBVH, scene-JSON and
+glTF-extras primitives and curves):
 
 15. kernels (in phase 4): K6f, K7 lean, K7 full and K8b on the big mesh at
    32,768 rays with every eighth lane parked, bitwise against their plain
    versions (u and v included) and against K6 / K8 on the same rays, timed
-   there and at 262,144 rays; K8b at every width it is built for, each
-   bitwise against K8, and the widths the package picks;
+   there and at 262,144 rays; K7 lean and full and K8b at every width they
+   are built for, each bitwise against K6 / K6f / K8, and the widths the
+   package picks; K7 on the big mesh cut into clusters of 256 rows against
+   its plain versions;
 16. big-mesh variants: tools/bench_big.py's frame three more times, under
    ``TPT_LEAN_BIG=0`` (K6f + K8, K6 never), ``TPT_INKB=1`` (K7 lean + K8b,
    K6 and K8 never) and both (K7 full + K8b), each accumulator equal to
@@ -109,8 +111,9 @@ the geometry (LBVH, scene-JSON and glTF-extras primitives and curves):
    recorded from a warm-up frame, bitwise;
 17. huge mesh: ``tools/make_assets.py --huge`` (1,001,124 triangles) under
    build/assets, loaded (seconds spent writing, parsing, ordering, building
-   the LBVH and packing), bench_big's frame through K6 + K8 and through
-   K7 + K8b: NOT_DONE == 0, finite, the two accumulators equal;
+   the LBVH and packing), K7 lean timed at 32,768 rays, bench_big's frame
+   through K6 + K8 and through K7 + K8b: NOT_DONE == 0, finite, the two
+   accumulators equal;
 18. LBVH: the big mesh's primary rays (64^2) through ``bvh`` against
    ``dense`` (hit / miss and ids agree on >= 0.999 of them: the walk tests
    Moller-Trumbore, the kernels the plane + edge form, and they may
@@ -2586,11 +2589,11 @@ def phase_kernels(device, big):
             f"{boxes.shape[0]} clusters)")
 
     # The rest of the clustered kernels on the same rays: K6f (the full
-    # carry, with u and v), K7 lean and full and K8b (the block's shared
-    # work list), each bitwise against its plain version, then against
-    # K6 / K8. The bound is the least the card could take for the function:
-    # K6's work (K8's) per ray, whatever list a block shares; the full
-    # carry writes 32 bytes per ray.
+    # carry, with u and v), K7 lean and full and K8b (a group of lanes a
+    # ray over every box), each bitwise against its plain version, then
+    # against K6 / K8. The bound is the least the card could take for the
+    # function: every box tested per ray, and the rows of each box the ray
+    # enters within its bound; the full carry writes 32 bytes per ray.
     def full(kernel, o, d):
         return kernel(o, d, rows, boxes, scale, 0.01, 1e16, True,
                       **_nodes_kw(kernel, nodes))
@@ -2643,6 +2646,54 @@ def phase_kernels(device, big):
         f"rays, {clustered.occluded_b_group(N_RAYS)} at {N_RAYS}")
     t6, row6 = k6(ob, db)
     f6 = full(clustered.closest_clustered_full, ob, db)
+    # K7 lean and full at every width they are built for, against K6 / K6f.
+    t0 = time.perf_counter()
+    for g in clustered.GROUPS:
+        for what, got, want in (
+                ("K7 lean", clustered.closest_clustered_b(
+                    ob, db, rows, boxes, scale, 0.01, group=g), (t6, row6)),
+                ("K7 full", clustered.closest_clustered_full_b(
+                    ob, db, rows, boxes, scale, 0.01, 1e16, True, group=g),
+                 f6)):
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{what} at {g} lanes a ray differs "
+                                     "from K6 / K6f")
+    say("kernels", f"K7 lean and full at {clustered.GROUPS} lanes a ray: "
+        f"bitwise equal to K6 / K6f on {N_PLAIN_BIG} rays; the package "
+        f"picks {clustered.closest_b_group(N_PLAIN_BIG)} lanes at "
+        f"{N_PLAIN_BIG} rays, {clustered.closest_b_group(N_RAYS)} at "
+        f"{N_RAYS} ({time.perf_counter() - t0:.1f} s)")
+    # K7 on clusters of 256 rows: its groups read rows through the cache,
+    # and no row buffer caps a cluster. Against the plain versions on the
+    # same table, and t against K6's on the 128-row one.
+    t0 = time.perf_counter()
+    cluster_rows = clustered.CLUSTER
+    clustered.CLUSTER = 256
+    try:
+        rows2, boxes2 = clustered.pack_tris_clustered(big)
+    finally:
+        clustered.CLUSTER = cluster_rows
+    scale2 = clustered.box_scale(boxes2)
+    for what, got, want in (
+            ("K7 lean", clustered.closest_clustered_b(
+                ob, db, rows2, boxes2, scale2, 0.01),
+             clustered._closest_clustered_plain(ob, db, rows2, 0.01)),
+            ("K7 full", clustered.closest_clustered_full_b(
+                ob, db, rows2, boxes2, scale2, 0.01, 1e16, True),
+             clustered._closest_clustered_full_plain(ob, db, rows2, 0.01,
+                                                     1e16, True))):
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{what} on clusters of 256 rows differs "
+                                 "from its plain version")
+        if not torch.equal(got[0], t6):
+            raise AssertionError(f"{what} on clusters of 256 rows: t differs "
+                                 "from K6's on clusters of 128")
+    say("kernels", f"K7 lean and full on {boxes2.shape[0]} clusters of 256 "
+        f"rows: bitwise equal to their plain versions on {N_PLAIN_BIG} rays, "
+        f"t equal to K6's ({time.perf_counter() - t0:.1f} s)")
+    del rows2, boxes2
     ids = torch.where(t6 < 1e15, rows[row6.long(), 15], 0.0).to(torch.int32)
     for what, a, b in (
             ("K7 lean against K6", k7(ob, db), (t6, row6)),
@@ -3067,6 +3118,10 @@ def phase_huge_mesh(device, smi, records):
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"huge mesh, {what}: the kernels differ")
         say("huge", f"{what}: bitwise equal on {N_PLAIN_BIG} rays")
+    ms = gpu_ms(lambda: k6(oh, dh, clustered.closest_clustered_b), 5)
+    records["closest_clustered_b"][0]["ms_huge"] = ms
+    say("huge", f"K7 lean at {N_PLAIN_BIG} rays: {ms:.4f} ms a call, every "
+        f"one of {tables.boxes.shape[0]} boxes tested per ray")
     for what, name, call, counts in (
             ("K6", "closest_clustered", lambda: k6(oh, dh),
              _walk_counts(oh, dh, k6(oh, dh)[0], tables)),

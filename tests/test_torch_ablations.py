@@ -463,6 +463,8 @@ def fake_card(monkeypatch):
                         lambda name, *args: calls.append((name, args)))
     monkeypatch.setattr(ablations, "LAUNCHES",
                         dict.fromkeys(ablations.LAUNCHES, 0))
+    monkeypatch.setattr(clustered, "LAUNCHES",
+                        dict.fromkeys(clustered.LAUNCHES, 0))
     return calls
 
 

@@ -34,6 +34,7 @@ from tpu_pt_torch.scene.arrays import median_split_order  # noqa: E402
 from test_torch_clustered import (  # noqa: E402,F401
     _assert_same_clustered_hit, _culling_rays, _far_rays, _shrink,
     mixed_scenes, sphere_arrays, sphere_scenes, unit_sphere_scene)
+from test_torch_ablations import _tables, fake_card  # noqa: E402,F401
 from test_torch_intersect import _rays, _t  # noqa: E402
 
 SCENES = ["mixed", "sphere", "far"]
@@ -349,9 +350,10 @@ def test_entry_points_hand_the_tree_to_the_kernels(mixed_scenes, monkeypatch,
 def test_wrapper_tables(mixed_scenes, monkeypatch):
     """The launch arguments: K6 / K6f / K8 get the node table, built from
     the boxes when the caller hands none, and the walk's lanes a ray
-    (``walk_group`` of the ray count unless given); K7 gets neither, K8b
-    no node table and its lanes a ray (``occluded_b_group`` unless
-    given); a table of the wrong shape is refused."""
+    (``walk_group`` of the ray count unless given); K7 and K8b no node
+    table and their lanes a ray (``closest_b_group`` /
+    ``occluded_b_group`` unless given); a table of the wrong shape is
+    refused."""
     _, tscene = mixed_scenes
     _shrink(monkeypatch)
     tables = clustered.prepare(tscene)
@@ -367,7 +369,7 @@ def test_wrapper_tables(mixed_scenes, monkeypatch):
     assert len(handed) == 3 and walk == (16,)
     handed, _, _, walk = clustered._tables("closest_clustered_b", rows,
                                            boxes, None, None, 5, cpu)
-    assert len(handed) == 2 and walk == ()
+    assert len(handed) == 2 and walk == (clustered.closest_b_group(5),)
     handed, _, _, walk = clustered._tables("occluded_clustered_b", rows,
                                            boxes, None, None, 5, cpu)
     assert len(handed) == 2 and walk == (clustered.occluded_b_group(5),)
@@ -402,3 +404,57 @@ def test_shadow_list_pickers_are_built(n_rays):
     assert 1 <= ablations.RAY_TILE_C <= ablations.LIST_MAX_TILE
     assert ablations._pad_tile(n_rays, ablations.STREAM_OCC_TILE) \
         % ablations.STREAM_OCC_TILE == 0
+
+
+@pytest.mark.parametrize("n_rays", [1, 77, 1000, 4096, 32768, 65536, 65537,
+                                    131072, 262144, 1 << 20])
+def test_closest_b_picker_is_built(n_rays):
+    """K7's lanes a ray (lean and full) is a width its kernel is built for
+    (csrc/walk.cuh, with_group), whatever the ray count."""
+    assert clustered.closest_b_group(n_rays) in clustered.GROUPS
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("n,group", [(96, None), (96, 4), (96, 8), (96, 16),
+                                     (96, 32), (65537, None)])
+def test_closest_b_launch_takes_width(fake_card, full, n, group):
+    """K7 lean and full pass their lanes a ray (``closest_b_group`` of the
+    ray count when None, else the given width) in the slot before the
+    stream that ``_kernels`` declares, and raise before any launch on a
+    width they are not built for."""
+    from tpu_pt_torch import _kernels
+    rows, boxes = _tables()
+    o, d = torch.zeros((n, 3)), torch.ones((n, 3))
+    name = "closest_clustered_full_b" if full else "closest_clustered_b"
+    fn = getattr(clustered, name)
+    extra = (1e16, True) if full else (1e16,)
+    fn(o, d, rows, boxes, 1.0, 0.01, *extra, group=group)
+    (called, args), = fake_card
+    assert called == "tpt_" + name
+    signature = _kernels._SIGNATURES["clustered_build"][called]
+    assert len(args) == len(signature)
+    assert signature[-2] is _kernels._I
+    assert args[4:7] == (n, 4, 8)
+    assert args[-2] == (clustered.closest_b_group(n) if group is None
+                        else group)
+    assert clustered.LAUNCHES[name] == 1
+    for bad in (0, 2, 64):
+        with pytest.raises(ValueError, match="lanes a ray"):
+            fn(o, d, rows, boxes, 1.0, 0.01, *extra, group=bad)
+    assert len(fake_card) == 1
+
+
+@pytest.mark.parametrize("name", ["closest_clustered_b",
+                                  "closest_clustered_full_b",
+                                  "occluded_clustered_b"])
+def test_list_kernels_take_any_cluster_size(name):
+    """K7 and K8b read a cluster's rows through the cache, with no row
+    buffer: ``_tables`` takes clusters of 256 rows (past the 128 that
+    K7's shared buffers once held) and of 1."""
+    cpu = torch.device("cpu")
+    for cluster in (256, 1):
+        rows, boxes = _tables(3, cluster)
+        handed, n_boxes, got, walk = clustered._tables(name, rows, boxes,
+                                                       None, None, 7, cpu)
+        assert (n_boxes, got) == (3, cluster) and len(handed) == 2
+        assert walk[0] in clustered.GROUPS

@@ -68,10 +68,10 @@ _SIGNATURES = {
     },
     "clustered_build": {
         "tpt_closest_clustered_b": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                                    _F, _P, _P, _P),
+                                    _F, _P, _P, _I, _P),
         "tpt_closest_clustered_full_b": (_P, _P, _P, _P, _I, _I, _I, _F, _F,
                                          _F, _F, _I, _P, _P, _P, _P, _P, _P,
-                                         _P),
+                                         _I, _P),
         "tpt_occluded_clustered_b": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                                      _F, _P, _I, _P),
     },

@@ -50,7 +50,8 @@
 //   min(best, tmax); a ballot gives the ones that pass, and the group
 //   sweeps each (held against the bound again, since best shrinks within a
 //   chunk), its rows split over the lanes and folded by xor shuffles
-//   (list_walk.cuh's sweep_cluster): K8b's shape with a closest-hit carry.
+//   (list_walk.cuh's sweep_boxes, which K7 runs over every box at once):
+//   K8b's shape with a closest-hit carry.
 //   G (ablations.rotated_group) comes from tools/grp_rot_ab_torch.py's
 //   trial on a frame's calls; sweeping a chunk's passes nearest entry first
 //   instead of lowest box first gained nothing there (PERF.md).
@@ -179,7 +180,8 @@ using tpt::box_passes;
 // box, at min(best, tmax) (slab_enter); a ballot gives the ones that pass,
 // and the group sweeps each, lowest box first, held against min(best,
 // tmax) again since best shrinks within a chunk, its rows split over the
-// lanes and folded by xor shuffles (list_walk.cuh's sweep_cluster).
+// lanes and folded by xor shuffles (list_walk.cuh's sweep_boxes, shared
+// with K7).
 template <int G>
 __global__ void __launch_bounds__(tpt::kWalkThreads)
 closest_rotated_kernel(const float* __restrict__ orig,
@@ -206,24 +208,9 @@ closest_rotated_kernel(const float* __restrict__ orig,
   for (int v = 0; v < s_count; ++v) {
     // Visit v: the first slab, then the others in ascending order.
     const int sid = v == 0 ? first : (v - 1 < first ? v - 1 : v);
-    const int c1 = min((sid + 1) * slab_boxes, n_boxes);
-    for (int c0 = sid * slab_boxes; c0 < c1; c0 += G) {
-      const int c = c0 + g.lane;
-      float tn = 0.0f;
-      const bool ok =
-          c < c1 && tpt::slab_enter(r, s, __ldg(bx + 2 * (size_t)c),
-                                    __ldg(bx + 2 * (size_t)c + 1), m, tmin,
-                                    &tn) &&
-          tn <= fminf(best, tmax);
-      unsigned pass = tpt::group_ballot(g, ok);
-      while (pass != 0u) {
-        const int j = __ffs(pass) - 1;
-        pass &= pass - 1u;
-        if (!(__shfl_sync(g.mask, tn, j, G) <= fminf(best, tmax))) continue;
-        tpt::sweep_cluster<G>(r, rows, (c0 + j) * cluster, cluster, g, tmin,
-                              tmax, best, best_row);
-      }
-    }
+    tpt::sweep_boxes<G>(r, s, m, bx, rows, sid * slab_boxes,
+                        min((sid + 1) * slab_boxes, n_boxes), cluster, g,
+                        tmin, tmax, best, best_row);
   }
   if (g.lane != 0) return;
   t_out[i] = best;

@@ -1,7 +1,9 @@
 // One ray to a group of G lanes going down a list of clusters, shared by
 // K12 (ablations_intersect.cu: tiles of 128 rays share a list) and K15
-// (ablations_binned.cu: tiles of 8), and the group's sweep of one cluster
-// for a closest hit, shared with K11 (ablations_intersect.cu).
+// (ablations_binned.cu: tiles of 8); the group's sweep of one cluster for
+// a closest hit; and its sweep of a range of boxes, each tested and the
+// ones that pass swept, shared by K11 (ablations_intersect.cu: a range a
+// slab) and K7 (clustered_build.cu: one range, every box).
 //
 // The lists are ablations.stream_lists' (cand, keys, cnt, far): ray i's
 // list is its tile's, tile i / rt; `cand` and `keys` are [tiles, n_boxes],
@@ -70,6 +72,40 @@ __device__ __forceinline__ void sweep_cluster(const Ray& r,
   }
   best = tl;
   best_row = rl;
+}
+
+// The group's closest hit over boxes [c0, c1) into (best, best_row): the
+// lanes test the boxes G at a time, lane l the box c0 + l (its ray's box
+// grown by m) at min(best, tmax) (slab_enter); a ballot gives the ones
+// that pass, and the group sweeps each, lowest box first, with
+// sweep_cluster, held against min(best, tmax) again since best shrinks
+// within a chunk. Both checks are <=: a box entered exactly at best can
+// hold a tied hit on a lower row once an earlier range found best.
+template <int G>
+__device__ __forceinline__ void sweep_boxes(const Ray& r, const Slab& s,
+                                            float m,
+                                            const float4* __restrict__ bx,
+                                            const float4* __restrict__ rows,
+                                            int c0, int c1, int cluster,
+                                            const Group& g, float tmin,
+                                            float tmax, float& best,
+                                            int& best_row) {
+  for (int base = c0; base < c1; base += G) {
+    const int c = base + g.lane;
+    float tn = 0.0f;
+    const bool ok = c < c1 &&
+                    slab_enter(r, s, __ldg(bx + 2 * (size_t)c),
+                               __ldg(bx + 2 * (size_t)c + 1), m, tmin, &tn) &&
+                    tn <= fminf(best, tmax);
+    unsigned pass = group_ballot(g, ok);
+    while (pass != 0u) {
+      const int j = __ffs(pass) - 1;
+      pass &= pass - 1u;
+      if (!(__shfl_sync(g.mask, tn, j, G) <= fminf(best, tmax))) continue;
+      sweep_cluster<G>(r, rows, (base + j) * cluster, cluster, g, tmin, tmax,
+                       best, best_row);
+    }
+  }
 }
 
 // Closest hit of the packed rays [n_rays, 8] over their tiles' lists (see

@@ -219,14 +219,7 @@ def _ray_box_test(rays, boxes, scale, tmin: float, tmax, col_chunk: int):
         yield c0, (tn <= tf) & (tf > tmin) & (tn <= tmax_r), tn
 
 
-def _width(group: int, kernel: str) -> int:
-    """``group`` lanes a ray, checked against the widths the group
-    kernels are built for (``clustered.GROUPS``)."""
-    width = int(group)
-    if width not in clustered.GROUPS:
-        raise ValueError(f"{width} lanes a ray: {kernel} is built for "
-                         f"{clustered.GROUPS}")
-    return width
+_width = clustered._width
 
 
 # --------------------------------------------------------------------------

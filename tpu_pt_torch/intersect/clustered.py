@@ -26,16 +26,16 @@ call site; plain version):
 - ``occluded_clustered_b`` (K8b): ``_occluded_kernel_clustered_b`` via
   ``_occluded_call_clustered(build=True)``; K8's plain version.
 
-Three designs. In ``csrc/clustered_intersect.cu`` (K6, K6f, K8) a group
+Two designs. In ``csrc/clustered_intersect.cu`` (K6, K6f, K8) a group
 of 16 or 8 lanes (``walk_group``) walks the cluster tree for one ray, near
 first, and sweeps the clusters it reaches together. In
-``csrc/clustered_build.cu`` K7 runs a thread block of 128 consecutive
-lanes that builds one shared work list, the boxes any of its rays pierces
-within its bound, and sweeps the listed clusters in lockstep from shared
-memory, as the TPU kernels with the in-kernel candidate build do; K8b
-gives one ray to a group of lanes (``occluded_b_group``), which tests
-every box G at a time against its own ray's tmax and sweeps each one that
-passes at once, until one blocks. Either way one launch covers the table:
+``csrc/clustered_build.cu`` (K7, K8b) one ray goes to a group of lanes
+(``closest_b_group``, ``occluded_b_group``) that builds the ray's own list
+as the TPU kernels with the in-kernel candidate build do: it tests every
+box G at a time, a lane a box, within the ray's bound (K7: its best hit so
+far or tmax; K8b: its own tmax) and sweeps each one that passes at once,
+lowest box first (K8b until one blocks); no block shares a list, and no
+row buffer caps a cluster's rows. Either way one launch covers the table:
 the TPU path's chained slabs and ray sort exist only because its table
 had to fit in VMEM. The results are those of a dense sweep over every
 row, which is what the plain versions compute. A wrapper runs the plain
@@ -99,13 +99,14 @@ WALK_NARROW_RAYS = 65536
 # The lanes a ray of K8b (occluded_b_group): OCC_B_GROUP up to
 # OCC_B_NARROW_RAYS rays, OCC_B_GROUP_WIDE above.
 OCC_B_GROUP, OCC_B_GROUP_WIDE, OCC_B_NARROW_RAYS = 32, 4, 65536
+# The lanes a ray of K7 (closest_b_group), from tools/inkb_ab_torch.py
+# --widths: the widest at every ray count it timed.
+CLOSEST_B_GROUP = 32
 # The widths the group kernels are built at (csrc/walk.cuh, with_group).
 GROUPS = (4, 8, 16, 32)
 # Stack entries of the tree walk (csrc/clustered_intersect.cu, kStack): a
 # tree deeper than this is refused.
 TREE_MAX_DEPTH = 32
-# Rows per cluster the list-building kernels' shared row buffers hold.
-BUILD_MAX_CLUSTER = 128
 # Landing-slab sentinel of the prediction-ordered scheduler: "no
 # prediction" in, "slab not recoverable" (any miss) out; far above any
 # slab count (``tpu_pt.intersect.SLAB_UNKNOWN``).
@@ -333,12 +334,6 @@ def _check_tables(tris: torch.Tensor, boxes: torch.Tensor,
     return n_boxes, tris.shape[0] // n_boxes
 
 
-def _check_build(cluster: int) -> None:
-    if cluster > BUILD_MAX_CLUSTER:
-        raise ValueError(f"the list-building kernels hold clusters of at "
-                         f"most {BUILD_MAX_CLUSTER} rows, not {cluster}")
-
-
 def _check_nodes(nodes: torch.Tensor, n_boxes: int,
                  device: torch.device) -> None:
     """A node table of ``cluster_tree`` for ``n_boxes`` clusters, whose
@@ -369,25 +364,48 @@ def occluded_b_group(n_rays: int) -> int:
     return OCC_B_GROUP if n_rays <= OCC_B_NARROW_RAYS else OCC_B_GROUP_WIDE
 
 
+def closest_b_group(n_rays: int) -> int:
+    """Lanes a ray of K7 (lean and full) for a call of ``n_rays`` rays: the
+    width tools/inkb_ab_torch.py --widths measured fastest (PERF.md), 32
+    at every count it timed (a ``TPT_INKB=1`` big-mesh frame's calls,
+    32,768 parked, 262,144 coherent and 262,144 incoherent rays): each
+    ray tests every box, so the widest group divides that loop most."""
+    return CLOSEST_B_GROUP
+
+
+def _width(group: int, kernel: str) -> int:
+    """``group`` lanes a ray, checked against the widths the group
+    kernels are built for (``GROUPS``)."""
+    width = int(group)
+    if width not in GROUPS:
+        raise ValueError(f"{width} lanes a ray: {kernel} is built for "
+                         f"{GROUPS}")
+    return width
+
+
+_PICKERS = {"closest_clustered_b": closest_b_group,
+            "closest_clustered_full_b": closest_b_group,
+            "occluded_clustered_b": occluded_b_group}
+
+
 def _tables(name: str, tris, boxes, nodes, group, n: int, dev):
-    """(the tables, n_boxes, cluster, the walk's group) of a clustered
+    """(the tables, n_boxes, cluster, the group's width) of a clustered
     launch: the rows and boxes; for the walking kernels (K6, K6f, K8) the
     node table (built from the boxes when the caller has none) and the
-    lanes a ray (``walk_group`` when None); for K8b the lanes a ray
-    (``occluded_b_group`` when None); for K7 an empty tuple. The caller
-    holds the tables until the launch is queued."""
+    lanes a ray (``walk_group`` when None); for K7 and K8b the lanes a ray
+    (``closest_b_group`` / ``occluded_b_group`` when None). A width the
+    kernels are not built for raises. The caller holds the tables until
+    the launch is queued."""
     n_boxes, cluster = _check_tables(tris, boxes, dev)
-    tables, walk = (tris, boxes), ()
-    if name == "occluded_clustered_b":
-        walk = (occluded_b_group(n) if group is None else int(group),)
-    elif name.endswith("_b"):
-        _check_build(cluster)
-    else:
+    tables = (tris, boxes)
+    pick = _PICKERS.get(name)
+    if pick is None:
         if nodes is None:
             nodes = cluster_tree(boxes)
         _check_nodes(nodes, n_boxes, dev)
         tables += (nodes,)
-        walk = (walk_group(n) if group is None else int(group),)
+        pick = walk_group
+    walk = (_width(pick(n) if group is None else group, name),)
     return tables, n_boxes, cluster, walk
 
 
@@ -475,13 +493,16 @@ def closest_clustered(origins: torch.Tensor, dirs: torch.Tensor,
 
 def closest_clustered_b(origins: torch.Tensor, dirs: torch.Tensor,
                         tris: torch.Tensor, boxes: torch.Tensor, scale: float,
-                        tmin: float, tmax: float = T_FAR):
-    """K7 lean: K6's function through the kernel whose thread blocks build
-    and sweep a shared work list."""
+                        tmin: float, tmax: float = T_FAR, *,
+                        group: int | None = None):
+    """K7 lean: K6's function with no tree, each ray's list of boxes built
+    in the kernel: ``group`` lanes a ray (``closest_b_group`` when None)
+    test every box within the ray's best hit so far and sweep each one
+    that passes."""
     if dense._on_cpu(origins):
         return _closest_clustered_plain(origins, dirs, tris, tmin, tmax)
     return _launch_lean("closest_clustered_b", origins, dirs, tris, boxes,
-                        scale, tmin, tmax)
+                        scale, tmin, tmax, group=group)
 
 
 def closest_clustered_full(origins: torch.Tensor, dirs: torch.Tensor,
@@ -503,13 +524,15 @@ def closest_clustered_full(origins: torch.Tensor, dirs: torch.Tensor,
 def closest_clustered_full_b(origins: torch.Tensor, dirs: torch.Tensor,
                              tris: torch.Tensor, boxes: torch.Tensor,
                              scale: float, tmin: float, tmax: float = T_FAR,
-                             want_uv: bool = True):
-    """K7 full: K6f's function through the list-building kernel."""
+                             want_uv: bool = True, *,
+                             group: int | None = None):
+    """K7 full: K6f's function through K7's kernel (``group`` lanes a ray,
+    ``closest_b_group`` when None)."""
     if dense._on_cpu(origins):
         return _closest_clustered_full_plain(origins, dirs, tris, tmin, tmax,
                                              want_uv)
     return _launch_full("closest_clustered_full_b", origins, dirs, tris,
-                        boxes, scale, tmin, tmax, want_uv)
+                        boxes, scale, tmin, tmax, want_uv, group=group)
 
 
 def occluded_clustered(origins: torch.Tensor, dirs: torch.Tensor,
