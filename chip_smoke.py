@@ -417,6 +417,7 @@ BENCH_TAG = "bench.py 1024^2 x 16 spp, depth 8, mixed"
 LEAN_BOXES = (("mixed", "cornell_box_mixed.obj", "wide"),
               ("monkey", "cornell_box_monkey.obj", "monkey"))
 N_SPHERE_RAYS = 65536    # the sphere-box frame's pixelq width
+DENSE_SUBSET_ROWS = 2048  # the largest occluder subset with no kd copy
 CLOSEST_K6 = ("closest_clustered", "closest_clustered_b")
 CLOSEST_K6F = ("closest_clustered_full", "closest_clustered_full_b")
 OCCLUDED_K8 = ("occluded_clustered", "occluded_clustered_b")
@@ -1163,19 +1164,23 @@ def _dense_work(o, rows, out_bytes: int):
     return n * r * PAIR_FLOPS, n * 24 + r * 64 + n * out_bytes
 
 
-def _dense_occluded_work(o, d, tmax, rows):
+def _dense_occluded_work(o, d, tmax, rows, tmin: float = 0.01):
     """An any-hit sweep in row order needs, per ray, the rows up to its
-    first blocking one, or every row when nothing blocks."""
+    first blocking one, or every row when nothing blocks; none for a ray
+    whose range (tmin, tmax) is empty (a parked lane's tmax is 0), unless
+    tmax is past T_FAR, where a miss blocks."""
     import torch
     from tpu_pt_torch.intersect import dense
     n, r = o.shape[0], rows.shape[0]
     pairs = 0
     for a in range(0, n, 16384):
-        t, _, _ = dense._pe_block(o[a:a + 16384], d[a:a + 16384], rows,
-                                  0.01)
-        block = (t < tmax[a:a + 16384, None]) & (rows[None, :, 13] < 0.5)
+        tm = tmax[a:a + 16384]
+        t, _, _ = dense._pe_block(o[a:a + 16384], d[a:a + 16384], rows, tmin)
+        block = (t < tm[:, None]) & (rows[None, :, 13] < 0.5)
         first = block.to(torch.int32).argmax(1)
-        pairs += int(torch.where(block.any(1), first + 1, r).sum())
+        need = torch.where(block.any(1), first + 1, r)
+        empty = ~(tm > tmin) & ~(tm > dense.T_FAR)
+        pairs += int(torch.where(empty, 0, need).sum())
     return pairs * PAIR_FLOPS, n * 28 + r * 64 + n
 
 
@@ -2477,6 +2482,182 @@ def phase_bf16(device, smi, records):
     return counts
 
 
+def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
+    """K2's and K1's dense bodies on the tables their paths hand them, each
+    bitwise against its plain version and timed, at N_RAYS and at
+    N_SPHERE_RAYS rays with one lane in PARK_EVERY parked: K2 over the
+    mixed box's 24-row occluder subset (every shadow ray of the flagship
+    frames), ``cornell_box.obj``'s subset and a DENSE_SUBSET_ROWS-row
+    subset with no kd copy (the sphere box's first rows, with its shadow
+    rays: the largest table a clustered scene hands K2, eight tiles); K1
+    over ``cornell_box.obj``'s 32 rows (its own path) and the mixed box's
+    432 (the walk's yardstick). Then K3's and K4's dense bodies on
+    ``cornell_box.obj``, and the edges of the sweeps: shadow rays whose
+    tmax is bit for bit the t of their nearest blocking row (and the next
+    float above it), rays aimed at shared edges, and tables with zero rows
+    padding them to a multiple of 8 (a last iteration of fewer rows, too).
+    The first record of each kernel (its own path at N_RAYS) carries every
+    table's time (``ms_tables``)."""
+    import numpy as np
+    import torch
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import dense
+    t0 = time.perf_counter()
+    cornell = tp.load_scene(str(ASSETS / "cornell_box.obj"), device=device)
+    tc = dense.prepare(cornell)
+    if tc.kd is not None or tc.occ_kd is not None or tm.occ_kd is not None:
+        raise AssertionError("cornell_box.obj's table and subset and the "
+                             "mixed box's subset must have no kd copy")
+    sub = ts.occ_rows[:DENSE_SUBSET_ROWS].contiguous()
+    first = {}
+    device_ms = _tool("dense_ab_torch").device_ms
+
+    def timed(name, what, kernel, plain, table, work, n):
+        """_check_kernel, then the kernel's device time (device_ms: these
+        kernels are shorter than a launch, so gpu_ms times the host; its
+        time stays as events_ms); every table's time on the first record
+        of ``name``."""
+        _check_kernel(records, name, kernel, plain, table.shape[0],
+                      _compare_exact, work, n=n, plain_reps=1,
+                      label=f"{name} on {what}")
+        rec = records[name][-1]
+        rec["events_ms"], rec["ms"] = rec["ms"], device_ms(kernel, 20)
+        first.setdefault(name, rec).setdefault("ms_tables", {})[
+            f"{what}, {table.shape[0]} rows, {n} rays"] = rec["ms"]
+        say("kernels", f"{name} on {what}, {n} rays: {rec['ms']:.4f} ms a "
+            f"call on the card, back to back (events around the host's "
+            f"calls: {rec['events_ms']:.4f}); bound {rec['bound_ms']:.4f}")
+
+    def parked(scene, tables, seed, n):
+        rows = tables.rows
+        o, d, shadow = _phase3_rays(
+            scene, device, seed, rows,
+            lambda o, d: dense._closest_plain(o, d, rows, 0.01), n)
+        return _park((o, d), shadow, PARK_EVERY)
+
+    def exact(name, what, kernel, plain, rows, n):
+        out_k, out_p = kernel(), plain()
+        torch.cuda.synchronize()
+        _compare_exact(f"{name} on {what}", out_k, out_p)
+        records[name].append(dict(rows=rows, rays=n, max_abs_err=0.0))
+        return out_p
+
+    for n in (N_RAYS, N_SPHERE_RAYS):
+        (om, dm), shm = parked(mixed, tm, 1, n)
+        (oc, dc), shc = parked(cornell, tc, 5, n)
+        _, shs = parked(sphere, ts, 2, n)
+        for what, table, sh in (("the mixed box's subset", tm.occ_rows, shm),
+                                ("cornell_box.obj's subset", tc.occ_rows,
+                                 shc),
+                                (f"a {DENSE_SUBSET_ROWS}-row subset", sub,
+                                 shs)):
+            timed("occluded", what,
+                  lambda sh=sh, table=table: dense.occluded(*sh, table, 0.01),
+                  lambda sh=sh, table=table: dense._occluded_plain(
+                      *sh, table, 0.01), table,
+                  lambda out, sh=sh, table=table: _dense_occluded_work(
+                      *sh, table), n)
+        for what, table, o, d in (("cornell_box.obj", tc.rows, oc, dc),
+                                  ("the mixed box", tm.rows, om, dm)):
+            timed("closest_lean", what,
+                  lambda o=o, d=d, table=table: dense.closest_lean(
+                      o, d, table, 0.01),
+                  lambda o=o, d=d, table=table: dense._closest_plain(
+                      o, d, table, 0.01), table,
+                  lambda out, o=o, table=table: _dense_work(o, table, 8), n)
+        # K3's and K4's dense bodies on their own table (their records
+        # come from the later phases).
+        out_k = dense.closest_full(oc, dc, tc.rows, 0.01, 600.0, True)
+        out_p = dense._closest_plain(oc, dc, tc.rows, 0.01, 600.0, True, True)
+        torch.cuda.synchronize()
+        _compare_exact("closest_full on cornell_box.obj", out_k, out_p)
+        lz1, lz2 = _light_samples(n, 11, device)
+        light = dense.light_vector(cornell)
+        out_k = dense.closest_nee_lean(oc, dc, lz1, lz2, tc.rows, tc.occ_rows,
+                                       light, 0.01)
+        out_p = dense._closest_nee_plain(oc, dc, lz1, lz2, tc.rows,
+                                         tc.occ_rows, light, 0.01)
+        torch.cuda.synchronize()
+        _compare_fused("closest_nee_lean on cornell_box.obj", out_k, out_p)
+        say("kernels", f"closest_full and closest_nee_lean (K3's, K4's dense "
+            f"bodies) on cornell_box.obj's {tc.rows.shape[0]} rows, {n} rays: "
+            "bitwise equal to the plain versions")
+
+    # The edges of the sweeps. tmax at the t of each shadow ray's nearest
+    # blocking row (the plain version's t, bit for bit): that row must not
+    # block, while one float above it, it must.
+    (oc, dc), shc = parked(cornell, tc, 7, N_SPHERE_RAYS)
+    (_, _), shm = parked(mixed, tm, 8, N_SPHERE_RAYS)
+    for what, table, (so, sd, st) in (
+            ("cornell_box.obj's subset", tc.occ_rows, shc),
+            ("the mixed box's subset", tm.occ_rows, shm)):
+        t_all, _, _ = dense._pe_block(so, sd, table, 0.01)
+        t_all = torch.where(table[None, :, 13] < 0.5, t_all, 1e16)
+        near = t_all.min(1).values
+        hit = near < 1e15
+        at = torch.where(hit, near, st).contiguous()
+        above = torch.where(hit, torch.nextafter(near, torch.full_like(
+            near, float("inf"))), st).contiguous()
+        flags = [exact("occluded", f"{what}, tmax {side}",
+                       lambda tmax=tmax: dense.occluded(so, sd, tmax, table,
+                                                        0.01),
+                       lambda tmax=tmax: dense._occluded_plain(so, sd, tmax,
+                                                               table, 0.01),
+                       table.shape[0], N_SPHERE_RAYS)
+                 for side, tmax in (("at t", at), ("above t", above))]
+        flips = int((flags[1] & ~flags[0] & hit).sum())
+        if flips != int(hit.sum()) or flips < N_SPHERE_RAYS // 100:
+            raise AssertionError(f"K2 on {what}: tmax one float above the "
+                                 f"nearest blocking t turned {flips} of "
+                                 f"{int(hit.sum())} rays blocked")
+        say("kernels", f"occluded (K2's dense body) on {what}: tmax at the "
+            f"nearest blocking row's t and one float above it, "
+            f"{int(hit.sum())} rays with a blocking row ({flips} flip): "
+            "bitwise equal to the plain version")
+    # Rays through shared edges: rows tie on t, the lowest row wins.
+    eo, ed = _edge_rays(cornell, N_SPHERE_RAYS, 13, device)
+    t_all, _, _ = dense._pe_block(eo[:16384], ed[:16384], tc.rows, 0.01)
+    best = t_all.min(1).values
+    ties = int((((t_all == best[:, None]).sum(1) > 1) & (best < 1e15)).sum())
+    if ties < best.shape[0] // 200:
+        raise AssertionError(f"K1 edge rays: only {ties} of {best.shape[0]} "
+                             "tie")
+    exact("closest_lean", "edge rays", lambda: dense.closest_lean(
+        eo, ed, tc.rows, 0.01), lambda: dense._closest_plain(
+        eo, ed, tc.rows, 0.01), tc.rows.shape[0], N_SPHERE_RAYS)
+    etmax = torch.as_tensor(np.random.default_rng(14).uniform(
+        0.0, 2000.0, N_SPHERE_RAYS).astype(np.float32), device=device)
+    for table in (tc.occ_rows, tm.occ_rows):
+        exact("occluded", "edge rays", lambda table=table: dense.occluded(
+            eo, ed, etmax, table, 0.01), lambda table=table:
+            dense._occluded_plain(eo, ed, etmax, table, 0.01),
+            table.shape[0], N_SPHERE_RAYS)
+    say("kernels", f"closest_lean and occluded (K1's, K2's dense bodies) on "
+        f"{N_SPHERE_RAYS} rays aimed at shared edges of cornell_box.obj "
+        f"({ties} of the first {best.shape[0]} tie on t): bitwise equal to "
+        "the plain versions")
+    # Zero rows padding a table to a multiple of 8, in one tile and in the
+    # last of eight.
+    for what, table, (so, sd, st) in (
+            ("the mixed box's subset", tm.occ_rows, shm),
+            (f"a {DENSE_SUBSET_ROWS}-row subset", sub, shs)):
+        padded = table.clone()
+        padded[-3:] = 0.0
+        exact("occluded", f"{what}, 3 zero rows", lambda: dense.occluded(
+            so, sd, st, padded, 0.01), lambda: dense._occluded_plain(
+            so, sd, st, padded, 0.01), padded.shape[0], N_SPHERE_RAYS)
+    packed = dense.pack_tris(cornell)          # 32 rows + 480 zero rows
+    exact("closest_lean", "cornell_box.obj's untrimmed table",
+          lambda: dense.closest_lean(oc, dc, packed, 0.01),
+          lambda: dense._closest_plain(oc, dc, packed, 0.01),
+          packed.shape[0], N_SPHERE_RAYS)
+    say("kernels", f"K2's dense body on subsets padded with zero rows "
+        f"({tm.occ_rows.shape[0]}, {DENSE_SUBSET_ROWS} rows) and K1's on "
+        f"cornell_box.obj's untrimmed {packed.shape[0]} rows: bitwise equal "
+        f"to the plain versions; the dense bodies' checks took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_kernels(device, big):
     import torch
     import tpu_pt_torch as tp
@@ -2485,7 +2666,8 @@ def phase_kernels(device, big):
     sphere = tp.load_scene(str(ASSETS / "cornell_box_sphere.obj"),
                            device=device)
     tm, ts = dense.prepare(mixed), dense.prepare(sphere)
-    records = {}
+    records = {"occluded": [], "closest_lean": []}
+    _check_dense_bodies(records, device, mixed, tm, sphere, ts)
 
     def run(*args, **kw):
         _check_kernel(records, *args, **kw)
@@ -5114,7 +5296,10 @@ def main() -> int:
             # against its dense body in interleaved pairs, both times on
             # the walk's record (pair_ms_*, dense_pair_ms_*; _monkey: on
             # the monkey box, _reference: a recorded call of the
-            # reference launch).
+            # reference launch). K1's and K2's dense bodies: their own
+            # paths' tables first, ms on the card back to back (events
+            # around the host's calls: events_ms), every table's time
+            # (ms_tables).
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
                                      "ms_closest", "ms_closest_at_n_rays",
                                      "ms_grp_closest", "ms_grp_any",
@@ -5131,7 +5316,8 @@ def main() -> int:
                                      "dense_pair_ms_recorded",
                                      "pair_ms_monkey", "dense_pair_ms_monkey",
                                      "pair_ms_reference",
-                                     "dense_pair_ms_reference")
+                                     "dense_pair_ms_reference", "ms_tables",
+                                     "events_ms")
                if k in first}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

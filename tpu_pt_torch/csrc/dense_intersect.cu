@@ -43,15 +43,36 @@
 // The per-pair test is pe_test of pe_block.cuh, shared with the clustered
 // kernels.
 //
-// What bounds K1-K4 on this card: FP32 ALU. A ray x row pair costs ~28
-// flops (plus one IEEE division); a main-path call is 262,144 rays x 432
-// rows ~ 3.2 GFLOP against 80 bytes of ray data per ray and a 27 KB row
-// table. The design answer is the simple one: one thread per ray keeps its
-// ray and running best in registers; the row table is staged through shared
-// memory in tiles of 256 rows (16 KB), read by every thread of the block as
-// a broadcast, so device memory is touched once per block per row. The
-// fused kernels run both sweeps in one launch: the shadow ray never leaves
-// registers, and one launch replaces two.
+// The dense bodies of K1-K4 (closest_kernel, occluded_kernel,
+// closest_nee_kernel) serve the tables with no kd copy: cornell_box.obj's
+// 32 rows (K1, K3, K4) and the NEE occluder subsets of at most 2,048 rows
+// (K2: the mixed box's 24 rows take every shadow ray of the flagship
+// frames). What bounds them on this card: the instruction rate and the
+// latency of each pair's dependent chain. A pair is ~28 flops, but with
+// --fmad=false every multiply and add is an instruction: ~60 SASS ones
+// a pair with the IEEE reciprocal, its range check, the shared loads and
+// the loop, whose steps wait on each other, against 28 bytes of ray data
+// and a table of 2 KB. The design:
+// - The block stages the table through shared memory, 256 rows a tile,
+//   and every thread reads each row as a broadcast; the any-hit block
+//   stops staging once all its rays are blocked or done (a parked lane's
+//   tm of 0 is done before the first row).
+// - A thread tests kRowsAnIter (3) rows an iteration: their pair tests do
+//   not depend on each other, so their loads and reciprocals overlap
+//   where one row's chain would stall the warp. The closest hit still
+//   takes rows in ascending order with a strict <.
+// - One ray a thread, 256 threads a block (kThreads). A trial on a
+//   frame's replayed calls (PERF.md) found two rays a thread slower (~72
+//   registers against ~61: the lower occupancy costs more than one row's
+//   loads serving two rays saves) and 128 threads no faster.
+// Trials refuted two more designs (PERF.md): a lazy pair test (t first,
+// the edge functions only when some lane of the warp has t in range)
+// skips little, since a warp's 32 shadow rays diverge (t is in range for
+// ~32% of pairs but on ~52% of (warp, row) steps), and costs votes and
+// branches; and reading a small table straight from the cache, with no
+// barrier, lost to the staged tile at every size.
+// The fused kernels run both sweeps in one launch: the shadow ray never
+// leaves registers, and one launch replaces two.
 //
 // K5 is different: its table (the sphere box, 2,280 rows) is five times
 // K4's, and it is swept twice, once for the closest hit and once more by
@@ -136,6 +157,7 @@ namespace {
 
 constexpr int kThreads = 256;   // rays per block, one thread per ray
 constexpr int kTileRows = 256;  // packed rows staged per shared-memory tile
+constexpr int kRowsAnIter = 3;  // rows a dense body's iteration tests
 constexpr float kNeeEps = 0.01f;  // shadow-ray range shrink (pallas_bf.NEE_EPS)
 using tpt::kCols;
 using tpt::kTFar;
@@ -145,12 +167,89 @@ using tpt::Ray;
 using tpt::stage_rows;
 using tpt::write_attrs;
 
-// Closest-hit sweep over rows [0, n_rows) staged tile by tile through
-// s_rows; every thread of the block calls it (non-live threads help stage).
-// With kClip, t >= tmax counts as a miss.
+// Packed row j of a staged tile: its four float4.
+struct TileRow {
+  float4 a, b, c, e;
+};
+
+__device__ __forceinline__ TileRow tile_row(const float4* s_rows, int j) {
+  return TileRow{s_rows[4 * j], s_rows[4 * j + 1], s_rows[4 * j + 2],
+                 s_rows[4 * j + 3]};
+}
+
+// Ray r against the `count` rows of a staged tile (row indices first + j),
+// closest hit: it takes a row only on a hit with t < best (and t < tmax
+// with kClip), in ascending row order, so a tie keeps the lowest row.
+// kRowsAnIter rows an iteration: their pair tests do not depend on each
+// other, so their reciprocals and shared loads overlap.
+template <bool kClip>
+__device__ __forceinline__ void closest_rows(const Ray& r,
+                                             const float4* s_rows, int first,
+                                             int count, float tmin, float tmax,
+                                             float& best, int& best_row) {
+  constexpr int U = kRowsAnIter;
+  int j = 0;
+  for (; j + U <= count; j += U) {
+    TileRow w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) w[u] = tile_row(s_rows, j + u);
+    float t[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      t[u] = pe_test(r, w[u].a, w[u].b, w[u].c, tmin);
+      if (kClip && !(t[u] < tmax)) t[u] = kTFar;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (t[u] < best) {
+        best = t[u];
+        best_row = first + j + u;
+      }
+    }
+  }
+  for (; j < count; ++j) {
+    const TileRow w = tile_row(s_rows, j);
+    float t = pe_test(r, w.a, w.b, w.c, tmin);
+    if (kClip && !(t < tmax)) t = kTFar;
+    if (t < best) {
+      best = t;
+      best_row = first + j;
+    }
+  }
+}
+
+// Ray r against the `count` rows of a staged tile, any-hit: does a
+// non-refractive row (column 13 < 0.5) give pe_test an answer < tm? It
+// returns after the first iteration that finds one.
+__device__ __forceinline__ bool occluded_rows(const Ray& r, float tm,
+                                              const float4* s_rows, int count,
+                                              float tmin) {
+  constexpr int U = kRowsAnIter;
+  int j = 0;
+  for (; j + U <= count; j += U) {
+    TileRow w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) w[u] = tile_row(s_rows, j + u);
+    bool hit = false;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      hit |= (w[u].e.y < 0.5f) &
+             (pe_test(r, w[u].a, w[u].b, w[u].c, tmin) < tm);
+    if (hit) return true;
+  }
+  for (; j < count; ++j) {
+    const TileRow w = tile_row(s_rows, j);
+    if (!(w.e.y < 0.5f)) continue;  // refractive rows pass light
+    if (pe_test(r, w.a, w.b, w.c, tmin) < tm) return true;
+  }
+  return false;
+}
+
+// Closest-hit sweep over rows [0, n_rows), staged tile by tile through
+// s_rows by the whole block (every thread calls it; dead rays, zeros, hit
+// nothing and help stage). With kClip, t >= tmax counts as a miss.
 template <bool kClip>
 __device__ __forceinline__ void closest_sweep(float4* s_rows, const Ray& r,
-                                              bool live,
                                               const float* __restrict__ tris,
                                               int n_rows, float tmin,
                                               float tmax, float& best,
@@ -162,46 +261,32 @@ __device__ __forceinline__ void closest_sweep(float4* s_rows, const Ray& r,
     __syncthreads();  // the previous tile is no longer read
     stage_rows(s_rows, tris, base, rows);
     __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < rows; ++j) {
-      float t = pe_test(r, s_rows[4 * j], s_rows[4 * j + 1],
-                        s_rows[4 * j + 2], tmin);
-      if (kClip && !(t < tmax)) t = kTFar;
-      if (t < best) {
-        best = t;
-        best_row = base + j;
-      }
-    }
+    closest_rows<kClip>(r, s_rows, base, rows, tmin, tmax, best, best_row);
   }
 }
 
-// Any-hit sweep: is any non-refractive row hit with tmin < t < tm? Every
-// thread of the block calls it; the block stops as soon as every one of
-// its rays is blocked (or past the end). The first barrier also protects
-// s_rows from a previous sweep's readers.
+// Any-hit sweep: is a non-refractive row hit with tmin < t < tm? Nothing
+// can block a ray whose (tmin, tm) is empty (a parked lane's tm is 0),
+// unless tm > kTFar, where a miss blocks. The block stops staging once
+// every ray of it is done. The first barrier also keeps s_rows from a
+// previous sweep's readers.
 __device__ __forceinline__ bool occluded_sweep(float4* s_rows, const Ray& r,
                                                bool live, float tm,
                                                const float* __restrict__ tris,
                                                int n_rows, float tmin) {
+  bool done = !live || (!(tm > tmin) && !(kTFar < tm));
   bool blocked = false;
   for (int base = 0; base < n_rows; base += kTileRows) {
-    if (__syncthreads_and(blocked || !live)) break;
+    if (__syncthreads_and(done)) break;
     const int rows = min(kTileRows, n_rows - base);
     stage_rows(s_rows, tris, base, rows);
     __syncthreads();
-    if (!live) continue;
-    // Per-thread any-hit early exit on the first blocking row.
-    for (int j = 0; j < rows && !blocked; ++j) {
-      const float4 d = s_rows[4 * j + 3];  // (valid, refr, mat, id)
-      if (!(d.y < 0.5f)) continue;         // refractive rows pass light
-      const float t = pe_test(r, s_rows[4 * j], s_rows[4 * j + 1],
-                              s_rows[4 * j + 2], tmin);
-      blocked = t < tm;
-    }
+    if (!done) blocked = done = occluded_rows(r, tm, s_rows, rows, tmin);
   }
   return blocked;
 }
 
+// K1 (kFull false: t and row) and K3 (kFull true: also the full carry).
 template <bool kFull>
 __global__ void __launch_bounds__(kThreads)
 closest_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
@@ -216,8 +301,7 @@ closest_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   const Ray r = live ? load_ray(orig, dir, i) : Ray{0, 0, 0, 0, 0, 0};
   float best;
   int best_row;
-  closest_sweep<kFull>(s_rows, r, live, tris, n_rows, tmin, tmax, best,
-                       best_row);
+  closest_sweep<kFull>(s_rows, r, tris, n_rows, tmin, tmax, best, best_row);
   if (!live) return;
   t_out[i] = best;
   row_out[i] = best < kTFar ? best_row : 0;
@@ -226,6 +310,7 @@ closest_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
                 v_out);
 }
 
+// K2.
 __global__ void __launch_bounds__(kThreads)
 occluded_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
                 const float* __restrict__ tmax, const float* __restrict__ tris,
@@ -265,7 +350,9 @@ __device__ __forceinline__ Ray shadow_ray(const Ray& r, float t, float a,
 
 // Fused closest hit + NEE shadow ray, as _closest_nee_kernel_lean: the
 // lean (t, row) sweep with no clipping, then the shadow ray any-hit over
-// the occluder rows. light = (corner xyz, v1 xyz, v2 xyz).
+// the occluder rows, both sweeps through one tile (the any-hit sweep's
+// first barrier waits for the closest sweep's readers).
+// light = (corner xyz, v1 xyz, v2 xyz).
 __global__ void __launch_bounds__(kThreads)
 closest_nee_kernel(const float* __restrict__ orig,
                    const float* __restrict__ dir,
@@ -282,8 +369,7 @@ closest_nee_kernel(const float* __restrict__ orig,
   const Ray r = live ? load_ray(orig, dir, i) : Ray{0, 0, 0, 0, 0, 0};
   float best;
   int best_row;
-  closest_sweep<false>(s_rows, r, live, tris, n_rows, tmin, kTFar, best,
-                       best_row);
+  closest_sweep<false>(s_rows, r, tris, n_rows, tmin, kTFar, best, best_row);
 
   Ray s{0, 0, 0, 0, 0, 0};
   float tm = 0.0f;
