@@ -1184,6 +1184,22 @@ def _dense_occluded_work(o, d, tmax, rows, tmin: float = 0.01):
     return pairs * PAIR_FLOPS, n * 28 + r * 64 + n
 
 
+def _split_occluded_work(o, d, tmax, rows, tmin: float = 0.01):
+    """The work of K2's culled sweep (``dense.occluded`` from
+    OCC_SPLIT_MIN_RAYS rays) on these rays: its pair tests
+    (``dense._occluded_split_plain``: the rows every ray sweeps up to the
+    first blocking one, all rows of each group a ray meets) and its box
+    tests. Bytes as _dense_occluded_work, the split's rows for the
+    table's."""
+    from tpu_pt_torch.intersect import dense
+    split = dense.row_split(rows)
+    _, pairs, boxes = dense._occluded_split_plain(o, d, tmax, rows, split,
+                                                  tmin, counts=True)
+    n = o.shape[0]
+    return (pairs * PAIR_FLOPS + boxes * BOX_FLOPS,
+            n * 28 + split.rows.shape[0] * 64 + n)
+
+
 def _slab_pass(o, d, lo, hi, m, tmin: float, bound):
     """The kernels' slab test (pe_block.cuh): [R] rays x [B] boxes
     (lo, hi [B, 3]) grown by m ([R] or [R, B]); does the parameter
@@ -2491,11 +2507,17 @@ def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
     subset with no kd copy (the sphere box's first rows, with its shadow
     rays: the largest table a clustered scene hands K2, eight tiles); K1
     over ``cornell_box.obj``'s 32 rows (its own path) and the mixed box's
-    432 (the walk's yardstick). Then K3's and K4's dense bodies on
+    432 (the walk's yardstick). K2 sweeps its table's row split through
+    the group queue at N_RAYS (``tpt_occluded_split``: from
+    dense.OCC_SPLIT_MIN_RAYS) and every row at N_SPHERE_RAYS
+    (``tpt_occluded``): both kernels are held, and the split's calls carry
+    the culled sweep's own work beside the dense bound
+    (``culled_bound_ms``). Then K3's and K4's dense bodies on
     ``cornell_box.obj``, and the edges of the sweeps: shadow rays whose
     tmax is bit for bit the t of their nearest blocking row (and the next
     float above it), rays aimed at shared edges, and tables with zero rows
-    padding them to a multiple of 8 (a last iteration of fewer rows, too).
+    padding them to a multiple of 8 (a last iteration of fewer rows, too),
+    K2's at both counts; and the split's own edges (``_check_split_edges``).
     The first record of each kernel (its own path at N_RAYS) carries every
     table's time (``ms_tables``)."""
     import numpy as np
@@ -2512,11 +2534,12 @@ def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
     first = {}
     device_ms = _tool("dense_ab_torch").device_ms
 
-    def timed(name, what, kernel, plain, table, work, n):
+    def timed(name, what, kernel, plain, table, work, n, culled=None):
         """_check_kernel, then the kernel's device time (device_ms: these
         kernels are shorter than a launch, so gpu_ms times the host; its
         time stays as events_ms); every table's time on the first record
-        of ``name``."""
+        of ``name``; ``culled()``, when given, the culled sweep's own
+        work beside the bound."""
         _check_kernel(records, name, kernel, plain, table.shape[0],
                       _compare_exact, work, n=n, plain_reps=1,
                       label=f"{name} on {what}")
@@ -2524,9 +2547,15 @@ def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
         rec["events_ms"], rec["ms"] = rec["ms"], device_ms(kernel, 20)
         first.setdefault(name, rec).setdefault("ms_tables", {})[
             f"{what}, {table.shape[0]} rows, {n} rays"] = rec["ms"]
+        extra = ""
+        if culled is not None:
+            rec["culled_bound_ms"] = _bound(*culled())["bound_ms"]
+            extra = (f" (the culled sweep's own work: "
+                     f"{rec['culled_bound_ms']:.4f})")
         say("kernels", f"{name} on {what}, {n} rays: {rec['ms']:.4f} ms a "
             f"call on the card, back to back (events around the host's "
-            f"calls: {rec['events_ms']:.4f}); bound {rec['bound_ms']:.4f}")
+            f"calls: {rec['events_ms']:.4f}); bound {rec['bound_ms']:.4f}"
+            f"{extra}")
 
     def parked(scene, tables, seed, n):
         rows = tables.rows
@@ -2556,7 +2585,9 @@ def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
                   lambda sh=sh, table=table: dense._occluded_plain(
                       *sh, table, 0.01), table,
                   lambda out, sh=sh, table=table: _dense_occluded_work(
-                      *sh, table), n)
+                      *sh, table), n,
+                  culled=(lambda sh=sh, table=table: _split_occluded_work(
+                      *sh, table)) if n >= dense.OCC_SPLIT_MIN_RAYS else None)
         for what, table, o, d in (("cornell_box.obj", tc.rows, oc, dc),
                                   ("the mixed box", tm.rows, om, dm)):
             timed("closest_lean", what,
@@ -2585,35 +2616,44 @@ def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
 
     # The edges of the sweeps. tmax at the t of each shadow ray's nearest
     # blocking row (the plain version's t, bit for bit): that row must not
-    # block, while one float above it, it must.
-    (oc, dc), shc = parked(cornell, tc, 7, N_SPHERE_RAYS)
-    (_, _), shm = parked(mixed, tm, 8, N_SPHERE_RAYS)
-    for what, table, (so, sd, st) in (
-            ("cornell_box.obj's subset", tc.occ_rows, shc),
-            ("the mixed box's subset", tm.occ_rows, shm)):
-        t_all, _, _ = dense._pe_block(so, sd, table, 0.01)
-        t_all = torch.where(table[None, :, 13] < 0.5, t_all, 1e16)
-        near = t_all.min(1).values
-        hit = near < 1e15
-        at = torch.where(hit, near, st).contiguous()
-        above = torch.where(hit, torch.nextafter(near, torch.full_like(
-            near, float("inf"))), st).contiguous()
-        flags = [exact("occluded", f"{what}, tmax {side}",
-                       lambda tmax=tmax: dense.occluded(so, sd, tmax, table,
-                                                        0.01),
-                       lambda tmax=tmax: dense._occluded_plain(so, sd, tmax,
-                                                               table, 0.01),
-                       table.shape[0], N_SPHERE_RAYS)
-                 for side, tmax in (("at t", at), ("above t", above))]
-        flips = int((flags[1] & ~flags[0] & hit).sum())
-        if flips != int(hit.sum()) or flips < N_SPHERE_RAYS // 100:
-            raise AssertionError(f"K2 on {what}: tmax one float above the "
-                                 f"nearest blocking t turned {flips} of "
-                                 f"{int(hit.sum())} rays blocked")
-        say("kernels", f"occluded (K2's dense body) on {what}: tmax at the "
-            f"nearest blocking row's t and one float above it, "
-            f"{int(hit.sum())} rays with a blocking row ({flips} flip): "
-            "bitwise equal to the plain version")
+    # block, while one float above it, it must. K2 at both counts: its
+    # split's kernel and every row's.
+    if not N_SPHERE_RAYS < dense.OCC_SPLIT_MIN_RAYS <= N_RAYS:
+        raise AssertionError("K2's two kernels need N_SPHERE_RAYS below "
+                             "dense.OCC_SPLIT_MIN_RAYS and N_RAYS above")
+    (oc, dc), _ = parked(cornell, tc, 7, N_SPHERE_RAYS)
+    shadows = {}
+    for n in (N_RAYS, N_SPHERE_RAYS):
+        shc = parked(cornell, tc, 7, n)[1]
+        shm = parked(mixed, tm, 8, n)[1]
+        shadows[n] = shm
+        for what, table, (so, sd, st) in (
+                ("cornell_box.obj's subset", tc.occ_rows, shc),
+                ("the mixed box's subset", tm.occ_rows, shm)):
+            t_all, _, _ = dense._pe_block(so, sd, table, 0.01)
+            t_all = torch.where(table[None, :, 13] < 0.5, t_all, 1e16)
+            near = t_all.min(1).values
+            hit = near < 1e15
+            at = torch.where(hit, near, st).contiguous()
+            above = torch.where(hit, torch.nextafter(near, torch.full_like(
+                near, float("inf"))), st).contiguous()
+            flags = [exact("occluded", f"{what}, tmax {side}",
+                           lambda tmax=tmax: dense.occluded(so, sd, tmax,
+                                                            table, 0.01),
+                           lambda tmax=tmax: dense._occluded_plain(
+                               so, sd, tmax, table, 0.01),
+                           table.shape[0], n)
+                     for side, tmax in (("at t", at), ("above t", above))]
+            flips = int((flags[1] & ~flags[0] & hit).sum())
+            if flips != int(hit.sum()) or flips < n // 100:
+                raise AssertionError(f"K2 on {what}: tmax one float above "
+                                     f"the nearest blocking t turned "
+                                     f"{flips} of {int(hit.sum())} rays "
+                                     "blocked")
+            say("kernels", f"occluded (K2's dense body) on {what}, {n} rays:"
+                f" tmax at the nearest blocking row's t and one float above "
+                f"it, {int(hit.sum())} rays with a blocking row ({flips} "
+                "flip): bitwise equal to the plain version")
     # Rays through shared edges: rows tie on t, the lowest row wins.
     eo, ed = _edge_rays(cornell, N_SPHERE_RAYS, 13, device)
     t_all, _, _ = dense._pe_block(eo[:16384], ed[:16384], tc.rows, 0.01)
@@ -2625,27 +2665,32 @@ def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
     exact("closest_lean", "edge rays", lambda: dense.closest_lean(
         eo, ed, tc.rows, 0.01), lambda: dense._closest_plain(
         eo, ed, tc.rows, 0.01), tc.rows.shape[0], N_SPHERE_RAYS)
-    etmax = torch.as_tensor(np.random.default_rng(14).uniform(
-        0.0, 2000.0, N_SPHERE_RAYS).astype(np.float32), device=device)
-    for table in (tc.occ_rows, tm.occ_rows):
-        exact("occluded", "edge rays", lambda table=table: dense.occluded(
-            eo, ed, etmax, table, 0.01), lambda table=table:
-            dense._occluded_plain(eo, ed, etmax, table, 0.01),
-            table.shape[0], N_SPHERE_RAYS)
+    for n in (N_RAYS, N_SPHERE_RAYS):
+        eo, ed = _edge_rays(cornell, n, 13, device)
+        etmax = torch.as_tensor(np.random.default_rng(14).uniform(
+            0.0, 2000.0, n).astype(np.float32), device=device)
+        for table in (tc.occ_rows, tm.occ_rows):
+            exact("occluded", "edge rays", lambda table=table: dense.occluded(
+                eo, ed, etmax, table, 0.01), lambda table=table:
+                dense._occluded_plain(eo, ed, etmax, table, 0.01),
+                table.shape[0], n)
     say("kernels", f"closest_lean and occluded (K1's, K2's dense bodies) on "
         f"{N_SPHERE_RAYS} rays aimed at shared edges of cornell_box.obj "
         f"({ties} of the first {best.shape[0]} tie on t): bitwise equal to "
         "the plain versions")
     # Zero rows padding a table to a multiple of 8, in one tile and in the
-    # last of eight.
-    for what, table, (so, sd, st) in (
-            ("the mixed box's subset", tm.occ_rows, shm),
-            (f"a {DENSE_SUBSET_ROWS}-row subset", sub, shs)):
-        padded = table.clone()
-        padded[-3:] = 0.0
-        exact("occluded", f"{what}, 3 zero rows", lambda: dense.occluded(
-            so, sd, st, padded, 0.01), lambda: dense._occluded_plain(
-            so, sd, st, padded, 0.01), padded.shape[0], N_SPHERE_RAYS)
+    # last of eight (the split leaves them out).
+    for n in (N_RAYS, N_SPHERE_RAYS):
+        shs = parked(sphere, ts, 2, n)[1]
+        for what, table, (so, sd, st) in (
+                ("the mixed box's subset", tm.occ_rows, shadows[n]),
+                (f"a {DENSE_SUBSET_ROWS}-row subset", sub, shs)):
+            padded = table.clone()
+            padded[-3:] = 0.0
+            exact("occluded", f"{what}, 3 zero rows",
+                  lambda: dense.occluded(so, sd, st, padded, 0.01),
+                  lambda: dense._occluded_plain(so, sd, st, padded, 0.01),
+                  padded.shape[0], n)
     packed = dense.pack_tris(cornell)          # 32 rows + 480 zero rows
     exact("closest_lean", "cornell_box.obj's untrimmed table",
           lambda: dense.closest_lean(oc, dc, packed, 0.01),
@@ -2654,8 +2699,116 @@ def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
     say("kernels", f"K2's dense body on subsets padded with zero rows "
         f"({tm.occ_rows.shape[0]}, {DENSE_SUBSET_ROWS} rows) and K1's on "
         f"cornell_box.obj's untrimmed {packed.shape[0]} rows: bitwise equal "
-        f"to the plain versions; the dense bodies' checks took "
+        f"to the plain versions")
+    _check_split_edges(records, device, tm, exact)
+    say("kernels", f"the dense bodies' checks took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def _check_split_edges(records, device, tm, exact):
+    """K2's split (``tpt_occluded_split``, N_RAYS rays) at the edges of its
+    cull, each call bitwise against ``dense._occluded_plain``: rays that
+    graze a group's box (from a point of a face's plane, grown by a tenth
+    of the box, along that plane), rays nearly in a row's plane (a point
+    of its triangle moved off the plane by up to 1e-4, a normal component
+    of up to 1e-6: t cancels), tmax of 0, past T_FAR (where a miss
+    blocks) and NaN, a table with no group (twelve triangles that span
+    the room) and a table of one group (six that span it and ten small
+    ones in a corner). ``exact(name, what, kernel, plain, rows, n)``
+    compares and records."""
+    import numpy as np
+    import torch
+    import tpu_pt_torch as tp
+    from tpu_pt_torch.intersect import dense
+    t0 = time.perf_counter()
+    r = np.random.default_rng(15)
+    n = N_RAYS
+    lo_room, hi_room = np.zeros(3), np.array([556.0, 548.8, 559.2])
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=device)
+
+    def packed(verts):
+        k = verts.shape[0]
+        scene = tp.scene.build_scene_arrays(
+            verts.reshape(-1, 3).astype(np.float32),
+            np.arange(3 * k).reshape(k, 3), np.zeros(k, np.int64), [],
+            device=device)
+        return dense.pack_tris(scene)[:k].contiguous()
+
+    def spanning(k):
+        corner = r.integers(0, 2, (k, 3)).astype(bool)
+        return np.stack([np.where(corner, hi_room, lo_room),
+                         np.where(corner, lo_room, hi_room),
+                         r.uniform(lo_room, hi_room, (k, 3))], 1)
+
+    def graze(split):
+        box = split.groups[:, 0:6].cpu().numpy().astype(np.float64)
+        g = r.integers(0, box.shape[0], n)
+        lo, hi = box[g, 0:3], box[g, 3:6]
+        o = r.uniform(lo - 0.1 * (hi - lo), hi + 0.1 * (hi - lo))
+        axis = r.integers(0, 3, n)
+        side = np.where(r.integers(0, 2, (n, 1)) == 0, lo, hi)
+        o[np.arange(n), axis] = side[np.arange(n), axis]
+        d = r.normal(size=(n, 3))
+        d[np.arange(n), axis] = 0.0
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return t(o - d * r.uniform(0.0, 300.0, (n, 1))), t(d)
+
+    def in_plane(table):
+        host = table.cpu().double().numpy()
+        verts = dense._row_vertices(host)
+        ok = np.isfinite(verts).all((0, 2)) & (host[:, 0:3] != 0).any(1)
+        pick = np.nonzero(ok)[0][r.integers(0, int(ok.sum()), n)]
+        a, b = r.uniform(0.0, 1.0, (2, n, 1))
+        a, b = (np.where(a + b > 1.0, 1.0 - a, a),
+                np.where(a + b > 1.0, 1.0 - b, b))
+        v0, v1, v2 = verts[:, pick]
+        nrm = host[pick, 0:3]
+        p = v0 + a * (v1 - v0) + b * (v2 - v0)
+        p = p + nrm * r.uniform(-1e-4, 1e-4, (n, 1))
+        d = np.cross(nrm, r.normal(size=(n, 3)))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        d = d + nrm * r.uniform(-1e-6, 1e-6, (n, 1))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return t(p - d * r.uniform(1.0, 200.0, (n, 1))), t(d)
+
+    small = r.uniform(20.0, 60.0, (10, 1, 3)) + r.uniform(0.0, 15.0,
+                                                           (10, 3, 3))
+    tables = [("the mixed box's subset", tm.occ_rows),
+              ("no group", packed(spanning(12))),
+              ("one group", torch.cat([packed(spanning(6)),
+                                       packed(small)]).contiguous())]
+    counts = {}
+    for what, table in tables:
+        split = dense.row_split(table)
+        counts[what] = split.groups.shape[0]
+        sets = [("in plane", *in_plane(table))]
+        if split.groups.shape[0]:
+            sets.append(("grazing its boxes", *graze(split)))
+        for kind, o, d in sets:
+            tmax = t(r.uniform(0.0, 800.0, n))
+            q = n // 8
+            tmax[:q] = 0.0
+            tmax[q:2 * q] = 2e16
+            tmax[2 * q:3 * q] = float("nan")
+            flags = exact("occluded", f"{what}, rays {kind}",
+                          lambda: dense.occluded(o, d, tmax, table, 0.01),
+                          lambda: dense._occluded_plain(o, d, tmax, table,
+                                                        0.01),
+                          table.shape[0], n)
+            if bool(flags[:q].any()) or not bool(flags[q:2 * q].all()):
+                raise AssertionError(f"K2 on {what}: an empty range blocked "
+                                     "or a tmax past T_FAR did not")
+    if counts != {"the mixed box's subset": 4, "no group": 0,
+                  "one group": 1}:
+        raise AssertionError(f"row splits: groups {counts}")
+    say("kernels", f"occluded (K2's split, {n} rays) on rays grazing its "
+        f"group boxes and nearly in its rows' planes, tmax 0, 2e16 and NaN, "
+        f"over the mixed box's subset, a table of no group and one of one "
+        f"group ({counts}): bitwise equal to the plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_kernels(device, big):
@@ -5299,7 +5452,8 @@ def main() -> int:
             # reference launch). K1's and K2's dense bodies: their own
             # paths' tables first, ms on the card back to back (events
             # around the host's calls: events_ms), every table's time
-            # (ms_tables).
+            # (ms_tables); K2's split: the culled sweep's own work
+            # (culled_bound_ms) beside the dense bound.
             **{k: first[k] for k in ("build_ms", "path_ms", "path_bound_ms",
                                      "ms_closest", "ms_closest_at_n_rays",
                                      "ms_grp_closest", "ms_grp_any",
@@ -5317,7 +5471,7 @@ def main() -> int:
                                      "pair_ms_monkey", "dense_pair_ms_monkey",
                                      "pair_ms_reference",
                                      "dense_pair_ms_reference", "ms_tables",
-                                     "events_ms")
+                                     "events_ms", "culled_bound_ms")
                if k in first}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -328,20 +328,32 @@ def test_routing_reaches_the_dense_bodies(assets_dir, monkeypatch,
     assert [c[0] for c in calls] == ["tpt_" + closest, "tpt_occluded"]
 
 
-@pytest.mark.parametrize("n", [1, 300, 65537])
+@pytest.mark.parametrize("n", [1, 300, 65537, 131072])
 @pytest.mark.parametrize("name", ["closest_lean", "occluded"])
-def test_dense_launch_matches_signature(monkeypatch, name, n):
+def test_dense_launch_matches_signature(monkeypatch, tables, name, n):
     """K1's and K2's wrappers launch their entry point once, with as many
-    arguments as ``_kernels`` declares for it, the ray and row counts in
-    its int slots, and count the launch."""
+    arguments as ``_kernels`` declares for it, the counts in its int
+    slots, and count the launch: K1 and K2 below OCC_SPLIT_MIN_RAYS rays
+    the rays and the table's rows; K2 from there its split's entry point,
+    with the table's rows, the tiles of its ``row_split`` and the rays,
+    and the split in its pointer slots."""
+    tris = tables["24 rows"][0]
     calls = _fake_card(monkeypatch)
-    o, d, tris = torch.zeros((n, 3)), torch.ones((n, 3)), torch.zeros((24, 16))
+    o, d = torch.zeros((n, 3)), torch.ones((n, 3))
     args = (o, d, tris, TMIN) if name == "closest_lean" else (
         o, d, torch.ones(n), tris, TMIN)
     getattr(dense, name)(*args)
     (called, launched), = calls
     signature = _kernels._SIGNATURES["dense_intersect"][called]
-    assert called == "tpt_" + name and len(launched) == len(signature)
+    split_call = name == "occluded" and n >= dense.OCC_SPLIT_MIN_RAYS
+    assert called == "tpt_" + name + ("_split" if split_call else "")
+    assert len(launched) == len(signature)
     ints = [a for a, kind in zip(launched, signature) if kind is _kernels._I]
-    assert ints == [n, 24]
+    if split_call:
+        split = dense.row_split(tris)
+        assert split.tiles.shape[0] == 1 and ints == [24, 1, n]
+        for part in (split.rows, split.groups, split.tiles):
+            assert part.data_ptr() in launched
+    else:
+        assert ints == [n, 24]
     assert dense.LAUNCHES[name] == 1

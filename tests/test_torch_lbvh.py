@@ -26,6 +26,7 @@ from test_torch_clustered import sphere_arrays  # noqa: E402,F401
 from test_torch_intersect import _rays, _t  # noqa: E402
 from test_torch_render import BASE  # noqa: E402
 from test_torch_scene import numpy_leaves  # noqa: E402
+from torch_ref_native import reference_native  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -163,6 +164,7 @@ def test_auto_picks_bvh_above_crossover(sphere_arrays, sphere_box):  # noqa: F81
     from tpu_pt_torch import native
     if native.available():
         nat = lbvh.with_bvh(bare, builder="native")
+        reference_native()
         ref = jlbvh.build_lbvh_host(tpu_pt.scene.build_scene_arrays(
             verts, tris, np.zeros(tris.shape[0], np.int64), []))
         for k in ("nodes", "left", "skip", "tri"):

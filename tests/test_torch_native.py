@@ -33,6 +33,7 @@ from tpu_pt_torch.render import CameraArrays, render_wavefront  # noqa: E402
 from tpu_pt_torch.scene import objloader  # noqa: E402
 from tpu_pt_torch.scene.objloader import (_load_obj_python,  # noqa: E402
                                           load_obj)
+from torch_ref_native import reference_native  # noqa: E402
 
 GOLDENS = sorted((pathlib.Path(__file__).parent / "goldens").glob("*.png"))
 CORNELL = ["cornell_box.obj", "cornell_box_mixed.obj",
@@ -71,6 +72,7 @@ def test_native_obj_matches_python(assets_dir, asset):
     path = str(assets_dir / asset)
     nat = load_obj(path, use_native=True)
     _same_mesh(_load_obj_python(path), nat)
+    reference_native()
     ref = jobjloader.load_obj(path, use_native=True)
     for k in ("vertices", "indices", "mat_indices"):
         np.testing.assert_array_equal(getattr(nat, k), getattr(ref, k))
@@ -155,6 +157,7 @@ def test_native_lbvh_equals_jax_native(assets_dir, asset):
     through both loaders (``with_bvh`` "auto" with the host arrays), and
     through ``build_lbvh_host`` reading the scene's arrays back."""
     path = str(assets_dir / asset)
+    reference_native()
     ref = tpu_pt.load_scene(path, build_bvh=False)
     ref_bvh = jlbvh.build_lbvh_host(ref)
     loaded = tp.load_scene(path, device="cpu")
@@ -166,6 +169,29 @@ def test_native_lbvh_equals_jax_native(assets_dir, asset):
             np.testing.assert_array_equal(a, b, err_msg=k)
     loader = tpu_pt.load_scene(path).bvh.nodes
     np.testing.assert_array_equal(loaded.bvh.nodes.numpy(), np.asarray(loader))
+
+
+def test_reference_native_recovers_a_lost_race(monkeypatch, assets_dir):
+    """A worker whose reference loader lost the build race (a failed load
+    cached: ``_tried`` True, ``_lib`` None) has no native LBVH build; the
+    tests' ``reference_native`` reloads the loader and gets the library
+    back, and the native node tables are then equal bit for bit."""
+    from tpu_pt import native as jnative
+    reference_native()           # the library is built; skips without g++
+    monkeypatch.setattr(jnative, "_tried", True)
+    monkeypatch.setattr(jnative, "_lib", None)
+    assert not jnative.available()
+    path = str(assets_dir / "cornell_box.obj")
+    ref = tpu_pt.load_scene(path, build_bvh=False)
+    with pytest.raises(RuntimeError, match="native library unavailable"):
+        jlbvh.build_lbvh_host(ref)
+    assert reference_native() is jnative and jnative.available()
+    ref_bvh = jlbvh.build_lbvh_host(ref)
+    loaded = tp.load_scene(path, device="cpu")
+    for k in BVH_FIELDS:
+        np.testing.assert_array_equal(getattr(loaded.bvh, k).numpy(),
+                                      np.asarray(getattr(ref_bvh, k)),
+                                      err_msg=k)
 
 
 def _png_rows(path):

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 import tpu_pt  # noqa: E402
 import tpu_pt_torch as tp  # noqa: E402
 from tpu_pt_torch.scene import SceneArrays, scene_from_numpy  # noqa: E402
+from torch_ref_native import reference_native  # noqa: E402
 
 LIGHT_FIELDS = ("corner", "v1", "v2", "normal", "emission")
 BVH_FIELDS = ("nodes", "left", "skip", "tri")
@@ -139,6 +140,7 @@ def test_non_obj_scenes_not_ported(assets_dir):
     from tpu_pt_torch.intersect.lbvh import with_bvh
     if not native.available():
         pytest.skip("native toolchain unavailable")
+    reference_native()
     again = with_bvh(dataclasses.replace(scene, bvh=None), builder="native")
     ref = jlbvh.build_lbvh_host(
         tpu_pt.load_scene(str(assets_dir / "cornell_prims.json"),

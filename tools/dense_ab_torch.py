@@ -10,7 +10,9 @@ rays, the frames and the timing code are the same for both, and only
 the package differs.
 
 - K2 on shadow rays (chip_smoke.py's ``_phase3_rays``, one lane in eight
-  parked) at 262,144 and 65,536 rays over the mixed box's 24 NEE occluder
+  parked) at 262,144, 131,072 and 65,536 rays (the first two through its
+  table's row split, the last through every row) over the mixed box's 24
+  NEE occluder
   rows, ``cornell_box.obj``'s subset and a 2,048-row subset with no kd
   copy (the first 2,048 rows of the sphere box's subset, with its shadow
   rays: the largest a clustered scene hands K2); K1 on ``cornell_box.obj``'s
@@ -39,9 +41,10 @@ checkout too (``_hold_accums``).
 nothing more is rendered. ``--inspect DIR`` (this checkout's kernels)
 reports instead: ptxas' registers and spills of each kernel of the
 library, how much a lazy pair test could skip on K2's rays
-(``_range_shares``), and the SASS of K1's and K2's dense bodies, written
-to DIR with their instruction counts (``cuobjdump``, where the toolkit
-has it).
+(``_range_shares``), how often the rays of the recorded K2 calls meet
+the groups of their table's row split (``_group_shares``), and the SASS
+of K1's and K2's dense bodies, written to DIR with their instruction
+counts (``cuobjdump``, where the toolkit has it).
 
 Device times (``kernel_ms``, twice) are CUDA events around calls queued
 behind a spin of the device, so that they run back to back with no host
@@ -68,7 +71,9 @@ import sys
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-COUNTS = (262144, 65536)
+# 131,072 and 65,536 lie on either side of dense.OCC_SPLIT_MIN_RAYS, where
+# K2 turns from the sweep of every row to its table's row split.
+COUNTS = (262144, 131072, 65536)
 SUBSET_ROWS = 2048            # dense.LEAN_MAX_TRIS: the largest copy-less subset
 REFERENCE = ("reference launch", "cornell_box_mixed.obj",
              dict(width=512, height=512, spp=128, max_depth=4))
@@ -155,7 +160,8 @@ def _registers(lib_log: pathlib.Path) -> list[dict]:
             name, spills = m.group(1), (0, 0)
             continue
         if name is None or not re.search(
-                r"closest_kernel|occluded_kernel|closest_nee_kernel", name):
+                r"closest_kernel|occluded_(split_)?kernel|closest_nee_kernel",
+                name):
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -301,6 +307,11 @@ def main() -> int:
             if kernel == "K2":
                 out("t in range", table=what, rows=n_rows, rays=n,
                     **_range_shares(*a))
+        if hasattr(dense, "row_split"):
+            for (name, k), calls in recorded.items():
+                if k == "occluded":
+                    out("groups met", table=f"{name}, {len(calls)} calls",
+                        **_group_shares(dense, calls))
         return 0
 
     for kernel, what, n_rows, n, a, plain in sets:
@@ -377,6 +388,50 @@ def _range_shares(o, d, tmax, rows, tmin: float) -> dict:
                 warp_step_share=warp_steps / max(steps, 1))
 
 
+def _group_shares(dense, calls) -> dict:
+    """How often the shadow rays of recorded K2 calls meet each group of
+    their table's ``row_split`` within (tmin, tmax): the share of (live
+    ray, group) steps that meet, and of (warp of 32 rays, group) steps
+    with a live ray in which some ray does (what one ray a thread would
+    execute); the pair tests a ray makes (the rows every ray sweeps, and
+    those of each group met) and the rows a warp would step through one
+    ray a thread, beside the table's rows."""
+    import torch
+    ray_steps = warp_steps = ray_meet = warp_meet = 0
+    ray_pairs = warp_pairs = rays = warps = 0
+    rows = None
+    for a in calls:
+        o, d, tmax, table, tmin = a[:5]
+        split = dense.row_split(table)
+        rows = table.shape[0]
+        spans = dense._split_spans(split)
+        n = o.shape[0] // 32 * 32
+        if not spans or n == 0:
+            continue
+        live = tmax[:n] > tmin
+        meets = torch.stack([dense._split_meets(o[:n], d[:n], split, g, tmin,
+                                                tmax[:n])
+                             for g in range(len(spans))], 1) & live[:, None]
+        count = torch.tensor([c for _, c in spans], dtype=torch.float64,
+                             device=o.device)
+        wm = meets.view(-1, 32, len(spans)).any(1)
+        wl = live.view(-1, 32).any(1)
+        rays += int(live.sum())
+        warps += int(wl.sum())
+        ray_steps += int(live.sum()) * len(spans)
+        warp_steps += int(wl.sum()) * len(spans)
+        ray_meet += int(meets.sum())
+        warp_meet += int(wm.sum())
+        ray_pairs += float((meets.double() * count).sum()) \
+            + split.n_all * int(live.sum())
+        warp_pairs += float((wm.double() * count).sum()) \
+            + split.n_all * int(wl.sum())
+    return dict(rows=rows, ray_share=ray_meet / max(ray_steps, 1),
+                warp_share=warp_meet / max(warp_steps, 1),
+                pairs_a_ray=ray_pairs / max(rays, 1),
+                rows_a_warp_step=warp_pairs / max(warps, 1))
+
+
 def _hold_accums(path: pathlib.Path, accums: dict, label: str, out) -> None:
     """Writes the frames' accumulators to ``path`` (.npz) when it does not
     exist, else holds them against the ones there: equal but for the order
@@ -429,7 +484,8 @@ def _device_profile(run) -> tuple[float, dict, int]:
 
 
 def _dump_sass(where: pathlib.Path, out) -> None:
-    """The SASS of K1's and K2's dense bodies, into ``where``."""
+    """The SASS of K1's and K2's dense bodies (K2's two), into
+    ``where``."""
     from tpu_pt_torch import _kernels
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(tool).exists():
@@ -439,8 +495,10 @@ def _dump_sass(where: pathlib.Path, out) -> None:
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True).stdout
     where.mkdir(parents=True, exist_ok=True)
-    # Mangled names: closest_kernel<false> and occluded_kernel.
-    for kernel in ("14closest_kernelILb0E", "15occluded_kernelE"):
+    # Mangled names: closest_kernel<false>, occluded_kernel and
+    # occluded_split_kernel.
+    for kernel in ("14closest_kernelILb0E", "15occluded_kernelE",
+                   "21occluded_split_kernelE"):
         at = sass.find(kernel)
         if at < 0:
             out("sass", kernel=kernel, note="not found")

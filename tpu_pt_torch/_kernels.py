@@ -44,6 +44,8 @@ _SIGNATURES = {
         "tpt_closest_full": (_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P,
                              _P, _P, _P),
         "tpt_occluded": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
+        "tpt_occluded_split": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _F, _F, _I,
+                               _F, _P, _P),
         "tpt_closest_full_tree": (_P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _I,
                                   _F, _F, _I, _P, _P, _P, _P, _P, _P, _I, _P),
         "tpt_occluded_tree": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _I,

@@ -20,6 +20,10 @@
 //   tpt_occluded      <- _occluded_kernel (body _occlusion_sweep), launched by
 //                        _occluded_call: is any non-refractive row hit with
 //                        tmin < t < tmax_ray?
+//   tpt_occluded_split
+//                     <- the same: tpt_occluded's function over a row split
+//                        of the table (below), for calls of at least
+//                        dense.OCC_SPLIT_MIN_RAYS rays.
 //   tpt_occluded_tree <- the same: tpt_occluded's function as a walk of a kd
 //                        copy of the NEE occluder subset, for a subset of
 //                        more than 2,048 rows.
@@ -73,6 +77,34 @@
 // barrier, lost to the staged tile at every size.
 // The fused kernels run both sweeps in one launch: the shadow ray never
 // leaves registers, and one launch replaces two.
+//
+// K2's shadow rays need far fewer pairs than a sweep of every row: on a
+// flagship frame's calls a ray meets 38% of the mixed box's four groups
+// (a block's 10 rows, the light's 2, the right wall's 2) and tests 5.4
+// pairs of 24, but a warp's 32 rays diverge, so that 88% of (warp,
+// group) steps have a ray that meets the group and one ray a thread
+// would step through 20 rows of 24. So from dense.OCC_SPLIT_MIN_RAYS rays
+// K2 sweeps a row split of its table (dense.row_split,
+// occluded_split_kernel): the rows every ray sweeps (one ray a thread,
+// as above), then groups of up to 16 rows with a box each, cut on the
+// host by the surface-area heuristic, grown by the kd copies' per-ray
+// margin. Each
+// ray tests the boxes of a tile's groups (independent tests); a ballot a
+// group lists the warp's lanes that meet it; the pairs of all of them
+// (lane, row) go into one list that the warp's 32 lanes take 32 at a
+// time, each pair reading its ray from the warp's slots in shared memory
+// and its row from the tile, staged as four planes so that lanes that
+// read different rows read consecutive words; a blocking pair sets its
+// ray's bit with a shared atomicOr. Below that count the card holds too
+// few warps to hide the queue's latency and the sweep of every row wins.
+// Trials (PERF.md) refuted the cull for the closest hits of
+// cornell_box.obj's 32 rows (K1, K3, K4) and for K4's shadow ray: one
+// ray a thread over the groups it meets (the warps diverge), a queue a
+// group (a warp synchronisation and a pass a group), a queue with a
+// fold of each hit into (t, row) by a 64-bit shared atomicMin (a
+// compare-and-swap loop), pairs listed row by row and two pairs a lane a
+// step were all slower than the sweep of every row there, which those
+// kernels keep.
 //
 // K5 is different: its table (the sphere box, 2,280 rows) is five times
 // K4's, and it is swept twice, once for the closest hit and once more by
@@ -158,6 +190,8 @@ namespace {
 constexpr int kThreads = 256;   // rays per block, one thread per ray
 constexpr int kTileRows = 256;  // packed rows staged per shared-memory tile
 constexpr int kRowsAnIter = 3;  // rows a dense body's iteration tests
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileGroups = 32;  // groups a split's tile holds at most
 constexpr float kNeeEps = 0.01f;  // shadow-ray range shrink (pallas_bf.NEE_EPS)
 using tpt::kCols;
 using tpt::kTFar;
@@ -323,6 +357,236 @@ occluded_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   const float tm = live ? tmax[i] : 0.0f;
   const bool blocked = occluded_sweep(s_rows, r, live, tm, tris, n_rows, tmin);
   if (live) occ_out[i] = blocked ? 1 : 0;
+}
+
+// An any-hit sweep's table (dense.RowSplit): `rows` holds its opaque rows
+// that can hit, those every ray sweeps first, then each group's;
+// `groups` [n, 2] float4 is a group's box as slab_passes reads it, then
+// its first row and row count as int bits; `tiles` [n_tiles] is what a
+// block stages at a time: (first row, rows, first group, groups), no
+// group for rows every ray sweeps. A ray's box test grows each box by
+// margin * (scale + max_k |o_k|).
+struct Split {
+  const float4* __restrict__ rows;
+  const float4* __restrict__ groups;
+  const int4* __restrict__ tiles;
+  int n_tiles;
+  float scale;
+  float margin;
+
+  __device__ __forceinline__ float grow(const Ray& r) const {
+    return margin * (scale + tpt::max_abs_origin(r));
+  }
+};
+
+// A split's tile is staged as four planes of kTileRows float4, one for
+// each float4 of a packed row, so that the lanes of the group queue, which
+// read different rows of a plane at once, read consecutive words.
+// Row j of the planes at s, and the copy of rows [first, first + count)
+// (count <= kTileRows) into them by every thread of the block.
+__device__ __forceinline__ TileRow plane_row(const float4* s, int j) {
+  return TileRow{s[j], s[kTileRows + j], s[2 * kTileRows + j],
+                 s[3 * kTileRows + j]};
+}
+
+__device__ __forceinline__ void stage_planes(float4* s,
+                                             const float4* __restrict__ rows,
+                                             int first, int count) {
+  const float4* src = rows + 4 * (size_t)first;
+  for (int k = threadIdx.x; k < count * 4; k += blockDim.x)
+    s[(k & 3) * kTileRows + (k >> 2)] = src[k];
+}
+
+// Ray r against `count` staged rows of a split (opaque rows only): is
+// one hit with tmin < t < tm? It returns after the first iteration that
+// finds one.
+__device__ __forceinline__ bool split_rows_blocked(const Ray& r, float tm,
+                                                   const float4* s,
+                                                   int count, float tmin) {
+  constexpr int U = kRowsAnIter;
+  int j = 0;
+  for (; j + U <= count; j += U) {
+    TileRow w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) w[u] = plane_row(s, j + u);
+    bool hit = false;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      hit |= pe_test(r, w[u].a, w[u].b, w[u].c, tmin) < tm;
+    if (hit) return true;
+  }
+  for (; j < count; ++j) {
+    const TileRow w = plane_row(s, j);
+    if (pe_test(r, w.a, w.b, w.c, tmin) < tm) return true;
+  }
+  return false;
+}
+
+// A warp's queue: its lanes' rays (o, tm, d); for each group of the staged
+// tile, the lanes whose ray meets it and (first row, rows, end of its
+// pairs in the warp's list, 1 / rows); the lanes that are blocked.
+struct WarpQueue {
+  float4 ray[32][2];
+  int4 group[kTileGroups];
+  uint8_t lanes[kTileGroups][32];
+  unsigned blocked;
+};
+
+// What a block of occluded_split_kernel keeps in shared memory: the
+// staged tile (planes) and each warp's queue.
+struct Shared {
+  float4 rows[4 * kTileRows];
+  WarpQueue q[kWarps];
+};
+
+// Bit g set when ray r meets group g of the tile (its box grown by m)
+// within (tmin, bound]; none when `skip`. The tests do not depend on each
+// other.
+__device__ __forceinline__ unsigned tile_meets(const Ray& r,
+                                               const tpt::Slab& slab, float m,
+                                               const Split& sp, int4 tile,
+                                               float tmin, float bound,
+                                               bool skip) {
+  unsigned met = 0u;
+  for (int g = 0; g < tile.w; ++g) {
+    const float4 a = __ldg(sp.groups + 2 * (tile.z + g));
+    const float4 b = __ldg(sp.groups + 2 * (tile.z + g) + 1);
+    if (!skip && tpt::slab_passes(r, slab, a, b, m, tmin, bound))
+      met |= 1u << g;
+  }
+  return met;
+}
+
+// The pairs of the warp's rays with the groups of the tile that `met`
+// marks for each (bit g: its ray meets group g), spread evenly over the
+// 32 lanes, for the rays in q.ray: a ballot a group lists the lanes that
+// meet it in q.lanes, an inclusive scan over the groups (lane g holds
+// group g) places each group's pairs, (k-th of its lanes, row), in the
+// warp's list, and lane L tests pairs L, L + 32, ..., a blocking pair
+// setting its ray's bit in q.blocked. Returns false, having swept
+// nothing, when no lane meets a group. Called by the whole warp.
+__device__ __forceinline__ bool queue_pairs(WarpQueue& q, int lane,
+                                            unsigned met, const Split& sp,
+                                            int4 tile, const float4* planes,
+                                            float tmin) {
+  const unsigned full = 0xffffffffu;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned mine = 0u;  // lane g: the lanes that meet group g
+  for (int g = 0; g < tile.w; ++g) {
+    const bool in = (met >> g) & 1u;
+    const unsigned mask = __ballot_sync(full, in);
+    if (in) q.lanes[g][__popc(mask & below)] = (uint8_t)lane;
+    if (lane == g) mine = mask;
+  }
+  int first = 0, rows = 0;
+  if (lane < tile.w) {
+    const float4 b = __ldg(sp.groups + 2 * (tile.z + lane) + 1);
+    first = __float_as_int(b.z) - tile.x;
+    rows = __float_as_int(b.w);
+  }
+  int end = __popc(mine) * rows;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const int v = __shfl_up_sync(full, end, k);
+    if (lane >= k) end += v;
+  }
+  const int total = __shfl_sync(full, end, 31);
+  if (total == 0) return false;
+  if (lane < tile.w)
+    q.group[lane] =
+        make_int4(first, rows, end, __float_as_int(1.0f / (float)rows));
+  __syncwarp();
+  int g = 0, start = 0;
+  int4 at = q.group[0];
+  for (int p = lane; p < total; p += 32) {
+    while (p >= at.z) {  // p only grows: walk up to its group
+      start = at.z;
+      at = q.group[++g];
+    }
+    // k = i / rows, exact: with rows <= 16 (dense.SPLIT_GROUP), (i + 0.5)
+    // / rows lies at least 1 / 32 from an integer, and i < 32 * 16.
+    const int i = p - start;
+    const int k = (int)(((float)i + 0.5f) * __int_as_float(at.w));
+    const int src = q.lanes[g][k];
+    const float4 q0 = q.ray[src][0], q1 = q.ray[src][1];
+    const TileRow row = plane_row(planes + at.x, i - k * at.y);
+    if (pe_test(Ray{q0.x, q0.y, q0.z, q1.x, q1.y, q1.z}, row.a, row.b, row.c,
+                tmin) < q0.w)
+      atomicOr(&q.blocked, 1u << src);
+  }
+  __syncwarp();
+  return true;
+}
+
+// Any-hit sweep over the split of `tris` (n_rows rows): is a
+// non-refractive row hit with tmin < t < tm? Nothing can block a ray
+// whose (tmin, tm) is empty (a parked lane's tm is 0). A ray whose tm is
+// past kTFar, where a miss blocks, sweeps `tris` whole from memory (the
+// split leaves out rows that can only miss). Every other ray sweeps the
+// rows every ray sweeps, one ray a thread, until one blocks; then, tile
+// by tile, each ray not yet blocked tests the boxes of the tile's groups
+// within (tmin, tm], and the pairs of the warp's rays with the groups
+// they meet go through the warp's queue (queue_pairs). The block stops
+// staging once every ray of it is done; the first barrier also keeps
+// sh.rows from a previous sweep's readers.
+__device__ __forceinline__ bool occluded_split_sweep(
+    Shared& sh, const Ray& r, bool live, float tm,
+    const float* __restrict__ tris, int n_rows, const Split& sp, float tmin) {
+  const int lane = threadIdx.x & 31;
+  WarpQueue& q = sh.q[threadIdx.x >> 5];
+  bool done = !live || !(tm > tmin);
+  bool blocked = false;
+  if (!done && kTFar < tm) {
+    blocked = tpt::blocked_staged(r, reinterpret_cast<const float4*>(tris),
+                                  n_rows, tmin, tm);
+    done = true;
+  }
+  const tpt::Slab slab = tpt::make_slab(r);
+  const float m = sp.grow(r);
+  q.ray[lane][0] = make_float4(r.ox, r.oy, r.oz, tm);
+  q.ray[lane][1] = make_float4(r.dx, r.dy, r.dz, 0.0f);
+  if (lane == 0) q.blocked = 0u;
+  for (int k = 0; k < sp.n_tiles; ++k) {
+    if (__syncthreads_and(done)) break;
+    const int4 tile = __ldg(sp.tiles + k);
+    stage_planes(sh.rows, sp.rows, tile.x, tile.y);
+    __syncthreads();
+    if (tile.w == 0) {
+      if (!done)
+        blocked = done = split_rows_blocked(r, tm, sh.rows, tile.y, tmin);
+      continue;
+    }
+    const unsigned met = tile_meets(r, slab, m, sp, tile, tmin, tm, done);
+    if (queue_pairs(q, lane, met, sp, tile, sh.rows, tmin) &&
+        ((q.blocked >> lane) & 1u))
+      blocked = done = true;
+  }
+  return blocked;
+}
+
+// K2 over the split of its table (dense.occluded at 2^17 rays and more).
+__global__ void __launch_bounds__(kThreads)
+occluded_split_kernel(const float* __restrict__ orig,
+                      const float* __restrict__ dir,
+                      const float* __restrict__ tmax,
+                      const float* __restrict__ tris, int n_rows, Split sp,
+                      int n_rays, float tmin, uint8_t* __restrict__ occ_out) {
+  __shared__ Shared sh;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n_rays;
+  const Ray r = live ? load_ray(orig, dir, i) : Ray{0, 0, 0, 0, 0, 0};
+  const float tm = live ? tmax[i] : 0.0f;
+  const bool blocked =
+      occluded_split_sweep(sh, r, live, tm, tris, n_rows, sp, tmin);
+  if (live) occ_out[i] = blocked ? 1 : 0;
+}
+
+inline Split split_of(const float* rows, const float* groups,
+                      const int* tiles, int n_tiles, float scale,
+                      float margin) {
+  return Split{reinterpret_cast<const float4*>(rows),
+               reinterpret_cast<const float4*>(groups),
+               reinterpret_cast<const int4*>(tiles), n_tiles, scale, margin};
 }
 
 // The NEE shadow ray of ray r's hit at t, in registers: from
@@ -731,6 +995,19 @@ int tpt_occluded(const float* orig, const float* dir, const float* tmax,
                  uint8_t* occ_out, void* stream) {
   occluded_kernel<<<grid_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
       orig, dir, tmax, tris, n_rays, n_rows, tmin, occ_out);
+  return (int)cudaGetLastError();
+}
+
+int tpt_occluded_split(const float* orig, const float* dir, const float* tmax,
+                       const float* tris, int n_rows, const float* rows,
+                       const float* groups, const int* tiles, int n_tiles,
+                       float scale, float margin, int n_rays, float tmin,
+                       uint8_t* occ_out, void* stream) {
+  occluded_split_kernel<<<grid_for(n_rays), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      orig, dir, tmax, tris, n_rows,
+      split_of(rows, groups, tiles, n_tiles, scale, margin), n_rays, tmin,
+      occ_out);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,10 @@ version):
   ``_closest_call_lean``; ``_closest_plain``; as a walk of the table's kd
   copy, ``closest_lean_tree``; ``_closest_lean_kd_plain``;
 - ``occluded`` (K2): ``_occluded_kernel`` via ``_occluded_call``;
-  ``_occluded_plain``; as a walk of a kd copy of the occluder subset,
-  ``occluded_tree``; ``_occluded_kd_plain``;
+  ``_occluded_plain``; from OCC_SPLIT_MIN_RAYS rays over the table's
+  ``row_split`` (rows every ray sweeps, then groups with a box each),
+  ``_occluded_split_plain``; as a walk of a kd copy of the occluder
+  subset, ``occluded_tree``; ``_occluded_kd_plain``;
 - ``closest_full`` (K3): ``_closest_kernel`` via ``_closest_call``;
   ``_closest_plain(full=True)``; as a walk of the table's kd copy,
   ``closest_full_tree``; ``_closest_full_kd_plain``;
@@ -53,7 +55,9 @@ instead (``intersect.kernel_module`` chooses).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -69,6 +73,22 @@ TOP_SPAN = 8           # K5 sweeps a triangle wider than 1/8 of the scene
 # Lanes a ray of K5's walk: 16 was fastest at both ray counts
 # tools/clustered_group_trial.py times (65,536 and 262,144; PERF.md).
 NEE_WALK_GROUP = 16
+# K2 sweeps a table's split (``row_split``) from this many rays a call (a
+# shadow call of the flagship frames has 262,144); below, the card holds
+# too few warps to hide the group queue's latency, and every row for every
+# ray is faster (tools/dense_ab_torch.py, PERF.md).
+OCC_SPLIT_MIN_RAYS = 1 << 17
+# A split's groups hold at most SPLIT_GROUP rows (at most 16: the kernel
+# divides a group's pair index by its rows in f32); a box test costs about
+# half a pair test (~30 SASS instructions of ~60); a block stages
+# SPLIT_TILE rows at a time, at most SPLIT_TILE_GROUPS groups (the
+# kernel's kTileRows, kTileGroups); the splits of the last SPLIT_CACHE
+# tables are kept.
+SPLIT_GROUP = 16
+SPLIT_BOX_COST = 0.5
+SPLIT_TILE = 256
+SPLIT_TILE_GROUPS = 32
+SPLIT_CACHE = 32
 _PLAIN_PAIRS = 1 << 21  # ray x row pairs per block of the plain versions
 _PLAIN_ROWS = 4096      # rows per block (temporaries stay cache-sized)
 
@@ -145,6 +165,198 @@ def _occ_subset(scene: SceneArrays):
     sub = pack_tris(scene)[scene.occ_index.long()]
     keep = torch.arange(sub.shape[0], device=sub.device) < scene.num_occluders
     return (sub * keep.to(sub.dtype)[:, None]).contiguous(), scene.num_occluders
+
+
+# --------------------------------------------------------------------------
+# Row splits: K2's exact culling
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RowSplit:
+    """A dense table as K2's dense body sweeps it (``row_split``): the rows
+    every ray sweeps, then groups of a few rows with a box each, which a
+    ray sweeps only when its interval meets the box grown by
+    ``clustered.BOX_MARGIN * (scale + max_k |o_k|)``. ``rows`` holds the
+    table's opaque rows that can hit, bit for bit but for column 15 (which
+    no any-hit test reads): each row's index in the table. ``groups``
+    [G, 8] is (box min xyz, box max xyz, first row in ``rows``, row
+    count), the last two as int32 bits; ``tiles`` [K, 4] int32 is what a
+    block stages at a time: (first row, rows, first group, groups), no
+    group for the rows every ray sweeps. ``scale`` is the boxes' largest
+    coordinate magnitude, ``n_all`` the rows every ray sweeps."""
+    rows: torch.Tensor    # [R, 16] f32
+    groups: torch.Tensor  # [G, 8] f32
+    tiles: torch.Tensor   # [K, 4] i32
+    scale: float
+    n_all: int
+
+
+def _row_vertices(host: np.ndarray) -> np.ndarray:
+    """[3, T, 3] f64: the vertices of the triangle each packed row [T, 16]
+    stands for, solved from the row itself: the points with n . p = d0
+    and (u, v) = (0, 0), (1, 0), (0, 1) (Cramer's rule). Non-finite for a
+    row with no such triangle."""
+    n, d0 = host[:, 0:3], host[:, 3]
+    wu, cu, wv, cv = host[:, 4:7], host[:, 7], host[:, 8:11], host[:, 11]
+    a, b, c = np.cross(wu, wv), np.cross(wv, n), np.cross(n, wu)
+    det = (n * a).sum(1)[:, None]
+    with np.errstate(all="ignore"):
+        return np.stack([(d0[:, None] * a + (u - cu)[:, None] * b
+                          + (v - cv)[:, None] * c) / det
+                         for u, v in ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0))])
+
+
+def _row_boxes(host: np.ndarray):
+    """(lo, hi) [T, 3] f64: the box of each packed row's triangle
+    (``_row_vertices``), so that a group's box is that of the test the
+    kernels run, not of vertices that pack_tris rounded."""
+    verts = _row_vertices(host)
+    return verts.min(0), verts.max(0)
+
+
+def _half_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """Half the surface area of boxes (lo, hi) [..., 3]."""
+    x, y, z = np.moveaxis(np.maximum(hi - lo, 0.0), -1, 0)
+    return x * y + y * z + z * x
+
+
+def _sah_groups(lo: np.ndarray, hi: np.ndarray, ids: np.ndarray,
+                area: float) -> list[np.ndarray]:
+    """Rows ``ids`` cut top down into groups of at most SPLIT_GROUP by
+    the surface-area heuristic: a group costs a box test
+    (SPLIT_BOX_COST pair tests) plus its rows times the chance that a ray
+    meets its box, its surface over ``area`` (the whole table's). A node
+    stays a group when no split into two groups is cheaper."""
+    out, stack = [], [ids]
+    while stack:
+        ids = stack.pop()
+        k = ids.size
+        leaf = SPLIT_BOX_COST + _half_area(lo[ids].min(0),
+                                           hi[ids].max(0)) / area * k
+        best, cut = np.inf, None
+        cen = lo[ids] + hi[ids]
+        for axis in range(3) if k > 1 else ():
+            order = ids[np.argsort(cen[:, axis], kind="stable")]
+            olo, ohi = lo[order], hi[order]
+            left = _half_area(np.minimum.accumulate(olo)[:-1],
+                              np.maximum.accumulate(ohi)[:-1])
+            right = _half_area(np.minimum.accumulate(olo[::-1])[::-1][1:],
+                               np.maximum.accumulate(ohi[::-1])[::-1][1:])
+            j = np.arange(1, k)
+            cost = 2 * SPLIT_BOX_COST + (left * j + right * (k - j)) / area
+            at = int(np.argmin(cost))
+            if cost[at] < best:
+                best, cut = float(cost[at]), (order[:at + 1], order[at + 1:])
+        if k <= SPLIT_GROUP and leaf <= best:
+            out.append(np.sort(ids))
+        else:
+            stack += [cut[1], cut[0]]
+    return out
+
+
+def _build_split(table: torch.Tensor) -> RowSplit:
+    """``row_split`` of ``table``, a CPU tensor; the split on the CPU."""
+    host = table.numpy()
+    # Only opaque rows block (NaN in column 13 is not opaque either), and
+    # a row with a zero normal never hits.
+    real = (host[:, 0:3] != 0.0).any(1) & (host[:, 13] < 0.5)
+    ids = np.nonzero(real)[0]
+    lo, hi = _row_boxes(host.astype(np.float64))
+    finite = np.isfinite(lo).all(1) & np.isfinite(hi).all(1)
+    boxed = ids[finite[ids]]
+    groups = []
+    if boxed.size:
+        area = float(_half_area(lo[boxed].min(0), hi[boxed].max(0)))
+        if area > 0.0:
+            groups = [g for g in _sah_groups(lo, hi, boxed, area)
+                      if SPLIT_BOX_COST + _half_area(lo[g].min(0),
+                                                     hi[g].max(0))
+                      / area * g.size < g.size]
+    grouped = np.concatenate(groups) if groups else np.zeros(0, np.int64)
+    every = np.setdiff1d(ids, grouped)
+    order = np.concatenate([every, grouped]).astype(np.int64)
+    rows = host[order]
+    rows[:, 15] = order
+    box = np.zeros((len(groups), 8), np.float32)
+    tiles = [(s, min(SPLIT_TILE, every.size - s), 0, 0)
+             for s in range(0, every.size, SPLIT_TILE)]
+    first = every.size
+    down, up = np.float32(-np.inf), np.float32(np.inf)
+    for i, g in enumerate(groups):
+        # Rounded outward to f32: the box holds the triangle.
+        glo, ghi = lo[g].min(0), hi[g].max(0)
+        flo, fhi = glo.astype(np.float32), ghi.astype(np.float32)
+        box[i, 0:3] = np.where(flo > glo, np.nextafter(flo, down), flo)
+        box[i, 3:6] = np.where(fhi < ghi, np.nextafter(fhi, up), fhi)
+        box[i, 6:8] = np.array([first, g.size], np.int32).view(np.float32)
+        if not tiles or tiles[-1][3] in (0, SPLIT_TILE_GROUPS) or \
+                first + g.size - tiles[-1][0] > SPLIT_TILE:
+            tiles.append((first, 0, i, 0))
+        s, _, g0, n_g = tiles[-1]
+        tiles[-1] = (s, first + g.size - s, g0, n_g + 1)
+        first += g.size
+    return RowSplit(
+        rows=torch.from_numpy(np.ascontiguousarray(rows.reshape(-1, 16))),
+        groups=torch.from_numpy(box),
+        tiles=torch.from_numpy(np.array(tiles, np.int32).reshape(-1, 4)),
+        scale=float(np.abs(box[:, 0:6]).max()) if groups else 0.0,
+        n_all=int(every.size))
+
+
+# id -> (weak reference to the table, its version, split); and the
+# table's bytes -> split for the last SPLIT_CACHE tables.
+_SPLITS: dict = {}
+_SPLITS_BY_CONTENT: dict = {}
+
+
+def row_split(tris: torch.Tensor) -> RowSplit:
+    """The split of a dense table [T, 16] that K2's dense body sweeps
+    (``RowSplit``): the rows that can block, which are the opaque ones
+    (column 13 < 0.5) whose normal is not zero (with a zero normal t is
+    NaN or inf, and u or v with it: no hit). A row whose triangle has no
+    finite box (``_row_boxes``) is swept by every ray; the others are cut
+    into groups by ``_sah_groups``, and a group whose box most rays would
+    meet anyway (SPLIT_BOX_COST plus its rows times that chance is not
+    below its rows) is swept by every ray too.
+
+    The boxes make the cull exact. A hit that the plane + edge test
+    reports puts the point p = o + t d, as the test rounds it, within the
+    rounding noise of the plane distance num = d0 - n . o off the row's
+    plane, even when t itself is far off (a ray nearly in the plane: n . d
+    small), and within the noise of the edge functions of its triangle;
+    both are a few tens of ulps of |o| + |p| + |v0|, and every such p lies
+    in its group's box, |p| <= scale. The box is that of the triangle the
+    row itself stands for, its vertices solved from the row in f64 and
+    rounded outward to f32, and the kernels grow it by
+    ``clustered.BOX_MARGIN`` (1e-4) times (scale + max_k |o_k|), over ten
+    times that noise and the slab test's own rounding, so the cull drops
+    no pair that the dense sweep would find blocking.
+
+    Built on the host from the table's bytes once: a split is kept for
+    the tensor while it lives and is not written to (no copy to the host
+    then), and for the last SPLIT_CACHE tables by their bytes, so that
+    ``prepare``'s table of each frame, a new tensor with the same rows,
+    costs one copy of its rows to the host and no rebuild."""
+    key = id(tris)
+    kept = _SPLITS.get(key)
+    if kept is not None and kept[0]() is tris and kept[1] == tris._version:
+        return kept[2]
+    host = tris.detach().cpu().contiguous()
+    content = (hashlib.sha256(host.numpy().tobytes()).hexdigest(),
+               tuple(host.shape), str(tris.device))
+    split = _SPLITS_BY_CONTENT.pop(content, None)
+    if split is None:
+        split = _build_split(host)
+        split = dataclasses.replace(
+            split, rows=split.rows.to(tris.device),
+            groups=split.groups.to(tris.device),
+            tiles=split.tiles.to(tris.device))
+    _SPLITS_BY_CONTENT[content] = split
+    while len(_SPLITS_BY_CONTENT) > SPLIT_CACHE:
+        del _SPLITS_BY_CONTENT[next(iter(_SPLITS_BY_CONTENT))]
+    _SPLITS[key] = (weakref.ref(tris, lambda _, k=key: _SPLITS.pop(k, None)),
+                    tris._version, split)
+    return split
 
 
 # --------------------------------------------------------------------------
@@ -236,6 +448,86 @@ def _occluded_plain(origins, dirs, tmax, tris, tmin: float) -> torch.Tensor:
             t, _, _ = _pe_block(origins[a:b], dirs[a:b], tris[s:e], tmin)
             out[a:b] |= ((t < tmax[a:b, None]) & opaque[:, s:e]).any(dim=1)
     return out
+
+
+def _split_meets(origins, dirs, split: RowSplit, g: int, tmin: float,
+                 bound) -> torch.Tensor:
+    """[N] bool: does each ray's interval meet group ``g``'s box grown by
+    its margin within (tmin, bound]? The kernels' slab test
+    (``slab_passes`` of ``csrc/pe_block.cuh``)."""
+    from . import ablations
+    inv = ablations._ray_inv(dirs)
+    m = ablations._margin(origins, split.scale)
+    tn, tf = ablations._near_far(origins, inv, m, split.groups[g:g + 1])
+    return ((tn <= tf) & (tf > tmin) & (tn <= bound[:, None]))[:, 0]
+
+
+def _split_spans(split: RowSplit):
+    """(first row, rows) of each group of ``split``, as ints."""
+    span = split.groups[:, 6:8].contiguous().view(torch.int32).cpu()
+    return [tuple(int(x) for x in s) for s in span]
+
+
+def _split_tiles(split: RowSplit):
+    """(first row, rows, [(group, first row, rows), ...]) of each tile of
+    ``split``: the rows every ray sweeps when the list is empty."""
+    spans = _split_spans(split)
+    return [(s, n, [(g, *spans[g]) for g in range(g0, g0 + n_g)])
+            for s, n, g0, n_g in split.tiles.tolist()]
+
+
+def _occluded_split_plain(origins, dirs, tmax, tris, split: RowSplit,
+                          tmin: float, counts: bool = False):
+    """The plain form of K2's culled sweep (``occluded`` from
+    OCC_SPLIT_MIN_RAYS rays) over ``split`` (``row_split(tris)``): a ray
+    whose range (tmin, tmax) is empty is done; one whose tmax is past
+    T_FAR (where a miss blocks) sweeps ``tris`` whole; every other ray
+    sweeps the rows every ray sweeps, up to its first blocking row, then,
+    tile by tile while nothing has blocked it, each group of the tile
+    whose box its interval meets within (tmin, tmax], all of its rows
+    (the kernel's queue). Returns bool [N], bit for bit
+    ``_occluded_plain``'s; with ``counts``, also the pair tests it made
+    (a far ray's as the whole table's) and its box tests."""
+    n = origins.shape[0]
+    far = tmax > T_FAR
+    out = torch.zeros(n, dtype=torch.bool, device=origins.device)
+    if bool(far.any()):
+        out[far] = _occluded_plain(origins[far], dirs[far], tmax[far], tris,
+                                   tmin)
+    open_ = ~far & (tmax > tmin)
+    pairs = int(far.sum()) * tris.shape[0]
+    boxes = 0
+
+    def sweep(sel, first, count, whole):
+        """Blocked flags of rays ``sel`` against rows [first, first +
+        count); their pairs up to the first blocking row, or all of them
+        (``whole``: a group's pairs in the warp's queue)."""
+        nonlocal pairs
+        if sel.numel() == 0 or count == 0:
+            return torch.zeros(0, dtype=torch.bool, device=origins.device)
+        t, _, _ = _pe_block(origins[sel], dirs[sel],
+                            split.rows[first:first + count], tmin)
+        block = t < tmax[sel, None]
+        hit = block.any(1)
+        need = block.to(torch.int32).argmax(1) + 1
+        pairs += (sel.numel() * count if whole
+                  else int(torch.where(hit, need, count).sum()))
+        return hit
+
+    for first, count, groups in _split_tiles(split):
+        live = open_ & ~out
+        if not groups:
+            sel = torch.nonzero(live)[:, 0]
+            out[sel] |= sweep(sel, first, count, False)
+            continue
+        boxes += int(live.sum()) * len(groups)
+        blocked = torch.zeros_like(out)
+        for g, g_first, g_count in groups:
+            sel = torch.nonzero(live & _split_meets(origins, dirs, split, g,
+                                                    tmin, tmax))[:, 0]
+            blocked[sel] |= sweep(sel, g_first, g_count, True)
+        out |= blocked
+    return (out, pairs, boxes) if counts else out
 
 
 def _shadow_rays(origins, dirs, t, lz1, lz2, light):
@@ -487,14 +779,26 @@ def closest_full(origins: torch.Tensor, dirs: torch.Tensor,
 def occluded(origins: torch.Tensor, dirs: torch.Tensor, tmax: torch.Tensor,
              tris: torch.Tensor, tmin: float) -> torch.Tensor:
     """K2: per ray, is any non-refractive row hit with tmin < t < tmax[i]?
-    Returns bool [N]."""
+    Returns bool [N]. From OCC_SPLIT_MIN_RAYS rays the kernel sweeps the
+    table's ``row_split`` (and the table itself for a ray whose tmax is
+    past T_FAR); below, every row for every ray."""
     if _on_cpu(origins):
         return _occluded_plain(origins, dirs, tmax, tris, tmin)
     from .. import _kernels
+    from . import clustered
     n, rows = _check_inputs(origins, dirs, tris)
     _check("tmax", tmax, torch.float32, (n,), origins.device)
     out = torch.empty(n, dtype=torch.bool, device=origins.device)
-    if n:
+    if n >= OCC_SPLIT_MIN_RAYS:
+        split = row_split(tris)
+        _kernels.launch("tpt_occluded_split", origins.data_ptr(),
+                        dirs.data_ptr(), tmax.data_ptr(), tris.data_ptr(),
+                        rows, split.rows.data_ptr(), split.groups.data_ptr(),
+                        split.tiles.data_ptr(), split.tiles.shape[0],
+                        split.scale, clustered.BOX_MARGIN, n, float(tmin),
+                        out.data_ptr(), _stream(origins.device))
+        LAUNCHES["occluded"] += 1
+    elif n:
         _kernels.launch("tpt_occluded", origins.data_ptr(), dirs.data_ptr(),
                         tmax.data_ptr(), tris.data_ptr(), n, rows,
                         float(tmin), out.data_ptr(), _stream(origins.device))
@@ -840,15 +1144,20 @@ def prepare(scene: SceneArrays) -> DenseTables:
     above LEAN_MAX_TRIS rows (K3 and K5 need it), the mixed box's 432-row
     table (396 sphere rows) but not its 24 occluders (all top rows), and
     neither of ``cornell_box.obj``'s 32 rows, which keep the dense
-    bodies."""
-    rows = _trim_rows(scene.num_tris, pack_tris(scene))
+    bodies. On the card it also looks up the ``row_split`` of the subset
+    that K2's dense body sweeps, before the frame's launches: a copy of
+    its rows to the host, and a build only for rows it has not seen."""
+    rows = _trim_rows(scene.num_tris, pack_tris(scene)).contiguous()
     sub = _occ_subset(scene)
-    occ_rows = rows if sub is None else _trim_rows(sub[1], sub[0])
+    occ_rows = rows if sub is None else _trim_rows(sub[1],
+                                                   sub[0]).contiguous()
     kd = kd_tables(scene)
     occ_kd = kd if sub is None else kd_tables(
         scene, scene.occ_index[:scene.num_occluders].cpu())
-    return DenseTables(rows=rows.contiguous(), occ_rows=occ_rows.contiguous(),
-                       mat_bsdf=scene.mat_bsdf, kd=kd, occ_kd=occ_kd)
+    if rows.is_cuda and occ_kd is None:
+        row_split(occ_rows)
+    return DenseTables(rows=rows, occ_rows=occ_rows, mat_bsdf=scene.mat_bsdf,
+                       kd=kd, occ_kd=occ_kd)
 
 
 def _lean_resolve(tris: torch.Tensor, origins, dirs, t, row,
