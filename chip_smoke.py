@@ -2700,9 +2700,55 @@ def _check_dense_bodies(records, device, mixed, tm, sphere, ts):
         f"({tm.occ_rows.shape[0]}, {DENSE_SUBSET_ROWS} rows) and K1's on "
         f"cornell_box.obj's untrimmed {packed.shape[0]} rows: bitwise equal "
         f"to the plain versions")
+    _check_closest_edges(device, cornell, tc, packed)
     _check_split_edges(records, device, tm, exact)
     say("kernels", f"the dense bodies' checks took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def _check_closest_edges(device, cornell, tc, packed):
+    """K3's and K4's dense bodies at the edges of the closest sweep that K1's
+    checks reach, at N_RAYS and N_SPHERE_RAYS with one lane in PARK_EVERY
+    parked, bitwise against their plain versions: rays aimed at shared
+    edges of ``cornell_box.obj`` (rows tie on t), its untrimmed table (480
+    zero rows: two tiles, the second all zeros), and K3 at a tmax that is
+    bit for bit the median hit's t (a ray whose nearest hit lies there
+    misses)."""
+    import torch
+    from tpu_pt_torch.intersect import dense
+    light = dense.light_vector(cornell)
+    for n in (N_RAYS, N_SPHERE_RAYS):
+        eo, ed = _edge_rays(cornell, n, 13, device)
+        (eo, ed), _ = _park((eo, ed), (eo, ed, torch.ones_like(eo[:, 0])),
+                            PARK_EVERY)
+        lz1, lz2 = _light_samples(n, 16, device)
+        t, _ = dense._closest_plain(eo, ed, tc.rows, 0.01)
+        tmax = float(t[t < 1e15].median())
+        at = t == tmax
+        for what, table in (("edge rays", tc.rows),
+                            ("edge rays, the untrimmed table", packed)):
+            for clip in (600.0, tmax):
+                out_k = dense.closest_full(eo, ed, table, 0.01, clip, True)
+                out_p = dense._closest_plain(eo, ed, table, 0.01, clip, True,
+                                             True)
+                torch.cuda.synchronize()
+                _compare_exact(f"closest_full on {what}, tmax {clip}", out_k,
+                               out_p)
+            if bool((out_k[0][at] < 1e15).any()):
+                raise AssertionError(f"closest_full on {what}: a ray whose "
+                                     f"nearest hit lies at tmax {tmax!r} hit")
+            out_k = dense.closest_nee_lean(eo, ed, lz1, lz2, table,
+                                           tc.occ_rows, light, 0.01)
+            out_p = dense._closest_nee_plain(eo, ed, lz1, lz2, table,
+                                             tc.occ_rows, light, 0.01)
+            torch.cuda.synchronize()
+            _compare_fused(f"closest_nee_lean on {what}", out_k, out_p)
+        say("kernels", f"closest_full and closest_nee_lean (K3's, K4's dense "
+            f"bodies) on {n} rays aimed at shared edges of cornell_box.obj "
+            f"(one in {PARK_EVERY} parked), over its {tc.rows.shape[0]} rows "
+            f"and its untrimmed {packed.shape[0]}, K3 at tmax 600 and at "
+            f"{tmax!r} (the nearest hit of {int(at.sum())} rays, which "
+            f"miss): bitwise equal to the plain versions")
 
 
 def _check_split_edges(records, device, tm, exact):

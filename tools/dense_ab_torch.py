@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K2's and K1's dense bodies (``dense.occluded``, ``dense.closest_lean``:
-the sweeps of the tables with no kd copy) timed on the card, for a
-side-by-side of two checkouts of the port.
+"""The dense bodies of K1-K4 (``dense.closest_lean``, ``dense.occluded``,
+``dense.closest_full``, ``dense.closest_nee_lean``: the sweeps of the
+tables with no kd copy) timed on the card, for a side-by-side of two
+checkouts of the port.
 
 Run it once per checkout, in turns (A, B, B, A), each run a process of
 its own: ``--root DIR`` imports ``tpu_pt_torch`` and ``chip_smoke`` from
@@ -19,13 +20,15 @@ the package differs.
   32 rows and the mixed box's 432 at the same counts; K3's and K4's dense
   bodies on ``cornell_box.obj`` (K3 at tmax 600 with u and v);
 - every K2 call of one reference-launch frame (the mixed box, 512^2, 128
-  spp, depth 4, IS + NEE) and every K1 and K2 call of one
-  ``cornell_box.obj`` frame at the same setting, recorded and replayed;
-- the reference-launch, bench (1024^2, 16 spp, depth 8) and
+  spp, depth 4, IS + NEE), every K1 and K2 call of one ``cornell_box.obj``
+  frame at the same setting, every K4 call of one such frame under
+  ``fused_nee`` and every K3 call of one at a finite ``t_max`` (1e4, past
+  every hit in the box), recorded and replayed;
+- the reference-launch, bench (1024^2, 16 spp, depth 8) and the three
   ``cornell_box.obj`` frames: frames 0-2 (frame 0 records the calls; ms of
   frames 1-2, host clock), then one more under ``torch.profiler`` (device
   busy: the summed time of the device's own events, each of the package's
-  kernels, and the launches of K1 and K2 in that frame; only the device is
+  kernels, and the launches of K1-K4 in that frame; only the device is
   traced), with a checksum
   of the accumulator after frames 0-2; and the launches of one frame of
   each scene-JSON golden (chip_smoke.py's ``JSON_GOLDENS``).
@@ -42,9 +45,12 @@ nothing more is rendered. ``--inspect DIR`` (this checkout's kernels)
 reports instead: ptxas' registers and spills of each kernel of the
 library, how much a lazy pair test could skip on K2's rays
 (``_range_shares``), how often the rays of the recorded K2 calls meet
-the groups of their table's row split (``_group_shares``), and the SASS
-of K1's and K2's dense bodies, written to DIR with their instruction
-counts (``cuobjdump``, where the toolkit has it).
+the groups of their table's row split (``_group_shares``), what the
+closest sweeps of K1, K3 and K4 would queue (``_queue_shares``: the
+share of pairs whose plane t is in range, the flushes a warp and the
+pairs a flush resolves, by a plain model of a warp queue that the
+kernels do not run), and the SASS of the dense bodies, written to DIR
+with their instruction counts (``cuobjdump``, where the toolkit has it).
 
 Device times (``kernel_ms``, twice) are CUDA events around calls queued
 behind a spin of the device, so that they run back to back with no host
@@ -81,6 +87,17 @@ BENCH = ("bench frame", "cornell_box_mixed.obj",
          dict(width=1024, height=1024, spp=16, max_depth=8))
 CORNELL = ("cornell_box.obj frame", "cornell_box.obj",
            dict(width=512, height=512, spp=128, max_depth=4))
+CORNELL_NEE = ("cornell_box.obj frame, fused_nee", "cornell_box.obj",
+               dict(CORNELL[2], fused_nee=True))
+CORNELL_CLIP = ("cornell_box.obj frame, t_max 1e4", "cornell_box.obj",
+                dict(CORNELL[2], t_max=1e4))
+# The dense wrappers whose calls each frame records; the kernel of each.
+RECORD = {REFERENCE[0]: ("occluded",),
+          CORNELL[0]: ("occluded", "closest_lean"),
+          CORNELL_NEE[0]: ("closest_nee_lean",),
+          CORNELL_CLIP[0]: ("closest_full",)}
+KERNEL = {"closest_lean": "K1", "occluded": "K2", "closest_full": "K3",
+          "closest_nee_lean": "K4"}
 FRAMES = [0, 1, 2]
 # Two sums of the same samples in another order: ~n eps apart for n adds
 # into a pixel (128 spp: 128 x 6e-8).
@@ -261,23 +278,25 @@ def main() -> int:
     def call(kernel, a):
         return getattr(dense, wrapper[kernel])(*a)
 
-    for kernel, what, n_rows, n, a, plain in sets:
-        want = plain(*a)
-        got = call(kernel, a)
+    def held(kernel, got, want, what):
         if kernel == "K4":       # the flag of a miss lane is meaningless
             hit = want[0] < 1e15
             got = (*got[:2], got[2] & hit)
             want = (*want[:2], want[2] & hit)
-        same(got, want, f"{kernel} on {what} at {n} rays")
+        same(got, want, what)
+
+    for kernel, what, n_rows, n, a, plain in sets:
+        held(kernel, call(kernel, a), plain(*a),
+             f"{kernel} on {what} at {n} rays")
 
     kw = dict(use_direct_lighting=True, use_importance_sampling=True)
     recorded = {}
     accums = {}
     cam = CameraArrays.from_camera(tp.cornell_default_camera(), device=device)
     frames = []
-    for name, scene_file, cfg_kw in (REFERENCE, BENCH, CORNELL):
-        rec = (_Recorder(dense, ("occluded", "closest_lean"))
-               if name != BENCH[0] else None)
+    for name, scene_file, cfg_kw in (REFERENCE, BENCH, CORNELL, CORNELL_NEE,
+                                     CORNELL_CLIP):
+        rec = (_Recorder(dense, RECORD[name]) if name in RECORD else None)
         accum, _, per = cs._render(scenes[scene_file], device,
                                    FRAMES[:1] if args.quick else FRAMES,
                                    tap=rec, **cfg_kw, **kw)
@@ -287,11 +306,18 @@ def main() -> int:
                     recorded[(name, k)] = calls
         accums[name] = accum.cpu().numpy()
         frames.append((name, scene_file, cfg_kw, per))
+    def plain_call(k, a):
+        """The plain version of wrapper k on its positional arguments."""
+        if k == "closest_full":
+            o, d, rows, tmin, tmax, want_uv = a
+            return dense._closest_plain(o, d, rows, tmin, tmax, True, want_uv)
+        return {"closest_lean": dense._closest_plain,
+                "occluded": dense._occluded_plain,
+                "closest_nee_lean": dense._closest_nee_plain}[k](*a)
+
     for (name, k), calls in recorded.items():
         for a in calls[:8] + calls[-8:]:
-            same(getattr(dense, k)(*a),
-                 (dense._occluded_plain if k == "occluded"
-                  else dense._closest_plain)(*a),
+            held(KERNEL[k], getattr(dense, k)(*a), plain_call(k, a),
                  f"{k} on a recorded {name} call")
 
     def replay(name, k):
@@ -312,6 +338,15 @@ def main() -> int:
                 if k == "occluded":
                     out("groups met", table=f"{name}, {len(calls)} calls",
                         **_group_shares(dense, calls))
+        for kernel, what, n_rows, n, a, plain in sets:
+            if kernel in ("K1", "K3", "K4"):
+                out("queued", kernel=kernel, table=what, rows=n_rows, rays=n,
+                    **_queue_shares(dense, kernel, [a]))
+        for (name, k), calls in recorded.items():
+            if k != "occluded":
+                out("queued", kernel=KERNEL[k],
+                    table=f"{name}, {len(calls)} calls",
+                    **_queue_shares(dense, KERNEL[k], calls))
         return 0
 
     for kernel, what, n_rows, n, a, plain in sets:
@@ -320,8 +355,7 @@ def main() -> int:
             kernel_ms=[device_ms(fn, 20) for _ in range(2)],
             events_ms=cs.gpu_ms(fn, 20))
     for (name, k), calls in recorded.items():
-        out({"occluded": "K2", "closest_lean": "K1"}[k],
-            table=f"{name}, {len(calls)} calls",
+        out(KERNEL[k], table=f"{name}, {len(calls)} calls",
             kernel_ms=[device_ms(replay(name, k), 1) for _ in range(2)],
             events_ms=cs.gpu_ms(replay(name, k), 3))
     recorded.clear()
@@ -341,8 +375,7 @@ def main() -> int:
             ms_per_frame=[p[0] * 1e3 for p in per[1:]],
             rounds=int(per[-1][2].wavefront_iterations), busy_ms=busy,
             profiled_wall_ms=wall, kernels_ms=kernels,
-            launches={k: counts[k] for k in ("closest_lean", "occluded",
-                                              "closest_lean_tree")},
+            launches={k: counts[k] for k in (*KERNEL, "closest_lean_tree")},
             accum_sha256=hashlib.sha256(
                 accums[name].tobytes()).hexdigest()[:16])
     for name, scene_file in cs.JSON_GOLDENS:
@@ -386,6 +419,124 @@ def _range_shares(o, d, tmax, rows, tmin: float) -> dict:
         warp_steps += int(ok.view(-1, 32, ok.shape[1]).any(1).sum())
     return dict(pair_share=in_pairs / max(pairs, 1),
                 warp_step_share=warp_steps / max(steps, 1))
+
+
+# The warp queue that _queue_shares models: the rays a queue serves and
+# the pairs a flush resolves, the rows queued between two looks for a
+# flush, and its slots (32 waiting, plus 32 a row of a group).
+QUEUE_WARP = 32
+QUEUE_GROUP = 3
+QUEUE_RING = 128
+
+
+def _queue_shares(dense, kernel: str, calls) -> dict:
+    """What a warp queue of the closest sweep's in-range pairs would do on
+    the positional arguments ``calls`` of K1, K3 or K4 (its closest half):
+    the share of (ray, row) pairs whose plane t is in range (tmin < t <
+    the ray's best so far, and t < tmax), the flushes a warp of 32 rays
+    makes, and the pairs a flush resolves (of 32). The kernels do not run
+    this queue: it lost to the sweep of every pair on the card
+    (PERF.md)."""
+    pairs = kept = warps = flushes = 0
+    for a in calls:
+        if kernel == "K4":
+            o, d, _, _, rows, _, _, tmin = a
+            tmax = dense.T_FAR
+        else:
+            o, d, rows, tmin = a[:4]
+            tmax = a[4] if kernel == "K3" else dense.T_FAR
+        c = _queue_counts(dense, o, d, rows, tmin, tmax)
+        pairs += o.shape[0] * rows.shape[0]
+        kept += c[0]
+        warps += -(-o.shape[0] // QUEUE_WARP)
+        flushes += c[1]
+    return dict(in_range_share=kept / max(pairs, 1),
+                flushes_a_warp=flushes / max(warps, 1),
+                pairs_a_flush=kept / max(flushes, 1))
+
+
+def _queue_counts(dense, origins, dirs, tris, tmin: float,
+                  tmax: float) -> tuple[int, int]:
+    """(pairs kept, flushes) of the queue, step by step. Rays go in warps of
+    QUEUE_WARP; rows in ascending order, in tiles of ``dense.SPLIT_TILE``
+    (the rows a block stages). For each row every ray forms the plane
+    half of ``dense._pe_block`` (n . d, its reciprocal, t) and keeps the
+    pair when tmin < t < its best so far (and t < tmax), where its best
+    is the fold of the pairs resolved until then: a stale best only keeps
+    more pairs, so nothing is lost. Kept pairs join their warp's queue (a
+    ring of QUEUE_RING slots) in (row, lane) order; after every
+    QUEUE_GROUP rows of a tile, while QUEUE_WARP of them wait, the oldest
+    QUEUE_WARP are resolved (the edge half of ``_pe_block``: t on a hit,
+    else T_FAR) and folded into their rays' best, and at the end of each
+    tile the rest."""
+    import torch
+    n, dev, lanes = origins.shape[0], origins.device, QUEUE_WARP
+    warps = -(-n // lanes)
+    # Lanes past the last ray hold a zero ray: n . d = 0, t is inf or NaN,
+    # and no pair of it is kept.
+    pad = warps * lanes - n
+    o = torch.nn.functional.pad(origins, (0, 0, 0, pad))
+    d = torch.nn.functional.pad(dirs, (0, 0, 0, pad))
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    best = torch.full((warps * lanes,), dense.T_FAR, dtype=torch.float32,
+                      device=dev)
+    q_ray = torch.zeros((warps, QUEUE_RING), dtype=torch.int64, device=dev)
+    q_row = torch.zeros_like(q_ray)
+    q_t = torch.zeros((warps, QUEUE_RING), dtype=torch.float32, device=dev)
+    head = torch.zeros(warps, dtype=torch.int64, device=dev)
+    tail = torch.zeros_like(head)
+    first = torch.arange(warps, device=dev)[:, None] * lanes
+    step = torch.arange(lanes, device=dev)
+    kept = flushes = 0
+
+    def flush(sel, take):
+        """Resolve the oldest ``take[w]`` (<= QUEUE_WARP) pairs of each
+        warp w in ``sel`` and fold them into their rays' best."""
+        w = torch.nonzero(sel)[:, 0]
+        valid = step[None, :] < take[w, None]
+        pos = (head[w, None] + step[None, :]) % QUEUE_RING
+        ray = q_ray[w[:, None], pos][valid]
+        row = q_row[w[:, None], pos][valid]
+        t = q_t[w[:, None], pos][valid]
+        c = tris[row]
+        px = ox[ray] + t * dx[ray]
+        py = oy[ray] + t * dy[ray]
+        pz = oz[ray] + t * dz[ray]
+        u = c[:, 4] * px + c[:, 5] * py + c[:, 6] * pz + c[:, 7]
+        v = c[:, 8] * px + c[:, 9] * py + c[:, 10] * pz + c[:, 11]
+        hit = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > tmin)
+        best.scatter_reduce_(0, ray, torch.where(hit, t, dense.T_FAR),
+                             "amin")
+        head[w] += take[w]
+        return int(w.numel())
+
+    n_rows = tris.shape[0]
+    for base in range(0, n_rows, dense.SPLIT_TILE):
+        end = min(base + dense.SPLIT_TILE, n_rows)
+        for j in range(base, end):
+            nx, ny, nz, d0 = tris[j, 0], tris[j, 1], tris[j, 2], tris[j, 3]
+            rcp = 1.0 / (nx * dx + ny * dy + nz * dz)
+            t = (d0 - (nx * ox + ny * oy + nz * oz)) * rcp
+            keep = ((t > tmin) & (t < best) & (t < tmax)).view(warps, lanes)
+            before = torch.cumsum(keep, 1) - keep.long()
+            wi, li = torch.nonzero(keep, as_tuple=True)
+            at = ((tail[:, None] + before) % QUEUE_RING)[wi, li]
+            q_ray[wi, at] = first[wi, 0] + li
+            q_row[wi, at] = j
+            q_t[wi, at] = t.view(warps, lanes)[wi, li]
+            added = keep.sum(1)
+            tail += added
+            kept += int(added.sum())
+            if (j - base) % QUEUE_GROUP == QUEUE_GROUP - 1 or j == end - 1:
+                full = tail - head >= lanes
+                while bool(full.any()):
+                    flushes += flush(full, torch.full_like(head, lanes))
+                    full = tail - head >= lanes
+        rest = tail - head
+        if bool((rest > 0).any()):
+            flushes += flush(rest > 0, rest)
+    return kept, flushes
 
 
 def _group_shares(dense, calls) -> dict:
@@ -484,7 +635,7 @@ def _device_profile(run) -> tuple[float, dict, int]:
 
 
 def _dump_sass(where: pathlib.Path, out) -> None:
-    """The SASS of K1's and K2's dense bodies (K2's two), into
+    """The SASS of the dense bodies of K1-K4 (K2's two), into
     ``where``."""
     from tpu_pt_torch import _kernels
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -495,9 +646,10 @@ def _dump_sass(where: pathlib.Path, out) -> None:
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True).stdout
     where.mkdir(parents=True, exist_ok=True)
-    # Mangled names: closest_kernel<false>, occluded_kernel and
-    # occluded_split_kernel.
-    for kernel in ("14closest_kernelILb0E", "15occluded_kernelE",
+    # Mangled names: closest_kernel<false>, closest_kernel<true>,
+    # closest_nee_kernel, occluded_kernel and occluded_split_kernel.
+    for kernel in ("14closest_kernelILb0E", "14closest_kernelILb1E",
+                   "18closest_nee_kernelE", "15occluded_kernelE",
                    "21occluded_split_kernelE"):
         at = sass.find(kernel)
         if at < 0:

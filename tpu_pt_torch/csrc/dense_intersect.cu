@@ -69,12 +69,24 @@
 //   frame's replayed calls (PERF.md) found two rays a thread slower (~72
 //   registers against ~61: the lower occupancy costs more than one row's
 //   loads serving two rays saves) and 128 threads no faster.
-// Trials refuted two more designs (PERF.md): a lazy pair test (t first,
-// the edge functions only when some lane of the warp has t in range)
-// skips little, since a warp's 32 shadow rays diverge (t is in range for
-// ~32% of pairs but on ~52% of (warp, row) steps), and costs votes and
-// branches; and reading a small table straight from the cache, with no
-// barrier, lost to the staged tile at every size.
+// Trials refuted more designs (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W):
+// a lazy pair test (t first, the edge functions only when some lane of
+// the warp has t in range) skips little, since a warp's 32 shadow rays
+// diverge (t is in range for ~32% of pairs but on ~52% of (warp, row)
+// steps), and costs votes and branches; reading a small table straight
+// from the cache, with no barrier, lost to the staged tile at every size;
+// and, for the closest hits, a warp queue of the pairs whose plane t is
+// in range (the plane half of every pair, a ballot a row appending
+// tmin < t < best to the warp's queue, the edge half of 32 queued pairs
+// at a time on the warp's lanes, folded into their rays in row order
+// without atomics; tools/dense_ab_torch.py's _queue_shares models its
+// order) took 1.7-2.1x the sweep's time in three designs, 9x in two that
+// fold by a warp minimum over each ray's lanes (redux.sync under a mask
+// that differs between lanes serialises). About 40% of cornell_box.obj's
+// pairs are in range, and the plane half with a ballot a row, nothing
+// queued, already takes ~83% of the whole sweep's time: the edge half it
+// would skip is too small a part of a pair. So the closest bodies test
+// every pair whole.
 // The fused kernels run both sweeps in one launch: the shadow ray never
 // leaves registers, and one launch replaces two.
 //
@@ -104,7 +116,8 @@
 // fold of each hit into (t, row) by a 64-bit shared atomicMin (a
 // compare-and-swap loop), pairs listed row by row and two pairs a lane a
 // step were all slower than the sweep of every row there, which those
-// kernels keep.
+// kernels keep, as they keep it against the queue of in-range pairs
+// (above).
 //
 // K5 is different: its table (the sphere box, 2,280 rows) is five times
 // K4's, and it is swept twice, once for the closest hit and once more by
