@@ -33,6 +33,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from . import film
 from .config import RenderConfig
+from .profiling import span
 from .render import (NUM_DONE_REASONS, CameraArrays, RenderStats,
                      render_wavefront)
 from .scene.arrays import SceneArrays
@@ -173,24 +174,25 @@ def make_sharded_renderer(scene, cfg: RenderConfig, mesh: DeviceMesh,
     rows = cfg.height // n_tile
 
     def step(cam: CameraArrays, frame_idx: int, accum: torch.Tensor):
-        # tpu_pt.dist._render_block: this rank's rows with its samples.
-        rad, stats = wavefront_fn(scene, cam, cfg_local, pixel_start,
-                                  pixels_per_tile, frame_idx,
-                                  sample_offset=sample_offset)
-        # Mean of per-shard means == global mean (equal shard sizes).
-        dist.all_reduce(rad, group=spp_group)
-        rad = rad / n_spp
-        counts = torch.cat([stats.rays_traced.reshape(1),
-                            stats.shadow_rays.reshape(1),
-                            stats.done_histogram,
-                            stats.wavefront_iterations.reshape(1)])
-        dist.all_reduce(counts)
-        stats = RenderStats(rays_traced=counts[0], shadow_rays=counts[1],
-                            done_histogram=counts[2:2 + NUM_DONE_REASONS],
-                            wavefront_iterations=counts[-1])
-        frame = rad.reshape(rows, cfg.width, 3)
-        accum.copy_(film.accumulate(accum, frame, frame_idx))
-        return accum, film.make_color(accum), stats
+        with span("pt.frame"):
+            # tpu_pt.dist._render_block: this rank's rows with its samples.
+            rad, stats = wavefront_fn(scene, cam, cfg_local, pixel_start,
+                                      pixels_per_tile, frame_idx,
+                                      sample_offset=sample_offset)
+            # Mean of per-shard means == global mean (equal shard sizes).
+            dist.all_reduce(rad, group=spp_group)
+            rad = rad / n_spp
+            counts = torch.cat([stats.rays_traced.reshape(1),
+                                stats.shadow_rays.reshape(1),
+                                stats.done_histogram,
+                                stats.wavefront_iterations.reshape(1)])
+            dist.all_reduce(counts)
+            stats = RenderStats(rays_traced=counts[0], shadow_rays=counts[1],
+                                done_histogram=counts[2:2 + NUM_DONE_REASONS],
+                                wavefront_iterations=counts[-1])
+            frame = rad.reshape(rows, cfg.width, 3)
+            accum.copy_(film.accumulate(accum, frame, frame_idx))
+            return accum, film.make_color(accum), stats
 
     return step
 

@@ -5,6 +5,13 @@ Per-frame timing and running averages (``PathTracerMain.cpp:703-740``),
 the stats overlay (``sutil::displayStats``, ``sutil.cpp:735-774``) plus
 the framework's own telemetry: Mrays/s, wavefront occupancy and the
 DoneReason histogram; ``device_trace`` wraps ``torch.profiler``.
+
+``span`` marks the phases of a frame and of its wavefront rounds for the
+profiler: ``pt.frame``, ``pt.prepare``, ``pt.round``, ``pt.rng``,
+``pt.intersect``, ``pt.shade``, ``pt.nee`` and ``pt.queue``. Spans nest;
+the innermost one owns the work (host ops, the kernels they launch, the
+waits). They record only while a torch profiler records, on its clock,
+and cost one check of the profiler's state otherwise.
 """
 
 from __future__ import annotations
@@ -121,12 +128,26 @@ class RenderProfiler:
         return "\n".join(lines)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` named ``name`` while a torch
+    profiler records; otherwise one shared no-op context, so that an
+    untraced render pays only the check."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """Profile the block with ``torch.profiler`` (host and, where there is
     a card, device activity) and write a Chrome trace into ``logdir``
     (open it in chrome://tracing or Perfetto). Yields the profiler, whose
-    ``key_averages()`` sums the time by kernel. The reference's analog is
+    ``key_averages()`` sums the time by kernel and by :func:`span`: a
+    render's ``pt.*`` phases appear there and in the trace, on the host
+    and, mirrored, on the device timeline. The reference's analog is
     building with -lineinfo for Nsight (``CMakeLists.txt:268``)."""
     import pathlib
     from torch.profiler import ProfilerActivity, profile

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from . import bsdf, film, rng
+from .profiling import span
 from . import vec3 as v3
 from .config import RenderConfig
 from .intersect import (SLAB_UNKNOWN, get_fused_closest_nee,
@@ -168,28 +169,31 @@ def _nee(scene: SceneArrays, occluded_fn, shade: dict, hit_mask, lz1, lz2):
     """Next-event estimation from the area light
     (``pathTracerPrograms.cu:1003-1026``). Returns (radiance [N, 3],
     shadow-ray mask [N])."""
-    light = scene.light
-    p, n = shade["p"], shade["n"]
-    light_pos = light.corner + light.v1 * lz1[:, None] + light.v2 * lz2[:, None]
-    to_l = light_pos - p
-    l_dist = v3.length(to_l)
-    l_dir = v3.normalize(to_l)
-    n_dl = v3.dot(n, l_dir)
-    ln_dl = -v3.dot(light.normal, l_dir)
+    with span("pt.nee"):
+        light = scene.light
+        p, n = shade["p"], shade["n"]
+        light_pos = (light.corner + light.v1 * lz1[:, None]
+                     + light.v2 * lz2[:, None])
+        to_l = light_pos - p
+        l_dist = v3.length(to_l)
+        l_dir = v3.normalize(to_l)
+        n_dl = v3.dot(n, l_dir)
+        ln_dl = -v3.dot(light.normal, l_dir)
 
-    eligible = (hit_mask & (shade["bsdf_type"] != BSDF_REFRACTION)
-                & (n_dl > 0.0) & (ln_dl > 0.0))
-    # Ineligible lanes trace a parked shadow ray (tmax 0: never occluded).
-    occ_org = torch.where(eligible[:, None], p, PARK_COORD)
-    occ_dir = torch.where(eligible[:, None], l_dir, PARK_DIR)
-    occ_tmax = torch.where(eligible, l_dist - 0.01, 0.0)
-    occluded = occluded_fn(occ_org, occ_dir, occ_tmax)
+        eligible = (hit_mask & (shade["bsdf_type"] != BSDF_REFRACTION)
+                    & (n_dl > 0.0) & (ln_dl > 0.0))
+        # Ineligible lanes trace a parked shadow ray (tmax 0: never occluded).
+        occ_org = torch.where(eligible[:, None], p, PARK_COORD)
+        occ_dir = torch.where(eligible[:, None], l_dir, PARK_DIR)
+        occ_tmax = torch.where(eligible, l_dist - 0.01, 0.0)
+        with span("pt.intersect"):
+            occluded = occluded_fn(occ_org, occ_dir, occ_tmax)
 
-    area = v3.length(v3.cross(light.v1, light.v2))
-    m = torch.clamp_min(l_dist, 1e-6)
-    weight = n_dl * ln_dl * area / (math.pi * (m * m))
-    w = torch.where(eligible & ~occluded, weight, 0.0)
-    return light.emission * w[:, None], eligible
+        area = v3.length(v3.cross(light.v1, light.v2))
+        m = torch.clamp_min(l_dist, 1e-6)
+        weight = n_dl * ln_dl * area / (math.pi * (m * m))
+        w = torch.where(eligible & ~occluded, weight, 0.0)
+        return light.emission * w[:, None], eligible
 
 
 def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
@@ -207,69 +211,75 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
     closest hit and the occlusion of the shadow ray toward the light
     sample (lz1, lz2), drawn before the trace (the counter RNG allows it);
     ``_nee`` then reads that occlusion instead of tracing."""
-    depth_t = torch.as_tensor(depth, dtype=torch.int64, device=origin.device)
-    sa = rng.STREAM_BOUNCE_A + 2 * depth_t
-    sb = rng.STREAM_BOUNCE_B + 2 * depth_t
-    z1, z2, z3, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sa)
-    lz1, lz2, z_rr, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sb)
+    with span("pt.rng"):
+        depth_t = torch.as_tensor(depth, dtype=torch.int64,
+                                  device=origin.device)
+        sa = rng.STREAM_BOUNCE_A + 2 * depth_t
+        sb = rng.STREAM_BOUNCE_B + 2 * depth_t
+        z1, z2, z3, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sa)
+        lz1, lz2, z_rr, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sb)
 
     hit_slab = None
-    if fused_fn is not None and cfg.use_direct_lighting:
-        hit, occ_pre = fused_fn(origin, direction, lz1, lz2)
+    with span("pt.intersect"):
+        if fused_fn is not None and cfg.use_direct_lighting:
+            hit, occ_pre = fused_fn(origin, direction, lz1, lz2)
 
-        def occluded_fn(o, d, tmax):
-            return occ_pre
-    elif pred is not None:
-        hit, hit_slab = closest_fn(origin, direction, pred=pred,
-                                   want_slab=True)
-    else:
-        hit = closest_fn(origin, direction)
-    hit_mask = hit.hit
-    shade = _shade_hit(scene, cfg, origin, direction, hit, (z1, z2, z3))
+            def occluded_fn(o, d, tmax):
+                return occ_pre
+        elif pred is not None:
+            hit, hit_slab = closest_fn(origin, direction, pred=pred,
+                                       want_slab=True)
+        else:
+            hit = closest_fn(origin, direction)
+    with span("pt.shade"):
+        hit_mask = hit.hit
+        shade = _shade_hit(scene, cfg, origin, direction, hit, (z1, z2, z3))
 
-    # Emission channel: only at depth 0 (cu:898-901); a miss writes 0.
-    emit_mask = hit_mask & (depth_t == 0) & shade["is_emissive"]
-    emitted = shade["emission"] * emit_mask[:, None].to(torch.float32)
+        # Emission channel: only at depth 0 (cu:898-901); a miss writes 0.
+        emit_mask = hit_mask & (depth_t == 0) & shade["is_emissive"]
+        emitted = shade["emission"] * emit_mask[:, None].to(torch.float32)
 
-    # Radiance channel: miss -> background (cu:841), light hit -> emission
-    # (cu:992-996), else 0; NEE adds direct light.
-    light_hit = hit_mask & shade["is_emissive"]
-    miss_f = torch.where(hit_mask, 0.0, 1.0)[:, None]
-    background = torch.tensor(cfg.background, dtype=torch.float32,
-                              device=origin.device)
-    radiance = torch.where(light_hit[:, None], shade["emission"],
-                           miss_f * background)
-    shadow_mask = torch.zeros_like(hit_mask)
-    if cfg.use_direct_lighting:
-        nee_radiance, shadow_mask = _nee(scene, occluded_fn, shade,
-                                         hit_mask, lz1, lz2)
-        radiance = radiance + nee_radiance
+        # Radiance channel: miss -> background (cu:841), light hit -> emission
+        # (cu:992-996), else 0; NEE adds direct light.
+        light_hit = hit_mask & shade["is_emissive"]
+        miss_f = torch.where(hit_mask, 0.0, 1.0)[:, None]
+        background = torch.tensor(cfg.background, dtype=torch.float32,
+                                  device=origin.device)
+        radiance = torch.where(light_hit[:, None], shade["emission"],
+                               miss_f * background)
+        shadow_mask = torch.zeros_like(hit_mask)
+        if cfg.use_direct_lighting:
+            nee_radiance, shadow_mask = _nee(scene, occluded_fn, shade,
+                                             hit_mask, lz1, lz2)
+            radiance = radiance + nee_radiance
 
-    # Attenuation takes the hit BSDF color BEFORE weighting the radiance
-    # (the reference's closest-hit-then-raygen order).
-    atten_new = torch.where(hit_mask[:, None], atten * shade["atten_mult"],
-                            atten)
-    contrib = emitted + radiance * atten_new
+        # Attenuation takes the hit BSDF color BEFORE weighting the radiance
+        # (the reference's closest-hit-then-raygen order).
+        atten_new = torch.where(hit_mask[:, None],
+                                atten * shade["atten_mult"], atten)
+        contrib = emitted + radiance * atten_new
 
-    # Russian roulette on perceived brightness (cu:763-773).
-    p_rr = v3.luminance(atten_new)
-    rr_kill = z_rr > p_rr
-    at_max = depth_t >= cfg.max_depth
-    done = ~hit_mask | light_hit | rr_kill | at_max
+        # Russian roulette on perceived brightness (cu:763-773).
+        p_rr = v3.luminance(atten_new)
+        rr_kill = z_rr > p_rr
+        at_max = depth_t >= cfg.max_depth
+        done = ~hit_mask | light_hit | rr_kill | at_max
 
-    # DoneReason precedence (cu:768-771): MAX_DEPTH beats RR beats
-    # MISS / LIGHT_HIT.
-    base_reason = torch.where(~hit_mask, MISS,
-                              torch.where(light_hit, LIGHT_HIT, NOT_DONE))
-    reason = torch.where(at_max, MAX_DEPTH,
-                         torch.where(rr_kill, RUSSIAN_ROULETTE, base_reason))
+        # DoneReason precedence (cu:768-771): MAX_DEPTH beats RR beats
+        # MISS / LIGHT_HIT.
+        base_reason = torch.where(~hit_mask, MISS,
+                                  torch.where(light_hit, LIGHT_HIT, NOT_DONE))
+        reason = torch.where(at_max, MAX_DEPTH,
+                             torch.where(rr_kill, RUSSIAN_ROULETTE,
+                                         base_reason))
 
-    # RR compensation applies only to surviving paths (cu:773 safeDivide).
-    atten_cont = v3.safe_divide(atten_new, p_rr)
+        # RR compensation applies only to surviving paths (cu:773 safeDivide).
+        atten_cont = v3.safe_divide(atten_new, p_rr)
+        shadow_count = shadow_mask.to(torch.int64)
     return dict(contrib=contrib, atten_new=atten_new, atten_cont=atten_cont,
                 new_origin=shade["new_origin"], new_dir=shade["new_dir"],
                 done=done, reason=reason, hit_slab=hit_slab,
-                shadow_count=shadow_mask.to(torch.int64))
+                shadow_count=shadow_count)
 
 
 def _zero_count(device) -> torch.Tensor:
@@ -352,8 +362,9 @@ def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
 
     def item_rays(j, sample):
         pix = pixel_start + j
-        jx, jy = rng.uniform2(pix, sample + sample_offset, frame_idx,
-                              rng.STREAM_JITTER)
+        with span("pt.rng"):
+            jx, jy = rng.uniform2(pix, sample + sample_offset, frame_idx,
+                                  rng.STREAM_JITTER)
         return camera_rays(cam, pix, cfg.width, cfg.height, jx, jy)
 
     g = torch.arange(n_lanes, dtype=torch.int64, device=dev)
@@ -374,60 +385,66 @@ def _render_pixelq(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
         cam_slab = pred.clone()
 
     while bool(active.any()):
-        j, chunk0 = item_pixel(g)
-        step = bounce_fn(pixel_start + j, sample + sample_offset, origin,
-                         direction, atten, depth,
-                         **(dict(pred=pred) if use_pred else {}))
-        pending = pending + step["contrib"] * active.to(torch.float32)[:, None]
-        path_done = active & step["done"]
-        hist.index_add_(0, step["reason"], path_done.to(torch.int64))
-        n_rays += active.sum()
-        n_shadow += (step["shadow_count"] * active).sum()
+        with span("pt.round"):
+            j, chunk0 = item_pixel(g)
+            step = bounce_fn(pixel_start + j, sample + sample_offset, origin,
+                             direction, atten, depth,
+                             **(dict(pred=pred) if use_pred else {}))
+            with span("pt.queue"):
+                pending = (pending
+                           + step["contrib"] * active.to(torch.float32)[:, None])
+                path_done = active & step["done"]
+                hist.index_add_(0, step["reason"], path_done.to(torch.int64))
+                n_rays += active.sum()
+                n_shadow += (step["shadow_count"] * active).sum()
 
-        item_end = torch.clamp_max(chunk0 + chunk, cfg.spp)
-        more_samples = path_done & (sample + 1 < item_end)
-        pixel_done = path_done & (sample + 1 >= item_end)
-        result.index_add_(0, j, pending * pixel_done.to(torch.float32)[:, None])
+                item_end = torch.clamp_max(chunk0 + chunk, cfg.spp)
+                more_samples = path_done & (sample + 1 < item_end)
+                pixel_done = path_done & (sample + 1 >= item_end)
+                result.index_add_(
+                    0, j, pending * pixel_done.to(torch.float32)[:, None])
 
-        # Claim the next queue items: finishing lane k gets ticket
-        # next_g + (number of finishing lanes before k).
-        fin = pixel_done.to(torch.int64)
-        rank = torch.cumsum(fin, 0) - fin
-        new_g = next_g + rank
-        has_new = pixel_done & (new_g < total)
-        next_g = next_g + fin.sum()
+                # Claim the next queue items: finishing lane k gets ticket
+                # next_g + (number of finishing lanes before k).
+                fin = pixel_done.to(torch.int64)
+                rank = torch.cumsum(fin, 0) - fin
+                new_g = next_g + rank
+                has_new = pixel_done & (new_g < total)
+                next_g = next_g + fin.sum()
 
-        cont = active & ~step["done"]
-        respawn = more_samples | has_new
-        g = torch.where(has_new, new_g, g)
-        new_j, new_s0 = item_pixel(g)
-        j = torch.where(has_new, new_j, j)
-        sample = torch.where(more_samples, sample + 1,
-                             torch.where(has_new, new_s0, sample))
-        o_new, d_new = item_rays(torch.where(respawn, j, 0),
-                                 torch.where(respawn, sample, 0))
-        cont3, respawn3 = cont[:, None], respawn[:, None]
-        # Retired lanes park their rays.
-        origin = torch.where(cont3, step["new_origin"],
-                             torch.where(respawn3, o_new, PARK_COORD))
-        direction = torch.where(cont3, step["new_dir"],
-                                torch.where(respawn3, d_new, PARK_DIR))
-        atten = torch.where(cont3, step["atten_cont"],
-                            torch.where(respawn3, 1.0, atten))
-        if use_pred:
-            hs = step["hit_slab"]
-            # The pixel's camera-ray landing slab, kept while the lane
-            # holds the pixel, predicts its next sample's camera ray.
-            cam_slab = torch.where(
-                active & (depth == 0) & (hs != SLAB_UNKNOWN), hs, cam_slab)
-            pred = torch.where(
-                cont, hs, torch.where(
-                    more_samples, cam_slab,
-                    torch.where(has_new, SLAB_UNKNOWN, pred)))
-        depth = torch.where(cont, depth + 1, 0)
-        pending = torch.where(pixel_done[:, None], 0.0, pending)
-        active = cont | respawn
-        iters += 1
+                cont = active & ~step["done"]
+                respawn = more_samples | has_new
+                g = torch.where(has_new, new_g, g)
+                new_j, new_s0 = item_pixel(g)
+                j = torch.where(has_new, new_j, j)
+                sample = torch.where(more_samples, sample + 1,
+                                     torch.where(has_new, new_s0, sample))
+                o_new, d_new = item_rays(torch.where(respawn, j, 0),
+                                         torch.where(respawn, sample, 0))
+                cont3, respawn3 = cont[:, None], respawn[:, None]
+                # Retired lanes park their rays.
+                origin = torch.where(cont3, step["new_origin"],
+                                     torch.where(respawn3, o_new, PARK_COORD))
+                direction = torch.where(cont3, step["new_dir"],
+                                        torch.where(respawn3, d_new, PARK_DIR))
+                atten = torch.where(cont3, step["atten_cont"],
+                                    torch.where(respawn3, 1.0, atten))
+                if use_pred:
+                    hs = step["hit_slab"]
+                    # The pixel's camera-ray landing slab, kept while the
+                    # lane holds the pixel, predicts its next sample's
+                    # camera ray.
+                    cam_slab = torch.where(
+                        active & (depth == 0) & (hs != SLAB_UNKNOWN), hs,
+                        cam_slab)
+                    pred = torch.where(
+                        cont, hs, torch.where(
+                            more_samples, cam_slab,
+                            torch.where(has_new, SLAB_UNKNOWN, pred)))
+                depth = torch.where(cont, depth + 1, 0)
+                pending = torch.where(pixel_done[:, None], 0.0, pending)
+                active = cont | respawn
+            iters += 1
 
     stats = RenderStats(rays_traced=n_rays, shadow_rays=n_shadow,
                         done_histogram=hist,
@@ -453,8 +470,9 @@ def _render_regen(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
 
     def item_rays(g):
         pix = pixel_start + g % n
-        jx, jy = rng.uniform2(pix, g // n + sample_offset, frame_idx,
-                              rng.STREAM_JITTER)
+        with span("pt.rng"):
+            jx, jy = rng.uniform2(pix, g // n + sample_offset, frame_idx,
+                                  rng.STREAM_JITTER)
         return camera_rays(cam, pix, cfg.width, cfg.height, jx, jy)
 
     g = torch.arange(n_lanes, dtype=torch.int64, device=dev)
@@ -469,46 +487,51 @@ def _render_regen(dev, cam, cfg, pixel_start, n, frame_idx, bounce_fn,
     iters = 0
 
     while bool(active.any()):
-        j, sample = g % n, g // n + sample_offset
-        alive = active
-        pending = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
-        for _ in range(k_steps):
-            step = bounce_fn(pixel_start + j, sample, origin, direction,
-                             atten, depth)
-            alive_f = alive.to(torch.float32)[:, None]
-            pending = pending + step["contrib"] * alive_f
-            hist.index_add_(0, step["reason"],
-                            (alive & step["done"]).to(torch.int64))
-            n_rays += alive.sum()
-            n_shadow += (step["shadow_count"] * alive).sum()
-            cont = alive & ~step["done"]
-            cont3 = cont[:, None]
-            origin = torch.where(cont3, step["new_origin"], origin)
-            direction = torch.where(cont3, step["new_dir"], direction)
-            atten = torch.where(cont3, step["atten_cont"], atten)
-            depth = torch.where(cont, depth + 1, depth)
-            alive = cont
-        result.index_add_(0, j, pending)
+        with span("pt.round"):
+            j, sample = g % n, g // n + sample_offset
+            alive = active
+            pending = torch.zeros((n_lanes, 3), dtype=torch.float32,
+                                  device=dev)
+            for _ in range(k_steps):
+                step = bounce_fn(pixel_start + j, sample, origin, direction,
+                                 atten, depth)
+                with span("pt.queue"):
+                    alive_f = alive.to(torch.float32)[:, None]
+                    pending = pending + step["contrib"] * alive_f
+                    hist.index_add_(0, step["reason"],
+                                    (alive & step["done"]).to(torch.int64))
+                    n_rays += alive.sum()
+                    n_shadow += (step["shadow_count"] * alive).sum()
+                    cont = alive & ~step["done"]
+                    cont3 = cont[:, None]
+                    origin = torch.where(cont3, step["new_origin"], origin)
+                    direction = torch.where(cont3, step["new_dir"], direction)
+                    atten = torch.where(cont3, step["atten_cont"], atten)
+                    depth = torch.where(cont, depth + 1, depth)
+                    alive = cont
+            with span("pt.queue"):
+                result.index_add_(0, j, pending)
 
-        # Claim the next queue items: finished lane k gets ticket
-        # next_g + (number of finished lanes before k).
-        fin = (active & ~alive).to(torch.int64)
-        rank = torch.cumsum(fin, 0) - fin
-        new_g = next_g + rank
-        has_new = (fin > 0) & (new_g < total)
-        next_g = next_g + fin.sum()
-        o_new, d_new = item_rays(torch.where(has_new, new_g, 0))
-        new3, alive3 = has_new[:, None], alive[:, None]
-        # Retired lanes park their rays.
-        origin = torch.where(new3, o_new,
-                             torch.where(alive3, origin, PARK_COORD))
-        direction = torch.where(new3, d_new,
-                                torch.where(alive3, direction, PARK_DIR))
-        atten = torch.where(new3, 1.0, atten)
-        depth = torch.where(has_new, 0, depth)
-        g = torch.where(has_new, new_g, g)
-        active = alive | has_new
-        iters += k_steps
+                # Claim the next queue items: finished lane k gets ticket
+                # next_g + (number of finished lanes before k).
+                fin = (active & ~alive).to(torch.int64)
+                rank = torch.cumsum(fin, 0) - fin
+                new_g = next_g + rank
+                has_new = (fin > 0) & (new_g < total)
+                next_g = next_g + fin.sum()
+                o_new, d_new = item_rays(torch.where(has_new, new_g, 0))
+                new3, alive3 = has_new[:, None], alive[:, None]
+                # Retired lanes park their rays.
+                origin = torch.where(new3, o_new,
+                                     torch.where(alive3, origin, PARK_COORD))
+                direction = torch.where(new3, d_new,
+                                        torch.where(alive3, direction,
+                                                    PARK_DIR))
+                atten = torch.where(new3, 1.0, atten)
+                depth = torch.where(has_new, 0, depth)
+                g = torch.where(has_new, new_g, g)
+                active = alive | has_new
+            iters += k_steps
 
     stats = RenderStats(rays_traced=n_rays, shadow_rays=n_shadow,
                         done_histogram=hist,
@@ -550,10 +573,11 @@ def render_wavefront(scene: SceneArrays, cam: CameraArrays,
     pixels from flat index ``pixel_start``. ``sample_offset`` shifts the
     counter RNG's sample axis, so that calls which split a pixel's samples
     draw disjoint sets. Returns (radiance [n, 3] f32, RenderStats)."""
-    closest_fn, occluded_fn = get_intersectors(scene, cfg, want_uv=False)
+    with span("pt.prepare"):
+        closest_fn, occluded_fn = get_intersectors(scene, cfg, want_uv=False)
+        fused_fn = get_fused_closest_nee(scene, cfg)
     return _wavefront(scene, cam, cfg, pixel_start, n_pixels, frame_idx,
-                      closest_fn, occluded_fn,
-                      get_fused_closest_nee(scene, cfg), sample_offset)
+                      closest_fn, occluded_fn, fused_fn, sample_offset)
 
 
 def render_frame(scene: SceneArrays, cam: CameraArrays, cfg: RenderConfig,
@@ -563,11 +587,12 @@ def render_frame(scene: SceneArrays, cam: CameraArrays, cfg: RenderConfig,
 
     ``accum`` [H, W, 3] f32 is updated IN PLACE (the JAX version donates
     it) and returned. Returns (accum, srgb_u8 [H, W, 3], RenderStats)."""
-    n = cfg.width * cfg.height
-    radiance, stats = render_wavefront(scene, cam, cfg, 0, n, frame_idx)
-    frame_img = radiance.reshape(cfg.height, cfg.width, 3)
-    accum.copy_(film.accumulate(accum, frame_img, frame_idx))
-    return accum, film.make_color(accum), stats
+    with span("pt.frame"):
+        n = cfg.width * cfg.height
+        radiance, stats = render_wavefront(scene, cam, cfg, 0, n, frame_idx)
+        frame_img = radiance.reshape(cfg.height, cfg.width, 3)
+        accum.copy_(film.accumulate(accum, frame_img, frame_idx))
+        return accum, film.make_color(accum), stats
 
 
 def init_accum(cfg: RenderConfig, device="cuda") -> torch.Tensor:
