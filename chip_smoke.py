@@ -293,13 +293,24 @@ not build: the run never falls back to the Python paths):
    8 reference and 4 test frames (cut from 64 + 16 to fit this run),
    NEE's speed-up holding.
 
+The round's counter RNG (``csrc/rng.cu``):
+
+39. rng (after phase 2): ``tpt_bounce_uniforms`` and ``tpt_uniform``
+   (k = 2 and 4) at 8,388,608 lanes, the flagship box's wavefront, with
+   counters past 2^32 and negative, bitwise against the plain int64
+   version run on the card, each timed back to back beside its bytes
+   bound and the plain version's time; in phase 6 every main-path run
+   launches one bounce draw a round and one jitter draw a round plus
+   each frame's first fill, so no draw of those frames took the plain
+   version.
+
 Every kernel's record carries its bound: the larger of the operations
 these inputs need over the card's f32 rate and the bytes over its memory
 rate (K16: its operations over the instruction rate of its type, from the
 card's SM count and maximum SM clock).
 
-The last three lines are the kernels' JSON record, the nvidia-smi line,
-and ``{"ok": true, "device": {...}}``.
+The last three lines are the kernels' JSON record (the RNG's two entry
+points last), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -656,6 +667,15 @@ VIEW_RUNS = [
 # tools/convergence_torch.py (phase 38) at its full size and samples per
 # frame, its frame counts cut from 64 + 16 to fit this run's time.
 CONVERGENCE = dict(size=256, spp=16, ref_frames=8, frames=4)
+# Phase 39: the RNG at the flagship box's wavefront width, and each
+# draw's bytes a lane as the main path calls it: the per-lane counters
+# read (8 bytes each) and the used floats written (4 bytes each).
+RNG_LANES = 8_388_608
+RNG_DRAWS = (  # (name, per-lane counters, floats written, how the path calls it)
+    ("bounce_uniforms", 3, 6, "pixelq's _bounce: pixel, sample, depth"),
+    ("uniform2", 2, 2, "pixelq's jitter: pixel, sample"),
+    ("uniform4", 1, 4, "scan and Whitted: pixel; sample an int"),
+)
 
 
 def say(phase: str, msg: str) -> None:
@@ -715,6 +735,66 @@ def phase_build():
                                        if log.exists() else [])
                  if "registers" in ln or "spill" in ln]
         say("build", f"{lib.name}: " + " | ".join(usage))
+
+
+def _rng_counters(n_lanes: int, per_lane: int, device, seed: int):
+    """Counters of one draw (pixel, sample, frame, stream or depth): the
+    first ``per_lane`` per-lane int64 tensors over +-2^40 (past 2^32 and
+    negative), the rest ints at the uint32 edges."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lanes = [torch.randint(-2 ** 40, 2 ** 40, (n_lanes,), generator=gen,
+                           device=device, dtype=torch.int64)
+             for _ in range(per_lane)]
+    return lanes + [2 ** 32 - 1, 2 ** 31 + 7, -3][:4 - per_lane]
+
+
+def phase_rng(device, smi):
+    """Each draw of the RNG kernel bitwise against the plain int64 version
+    on the same counters on the card, timed back to back; returns one
+    record a draw."""
+    import torch
+    from tpu_pt_torch import rng
+    device_ms = _tool("dense_ab_torch").device_ms
+
+    def plain(name, counters):
+        if name == "bounce_uniforms":
+            *head, depth = counters
+            sa, sb = rng.bounce_streams(depth)
+            return (rng.pcg4d(*head, sa)[:3] + rng.pcg4d(*head, sb)[:3])
+        return rng.pcg4d(*counters)[:int(name[-1])]
+
+    rows = []
+    for seed, (name, per_lane, floats, how) in enumerate(RNG_DRAWS):
+        counters = _rng_counters(RNG_LANES, per_lane, device, seed)
+        if name == "bounce_uniforms":   # depth: a lane's bounce, 0..8
+            counters[-1] = counters[-1] % 9
+        draw = getattr(rng, name)
+        got = draw(*counters)
+        want = [rng._to_unit_float(u) for u in plain(name, counters)]
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                bad = int((a != b).sum())
+                raise AssertionError(f"rng {name}: output {i} differs from "
+                                     f"the plain version in {bad} lanes")
+        del got, want
+        ms = device_ms(lambda: draw(*counters), 20)
+        plain_ms = gpu_ms(lambda: plain(name, counters), 3)
+        nbytes = RNG_LANES * (8 * per_lane + 4 * floats)
+        bound = _bound(0.0, nbytes)
+        rows.append(dict(name=name, route="cuda",
+                         source="tpu_pt_torch/csrc/rng.cu", replaces=None,
+                         lanes=RNG_LANES, called_as=how, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                         bound_by=bound["bound_by"], bytes=nbytes,
+                         max_abs_err=0.0, library_ms=None))
+        say("rng", f"{name} at {RNG_LANES:,} lanes ({how}): bitwise; "
+            f"{ms:.4f} ms (bound {bound['bound_ms']:.4f} ms, "
+            f"{100 * bound['bound_ms'] / ms:.1f}%), plain {plain_ms:.3f} ms; "
+            f"{smi}")
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_assets(device):
@@ -3206,6 +3286,7 @@ def phase_main_path(device, smi, big, records):
     call of each walk, held bitwise against its plain version and against
     its dense body, timed in interleaved pairs."""
     import tpu_pt_torch as tp
+    from tpu_pt_torch import rng
     from tpu_pt_torch.intersect import dense
     scenes = {BIG_MESH: big}
     launches = dict.fromkeys(KERNELS, 0)
@@ -3220,22 +3301,32 @@ def phase_main_path(device, smi, big, records):
                                                   None))
         tap = _Tap(once) if once else None
         _zero_counters()
+        drawn = dict(rng.LAUNCHES)
         accum, _, per = _render(scenes[scene_file], device, frames, tap=tap,
                                 use_direct_lighting=True,
                                 use_importance_sampling=True, **kw)
         counts = _read_counters()
         _check_frame(tag, accum, per)
+        # pixelq draws once a bounce round and once for its jitter, plus
+        # each frame's first fill: fewer launches would mean a draw took
+        # the plain version.
+        rounds = sum(int(p[2].wavefront_iterations) for p in per)
+        drawn = {k: rng.LAUNCHES[k] - n for k, n in drawn.items()}
+        if drawn != {"uniform": rounds + len(frames),
+                     "bounce_uniforms": rounds}:
+            raise AssertionError(f"{tag}: RNG launches {drawn} in {rounds} "
+                                 f"rounds of {len(frames)} frames")
         sec = sum(p[0] for p in per[-timed:])
         rays = sum(p[1] for p in per[-timed:])
         iters = [int(p[2].wavefront_iterations) for p in per[-timed:]]
         say("main", f"{tag}: {sec / timed * 1e3:.1f} ms/frame, "
             f"{rays / sec / 1e6:.3f} Mrays/s over {timed} frame(s), "
             f"{rays // timed} rays/frame, rounds {iters}; launches "
-            f"{ {k: n for k, n in counts.items() if n} }; {smi}")
+            f"{ {k: n for k, n in counts.items() if n} }; RNG {drawn}; "
+            f"{smi}")
         for k in expect:
             if counts[k] <= 0:
                 raise AssertionError(f"{tag}: {k} never launched")
-        rounds = sum(int(p[2].wavefront_iterations) for p in per)
         for k in once:
             if counts[k] != rounds:
                 raise AssertionError(f"{tag}: {k} launched {counts[k]} "
@@ -5437,6 +5528,7 @@ def main() -> int:
             parts[part](device, smi)
         say("done", f"profiled in {time.perf_counter() - t0:.1f} s")
         return 0
+    rng_rows = phase_rng(device, smi)
     big = phase_assets(device)
     records = phase_kernels(device, big)
     phase_fused_kernels(device, records)
@@ -5519,7 +5611,7 @@ def main() -> int:
                                      "dense_pair_ms_reference", "ms_tables",
                                      "events_ms", "culled_bound_ms")
                if k in first}))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + rng_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

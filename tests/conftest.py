@@ -57,3 +57,5 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test, left out of tier-1 "
         "(which runs -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device (skips without one)")

@@ -171,21 +171,27 @@ def test_native_lbvh_equals_jax_native(assets_dir, asset):
     np.testing.assert_array_equal(loaded.bvh.nodes.numpy(), np.asarray(loader))
 
 
-def test_reference_native_recovers_a_lost_race(monkeypatch, assets_dir):
+def test_reference_native_recovers_a_lost_race(assets_dir):
     """A worker whose reference loader lost the build race (a failed load
     cached: ``_tried`` True, ``_lib`` None) has no native LBVH build; the
     tests' ``reference_native`` reloads the loader and gets the library
     back, and the native node tables are then equal bit for bit."""
     from tpu_pt import native as jnative
     reference_native()           # the library is built; skips without g++
-    monkeypatch.setattr(jnative, "_tried", True)
-    monkeypatch.setattr(jnative, "_lib", None)
-    assert not jnative.available()
-    path = str(assets_dir / "cornell_box.obj")
-    ref = tpu_pt.load_scene(path, build_bvh=False)
-    with pytest.raises(RuntimeError, match="native library unavailable"):
-        jlbvh.build_lbvh_host(ref)
-    assert reference_native() is jnative and jnative.available()
+    # Set directly, not by monkeypatch: the reload below gives the module a
+    # new ``_TptMesh`` and a library bound to it, and restoring the old
+    # ``_lib`` afterwards would pair the old binding with the new class,
+    # failing the reference's own native tests later in this worker.
+    jnative._tried, jnative._lib = True, None
+    try:
+        assert not jnative.available()
+        path = str(assets_dir / "cornell_box.obj")
+        ref = tpu_pt.load_scene(path, build_bvh=False)
+        with pytest.raises(RuntimeError, match="native library unavailable"):
+            jlbvh.build_lbvh_host(ref)
+        assert reference_native() is jnative and jnative.available()
+    finally:
+        reference_native()
     ref_bvh = jlbvh.build_lbvh_host(ref)
     loaded = tp.load_scene(path, device="cpu")
     for k in BVH_FIELDS:

@@ -35,6 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_U = ctypes.c_uint
+_COUNTER = (_P, _I, _U)   # rng.cu's Counter: pointer, stride, value
 # Source stem -> {C entry point: argument types}.
 _SIGNATURES = {
     "dense_intersect": {
@@ -112,6 +115,10 @@ _SIGNATURES = {
     "microbench_bf16": {
         "tpt_chain_f32": (_P, _P, _P, _I, _I, _P),
         "tpt_chain_bf16": (_P, _P, _P, _I, _I, _P),
+    },
+    "rng": {
+        "tpt_bounce_uniforms": (*_COUNTER * 4, _L, _L, _P, _P),
+        "tpt_uniform": (*_COUNTER * 4, _I, _L, _L, _P, _P),
     },
     "instanced_intersect": {
         "tpt_closest_inst": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,

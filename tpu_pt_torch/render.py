@@ -212,12 +212,8 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
     sample (lz1, lz2), drawn before the trace (the counter RNG allows it);
     ``_nee`` then reads that occlusion instead of tracing."""
     with span("pt.rng"):
-        depth_t = torch.as_tensor(depth, dtype=torch.int64,
-                                  device=origin.device)
-        sa = rng.STREAM_BOUNCE_A + 2 * depth_t
-        sb = rng.STREAM_BOUNCE_B + 2 * depth_t
-        z1, z2, z3, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sa)
-        lz1, lz2, z_rr, _ = rng.uniform4(pixel_ids, sample_idx, frame_idx, sb)
+        z1, z2, z3, lz1, lz2, z_rr = rng.bounce_uniforms(
+            pixel_ids, sample_idx, frame_idx, depth)
 
     hit_slab = None
     with span("pt.intersect"):
@@ -232,6 +228,8 @@ def _bounce(scene: SceneArrays, cfg: RenderConfig, closest_fn, occluded_fn,
         else:
             hit = closest_fn(origin, direction)
     with span("pt.shade"):
+        depth_t = torch.as_tensor(depth, dtype=torch.int64,
+                                  device=origin.device)
         hit_mask = hit.hit
         shade = _shade_hit(scene, cfg, origin, direction, hit, (z1, z2, z3))
 

@@ -5,19 +5,34 @@ Jarzynski & Olano, JCGT 2020), so the port draws the JAX package's own
 samples bit for bit, in any lane order. No ``torch.Generator`` enters a
 render.
 
-PyTorch has no usable uint32 arithmetic here (``+`` and ``>>`` are not
-implemented for uint32 on the CPU, and int32 ``>>`` is arithmetic), so
-the hash runs in int64 holding values in ``[0, 2**32)``. Products of two
-such values would overflow int64, so ``_mul32`` splits the second factor
-into 16-bit halves; every intermediate stays below ``2**50``.
+For CUDA counters ``uniform2``, ``uniform4`` and ``bounce_uniforms``
+launch one kernel a draw (``csrc/rng.cu``): PCG4D in native uint32,
+bitwise equal to the plain version below, with scalar counters passed by
+value, so a draw makes no host-to-card copy. CPU counters take the plain
+version; there is no fallback on the card. ``LAUNCHES`` counts the
+kernel's launches per wrapper.
+
+The plain version: PyTorch has no usable uint32 arithmetic here (``+``
+and ``>>`` are not implemented for uint32 on the CPU, and int32 ``>>`` is
+arithmetic), so the hash runs in int64 holding values in ``[0, 2**32)``.
+Products of two such values would overflow int64, so ``_mul32`` splits
+the second factor into 16-bit halves; every intermediate stays below
+``2**50``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 _M32 = 0xFFFFFFFF
 _INV_2_24 = 5.9604644775390625e-08   # 2**-24, exact in float32
+_ROW_ALIGN = 32   # floats: each output row of the kernel starts 128-byte aligned
+
+# Kernel launches per wrapper (read by chip_smoke.py). Draws on CPU tensors
+# do not count.
+LAUNCHES = {"uniform": 0, "bounce_uniforms": 0}
 
 
 def _u32(x, like: torch.Tensor | None = None) -> torch.Tensor:
@@ -69,16 +84,68 @@ def _to_unit_float(u: torch.Tensor) -> torch.Tensor:
     return (u >> 8).to(torch.float32) * _INV_2_24
 
 
+def _card(counters) -> torch.device | None:
+    """The CUDA device of the counters' tensors, or None when they are on
+    the CPU (or all Python ints): the plain version. Raises for a mix of
+    devices, or any other device."""
+    devices = {c.device for c in counters if isinstance(c, torch.Tensor)}
+    if not devices or devices == {torch.device("cpu")}:
+        return None
+    if len(devices) > 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"the RNG takes counters on one CPU or CUDA "
+                         f"device, not {sorted(map(str, devices))}")
+    return next(iter(devices))
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch(name: str, counters, k: int, device: torch.device):
+    """Launch ``tpt_<name>`` on the four counters; returns its ``k`` output
+    rows, each a contiguous float32 tensor of the counters' broadcast
+    shape. A tensor counter is passed by pointer (per lane, or one element
+    broadcast); an int by value as its low 32 bits."""
+    from . import _kernels
+    shape = torch.broadcast_shapes(
+        *(c.shape for c in counters if isinstance(c, torch.Tensor)))
+    n = shape.numel()
+    # ``keep`` holds the converted counters until the launch is queued:
+    # freed earlier, their memory could become ``out``'s.
+    args, keep = [], []
+    for c in counters:
+        if not isinstance(c, torch.Tensor):
+            args += [None, 0, int(c) & _M32]
+            continue
+        c = c.to(torch.int64)
+        if c.numel() != 1:
+            c = c.expand(shape).contiguous()
+        keep.append(c)
+        args += [c.data_ptr(), int(c.numel() != 1), 0]
+    ld = -(-max(n, 1) // _ROW_ALIGN) * _ROW_ALIGN
+    out = torch.empty((k, ld), dtype=torch.float32, device=device)
+    if n:
+        extra = (k,) if name == "uniform" else ()
+        _kernels.launch(f"tpt_{name}", *args, *extra, n, ld, out.data_ptr(),
+                        _stream(device))
+        LAUNCHES[name] += 1
+    return tuple(out[r, :n].view(shape) for r in range(k))
+
+
+def _uniform(k: int, counters):
+    device = _card(counters)
+    if device is not None:
+        return _launch("uniform", counters, k, device)
+    return tuple(_to_unit_float(u) for u in pcg4d(*counters)[:k])
+
+
 def uniform4(pixel, sample, frame, stream):
     """Four independent uniforms in [0, 1) for the counter tuple."""
-    x, y, z, w = pcg4d(pixel, sample, frame, stream)
-    return (_to_unit_float(x), _to_unit_float(y),
-            _to_unit_float(z), _to_unit_float(w))
+    return _uniform(4, (pixel, sample, frame, stream))
 
 
 def uniform2(pixel, sample, frame, stream):
-    x, y, _, _ = pcg4d(pixel, sample, frame, stream)
-    return _to_unit_float(x), _to_unit_float(y)
+    return _uniform(2, (pixel, sample, frame, stream))
 
 
 # Stream-id layout for one render pass (same ids as the JAX package).
@@ -90,3 +157,19 @@ STREAM_BOUNCE_B = 2        # per-depth d: stream = STREAM_BOUNCE_B + 2*d
 def bounce_streams(depth):
     """Stream ids for the two pcg4d calls at a given bounce depth."""
     return STREAM_BOUNCE_A + 2 * depth, STREAM_BOUNCE_B + 2 * depth
+
+
+def bounce_uniforms(pixel, sample, frame, depth):
+    """The six uniforms of one path-trace bounce at ``depth`` (an int or a
+    per-lane tensor): ``(z1, z2, z3)``, the first three of the draw on
+    stream ``STREAM_BOUNCE_A + 2 depth``, and ``(lz1, lz2, z_rr)``, the
+    first three on ``STREAM_BOUNCE_B + 2 depth``. On the card both draws
+    are one launch."""
+    counters = (pixel, sample, frame, depth)
+    device = _card(counters)
+    if device is not None:
+        return _launch("bounce_uniforms", counters, 6, device)
+    sa, sb = bounce_streams(depth)
+    z1, z2, z3, _ = uniform4(pixel, sample, frame, sa)
+    lz1, lz2, z_rr, _ = uniform4(pixel, sample, frame, sb)
+    return z1, z2, z3, lz1, lz2, z_rr
