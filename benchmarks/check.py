@@ -1,5 +1,6 @@
 """How ``correct`` is decided: the pixels that the window rendered, drawn
-from the seed, against the plain reference (``reference/``).
+from the seed, against the plain reference of the configuration's renderer
+(``reference/``: the path tracer's or the Whitted renderer's).
 
 The reference renders the same pixels of the same frames from the same
 scene file and camera, and folds them into a zero accumulator as the
@@ -24,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .reference import pathtracer, scene as ref_scene
+from . import manifest
 
 GAP = 1e-3
 
@@ -35,23 +36,13 @@ def sample_pixels(seed: int, width: int, height: int, n: int) -> np.ndarray:
     return torch.randperm(width * height, generator=g)[:n].sort().values.numpy()
 
 
-def reference_values(obj_path, config: dict, traffic: dict, pixels, frames,
+def reference_values(scene_path, config: dict, traffic: dict, pixels, frames,
                      device, dtype=torch.float32, snapshot_frames: int = 0) -> dict:
     """The reference's accumulator at ``pixels`` after ``frames``
     (``values``) and after the first ``snapshot_frames`` of them
-    (``snapshot``)."""
-    scene = ref_scene.load(str(obj_path), device, dtype)
-    c = config["camera"]
-    cam = pathtracer.Camera(c["eye"], c["lookat"], c["up"], c["fov_y"],
-                            traffic["width"] / traffic["height"], device, dtype)
-    with torch.no_grad():
-        acc, snap = pathtracer.render_pixels(
-            scene, cam, pixels, frames, width=traffic["width"],
-            height=traffic["height"], spp=traffic["spp"],
-            max_depth=traffic["max_depth"],
-            importance=config["use_importance_sampling"],
-            direct=config["use_direct_lighting"], snapshot_frames=snapshot_frames)
-    return {"values": acc.float().cpu().numpy(), "snapshot": snap.float().cpu().numpy()}
+    (``snapshot``), by the reference of the configuration's renderer."""
+    return manifest.reference(config).values(scene_path, config, traffic, pixels, frames,
+                                             device, dtype, snapshot_frames)
 
 
 def gaps(program, reference) -> np.ndarray:

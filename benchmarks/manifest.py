@@ -7,6 +7,14 @@ mix; each is a JSON file of its own (``configs/<config>.json``,
 correctness check reads ``checks/<cell>.json`` when there is one, else
 ``checks/default.json``. A later cell, mix, configuration or metric is
 added by new files and new entries only.
+
+A configuration names the program's pipeline that draws it by an
+optional key, ``renderer``: ``path`` (when absent) or ``whitted``, as the
+program's command line picks them for OBJ and glTF scenes. The renderer
+fixes the plain reference that checks it (``RENDERERS``). An unknown value
+exits with the valid choices. A Whitted configuration's cell needs a
+``checks/<cell>.json`` of its own: the default limits do not catch half of
+its samples left out.
 """
 
 from __future__ import annotations
@@ -46,9 +54,18 @@ def traffic(name: str) -> dict:
     return _json(HERE / "traffic" / f"{name}.json")
 
 
-def check(cell_name: str) -> dict:
+def check(cell_name: str, renderer: str = "path") -> dict:
     path = HERE / "checks" / f"{cell_name}.json"
-    return _json(path if path.exists() else HERE / "checks" / "default.json")
+    if path.exists():
+        return _json(path)
+    if renderer != "path":
+        # A Whitted sample differs from another of its pixel only by the
+        # camera ray's jitter, so half of the samples left out moves only
+        # the pixels that an edge crosses: a few hundredths of them, under
+        # the default mismatch_share.
+        raise SystemExit(f"cell {cell_name!r}: a {renderer} configuration needs "
+                         f"checks/{cell_name}.json of its own")
+    return _json(HERE / "checks" / "default.json")
 
 
 def data(name: str) -> dict:
@@ -72,6 +89,26 @@ def metric_reader(name: str):
 def scene_generator(name: str):
     """The scene generator module ``scenes/<name>.py`` (its ``ensure``)."""
     return _module(HERE / "scenes" / f"{name}.py", f"benchmarks_scene_{name}")
+
+
+# Each renderer of the program, and the module of reference/ that checks it.
+RENDERERS = {"path": "pathtracer", "whitted": "whitted"}
+
+
+def renderer(config: dict) -> str:
+    """The pipeline that draws the configuration: ``path`` or ``whitted``."""
+    value = config.get("renderer", "path")
+    if value not in RENDERERS:
+        raise SystemExit(f"configuration {config.get('name')!r}: no renderer {value!r} "
+                         f"({', '.join(RENDERERS)})")
+    return value
+
+
+def reference(config: dict):
+    """The plain reference module that checks the configuration, whose
+    ``values(scene_path, config, traffic, pixels, frames, device, dtype,
+    snapshot_frames)`` gives ``{"values", "snapshot"}``."""
+    return importlib.import_module(f".reference.{RENDERERS[renderer(config)]}", __package__)
 
 
 def per_layer(bench: dict, cell_entry: dict) -> list[dict]:

@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from .scene import METALLIC, REFRACTIVE, RefScene
+from .scene import METALLIC, REFRACTIVE, RefScene, load
 
 T_MIN = 0.01
 T_FAR = 1e16
@@ -125,6 +125,12 @@ def _pairs(scene: RefScene, o, d, tmax):
 def _moller(scene: RefScene, o, d, tri):
     """Möller-Trumbore of rays [K] against their triangles [K, C]:
     (t, valid) [K, C], t > T_MIN."""
+    t, _, _, valid = moller_uv(scene, o, d, tri)
+    return t, valid
+
+
+def moller_uv(scene, o, d, tri):
+    """:func:`_moller` with the barycentrics: (t, u, v, valid) [K, C]."""
     tri = tri.clamp_min(0)
     v0, e1, e2 = scene.v0[tri], scene.e1[tri], scene.e2[tri]
     o, d = o[:, None], d[:, None]
@@ -138,11 +144,12 @@ def _moller(scene: RefScene, o, d, tri):
     v = dot(d.expand_as(q), q) * inv
     t = dot(e2, q) * inv
     valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN)
-    return t, valid
+    return t, u, v, valid
 
 
-def closest(scene: RefScene, o, d):
-    """(t, triangle, hit) per ray; ties go to the lowest triangle."""
+def closest(scene: RefScene, o, d, t_lo=None):
+    """(t, triangle, hit) per ray; ties go to the lowest triangle. With
+    ``t_lo`` [N], only hits with t > t_lo count."""
     n = o.shape[0]
     best = torch.full((n,), MISS_KEY, dtype=torch.int64, device=o.device)
     tmax = torch.full((n,), T_FAR, device=o.device)
@@ -150,6 +157,8 @@ def closest(scene: RefScene, o, d):
         tri = scene.cluster_tris[cl]
         t, valid = _moller(scene, o[ray], d[ray], tri)
         valid &= (tri >= 0) & (t < T_FAR)
+        if t_lo is not None:
+            valid &= t > t_lo[ray, None]
         # t > 0, so its float32 bits order as the values do.
         bits = t.float().view(torch.int32).to(torch.int64)
         key = torch.where(valid, (bits << 32) | tri, MISS_KEY).amin(-1)
@@ -379,7 +388,6 @@ def render_pixels(scene: RefScene, cam: Camera, pixels, frames, *, width, height
     overwrites). Returns it with a copy of it after the first
     ``snapshot_frames`` frames (the final one when there are fewer).
     Paths are traced ``paths_per_call`` at a time."""
-    dt = cam.w.dtype
     dev = scene.v0.device
     pixels = torch.as_tensor(pixels, dtype=torch.int64, device=dev)
     frames = [int(k) for k in frames]
@@ -393,7 +401,18 @@ def render_pixels(scene: RefScene, cam: Camera, pixels, frames, *, width, height
                     frm[a:a + paths_per_call], width=width, height=height,
                     max_depth=max_depth, importance=importance, direct=direct)
         for a in range(0, pix.shape[0], paths_per_call)])
-    rad = rad.reshape(len(frames), spp, n_pix, 3)
+    return fold(rad.reshape(len(frames), spp, n_pix, 3), frames, snapshot_frames)
+
+
+def fold(rad, frames, snapshot_frames=0):
+    """The running-mean accumulator [P, 3] after folding each frame k of
+    ``frames``, whose samples' radiance is ``rad`` [frame, sample, P, 3],
+    in turn into a zero accumulator: frame k's mean over its samples with
+    weight 1 / (k + 1) (frame 0 overwrites). Returns it with a copy of it
+    after the first ``snapshot_frames`` frames (the final one when there
+    are fewer)."""
+    _, spp, n_pix, _ = rad.shape
+    dt, dev = rad.dtype, rad.device
     acc = torch.zeros((n_pix, 3), dtype=dt, device=dev)
     snap = None
     for i, (k, per_sample) in enumerate(zip(frames, rad)):
@@ -409,3 +428,22 @@ def render_pixels(scene: RefScene, cam: Camera, pixels, frames, *, width, height
         if i + 1 == snapshot_frames:
             snap = acc.clone()
     return acc, (acc if snap is None else snap)
+
+
+def values(scene_path, config: dict, traffic: dict, pixels, frames, device,
+           dtype=torch.float32, snapshot_frames: int = 0) -> dict:
+    """The reference's accumulator at ``pixels`` after ``frames``
+    (``values``) and after the first ``snapshot_frames`` of them
+    (``snapshot``), from the OBJ at ``scene_path``."""
+    scene = load(str(scene_path), device, dtype)
+    c = config["camera"]
+    cam = Camera(c["eye"], c["lookat"], c["up"], c["fov_y"],
+                 traffic["width"] / traffic["height"], device, dtype)
+    with torch.no_grad():
+        acc, snap = render_pixels(
+            scene, cam, pixels, frames, width=traffic["width"],
+            height=traffic["height"], spp=traffic["spp"],
+            max_depth=traffic["max_depth"],
+            importance=config["use_importance_sampling"],
+            direct=config["use_direct_lighting"], snapshot_frames=snapshot_frames)
+    return {"values": acc.float().cpu().numpy(), "snapshot": snap.float().cpu().numpy()}

@@ -3,8 +3,9 @@
     python -m benchmarks.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A run loads the cell's scene, warms up one frame at the cell's shapes,
-renders progressive frames through ``tpu_pt_torch`` back to back for the
-window (the sharded cell: one process a card, the program's sharded step
+renders progressive frames through ``tpu_pt_torch`` (the path tracer, or
+the Whitted renderer where the configuration names it) back to back for
+the window (the sharded cell: one process a card, the program's sharded step
 over a (tile, spp) mesh), then checks a sample of the rendered pixels
 against the plain reference and prints one JSON line. The seed picks the
 frames (the RNG's frame axis) that the window renders and the pixels that
@@ -237,7 +238,7 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
     import torch
     from . import check, session
     world = cell["chips"] if traffic.get("mesh") else 1
-    chk = manifest.check(cell["name"])
+    chk = manifest.check(cell["name"], manifest.renderer(config))   # exits before any work
     out = run_windows(cell, config, traffic, [seed], seconds, traced, device,
                       factory, t_origin)[0]
     ranks, pixels = out["ranks"], out["pixels"]

@@ -3,10 +3,14 @@ scene, warm up one frame at the cell's shapes, then render progressive
 frames back to back for the window.
 
 Everything here that touches the program goes through its public entry
-points (``load_scene``, ``Camera``, ``CameraArrays.from_camera``,
-``RenderConfig``, ``render.render_frame``, ``dist.make_sharded_renderer``)
-and reads only its counters (``RenderStats``, the ``LAUNCHES`` dicts of
-``tpu_pt_torch.intersect``).
+points and reads only its counters (``RenderStats``, the ``LAUNCHES``
+dicts of ``tpu_pt_torch.intersect``). The entry points are ``Camera``,
+``CameraArrays.from_camera``, ``RenderConfig``, ``render.init_accum`` and
+``dist.make_sharded_renderer`` for every configuration; then, by the
+configuration's ``renderer``, ``load_scene`` and ``render.render_frame``
+(``path``), or ``scene.gltf.load_gltf`` with the command line's
+``instancing="auto"`` and ``whitted.render_whitted_frame`` (``whitted``),
+as the program's command line picks them for OBJ and glTF scenes.
 """
 
 from __future__ import annotations
@@ -19,20 +23,27 @@ from . import manifest, timing, trace
 
 
 def scene_path(config: dict):
-    """The cell's OBJ, written by the benchmark's own generator into its
-    cache inside the checkout (once: later runs find it there)."""
-    gen = manifest.scene_generator(config["scene"]["generator"])
-    return gen.ensure(config["scene"]["name"], manifest.CACHE / "scenes")
+    """The cell's scene file, written by the benchmark's own generator into
+    its cache inside the checkout (once: later runs find it there). Keys of
+    the ``scene`` entry past ``generator`` and ``name`` are the generator's
+    parameters."""
+    scene = config["scene"]
+    gen = manifest.scene_generator(scene["generator"])
+    params = {k: v for k, v in scene.items() if k not in ("generator", "name")}
+    return gen.ensure(scene["name"], manifest.CACHE / "scenes", **params)
 
 
 def render_config(config: dict, traffic: dict):
+    """The frame's ``RenderConfig``; a path-tracer configuration states its
+    two lighting toggles, and Whitted, which has neither, leaves them off."""
     from tpu_pt_torch import RenderConfig
+    toggles = {} if manifest.renderer(config) == "whitted" else {
+        k: config[k] for k in ("use_direct_lighting", "use_importance_sampling")}
     return RenderConfig(
         width=traffic["width"], height=traffic["height"], spp=traffic["spp"],
         max_depth=traffic["max_depth"], scheduler=traffic["scheduler"],
         lanes=traffic["lanes"], samples_per_item=traffic["samples_per_item"],
-        use_direct_lighting=config["use_direct_lighting"],
-        use_importance_sampling=config["use_importance_sampling"])
+        **toggles)
 
 
 def camera(config: dict, traffic: dict, device):
@@ -46,17 +57,30 @@ def camera(config: dict, traffic: dict, device):
 
 def build(config: dict, traffic: dict, device, mesh=None):
     """``(step(frame, accum) -> (accum, image, stats), accum)``: the
-    program's progressive frame step on ``device``; with ``mesh`` the
-    sharded step, whose accumulator is this rank's block of rows."""
+    program's progressive frame step on ``device``, by the configuration's
+    renderer; with ``mesh`` the sharded step, whose accumulator is this
+    rank's block of rows."""
+    if manifest.renderer(config) == "whitted":
+        from tpu_pt_torch import whitted
+        from tpu_pt_torch.scene.gltf import load_gltf
+        scene = load_gltf(str(scene_path(config)), instancing="auto", device=device)
+        return steps(scene, whitted.render_whitted_frame, config, traffic, device, mesh)
     import tpu_pt_torch as tp
     from tpu_pt_torch import render
-    scene = tp.load_scene(str(scene_path(config)), device=device,
-                          build_bvh=False)
+    scene = tp.load_scene(str(scene_path(config)), device=device, build_bvh=False)
+    return steps(scene, render.render_frame, config, traffic, device, mesh)
+
+
+def steps(scene, frame, config: dict, traffic: dict, device, mesh=None):
+    """:func:`build`'s step over a loaded ``scene``, whose one-card frame
+    function is ``frame``; the sharded step picks its renderer by the
+    scene's type."""
+    from tpu_pt_torch import render
     cfg = render_config(config, traffic)
     cam = camera(config, traffic, device)
     if mesh is None:
         def step(k, accum):
-            return render.render_frame(scene, cam, cfg, k, accum)
+            return frame(scene, cam, cfg, k, accum)
         return step, render.init_accum(cfg, device=device)
     from tpu_pt_torch import dist
     sharded = dist.make_sharded_renderer(scene, cfg, mesh)

@@ -36,22 +36,29 @@ def no_exchange(config, traffic, device, mesh=None):
 
 
 def altered(config, traffic, device, mesh=None):
-    """Every frame's pixel means altered by 1% where they are produced."""
+    """Every frame's pixel means altered by 1% where they are produced, by
+    the path tracer or by the Whitted renderer."""
     import contextlib
-    from tpu_pt_torch import dist, render
-    real = render.render_wavefront
+    from tpu_pt_torch import dist, render, whitted
+    sites = [(render, "render_wavefront"), (dist, "render_wavefront"),
+             (whitted, "render_whitted_wavefront"), (dist, "render_whitted_wavefront")]
+    real = [getattr(mod, name) for mod, name in sites]
 
-    def scaled(*args, **kw):
-        radiance, stats = real(*args, **kw)
-        return radiance * 1.01, stats
+    def scaled(fn):
+        def run(*args, **kw):
+            radiance, stats = fn(*args, **kw)
+            return radiance * 1.01, stats
+        return run
 
     @contextlib.contextmanager
     def patched():
-        render.render_wavefront = dist.render_wavefront = scaled
+        for (mod, name), fn in zip(sites, real):
+            setattr(mod, name, scaled(fn))
         try:
             yield
         finally:
-            render.render_wavefront = dist.render_wavefront = real
+            for (mod, name), fn in zip(sites, real):
+                setattr(mod, name, fn)
 
     with patched():
         step, accum = session.build(config, traffic, device, mesh)

@@ -9,6 +9,8 @@ import subprocess
 import sys
 import types
 
+import pytest
+
 from benchmarks import run
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -30,14 +32,21 @@ def test_whole_name_test(monkeypatch):
     assert run.forbidden_modules() == ["tpu_pt"]
 
 
-def test_a_whole_cpu_run_loads_none():
+@pytest.mark.parametrize("config,check", [
+    ("manifest.config('cornell_mixed')", "manifest.check"),
+    ("whitted_cases.alpha_shadow()", "whitted_cases.own_check")])
+def test_a_whole_cpu_run_loads_none(config, check):
     loaded = _modules_after(
+        "import json\n"
         "from benchmarks import manifest, run\n"
+        "from benchmarks.tests import whitted_cases\n"
+        f"manifest.check = {check}\n"
         "cell = manifest.cell('cornell_mixed.final')\n"
         "traffic = dict(manifest.traffic('final'), width=8, height=8, spp=2, lanes=4096)\n"
-        "line, err, found = run.run_cell(cell, manifest.config('cornell_mixed'), traffic,"
+        f"line, err, found = run.run_cell(cell, {config}, traffic,"
         " 7, 0.01, True, device='cpu')\n"
-        "assert line['correct'] and not found\n")
+        "assert line['correct'] and not found\n"
+        "print(json.dumps(line))\n")
     assert "tpu_pt_torch" in loaded
     assert not loaded & FORBIDDEN
 
@@ -45,7 +54,12 @@ def test_a_whole_cpu_run_loads_none():
 def test_the_reference_loads_nothing_of_the_port():
     loaded = _modules_after("import benchmarks.check, benchmarks.calibrate as _\n"
                             "import benchmarks.reference.pathtracer\n"
-                            "import benchmarks.reference.scene\n")
+                            "import benchmarks.reference.scene\n"
+                            "import benchmarks.reference.gltf\n"
+                            "import benchmarks.reference.whitted\n"
+                            "import benchmarks.scenes.gltf_assets\n"
+                            "from benchmarks import manifest\n"
+                            "manifest.reference({'renderer': 'whitted'})\n")
     assert not loaded & (FORBIDDEN | {"tpu_pt_torch", "tests"})
 
 

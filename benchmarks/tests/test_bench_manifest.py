@@ -1,12 +1,17 @@
 """``BENCHMARK.json`` against the contract's shape: keys, names, units and
-the files that each entry names."""
+the files that each entry names; and a configuration's choice of renderer,
+which fixes its reference."""
 
 import json
 import re
 
+import numpy as np
 import pytest
+import torch
 
-from benchmarks import manifest
+from benchmarks import check, manifest, run, session
+from benchmarks.reference import pathtracer, scene as ref_scene, whitted
+from benchmarks.tests import whitted_cases
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -89,8 +94,10 @@ def test_config_file(entry):
     cfg = manifest.config(entry["name"])
     assert cfg["name"] == entry["name"] and cfg["source"] == entry["source"]
     assert cfg["reduced"] == entry["reduced"]
-    assert {"scene", "camera", "triangles", "use_importance_sampling",
-            "use_direct_lighting", "assumed"} <= set(cfg)
+    required = {"scene", "camera", "triangles", "assumed"}
+    if manifest.renderer(cfg) == "path":
+        required |= {"use_importance_sampling", "use_direct_lighting"}
+    assert required <= set(cfg)
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
@@ -107,3 +114,76 @@ def test_cell_files(cell):
     assert set(chk["limits"]) == {"mismatch_share", "median_gap"}
     for m in manifest.per_layer(BENCH, cell):
         assert callable(manifest.metric_reader(m["name"]))
+
+
+def _parent_reference_values(obj_path, config, traffic, pixels, frames, device,
+                             dtype=torch.float32, snapshot_frames=0):
+    """``check.reference_values`` as it stood before a configuration could
+    name its reference, frozen here."""
+    scene = ref_scene.load(str(obj_path), device, dtype)
+    c = config["camera"]
+    cam = pathtracer.Camera(c["eye"], c["lookat"], c["up"], c["fov_y"],
+                            traffic["width"] / traffic["height"], device, dtype)
+    with torch.no_grad():
+        acc, snap = pathtracer.render_pixels(
+            scene, cam, pixels, frames, width=traffic["width"],
+            height=traffic["height"], spp=traffic["spp"],
+            max_depth=traffic["max_depth"],
+            importance=config["use_importance_sampling"],
+            direct=config["use_direct_lighting"], snapshot_frames=snapshot_frames)
+    return {"values": acc.float().cpu().numpy(), "snapshot": snap.float().cpu().numpy()}
+
+
+@pytest.mark.parametrize("config_name,size,spp,depth", [
+    ("cornell_mixed", 20, 3, 8), ("big_mesh", 6, 1, 3)])
+def test_absent_keys_keep_todays_path_bitwise(config_name, size, spp, depth):
+    config = manifest.config(config_name)
+    assert "renderer" not in config and manifest.renderer(config) == "path"
+    traffic = dict(manifest.traffic("final"), width=size, height=size, spp=spp,
+                   max_depth=depth, lanes=4096)
+    args = (session.scene_path(config), config, traffic, np.arange(size * size), [5, 6, 7],
+            torch.device("cpu"))
+    new = check.reference_values(*args, snapshot_frames=2)
+    old = _parent_reference_values(*args, snapshot_frames=2)
+    for key in ("values", "snapshot"):
+        assert new[key].tobytes() == old[key].tobytes()
+    # The program's side: the same step as load_scene and render_frame.
+    import tpu_pt_torch as tp
+    from tpu_pt_torch import render
+    step, accum = session.build(config, traffic, torch.device("cpu"))
+    scene = tp.load_scene(str(session.scene_path(config)), device="cpu", build_bvh=False)
+    cfg = session.render_config(config, traffic)
+    plain = render.init_accum(cfg, device="cpu")
+    for k in (5, 6):
+        accum, _, _ = step(k, accum)
+        plain, _, _ = render.render_frame(
+            scene, session.camera(config, traffic, "cpu"), cfg, k, plain)
+    assert torch.equal(accum, plain)
+
+
+def test_an_unknown_renderer_exits_naming_the_choices(tiny):
+    config = dict(whitted_cases.alpha_shadow(), renderer="raster")
+    cell = manifest.cell("cornell_mixed.final")
+    traffic = dict(manifest.traffic("final"), **tiny)
+    choices = re.escape("'raster' (path, whitted)")
+    with pytest.raises(SystemExit, match=choices):
+        run.run_cell(cell, config, traffic, 1, 0.01, False, device="cpu")
+    with pytest.raises(SystemExit, match=choices):
+        session.build(config, traffic, torch.device("cpu"))
+    with pytest.raises(SystemExit, match=choices):
+        check.reference_values("unused", config, traffic, [0], [1], torch.device("cpu"))
+
+
+@pytest.mark.parametrize("renderer,module", [(None, pathtracer), ("path", pathtracer),
+                                             ("whitted", whitted)])
+def test_the_renderer_fixes_the_reference(renderer, module):
+    config = {} if renderer is None else {"renderer": renderer}
+    assert manifest.reference(config) is module
+    assert set(manifest.RENDERERS) == {"path", "whitted"}
+
+
+def test_a_path_configuration_states_its_lighting(tiny):
+    config = dict(manifest.config("cornell_mixed"))
+    del config["use_direct_lighting"]
+    with pytest.raises(KeyError, match="use_direct_lighting"):
+        session.render_config(config, dict(manifest.traffic("final"), **tiny))
